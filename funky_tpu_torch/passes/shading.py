@@ -1,0 +1,86 @@
+"""Fragment shading (port of funky_tpu/passes/shading.py::shade_gltf with
+dense texture sampling, and the cascade debug view). The block-sparse
+texture sampling (texture_block_capacity) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.scene import FLAG_USE_TEXTURE
+from ..ops.sampling import (quad_pack_nhwc,
+                            sample_bilinear_repeat_packed_layers)
+from .deferred import GBuffer
+
+_FILL_DIR = (-0.5, 0.3, -0.8)
+
+
+def _normalize(v):
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
+               texture_sizes: torch.Tensor, camera_pos: torch.Tensor,
+               light_dir: torch.Tensor, shadow: torch.Tensor,
+               background: torch.Tensor) -> torch.Tensor:
+    """gltf.frag main lighting with the shadow term supplied
+    (shading.py:67-157, dense sampling). Returns (H, W, 4) linear RGBA."""
+    use_texture = (gbuf.flags & FLAG_USE_TEXTURE) != 0
+    layer = gbuf.flags >> 8
+    tex_packed = quad_pack_nhwc(texture)
+    tex = sample_bilinear_repeat_packed_layers(tex_packed, texture_sizes,
+                                               layer, gbuf.uv)
+    tex = torch.where(use_texture[..., None], tex, 1.0)
+
+    normal = _normalize(gbuf.normal)
+    light = _normalize(light_dir)
+    view = _normalize(camera_pos)
+
+    n_dot_l = (normal * light).sum(dim=-1, keepdim=True)
+    diff = torch.clamp(n_dot_l, min=0.0)
+
+    fill_dir = _normalize(torch.tensor(_FILL_DIR, dtype=torch.float32,
+                                       device=normal.device))
+    fill_diff = torch.clamp((normal * fill_dir).sum(dim=-1, keepdim=True),
+                            min=0.0) * 0.3
+
+    half_dir = _normalize(light + view)
+    spec = torch.pow(torch.clamp((normal * half_dir).sum(dim=-1,
+                                                        keepdim=True),
+                                 min=0.0), 32.0)
+
+    base_color = tex[..., :3] * gbuf.color
+    ambient = 0.25 * base_color
+    diffuse = 0.65 * diff * base_color * shadow[..., None]
+    fill = fill_diff * base_color
+    spec_factor = torch.where(use_texture[..., None], 1.0, 0.0)
+    specular = 0.3 * spec * spec_factor
+
+    result = ambient + diffuse + fill + specular
+    rgb = torch.where(gbuf.valid[..., None], result, background)
+    alpha = torch.where(gbuf.valid[..., None], tex[..., 3:4], 1.0)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def cascade_debug_color(gbuf: GBuffer, c0: torch.Tensor, c1: torch.Tensor,
+                        ct: torch.Tensor, shadow: torch.Tensor,
+                        background: torch.Tensor) -> torch.Tensor:
+    """Cascade visualization (shading.py:160-179)."""
+    colors = torch.tensor([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2],
+                           [0.2, 0.4, 1.0], [1.0, 1.0, 0.2]],
+                          dtype=torch.float32, device=shadow.device)
+
+    def pick(idx):
+        oh = (idx[..., None] == torch.arange(
+            4, dtype=torch.int32, device=idx.device)).to(torch.float32)
+        return oh @ colors
+
+    base = pick(c0)
+    blended = torch.where((ct > 0.0)[..., None],
+                          base * (1.0 - ct[..., None])
+                          + pick(c1) * ct[..., None],
+                          base)
+    rgb = blended * (0.35 + 0.65 * shadow[..., None])
+    rgb = torch.where(gbuf.valid[..., None], rgb, background)
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
