@@ -7,25 +7,36 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 torch. It imports nothing of jax or of the JAX package. Phases (any
 failure raises and the script exits non-zero):
 
-1. build the hand-written raster kernel (csrc/raster.cu) with nvcc;
-2. kernel vs its plain torch twin on numpy-seeded random triangles
+1. build both kernel sources (csrc/raster.cu: K1 and K2; csrc/gather.cu:
+   K3) with one nvcc each, started together, and print the ptxas lines;
+2. K1 and K2 vs their plain torch twin on numpy-seeded random triangles
    (degenerate and w-culled ones included) at small and at the main
    path's shapes: full capacity, an overflowing tight capacity, a row
-   slab, coplanar equal-depth duplicates. tri_id and depth bit-equal;
+   slab, coplanar equal-depth duplicates. K2 is reached by patching the
+   4 MiB table limit to 0. tri_id and depth bit-equal;
 3. a 256x144 multimesh frame on the card against the committed golden
    image (tests/goldens/multimesh_pbr_256x144.png, 3/255 tolerance);
-4. the main path: 8 chained 1920x1080 frames of the dense glTF frame with
-   4 x 2048^2 shadow cascades (2 parked poses, then 6 poses of bench.py's
-   orbit), once through the kernel and once with the plain raster. The
-   kernel must launch 5 times per frame and the plain run never; main
-   tri_id/depth, rgba and history must be equal across the two runs; the
-   image finite, the sky the clear colour, some ground in shadow;
-5. timings with CUDA events: kernel vs plain raster on the arguments one
-   frame of the main path passes the kernel (four 2048^2 cascades, the
-   1080p main pass), and the median frame time.
+4. the dense path: 4 chained 1920x1080 frames of the exact dense glTF
+   frame with 4 x 2048^2 cascades (2 parked poses, then bench.py's
+   orbit), once through the kernel and once with the plain raster: K1
+   launches 5 times per frame, the runs are equal;
+5. the default path: GltfConfig() (sparse shadows and contact, valid-block
+   back half, block-sparse texture sampling) on the multimesh scene, 8
+   chained frames (2 parked, 6 orbit): equal to the dense path bit for
+   bit (tri_id, depth, rgba, history), host syncs per frame counted;
+6. the large scene (tests/torch_scenes.build_large_glb: 73,754
+   triangles, past the table limit): 3 chained GltfConfig() frames, K2
+   launches 5 times per frame and K1 never; one frame through the plain
+   raster is equal to the K2 run; K1, K2 and the plain raster timed on
+   the frame's own rasters;
+7. K3, the row-gather probe, at the dense shadow filter's tap shape: a
+   (4*2048*2048, 4) f32 table and 16 x 1080 x 1920 indices (uniform, one
+   recorded PCF tap set), and a table that fits in L2; bit-equal to the
+   plain gather, timed beside torch's `table[idx]`;
+8. timings with CUDA events and the median frame times.
 
-The second-to-last line of stdout is a JSON object describing the kernel;
-the last is {"ok": true, "device": {...}}.
+Before the last line stdout carries the card's nvidia-smi line and a JSON
+object describing the kernels; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,8 +56,15 @@ REPO = pathlib.Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "goldens" / "multimesh_pbr_256x144.png"
 GOLDEN_TOL, GOLDEN_BAD_FRAC = 3.0 / 255.0, 2e-3
 WIDTH, HEIGHT, SHADOW = 1920, 1080, 2048
-N_PARKED, N_ORBIT = 2, 6
+N_DENSE = 4                # dense path: 2 parked + 2 orbit poses
+N_PARKED, N_ORBIT = 2, 6   # default path
+N_LARGE = 3                # large scene: parked + 2 orbit poses
 RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32 non-tensor.
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+TAP_SHAPE = (16, HEIGHT, WIDTH)
+
+_GPU = ""
 
 
 def kernel_cases():
@@ -86,12 +104,23 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -110,50 +139,106 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel_cases(dev):
+def reset_counts() -> None:
+    from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
+
+    raster_cuda.reset_launches()
+    gather_cuda.reset_launches()
+    compact.reset_host_syncs()
+
+
+def read_counts() -> dict:
+    from funky_tpu_torch.ops import gather_cuda, raster_cuda
+
+    return {"raster_table": raster_cuda.LAUNCHES,
+            "raster_padded": raster_cuda.PADDED_LAUNCHES,
+            "row_gather": gather_cuda.LAUNCHES}
+
+
+def phase_build() -> None:
+    from funky_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all(["raster", "gather"])
+    say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
+        f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
+        f" [{_GPU}]")
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                say(f"  ptxas {name}.cu: {line.strip()}")
+
+
+def phase_kernel_cases(dev, padded: bool) -> float:
+    """K1 (padded=False) or K2 (the table limit patched to 0) against the
+    plain twin on the eight cases. Returns the max |depth| difference."""
     import torch
 
-    from funky_tpu_torch.ops import raster
+    from funky_tpu_torch.ops import raster, raster_cuda
     from funky_tpu_torch.ops.raster import RasterConfig
 
+    saved = raster.TABLE_LIMIT_BYTES
+    if padded:
+        raster.TABLE_LIMIT_BYTES = 0
+    label = "K2" if padded else "K1"
     max_err = 0.0
     ids = {}
-    for name, clip, tris, w, h, kw, y0, sh in kernel_cases():
-        out = {}
-        for backend in ("cuda", "torch"):
-            tri_id, depth, _ = raster.raster_scene(
-                torch.from_numpy(clip).to(dev), torch.from_numpy(tris).to(dev),
-                w, h, len(tris), RasterConfig(backend=backend, **kw), y0, sh)
-            torch.cuda.synchronize()
-            out[backend] = (tri_id.cpu().numpy(), depth.cpu().numpy())
-        (ik, zk), (ip, zp) = out["cuda"], out["torch"]
-        err = float(np.abs(zk - zp).max())
-        max_err = max(max_err, err)
-        check(np.array_equal(ik, ip), f"{name}: tri_id differs at "
-              f"{int((ik != ip).sum())} pixels")
-        check(np.array_equal(zk.view(np.int32), zp.view(np.int32)),
-              f"{name}: depth not bit-equal (max {err})")
-        ids[name] = ik
-        if name.endswith("_tight"):   # the capacity really drops triangles
-            full = ids[name.removesuffix("_tight") + "_full"]
-            check((full != ik).any(), f"{name}: the tight capacity dropped "
-                  "nothing")
-        covered = float((ik >= 0).mean())
-        print(f"kernel case {name}: {w}x{h} tiles {kw['tile_h']}x"
-              f"{kw['tile_w']} cap {kw.get('capacity')} y0 {y0}: bit-equal, "
-              f"covered {covered:.3f}", flush=True)
+    try:
+        for name, clip, tris, w, h, kw, y0, sh in kernel_cases():
+            out = {}
+            for backend in ("cuda", "torch"):
+                before = (raster_cuda.LAUNCHES, raster_cuda.PADDED_LAUNCHES)
+                tri_id, depth, _ = raster.raster_scene(
+                    torch.from_numpy(clip).to(dev),
+                    torch.from_numpy(tris).to(dev), w, h, len(tris),
+                    RasterConfig(backend=backend, **kw), y0, sh)
+                sync(dev)
+                k1 = raster_cuda.LAUNCHES - before[0]
+                k2 = raster_cuda.PADDED_LAUNCHES - before[1]
+                want = (backend == "cuda")
+                check((k1, k2) == ((0, want) if padded else (want, 0)),
+                      f"{label} {name}: launches K1 {k1}, K2 {k2}")
+                out[backend] = (tri_id.cpu().numpy(), depth.cpu().numpy())
+            (ik, zk), (ip, zp) = out["cuda"], out["torch"]
+            err = float(np.abs(zk - zp).max())
+            max_err = max(max_err, err)
+            check(np.array_equal(ik, ip), f"{label} {name}: tri_id differs "
+                  f"at {int((ik != ip).sum())} pixels")
+            check(np.array_equal(zk.view(np.int32), zp.view(np.int32)),
+                  f"{label} {name}: depth not bit-equal (max {err})")
+            ids[name] = ik
+            if name.endswith("_tight"):   # the capacity really drops some
+                full = ids[name.removesuffix("_tight") + "_full"]
+                check((full != ik).any(), f"{label} {name}: the tight "
+                      "capacity dropped nothing")
+            say(f"{label} case {name}: {w}x{h} tiles {kw['tile_h']}x"
+                f"{kw['tile_w']} cap {kw.get('capacity')} y0 {y0}: "
+                f"bit-equal, covered {float((ik >= 0).mean()):.3f}")
+    finally:
+        raster.TABLE_LIMIT_BYTES = saved
     return max_err
 
 
-def multimesh(dev):
+def load_scene(dev, large: bool):
     from funky_tpu_torch.models.gltf import GltfScene
     from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
     from funky_tpu_torch.models.scene import build_device_scene
+    from tests.torch_scenes import build_large_glb
 
     with tempfile.TemporaryDirectory() as td:
-        gltf = GltfScene.load(build_multimesh_glb(
-            pathlib.Path(td) / "multi.glb", two_textures=True))
+        path = pathlib.Path(td) / "scene.glb"
+        gltf = GltfScene.load(build_large_glb(path) if large
+                              else build_multimesh_glb(path,
+                                                       two_textures=True))
     return gltf, build_device_scene(gltf, device=dev)
+
+
+def scene_params(gltf, dev):
+    from funky_tpu_torch import frame
+
+    return frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
+                                     gltf_scale=1.0, device=dev)
 
 
 def dense_config(width, height, shadow, backend, tiles=None, stiles=None):
@@ -170,120 +255,144 @@ def dense_config(width, height, shadow, backend, tiles=None, stiles=None):
         valid_block_capacity=0, texture_block_capacity=0, clip_capacity=64)
 
 
-def phase_golden(dev, gltf, scene):
-    import torch
+def default_config(backend="auto"):
+    """GltfConfig() at its defaults (1920x1080, 4 x 2048^2), the raster
+    backend aside."""
+    import dataclasses
 
+    from funky_tpu_torch.frame import GltfConfig
+
+    cfg = GltfConfig(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW)
+    return dataclasses.replace(
+        cfg, raster=dataclasses.replace(cfg.raster, backend=backend),
+        shadow_raster=dataclasses.replace(cfg.shadow_raster,
+                                          backend=backend))
+
+
+def say_branches(label) -> None:
+    """Which branch each overflow site took, and the largest count it read
+    against its capacity, over the last run_frames."""
+    from funky_tpu_torch.ops import compact
+
+    for site in sorted(compact.OCCUPANCY):
+        calls = compact.OCCUPANCY[site]
+        sparse = compact.BRANCHES[(site, True)]
+        peaks = [f"{max(c[k][0] for c in calls)}/{calls[0][k][1]}"
+                 for k in range(len(calls[0]))]
+        say(f"{label}: {site}: sparse branch {sparse} of {len(calls)} "
+            f"frames; max count/capacity {', '.join(peaks)}")
+
+
+def phase_golden(dev, gltf, scene):
     from funky_tpu_torch import frame
     from funky_tpu_torch.models.png_io import linear_to_srgb, read_png
 
     cfg = dense_config(256, 144, 256, "auto", (16, 128), (16, 128))
-    params = frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
-                                       gltf_scale=1.0, device=dev)
+    params = scene_params(gltf, dev)
     state = frame.init_frame_state(cfg, dev)
     for _ in range(2):
         rgba, state = frame.render_gltf_frame(scene, params, state, cfg)
-    torch.cuda.synchronize()
+    sync(dev)
     got = linear_to_srgb(rgba[..., :3].cpu().numpy())
     want = read_png(GOLDEN)[..., :3].astype(np.float32) / 255.0
     diff = np.abs(got - want).max(-1)
     bad = float((diff > GOLDEN_TOL).mean())
-    print(f"golden 256x144 multimesh on the card: {bad:.5f} of pixels over "
-          f"3/255 (limit {GOLDEN_BAD_FRAC}), max diff {diff.max():.4f}",
-          flush=True)
+    say(f"golden 256x144 multimesh on the card: {bad:.5f} of pixels over "
+        f"3/255 (limit {GOLDEN_BAD_FRAC}), max diff {diff.max():.4f}")
     check(bad <= GOLDEN_BAD_FRAC, "golden image mismatch")
 
 
+def poses_for(params, n_parked, n_orbit):
+    from funky_tpu_torch import frame
+
+    return ([params] * n_parked
+            + [frame.orbit_params(params, i) for i in range(1, n_orbit + 1)])
+
+
 def run_frames(scene, poses, cfg, dev):
-    """Chained frames; returns per-frame (tri_id, depth) on the host, the
-    final rgba/history, and per-frame milliseconds: CUDA events from the
-    first enqueued op to the last, and the host clock around the frame
-    up to its synchronize."""
+    """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
+    history), CUDA-event ms from the first enqueued op to the last, host
+    ms up to the frame's synchronize, host syncs per frame, and the
+    peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
+    from funky_tpu_torch.ops import compact
 
     state = frame.init_frame_state(cfg, dev)
-    ids, depths, ms, wall = [], [], [], []
+    out = dict(frames=[], ms=[], wall=[], syncs=[])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
+        syncs0 = compact.HOST_SYNCS
+        sync(dev)
         t0 = time.perf_counter()
-        start.record()
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
         rgba, state, tri_id = frame.render_gltf_frame_ids(scene, p, state,
                                                           cfg)
-        end.record()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-        ms.append(start.elapsed_time(end))
-        ids.append(tri_id.cpu().numpy())
-        depths.append(state.prev_depth.cpu().numpy())
-    return ids, depths, rgba, state, (ms, wall)
+        if dev.type == "cuda":
+            end.record()
+        sync(dev)
+        out["wall"].append((time.perf_counter() - t0) * 1e3)
+        out["ms"].append(start.elapsed_time(end) if dev.type == "cuda"
+                         else out["wall"][-1])
+        out["syncs"].append(compact.HOST_SYNCS - syncs0)
+        out["frames"].append(tuple(x.cpu().numpy() for x in (
+            tri_id, state.prev_depth, rgba, state.shadow_history)))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                       if dev.type == "cuda" else float("nan"))
+    return out
 
 
-def phase_frames(dev, gltf, scene):
-    import torch
+def frames_equal(a, b, label):
+    for i, (fa, fb) in enumerate(zip(a["frames"], b["frames"])):
+        for name, x, y in zip(("tri_id", "depth", "rgba", "history"), fa, fb):
+            check(np.array_equal(x.view(np.int32), y.view(np.int32)),
+                  f"{label}: frame {i} {name} differs (max "
+                  f"{np.abs(x.astype(np.float64) - y).max()})")
 
+
+def report(label, run):
+    ev, wall = run["ms"], run["wall"]
+    say(f"{label}: median {statistics.median(ev[1:]):.3f} ms (CUDA events), "
+        f"{statistics.median(wall[1:]):.3f} ms (host clock) over "
+        f"{len(ev) - 1} frames after the first; peak device memory "
+        f"{run['peak_gib']:.2f} GiB; host syncs per frame {run['syncs']} "
+        f"[{_GPU}]")
+    check(all(math.isfinite(x) for x in ev + wall), f"{label}: timing")
+
+
+def check_image(run, poses, cfg, dev, label, on_ground=True):
+    """The last frame: shape, finite, sky the clear colour, and shadow on
+    the ground plane (on_ground) or on any covered pixel."""
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import raster_cuda
 
-    params = frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
-                                       gltf_scale=1.0, device=dev)
-    poses = ([params] * N_PARKED
-             + [frame.orbit_params(params, i) for i in range(1, N_ORBIT + 1)])
-    kcfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
-    pcfg = dense_config(WIDTH, HEIGHT, SHADOW, "torch")
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    raster_cuda.reset_launches()
-    kid, kdep, krgba, kstate, kms = run_frames(scene, poses, kcfg, dev)
-    launches = raster_cuda.LAUNCHES
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"main path: {len(poses)} frames through the kernel, "
-          f"{launches} kernel launches, peak device memory "
-          f"{peak_gib:.2f} GiB", flush=True)
-    check(launches == RASTERS_PER_FRAME * len(poses),
-          f"expected {RASTERS_PER_FRAME} launches per frame, got {launches}")
-
-    raster_cuda.reset_launches()
-    pid, pdep, prgba, pstate, pms = run_frames(scene, poses, pcfg, dev)
-    check(raster_cuda.LAUNCHES == 0, "the plain run launched the kernel")
-
-    for i in range(len(poses)):
-        check(np.array_equal(kid[i], pid[i]), f"frame {i}: tri_id differs")
-        check(np.array_equal(kdep[i].view(np.int32), pdep[i].view(np.int32)),
-              f"frame {i}: depth differs")
-    rk, rp = krgba.cpu().numpy(), prgba.cpu().numpy()
-    hk = kstate.shadow_history.cpu().numpy()
-    hp = pstate.shadow_history.cpu().numpy()
-    check(np.array_equal(rk, rp), f"final rgba differs (max "
-          f"{np.abs(rk - rp).max()})")
-    check(np.array_equal(hk, hp), "final history differs")
-    print("kernel run == plain run: main tri_id/depth of all "
-          f"{len(poses)} frames, final rgba and history bit-equal",
-          flush=True)
-
-    check(rk.shape == (HEIGHT, WIDTH, 4), f"rgba shape {rk.shape}")
-    check(bool(np.isfinite(rk).all()), "non-finite pixels")
-    tri_id = kid[-1]
+    tri_id, depth, rgba, hist = run["frames"][-1]
+    check(rgba.shape == (cfg.height, cfg.width, 4), f"rgba shape {rgba.shape}")
+    check(bool(np.isfinite(rgba).all()), f"{label}: non-finite pixels")
     sky = tri_id < 0
     clear = np.asarray(frame.GLTF_CLEAR + (1.0,), np.float32)
-    check(sky.any() and bool((rk[sky] == clear).all()),
-          "sky pixels are not the clear colour")
-    ground = ground_pixels(tri_id, kdep[-1], poses[-1], kcfg, dev)
-    shadowed = float((hk[..., 0][ground] < 1.0).mean()) if ground.any() else 0
-    print(f"final frame: sky {sky.mean():.3f} of pixels, ground "
-          f"{ground.mean():.3f}, shadowed ground {shadowed:.3f}", flush=True)
-    check(ground.any(), "no ground pixel in view")
-    check(shadowed > 0.0, "no ground pixel has a shadow term below 1")
-    return launches, params, kms, pms
+    check(not sky.any() or bool((rgba[sky] == clear).all()),
+          f"{label}: sky pixels are not the clear colour")
+    where = (ground_pixels(tri_id, depth, poses[-1], cfg, dev) if on_ground
+             else tri_id >= 0)
+    shadowed = float((hist[..., 0][where] < 1.0).mean()) if where.any() \
+        else 0.0
+    what = "ground" if on_ground else "covered"
+    say(f"{label} final frame: sky {sky.mean():.3f} of pixels, {what} "
+        f"{where.mean():.3f}, shadowed {what} {shadowed:.3f}")
+    check(where.any(), f"{label}: no {what} pixel in view")
+    check(shadowed > 0.0, f"{label}: no {what} pixel has a shadow below 1")
 
 
-def ground_pixels(tri_id, depth, params, cfg, dev) -> np.ndarray:
-    """Covered pixels on the ground plane y = 0 (the textured quad 1 mm
-    above it included), found by unprojecting the depth buffer in float64.
-    The ground crosses the near plane, so its pixels carry the ids of
-    clipped sub-triangles, not of the ground's own triangles."""
+def ground_pixels(tri_id, depth, params, cfg, dev, band=0.02) -> np.ndarray:
+    """Covered pixels within `band` of the plane y = 0 (the textured quad
+    1 mm above it included), found by unprojecting the depth buffer in
+    float64. The ground crosses the near plane, so its pixels carry the
+    ids of clipped sub-triangles, not of the ground's own triangles."""
     from funky_tpu_torch import frame
 
     uni = frame.compute_frame_uniforms(params, frame.init_frame_state(cfg, dev),
@@ -296,57 +405,289 @@ def ground_pixels(tri_id, depth, params, cfg, dev) -> np.ndarray:
                                        depth.astype(np.float64), 1.0), -1)
     world = ndc @ inv.T
     world_y = world[..., 1] / world[..., 3]
-    return (tri_id >= 0) & (np.abs(world_y) < 0.02)
+    return (tri_id >= 0) & (np.abs(world_y) < band)
 
 
-def main_path_raster_calls(scene, params, dev):
-    """The raster kernel's arguments as one frame of the main path passes
-    them: four 2048^2 cascades, then the 1080p main pass."""
-    from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import raster_cuda
+def phase_dense(dev, gltf, scene):
+    """The exact dense path through K1 and through the plain raster."""
+    params = scene_params(gltf, dev)
+    poses = poses_for(params, 2, N_DENSE - 2)
+    reset_counts()
+    krun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
+                                                 "auto"), dev)
+    counts = read_counts()
+    say(f"dense path: {len(poses)} frames, launches {counts}")
+    check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
+          and counts["raster_padded"] == 0,
+          f"dense path: expected {RASTERS_PER_FRAME} K1 launches per frame")
+    reset_counts()
+    prun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
+                                                 "torch"), dev)
+    check(sum(read_counts().values()) == 0, "the plain run launched a kernel")
+    frames_equal(krun, prun, "dense kernel vs plain raster")
+    say(f"dense path: kernel run == plain run, all {len(poses)} frames bit "
+        f"for bit")
+    check_image(krun, poses, dense_config(WIDTH, HEIGHT, SHADOW, "auto"),
+                dev, "dense path")
+    report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, kernel raster",
+           krun)
+    report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, plain raster", prun)
+    return params, poses, krun
+
+
+def phase_default(dev, gltf, scene, params):
+    """GltfConfig() on the multimesh scene, held against the dense path
+    over the same 8 poses."""
+    from funky_tpu_torch.ops import compact
+
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    reset_counts()
+    srun = run_frames(scene, poses, default_config(), dev)
+    counts = read_counts()
+    say(f"default path (multimesh): {len(poses)} frames, launches {counts}")
+    say_branches("default path (multimesh)")
+    check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
+          and counts["raster_padded"] == 0,
+          "default path: expected 5 K1 launches per frame")
+    drun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
+                                                 "auto"), dev)
+    frames_equal(srun, drun, "default (sparse) vs dense")
+    say(f"default path == dense path: tri_id, depth, rgba and history of "
+        f"all {len(poses)} frames bit for bit")
+    check_image(srun, poses, default_config(), dev, "default path")
+    report(f"default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh)", srun)
+    report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, same "
+           f"poses)", drun)
+    return counts, srun, drun
+
+
+def record_raster_calls(fn):
+    """Run fn() and return, per raster it makes, the setup table, bins,
+    counts and the kernel's framebuffer arguments."""
+    from funky_tpu_torch.ops import raster
 
     calls = []
-    launch = raster_cuda.raster_table_cuda
+    bin_triangles = raster.bin_triangles
 
-    def record(*args):
-        calls.append(args)
-        return launch(*args)
+    def record(setup, width, height, tile_h, tile_w, capacity, y_offset=0):
+        bins, counts = bin_triangles(setup, width, height, tile_h, tile_w,
+                                     capacity, y_offset)
+        calls.append(dict(table=setup.data, bins=bins, counts=counts,
+                          w=width, h=height, th=tile_h, tw=tile_w,
+                          y0=y_offset))
+        return bins, counts
 
-    cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
-    raster_cuda.raster_table_cuda = record
+    raster.bin_triangles = record
     try:
-        frame.render_gltf_frame(scene, params, frame.init_frame_state(cfg, dev),
-                                cfg)
+        fn()
     finally:
-        raster_cuda.raster_table_cuda = launch
-    check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
+        raster.bin_triangles = bin_triangles
     return calls
 
 
-def phase_timings(dev, scene, params):
-    """Kernel vs plain raster on the main path's own inputs. Returns the
-    per-frame sums (ms) over the five rasters."""
+def raster_bound(c, padded: bool):
+    """(bound ms, bytes, ops) of one raster's work on this run's inputs:
+    K2 reads each binned row once (64 B), K1 the distinct rows it needs
+    plus the bin ids; both read the counts and write 8 B per pixel; ~16
+    FP32 operations per pixel of a tile and entry of its bin."""
+    import torch
+
+    counts = c["counts"].to(torch.int64)
+    total = int(counts.sum())
+    written = 8 * c["w"] * c["h"]
+    if padded:
+        read = 64 * total
+    else:
+        valid = c["bins"][c["bins"] >= 0]
+        read = 64 * int(torch.unique(valid).numel()) + 4 * total
+    read += 4 * counts.numel()
+    ops = 16 * c["th"] * c["tw"] * total
+    return max((read + written) / HBM_BPS, ops / FP32_OPS) * 1e3, \
+        read + written, ops
+
+
+def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
+    """Per-raster ms of K1, K2 and the plain twin on recorded calls."""
     from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
     from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
-    from funky_tpu_torch.ops.raster_cuda import raster_table_cuda
+    from funky_tpu_torch.ops.raster_cuda import (raster_padded_cuda,
+                                                 raster_table_cuda)
 
-    kern, plain = [], []
-    for table, bins, counts, w, h, th, tw, y0 in main_path_raster_calls(
-            scene, params, dev):
-        cfg = RasterConfig(tile_h=th, tile_w=tw, backend="torch")
-        setup = TriangleSetup(data=table, valid=None)
-        kern.append(cuda_ms(lambda: raster_table_cuda(
-            table, bins, counts, w, h, th, tw, y0), iters=50))
-        plain.append(cuda_ms(lambda: _rasterize_torch(
-            gather_bin_data(setup, bins), bins, counts, y0, w, h, cfg),
-            iters=10))
-        print(f"raster {w}x{h}, tiles {th}x{tw}, bins {tuple(bins.shape)}: "
-              f"kernel {kern[-1]:.4f} ms, plain {plain[-1]:.4f} ms",
-              flush=True)
-    return sum(kern), sum(plain)
+    rows = []
+    for c in calls:
+        setup = TriangleSetup(data=c["table"], valid=None)
+        args = (c["w"], c["h"], c["th"], c["tw"], c["y0"])
+        bin_data = gather_bin_data(setup, c["bins"])
+        r = dict(c, tiles=tuple(c["bins"].shape),
+                 fullest=int(c["counts"].max()))
+        if "K1" in kernels:
+            r["K1"] = cuda_ms(lambda: raster_table_cuda(
+                c["table"], c["bins"], c["counts"], *args), iters=20)
+        if "K2" in kernels:
+            r["K2"] = cuda_ms(lambda: raster_padded_cuda(
+                bin_data, c["counts"], *args), iters=20)
+        cfg = RasterConfig(tile_h=c["th"], tile_w=c["tw"], backend="torch")
+        r["plain"] = cuda_ms(lambda: _rasterize_torch(
+            gather_bin_data(setup, c["bins"]), c["bins"], c["counts"],
+            c["y0"], c["w"], c["h"], cfg), iters=plain_iters,
+            warmup=min(plain_iters, 1))
+        del bin_data
+        rows.append(r)
+    return rows
+
+
+def phase_timings(dev, scene, params):
+    """K1 vs plain raster on the dense path's own five rasters. Returns
+    per-frame sums (kernel ms, plain ms, bound ms, bound_by)."""
+    from funky_tpu_torch import frame
+
+    cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
+    calls = record_raster_calls(lambda: frame.render_gltf_frame(
+        scene, params, frame.init_frame_state(cfg, dev), cfg))
+    check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
+    rows = time_rasters(calls, plain_iters=5, kernels=("K1",))
+    bounds = [raster_bound(r, padded=False) for r in rows]
+    for r, (b, nbytes, ops) in zip(rows, bounds):
+        say(f"K1 raster {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
+            f"{r['tiles']} fullest {r['fullest']}: kernel {r['K1']:.4f} ms, "
+            f"plain {r['plain']:.4f} ms, bound {b:.4f} ms ({nbytes} B, "
+            f"{ops} FP32 ops) [{_GPU}]")
+    by = ("bytes" if sum(x[1] for x in bounds) / HBM_BPS
+          >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
+    return (sum(r["K1"] for r in rows), sum(r["plain"] for r in rows),
+            sum(b[0] for b in bounds), by)
+
+
+def phase_large(dev):
+    """GltfConfig() on the large scene: every raster past the table limit
+    takes K2. Returns (launch counts, per-frame sums of K2 ms, plain ms,
+    bound ms, bound_by, K1 ms on the same rasters)."""
+    from funky_tpu_torch import frame
+
+    gltf, scene = load_scene(dev, large=True)
+    say(f"large scene: {scene.num_triangles} triangles "
+        f"({scene.tri_indices.shape[0]} padded, a {scene.tri_indices.shape[0]}"
+        f" x 16 f32 setup table = {scene.tri_indices.shape[0] * 64} B)")
+    params = scene_params(gltf, dev)
+    poses = poses_for(params, 1, N_LARGE - 1)
+    reset_counts()
+    krun = run_frames(scene, poses, default_config(), dev)
+    counts = read_counts()
+    say(f"large scene: {len(poses)} frames, launches {counts}")
+    say_branches("large scene")
+    check(counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
+          and counts["raster_table"] == 0,
+          "large scene: expected 5 K2 launches and no K1 launch per frame")
+    prun = run_frames(scene, poses[:1], default_config("torch"), dev)
+    krun1 = dict(krun, frames=krun["frames"][:1])
+    frames_equal(krun1, prun, "large scene K2 vs plain raster")
+    say("large scene: the first frame through the plain raster == the K2 "
+        "run, tri_id, depth, rgba and history bit for bit")
+    check_image(krun, poses, default_config(), dev, "large scene",
+                on_ground=False)
+    report(f"large-scene default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2", krun)
+    say(f"large scene, plain raster frame: {prun['ms'][0]:.3f} ms [{_GPU}]")
+
+    cfg = default_config()
+    calls = record_raster_calls(lambda: frame.render_gltf_frame(
+        scene, poses[-1], frame.init_frame_state(cfg, dev), cfg))
+    check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
+    rows = time_rasters(calls, plain_iters=1)
+    bounds = [raster_bound(r, padded=True) for r in rows]
+    for r, (b, nbytes, ops) in zip(rows, bounds):
+        say(f"large raster {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
+            f"{r['tiles']} fullest bin {r['fullest']} binned "
+            f"{int(r['counts'].sum())}: K2 {r['K2']:.4f} ms, K1 "
+            f"{r['K1']:.4f} ms, plain {r['plain']:.4f} ms, K2 bound "
+            f"{b:.4f} ms ({nbytes} B, {ops} FP32 ops) [{_GPU}]")
+    by = ("bytes" if sum(x[1] for x in bounds) / HBM_BPS
+          >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
+    return (counts, sum(r["K2"] for r in rows),
+            sum(r["plain"] for r in rows), sum(b[0] for b in bounds), by,
+            sum(r["K1"] for r in rows))
+
+
+def record_tap_indices(scene, params, dev):
+    """The row indices of one PCF tap set (the first cascade's 16 compare
+    taps over the 1080p frame) from a dense frame of the main path."""
+    import torch
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.ops import sampling
+
+    sets = []
+    take_rows = sampling.take_rows
+    n_rows = 4 * SHADOW * SHADOW
+
+    def record(flat, idx):
+        if flat.shape == (n_rows, 4) and tuple(idx.shape) == TAP_SHAPE:
+            sets.append(idx.to(torch.int32).clone())
+        return take_rows(flat, idx)
+
+    cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
+    sampling.take_rows = record
+    try:
+        frame.render_gltf_frame(scene, params,
+                                frame.init_frame_state(cfg, dev), cfg)
+    finally:
+        sampling.take_rows = take_rows
+    # per cascade: blocker search (nearest), then PCF compare
+    check(len(sets) >= 2, f"recorded {len(sets)} tap sets")
+    return sets[1]
+
+
+def phase_gather(dev, scene, params):
+    """K3 at the tap shape. Returns the JSON numbers of the recorded PCF
+    tap set: (ms, plain_ms, library_ms, bound_ms, max_abs_err)."""
+    import torch
+
+    from funky_tpu_torch.ops import gather_cuda
+    from funky_tpu_torch.ops.sampling import take_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n_big = 4 * SHADOW * SHADOW
+    n_l2 = 1 << 20                       # 16 MB table: fits the 50 MB L2
+    tap = record_tap_indices(scene, params, dev)
+    cases = [
+        (f"uniform, {16 * n_big / 1e6:.0f} MB table", n_big,
+         torch.randint(0, n_big, TAP_SHAPE, generator=gen, device=dev,
+                       dtype=torch.int32)),
+        (f"PCF tap set, {16 * n_big / 1e6:.0f} MB table", n_big, tap),
+        (f"uniform, {16 * n_l2 / 1e6:.0f} MB table (in L2)", n_l2,
+         torch.randint(0, n_l2, TAP_SHAPE, generator=gen, device=dev,
+                       dtype=torch.int32)),
+    ]
+    out = None
+    for name, n, idx in cases:
+        table = torch.rand((n, 4), generator=gen, device=dev)
+        got = gather_cuda.row_gather(table, idx)
+        want = take_rows(table, idx)
+        sync(dev)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"K3 {name}: not bit-equal")
+        idx64 = idx.long().clamp(0, n - 1)   # in range already; no device
+        ms = cuda_ms(lambda: gather_cuda.row_gather(table, idx), iters=10)
+        plain = cuda_ms(lambda: take_rows(table, idx), iters=5)
+        lib = cuda_ms(lambda: table[idx64], iters=10)
+        m = idx.numel()
+        rows = int(torch.unique(idx64).numel())
+        nbytes = 4 * m + 16 * m + 16 * rows
+        bound = nbytes / HBM_BPS * 1e3
+        sectors = 4 * m + 16 * m + 32 * m   # a 32 B sector per random row
+        say(f"K3 {name}: {m} rows of 16 B from {n} ({rows} distinct): "
+            f"kernel {ms:.4f} ms ({16 * m / ms / 1e6:.1f} GB/s written), "
+            f"torch table[idx] {lib:.4f} ms, plain take_rows {plain:.4f} ms; "
+            f"bound {bound:.4f} ms ({nbytes} B), {sectors / HBM_BPS * 1e3:.4f}"
+            f" ms counting 32 B sectors; bit-equal [{_GPU}]")
+        if name.startswith("PCF"):
+            out = (ms, plain, lib, bound, err)
+        del table, idx64, got, want
+    return out
 
 
 def main() -> None:
+    global _GPU
     try:
         import torch
     except ImportError:
@@ -356,54 +697,59 @@ def main() -> None:
     if not (REPO / "funky_tpu_torch" / "__init__.py").exists():
         fail(f"no funky_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
-    from funky_tpu_torch.ops import raster_cuda
 
-    gpu = gpu_line()
-    print(gpu, flush=True)     # name, power limit (nvidia-smi's own line)
+    _GPU = gpu_line()
+    say(_GPU)     # name, power limit (nvidia-smi's own line)
     dev = torch.device("cuda:0")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    lib = raster_cuda.build()
-    print(f"build: {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f}"
-          f" s", flush=True)
-    for line in raster_cuda.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
-
-    max_err = phase_kernel_cases(dev)
-    gltf, scene = multimesh(dev)
+    phase_build()
+    err_k1 = phase_kernel_cases(dev, padded=False)
+    err_k2 = phase_kernel_cases(dev, padded=True)
+    gltf, scene = load_scene(dev, large=False)
     phase_golden(dev, gltf, scene)
-    launches, params, kms, pms = phase_frames(dev, gltf, scene)
-    kernel_frame_ms, plain_frame_ms = phase_timings(dev, scene, params)
+    params, _, _ = phase_dense(dev, gltf, scene)
+    counts, _, _ = phase_default(dev, gltf, scene, params)
+    k1_ms, k1_plain, k1_bound, k1_by = phase_timings(dev, scene, params)
+    say(f"K1 per frame (4 cascades + main, multimesh): kernel {k1_ms:.4f} "
+        f"ms, plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms [{_GPU}]")
+    (large_counts, k2_ms, k2_plain, k2_bound, k2_by,
+     k1_large) = phase_large(dev)
+    say(f"large scene per frame (5 rasters): K2 {k2_ms:.4f} ms, K1 on the "
+        f"same rasters {k1_large:.4f} ms, plain {k2_plain:.4f} ms, K2 bound "
+        f"{k2_bound:.4f} ms [{_GPU}]")
+    g_ms, g_plain, g_lib, g_bound, g_err = phase_gather(dev, scene, params)
+    say("K3 row_gather is a probe on no frame path: 0 launches on the main "
+        "paths above")
+    say(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # frame 0 includes first-call set-up (cuBLAS handles, allocator)
-    for label, (ev, wall) in (("kernel", kms), ("plain", pms)):
-        frame_ms, wall_ms = statistics.median(ev[1:]), statistics.median(
-            wall[1:])
-        print(f"frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 cascades, {label} "
-              f"raster: median {frame_ms:.3f} ms (CUDA events), "
-              f"{wall_ms:.3f} ms (host clock) over {len(ev) - 1} frames "
-              f"[{gpu}]", flush=True)
-        check(math.isfinite(frame_ms) and math.isfinite(wall_ms), "timing")
-    print(f"raster per frame (4 cascades + main): kernel "
-          f"{kernel_frame_ms:.4f} ms, plain {plain_frame_ms:.4f} ms [{gpu}]",
-          flush=True)
-
-    print(json.dumps({"kernels": [{
-        "name": "raster_table",
-        "route": "cuda",
-        "source": "funky_tpu_torch/csrc/raster.cu",
-        "replaces": "funky_tpu/ops/raster_pallas.py:208",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_frame_ms,
-        "plain_ms": plain_frame_ms,
-    }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    kernels = [
+        dict(name="raster_table", route="cuda",
+             source="funky_tpu_torch/csrc/raster.cu",
+             replaces="funky_tpu/ops/raster_pallas.py:208",
+             launches=counts["raster_table"], max_abs_err=err_k1, ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+             library_ms=None),
+        dict(name="raster_padded", route="cuda",
+             source="funky_tpu_torch/csrc/raster.cu",
+             replaces="funky_tpu/ops/raster_pallas.py:90",
+             launches=large_counts["raster_padded"], max_abs_err=err_k2,
+             ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
+             library_ms=None),
+        dict(name="row_gather", route="cuda",
+             source="funky_tpu_torch/csrc/gather.cu",
+             replaces="experiments/bench_gather.py:160",
+             launches=counts["row_gather"] + large_counts["row_gather"],
+             max_abs_err=g_err, ms=g_ms, plain_ms=g_plain, bound_ms=g_bound,
+             bound_by="bytes", library_ms=g_lib),
+    ]
+    say(_GPU)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

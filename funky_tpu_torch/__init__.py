@@ -7,10 +7,14 @@ tests in `tests/test_torch_*.py` feed both packages the same numpy inputs.
 Conventions of the port:
 - plain functions on tensors; every tensor is created on an explicit
   device (the device of an input, or a `device=` argument) — there is no
-  global device;
+  global device; entry points that make tensors default to "cuda";
 - dataclasses / NamedTuples of tensors take the place of pytrees;
-- eager PyTorch, no `torch.compile`; the one hand-written kernel so far is
-  the tile raster (`ops/raster_cuda.py`, `csrc/raster.cu`);
+- eager PyTorch, no `torch.compile`; the hand-written kernels are the two
+  tile rasters (`csrc/raster.cu`: K1 table, K2 pre-gathered rows;
+  `ops/raster_cuda.py`) and the row-gather probe (`csrc/gather.cu`,
+  `ops/gather_cuda.py`), built by `ops/cuda_build.py`;
+- `lax.cond` capacity fallbacks become host branches
+  (`ops/compact.py::host_cond`, counted);
 - `jax.lax.optimization_barrier` has no counterpart and is dropped.
 
 This package never imports jax.

@@ -27,18 +27,18 @@ def _t(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
-def scene_from_numpy(fields: Mapping, device="cpu") -> DeviceScene:
+def scene_from_numpy(fields: Mapping, device="cuda") -> DeviceScene:
     return DeviceScene(
         **{f: _t(fields[f], device) for f in TENSOR_FIELDS},
         **{c: int(fields[c]) for c in SCENE_COUNTS})
 
 
-def params_from_numpy(fields: Mapping, device="cpu") -> GltfParams:
+def params_from_numpy(fields: Mapping, device="cuda") -> GltfParams:
     return GltfParams(**{f: _t(fields[f], device).to(torch.float32)
                          for f in GltfParams.__dataclass_fields__})
 
 
-def state_from_numpy(fields: Mapping, device="cpu") -> FrameState:
+def state_from_numpy(fields: Mapping, device="cuda") -> FrameState:
     return FrameState(
         shadow_history=_t(fields["shadow_history"], device),
         prev_depth=_t(fields["prev_depth"], device),
@@ -48,6 +48,6 @@ def state_from_numpy(fields: Mapping, device="cpu") -> FrameState:
     )
 
 
-def uniforms_from_numpy(fields: Mapping, device="cpu") -> FrameUniforms:
+def uniforms_from_numpy(fields: Mapping, device="cuda") -> FrameUniforms:
     return FrameUniforms(**{f: _t(fields[f], device)
                             for f in FrameUniforms._fields})

@@ -1,9 +1,15 @@
-// Tile raster for Hopper (sm_90a): depth-tested visibility buffer.
+// Tile raster for Hopper (sm_90a): depth-tested visibility buffer. Two
+// entry points, one per TPU kernel of funky_tpu/ops/raster_pallas.py:
 //
-// Replaces the TPU kernel funky_tpu/ops/raster_pallas.py::_rasterize_pallas_table
-// (body _raster_table_kernel): for every framebuffer tile, walk the tile's
-// bin list in order, read each triangle's setup row from the (T, 16) table
-// by id, and keep the nearest covering triangle per pixel.
+// K1 raster_table_launch replaces _rasterize_pallas_table (body
+//    _raster_table_kernel): for every framebuffer tile, walk the tile's bin
+//    list in order, read each triangle's setup row from the (T, 16) table by
+//    id, and keep the nearest covering triangle per pixel.
+// K2 raster_padded_launch replaces _rasterize_pallas_padded (body
+//    _raster_kernel): the same raster over the pre-gathered per-tile row
+//    stream (n_tiles, C, 16) of binning.gather_bin_data, with the triangle
+//    id bitcast into column 12. The JAX package (and ops/raster.py) takes
+//    it when the setup table exceeds 4 MiB.
 //
 // Semantics (identical to the Pallas kernel and to the plain torch twin
 // funky_tpu_torch/ops/raster.py::_rasterize_torch):
@@ -116,6 +122,89 @@ raster_table_kernel(const float* __restrict__ table, int t_rows,
   }
 }
 
+// K2: the same pixel loop, fed from the tile's contiguous pre-gathered
+// rows. What bounds it: each tile's C x 64 B row block is read once per
+// block of the tile (L2 serves the repeats) plus 8 B written per pixel, or
+// ~16 FP32 operations per pixel and row when bins are long. Design: each
+// chunk of RASTER_THREADS rows is staged in shared memory with 16-byte
+// loads (thread k loads row k: four float4, so a warp reads 2 KB of
+// contiguous rows), then every thread reads the staged rows as
+// broadcasts. Arithmetic and tie rule as K1, so it is bit-equal to the
+// plain twin.
+__global__ void __launch_bounds__(RASTER_THREADS)
+raster_padded_kernel(const float* __restrict__ rows,
+                     const int* __restrict__ counts, int capacity,
+                     int y_offset, int tile_h, int tile_w, int tiles_x,
+                     int blocks_per_tile, int height, int width,
+                     int* __restrict__ id_out, float* __restrict__ z_out) {
+  __shared__ float s_rows[RASTER_THREADS][ROW];
+  __shared__ int s_ids[RASTER_THREADS];
+
+  const int tile = blockIdx.x / blocks_per_tile;
+  const int part = blockIdx.x - tile * blocks_per_tile;
+  const int local = part * RASTER_THREADS + threadIdx.x;
+  const int ly = local / tile_w;
+  const int lx = local - ly * tile_w;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int gy = ty * tile_h + ly;
+  const int gx = tx * tile_w + lx;
+  const bool live = local < tile_h * tile_w && gy < height && gx < width;
+
+  const float px = (float)gx + 0.5f;
+  const float py = (float)(gy + y_offset) + 0.5f;
+
+  float zbuf = 1.0f;
+  int idbuf = -1;
+  const int count = min(counts[tile], capacity);
+  const float4* tile_rows = reinterpret_cast<const float4*>(
+      rows + (size_t)tile * capacity * SETUP_WIDTH);
+
+  for (int base = 0; base < count; base += RASTER_THREADS) {
+    const int n = min(RASTER_THREADS, count - base);
+    __syncthreads();  // previous chunk fully consumed
+    if (threadIdx.x < n) {
+      const float4* src = tile_rows + (size_t)(base + threadIdx.x) * 4;
+      const float4 a = __ldg(src), b = __ldg(src + 1), c = __ldg(src + 2),
+                   d = __ldg(src + 3);
+      float* dst = s_rows[threadIdx.x];
+      dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+      dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+      dst[8] = c.x; dst[9] = c.y; dst[10] = c.z; dst[11] = c.w;
+      s_ids[threadIdx.x] = __float_as_int(d.x);   // id bitcast in column 12
+    }
+    __syncthreads();
+    if (live) {
+      for (int k = 0; k < n; ++k) {
+        const float* e = s_rows[k];
+        const float b0 = plane(e[0], e[1], e[2], px, py);
+        const float b1 = plane(e[3], e[4], e[5], px, py);
+        const float b2 = plane(e[6], e[7], e[8], px, py);
+        const float z = plane(e[9], e[10], e[11], px, py);
+        if (b0 >= 0.0f && b1 >= 0.0f && b2 >= 0.0f && z >= 0.0f &&
+            z < zbuf) {
+          zbuf = z;
+          idbuf = s_ids[k];
+        }
+      }
+    }
+  }
+  if (live) {
+    const size_t o = (size_t)gy * width + gx;
+    id_out[o] = idbuf;
+    z_out[o] = zbuf;
+  }
+}
+
+int blocks_for(int n_tiles, int tile_h, int tile_w, int* blocks_per_tile,
+               unsigned* grid) {
+  *blocks_per_tile = (tile_h * tile_w + RASTER_THREADS - 1) / RASTER_THREADS;
+  const long long blocks = (long long)n_tiles * *blocks_per_tile;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return 0;
+  *grid = (unsigned)blocks;
+  return 1;
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
@@ -126,14 +215,29 @@ extern "C" int raster_table_launch(const float* table, int t_rows,
                                    int tile_h, int tile_w, int tiles_x,
                                    int height, int width, int* id_out,
                                    float* z_out, void* stream) {
-  const int tile_pixels = tile_h * tile_w;
-  const int blocks_per_tile = (tile_pixels + RASTER_THREADS - 1) /
-                              RASTER_THREADS;
-  const long long blocks = (long long)n_tiles * blocks_per_tile;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  raster_table_kernel<<<(unsigned)blocks, RASTER_THREADS, 0,
-                        (cudaStream_t)stream>>>(
+  int blocks_per_tile;
+  unsigned grid;
+  if (!blocks_for(n_tiles, tile_h, tile_w, &blocks_per_tile, &grid))
+    return (int)cudaErrorInvalidValue;
+  raster_table_kernel<<<grid, RASTER_THREADS, 0, (cudaStream_t)stream>>>(
       table, t_rows, bins, counts, capacity, y_offset, tile_h, tile_w,
       tiles_x, blocks_per_tile, height, width, id_out, z_out);
+  return (int)cudaGetLastError();
+}
+
+// K2's entry point: `rows` is the contiguous (n_tiles, capacity, 16) f32
+// pre-gathered stream (16-byte aligned rows). Same contract as K1's.
+extern "C" int raster_padded_launch(const float* rows, const int* counts,
+                                    int n_tiles, int capacity, int y_offset,
+                                    int tile_h, int tile_w, int tiles_x,
+                                    int height, int width, int* id_out,
+                                    float* z_out, void* stream) {
+  int blocks_per_tile;
+  unsigned grid;
+  if (!blocks_for(n_tiles, tile_h, tile_w, &blocks_per_tile, &grid))
+    return (int)cudaErrorInvalidValue;
+  raster_padded_kernel<<<grid, RASTER_THREADS, 0, (cudaStream_t)stream>>>(
+      rows, counts, capacity, y_offset, tile_h, tile_w, tiles_x,
+      blocks_per_tile, height, width, id_out, z_out);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,24 @@
-"""The glTF frame (port of funky_tpu/frame.py::render_gltf_frame on the exact
-dense path): shadow cascades -> main visibility pass -> deferred PCF/PCSS
-shading -> shadow TAA -> contact shadows.
+"""The glTF frame (port of funky_tpu/frame.py::render_gltf_frame): shadow
+cascades -> main visibility pass -> deferred PCF/PCSS shading -> shadow
+TAA -> contact shadows.
 
 Frames are chained through `FrameState`, as in JAX. Configuration classes
-keep the JAX package's fields and defaults; a flag or knob that this port
-does not honour yet raises NotImplementedError naming it
-(`check_supported`). In particular the defaults select the sparse paths,
-so a port config sets `sparse_shadows=False, sparse_contact=False`,
-`valid_block_capacity=0` and `texture_block_capacity=0`.
+keep the JAX package's fields and defaults, and `GltfConfig()` runs: the
+sparse-exact shadow filter and contact march, block-sparse texture
+sampling and the valid-block back half. A flag or knob that selects a
+path this port does not have yet raises NotImplementedError naming it
+(`check_supported`).
 
-On a card every raster (four cascades + the main pass) runs the
-hand-written kernel (ops/raster_cuda.py): five launches per frame.
+Each of the JAX package's capacity-overflow `lax.cond`s becomes a host
+branch on one device bool (ops/compact.py::host_cond, counted in
+HOST_SYNCS): at most five per frame on the default path. On overflow the
+branch takes the exact dense computation, as in JAX, so the image does
+not depend on the capacities.
+
+Entry points put their tensors on the card unless asked for the CPU
+(`device="cpu"`). On a card every raster (four cascades + the main pass)
+runs a hand-written kernel (ops/raster.py picks K1 or K2 by table size):
+five launches per frame.
 """
 
 from __future__ import annotations
@@ -25,10 +33,13 @@ import torch
 from . import math3d as m3
 from .models.scene import DeviceScene
 from .ops.clipping import expand_near_clipped
+from .ops.compact import (compact_valid_blocks, gather_blocks, host_cond,
+                          scatter_blocks)
 from .ops.raster import RasterConfig, raster_corners
 from .ops.sampling import quad_pack
 from .passes import (contact, deferred, geometry, shading, shadow,
                      shadow_filter, taa, uniforms)
+from .passes.shadow_classify import build_class_maps, light_ground_planes
 
 GLTF_CLEAR = (0.53, 0.81, 0.92)    # frame.py:29
 NEAR, FAR = 0.1, 100.0
@@ -60,8 +71,7 @@ class GltfFrameFlags:
 @dataclasses.dataclass(frozen=True)
 class GltfConfig:
     """Static frame configuration (frame.py:234-401); same fields and
-    defaults. The sparse-path knobs are only read by paths that
-    `check_supported` refuses."""
+    defaults. `check_supported` names the knobs this port refuses."""
     width: int = 1920
     height: int = 1080
     shadow_map_size: int = uniforms.SHADOW_MAP_SIZE
@@ -123,28 +133,31 @@ class GltfConfig:
 
 def check_supported(cfg: GltfConfig) -> None:
     """Raise NotImplementedError naming every flag or knob of `cfg` that
-    selects a path this port does not have yet."""
+    selects a path this port does not have yet. GltfConfig()'s defaults
+    pass."""
     f = cfg.flags
     names = [name for name, on in (
-        ("flags.sparse_shadows", f.sparse_shadows),
-        ("flags.sparse_contact", f.sparse_contact),
         ("flags.synth_shadow_maps", f.synth_shadow_maps),
         ("flags.committed", f.committed),
         ("flags.light_space_ground_shadows", f.light_space_ground_shadows),
         ("flags.skip_backfacing_shadows", f.skip_backfacing_shadows),
         ("flags.shadow_eval_scale > 1 (or half_res_shadows)",
          f.effective_shadow_scale > 1),
-        ("valid_block_capacity (set 0)",
-         cfg.effective_valid_blocks(cfg.height, cfg.width) is not None),
-        ("texture_block_capacity (set 0)",
-         cfg.effective_texture_blocks is not None),
         ("valid_slab_rows", cfg.effective_slab_rows(cfg.height) is not None),
         ("taa_need_capacity", cfg.taa_need_capacity is not None),
+        ("shadow_tap_windows", cfg.shadow_tap_windows is not None),
+        ("shadow_route_windows / shadow_route_caps",
+         cfg.shadow_route_windows is not None
+         or cfg.shadow_route_caps is not None),
+        ("shadow_pen_cascade_caps", cfg.shadow_pen_cascade_caps is not None),
+        ("shadow_lit_cascade_caps", cfg.shadow_lit_cascade_caps is not None),
+        ("shadow_pen_block_capacity",
+         cfg.shadow_pen_block_capacity is not None),
+        ("contact_block_capacity", cfg.contact_block_capacity is not None),
     ) if on]
     if names:
         raise NotImplementedError(
-            "funky_tpu_torch runs the exact dense glTF frame only; not yet "
-            "ported: " + ", ".join(names))
+            "funky_tpu_torch: not yet ported: " + ", ".join(names))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +178,7 @@ class GltfParams:
 
 def default_gltf_params(gltf_min_y: float = 0.0, gltf_scale: float = 0.01,
                         shadow_softness: float = 2.5,
-                        device="cpu") -> GltfParams:
+                        device="cuda") -> GltfParams:
     """Reference defaults (frame.py:424-447): the yaw/pitch are derived
     from f32 vectors exactly as the JAX version derives them."""
     position = torch.tensor([0.0, 2.5, 10.0], dtype=torch.float32)
@@ -218,7 +231,7 @@ class FrameState(NamedTuple):
     frame_index: torch.Tensor     # () int32
 
 
-def init_frame_state(cfg: GltfConfig, device="cpu") -> FrameState:
+def init_frame_state(cfg: GltfConfig, device="cuda") -> FrameState:
     """frame.py:461-468."""
     return FrameState(
         shadow_history=taa.init_history(cfg.height, cfg.width, device),
@@ -268,18 +281,34 @@ def _main_raster_inputs(scene: DeviceScene, clip: torch.Tensor,
     return g.tri_clip, g.blocks, g.tri_flags, g.valid
 
 
-def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
-                      shadow_maps, tri_id, depth, setup_data, blocks,
-                      cfg: GltfConfig, y0: int = 0, tri_flags=None):
-    """Dense 2D back half for the row slab [y0, y0 + h)
-    (frame.py:764-892 at shadow_eval_scale 1, no class maps). Returns
+def shade_slab(scene: DeviceScene, uni, state: FrameState, shadow_maps,
+               tri_id, depth, setup_data, blocks, cfg: GltfConfig,
+               y0: int = 0, class_maps=None, tri_flags=None):
+    """Per-pixel back half for the row slab [y0, y0 + h) (frame.py:509-553):
+    the valid-block back half when cfg's block budget applies to this
+    shape, else the dense 2D one. Identical outputs either way. Returns
     (rgba (h, W, 4), history slab (h, W, 2))."""
-    flags = cfg.flags
     if tri_flags is None:
         tri_flags = scene.tri_flags
-    gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
-                                tri_flags, y0)
+    h, w = tri_id.shape
+    bcap = cfg.effective_valid_blocks(h, w)
+    if bcap is not None and cfg.flags.effective_shadow_scale == 1:
+        return _shade_slab_blocked(scene, uni, state, shadow_maps, tri_id,
+                                   depth, setup_data, blocks, cfg, y0,
+                                   class_maps, tri_flags, bcap)
+    return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id, depth,
+                             setup_data, blocks, cfg, y0, class_maps,
+                             tri_flags)
 
+
+def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
+                gbuf, frag, cfg: GltfConfig, class_maps, old_history):
+    """The per-pixel back half on any domain shape (frame.py:556-638):
+    shadow filter -> TAA -> contact -> final shading. `frag` holds pixel
+    centres (x + 0.5) in global framebuffer coordinates, `old_history`
+    matches gbuf's shape + (2,). Returns (rgba, new_history)."""
+    flags = cfg.flags
+    dev = gbuf.valid.device
     normal = gbuf.normal / torch.clamp(
         torch.linalg.vector_norm(gbuf.normal, dim=-1, keepdim=True),
         min=1e-12)
@@ -288,45 +317,117 @@ def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
     view_z = (gbuf.world @ uni.view[2, :3]) + uni.view[2, 3]
     view_depth = -view_z
 
-    h, w = tri_id.shape
-    frag = torch.stack(deferred.pixel_centers(h, w, y0, tri_id.device),
-                       dim=-1)
-
-    if flags.enable_shadows:
+    if flags.enable_shadows and class_maps is not None:
+        sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
+            uni, shadow_maps, class_maps, gbuf.world, normal, n_dot_l,
+            view_depth, frag, flags.use_pcss, gbuf.valid,
+            cfg.shadow_pen_capacity)
+    elif flags.enable_shadows:
         sres, c0, c1, ct = shadow_filter.cascaded_shadow(
-            uni, shadow_maps, gbuf.world, normal, n_dot_l, view_depth, frag,
-            flags.use_pcss)
+            uni, shadow_maps, gbuf.world, normal, n_dot_l, view_depth,
+            frag, flags.use_pcss)
     else:
-        one = torch.ones((h, w), dtype=torch.float32, device=tri_id.device)
+        one = torch.ones(gbuf.valid.shape, dtype=torch.float32, device=dev)
         sres = shadow_filter.ShadowResult(one, one, one,
                                           torch.zeros_like(one))
-        c0 = torch.zeros((h, w), dtype=torch.int32, device=tri_id.device)
+        c0 = torch.zeros(gbuf.valid.shape, dtype=torch.int32, device=dev)
         c1 = c0
         ct = torch.zeros_like(one)
 
     shadow_term, new_history = taa.apply_shadow_taa(
         sres, gbuf.world, uni, state.shadow_history, flags.use_shadow_taa,
-        y0, cfg.height)
+        full_height=cfg.height, frag=frag, full_width=cfg.width)
 
     if flags.enable_contact_shadows:
-        contact_term = contact.compute_contact_shadow(
-            gbuf.world, normal, uni, state.prev_depth, y0)
+        if flags.sparse_contact:
+            contact_term = contact.compute_contact_shadow_sparse(
+                gbuf.world, normal, uni, state.prev_depth,
+                capacity=cfg.contact_capacity,
+                march_capacity=cfg.contact_march_capacity,
+                valid=gbuf.valid, frag=frag,
+                plane=contact.reference_plane(
+                    scene.positions, scene.tri_indices, uni.prev_view_proj,
+                    cfg.width, cfg.height))
+        else:
+            contact_term = contact.compute_contact_shadow(
+                gbuf.world, normal, uni, state.prev_depth, frag=frag)
         shadow_term = torch.minimum(shadow_term, contact_term)
 
-    # History only updates where fragments shaded (frame.py:873-879).
-    old_slab = state.shadow_history[y0:y0 + h]
-    new_history = torch.where(gbuf.valid[..., None], new_history, old_slab)
+    # History only updates where fragments shaded (frame.py:623-626).
+    new_history = torch.where(gbuf.valid[..., None], new_history,
+                              old_history)
 
-    background = torch.tensor(GLTF_CLEAR, dtype=torch.float32,
-                              device=tri_id.device)
+    background = torch.tensor(GLTF_CLEAR, dtype=torch.float32, device=dev)
     if flags.debug_cascades:
         rgba = shading.cascade_debug_color(gbuf, c0, c1, ct, shadow_term,
                                            background)
     else:
         rgba = shading.shade_gltf(gbuf, scene.texture, scene.texture_sizes,
                                   uni.camera_pos, uni.light_dir,
-                                  shadow_term, background)
+                                  shadow_term, background,
+                                  cfg.effective_texture_blocks)
     return rgba, new_history
+
+
+def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
+                        shadow_maps, tri_id, depth, setup_data, blocks,
+                        cfg: GltfConfig, y0, class_maps, tri_flags,
+                        bcap: int):
+    """The valid-block back half (frame.py:702-761): compact the 8x8
+    blocks with any coverage, run the whole back half on flat (bcap*64,)
+    block-major arrays, scatter (rgba, history) back in one block write.
+    More than `bcap` covered blocks takes the dense 2D path (one host
+    branch)."""
+    h, w = tri_id.shape
+    bc = compact_valid_blocks(tri_id >= 0, 8, 8, bcap)
+    if not host_cond(bc.fits, "valid_blocks",
+                     [(bc.comp_b.count, bcap)]):
+        return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id,
+                                 depth, setup_data, blocks, cfg, y0,
+                                 class_maps, tri_flags)
+    old_slab = state.shadow_history[y0:y0 + h]
+    # One block-row gather moves the raster outputs and the carried
+    # history; the int32 ids ride as bitcast f32 lanes.
+    payload = torch.cat([tri_id.view(torch.float32)[..., None],
+                         depth[..., None], old_slab], dim=-1)   # (h, w, 4)
+    rows = gather_blocks(payload, bc)                           # (bcap*64, 4)
+    tri_e = rows[:, 0].contiguous().view(torch.int32)
+    depth_e = rows[:, 1]
+    old_hist_e = rows[:, 2:4]
+    px, py, slot_valid = bc.pixel_xy()
+    tri_e = torch.where(slot_valid, tri_e, -1)
+    pxf = px.to(torch.float32) + 0.5
+    pyf = py.to(torch.float32) + 0.5 + float(y0)
+    frag = torch.stack([pxf, pyf], dim=-1)
+
+    gbuf = deferred.interpolate_at(tri_e, depth_e, setup_data, blocks,
+                                   tri_flags, pxf, pyf)
+    rgba_e, hist_e = _shade_core(scene, uni, state, shadow_maps, gbuf,
+                                 frag, cfg, class_maps, old_hist_e)
+
+    background = torch.tensor(GLTF_CLEAR + (1.0,), dtype=torch.float32,
+                              device=tri_id.device)
+    base = torch.cat([background.expand(h, w, 4), old_slab], dim=-1)
+    out = scatter_blocks(base, bc, torch.cat([rgba_e, hist_e], dim=-1))
+    return out[..., 0:4], out[..., 4:6]
+
+
+def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
+                      shadow_maps, tri_id, depth, setup_data, blocks,
+                      cfg: GltfConfig, y0: int = 0, class_maps=None,
+                      tri_flags=None):
+    """Dense 2D back half for the row slab [y0, y0 + h) (frame.py:764-892
+    at shadow_eval_scale 1): the blocked path's overflow branch and the
+    parity reference. Returns (rgba (h, W, 4), history slab (h, W, 2))."""
+    if tri_flags is None:
+        tri_flags = scene.tri_flags
+    gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
+                                tri_flags, y0)
+    h, w = tri_id.shape
+    frag = torch.stack(deferred.pixel_centers(h, w, y0, tri_id.device),
+                       dim=-1)
+    return _shade_core(scene, uni, state, shadow_maps, gbuf, frag, cfg,
+                       class_maps, state.shadow_history[y0:y0 + h])
 
 
 def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
@@ -343,10 +444,15 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
     blocks = geometry.build_shade_blocks(scene, world_v, clip, normals_v)
 
     shadow_maps = None
+    class_maps = None
     if flags.enable_shadows:
         raw_maps = shadow.render_shadow_maps(
             world_v, scene.tri_indices, scene.num_triangles,
             uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
+        if flags.sparse_shadows:
+            class_maps = build_class_maps(
+                raw_maps, cfg.class_coarse, cfg.max_softness,
+                light_ground_planes(uni.light_view_proj))
         shadow_maps = quad_pack(raw_maps)              # (4, S, S, 4)
 
     tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
@@ -354,9 +460,9 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
     tri_id, depth, setup = raster_corners(
         tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
 
-    rgba, new_history = _shade_slab_dense(
+    rgba, new_history = shade_slab(
         scene, uni, state, shadow_maps, tri_id, depth, setup.data, blocks_m,
-        cfg, 0, tri_flags_m)
+        cfg, 0, class_maps, tri_flags_m)
 
     new_state = FrameState(
         shadow_history=new_history,

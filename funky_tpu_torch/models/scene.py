@@ -76,7 +76,7 @@ def _from_numpy(arrays: dict, counts: tuple, device) -> DeviceScene:
 def build_device_scene(scene: Optional[GltfScene],
                        include_ground: bool = True,
                        ground_size: float = 20.0,
-                       device="cpu") -> DeviceScene:
+                       device="cuda") -> DeviceScene:
     """Ground plane + glTF meshes (scene.py:89-171). Object slots: 0 =
     ground, 1 = the glTF model."""
     pos_l, nrm_l, uv_l, col_l, obj_l = [], [], [], [], []
@@ -161,7 +161,7 @@ def _pack_texture_layers(textures):
             np.asarray(sizes, np.float32))
 
 
-def build_cube_scene(device="cpu") -> DeviceScene:
+def build_cube_scene(device="cuda") -> DeviceScene:
     """The rotating-cube demo scene (scene.py:197-219)."""
     p, n, c, idx = cube_geometry()
     uv = np.zeros((len(p), 2), np.float32)

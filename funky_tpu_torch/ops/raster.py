@@ -5,11 +5,15 @@ Output per pixel: the winning triangle id (-1 empty) and its NDC depth
 are clipped; ties keep the first-drawn (lowest) id.
 
 Two interchangeable implementations, picked by `RasterConfig.backend`:
-- "cuda": the hand-written Hopper kernel (ops/raster_cuda.py), the port
-  of the Pallas kernel raster_pallas.py::_rasterize_pallas_table;
-- "torch": `_rasterize_torch`, the kernel's plain twin — a Python loop over
+- "cuda": the hand-written Hopper kernels (ops/raster_cuda.py). As in the
+  JAX package (raster.py:126-139), a setup table of at most
+  TABLE_LIMIT_BYTES takes K1, the port of raster_pallas.py::
+  _rasterize_pallas_table, which reads rows from the table by id; a larger
+  one is pre-gathered per tile (binning.gather_bin_data) and takes K2, the
+  port of _rasterize_pallas_padded;
+- "torch": `_rasterize_torch`, the kernels' plain twin — a Python loop over
   bin entries of `_rasterize_jnp`'s body with all tiles batched;
-- "auto": the kernel for CUDA tensors, the plain twin for CPU tensors.
+- "auto": the kernels for CUDA tensors, the plain twin for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch
 from .binning import bin_triangles, gather_bin_data, triangle_setup_corners
 
 BACKENDS = ("auto", "torch", "cuda")
+# The JAX package's VMEM budget for the table-resident kernel
+# (raster_pallas.py:158): a (T, 16) f32 table of more than 4 MiB
+# (T > 65,536 rows) takes the pre-gathered route.
+TABLE_LIMIT_BYTES = 4 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +86,23 @@ def raster_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor | None,
     setup = triangle_setup_corners(tri_clip, width, height, valid_mask)
     bins, counts = bin_triangles(setup, width, sh, cfg.tile_h, cfg.tile_w,
                                  capacity, y_offset)
-    if use_kernel(cfg, tri_clip.device):
+    kernel = use_kernel(cfg, tri_clip.device)
+    if kernel and setup.data.shape[0] * 64 <= TABLE_LIMIT_BYTES:
         from .raster_cuda import raster_table_cuda
 
         tri_id, depth = raster_table_cuda(setup.data, bins, counts, width,
                                           sh, cfg.tile_h, cfg.tile_w,
                                           y_offset)
+        return tri_id, depth, setup
+    bin_data = gather_bin_data(setup, bins)
+    if kernel:
+        from .raster_cuda import raster_padded_cuda
+
+        tri_id, depth = raster_padded_cuda(bin_data, counts, width, sh,
+                                           cfg.tile_h, cfg.tile_w, y_offset)
     else:
-        tri_id, depth = _rasterize_torch(gather_bin_data(setup, bins), bins,
-                                         counts, y_offset, width, sh, cfg)
+        tri_id, depth = _rasterize_torch(bin_data, bins, counts, y_offset,
+                                         width, sh, cfg)
     return tri_id, depth, setup
 
 

@@ -1,89 +1,49 @@
-"""Wrapper of the hand-written Hopper tile-raster kernel (csrc/raster.cu).
+"""Wrappers of the hand-written Hopper tile-raster kernels (csrc/raster.cu).
 
-Replaces funky_tpu/ops/raster_pallas.py::_rasterize_pallas_table (the
-table-resident Pallas kernel, raster_pallas.py:208-251). The kernel is
-compiled with nvcc at first use, from the repository's own source, into
-`funky_tpu_torch/build/`; a hash of the source and flags keys the library,
-so a changed source rebuilds and an unchanged one is reused. It is bound
-with ctypes through a plain C entry point (no PyTorch headers, so the
-build takes seconds).
+- raster_table_cuda (K1) replaces funky_tpu/ops/raster_pallas.py::
+  _rasterize_pallas_table (raster_pallas.py:208-251): rows read from the
+  setup table by id;
+- raster_padded_cuda (K2) replaces _rasterize_pallas_padded
+  (raster_pallas.py:90-127): rows read from the pre-gathered per-tile
+  stream of binning.gather_bin_data.
 
-The plain twin is ops/raster.py::_rasterize_torch. This wrapper never
-falls back to it: it launches the kernel or raises.
+The source is built with nvcc at first use (ops/cuda_build.py) and bound
+with ctypes through plain C entry points. The plain twin of both is
+ops/raster.py::_rasterize_torch. These wrappers never fall back to it:
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 from typing import Tuple
 
 import torch
 
-PACKAGE = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE / "csrc" / "raster.cu"
-BUILD_DIR = PACKAGE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import cuda_build
 
-# Kernel launches made by raster_table_cuda since the last reset.
+# Kernel launches since the last reset: K1 (raster_table_cuda) and K2
+# (raster_padded_cuda).
 LAUNCHES = 0
+PADDED_LAUNCHES = 0
 
-_FN = None
-BUILD_LOG = ""
+_FNS = {}
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, PADDED_LAUNCHES
     LAUNCHES = 0
+    PADDED_LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [shutil.which("nvcc")]
-    candidates.append(os.path.join(home or "/usr/local/cuda", "bin", "nvcc"))
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the raster kernel is built from "
-                       "csrc/raster.cu with the CUDA toolkit")
-
-
-def build() -> pathlib.Path:
-    """Compile csrc/raster.cu into build/raster_<hash>.so (once per source
-    version) and return its path. The compiler's log (with -Xptxas -v:
-    registers, shared memory, spills) is kept in BUILD_LOG."""
-    global BUILD_LOG
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"raster_{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"raster_{key}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    return out
-
-
-def _launcher():
-    global _FN
-    if _FN is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.raster_table_launch
+def _launcher(name: str, n_args: int, pointer_slots):
+    if name not in _FNS:
+        fn = getattr(cuda_build.load("raster"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, p, p, p]
+        fn.argtypes = [p if k in pointer_slots else i for k in range(n_args)]
         fn.restype = i
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device):
@@ -102,6 +62,20 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_tiles(n_tiles_given, tile_h, tile_w, width, height):
+    """(tiles_x, n_tiles) of the framebuffer; raises unless every count in
+    n_tiles_given equals n_tiles."""
+    if tile_h <= 0 or tile_w <= 0 or height <= 0 or width <= 0:
+        raise ValueError("tile and framebuffer sizes must be positive")
+    tiles_y, tiles_x = -(-height // tile_h), -(-width // tile_w)
+    for n in n_tiles_given:
+        if n != tiles_y * tiles_x:
+            raise ValueError(f"{n} bin rows do not match {tiles_y * tiles_x} "
+                             f"tiles of {tile_h}x{tile_w} over "
+                             f"{height}x{width}")
+    return tiles_x, tiles_y * tiles_x
+
+
 def raster_table_cuda(setup_data: torch.Tensor, bins: torch.Tensor,
                       counts: torch.Tensor, width: int, height: int,
                       tile_h: int, tile_w: int, y_offset: int = 0
@@ -118,20 +92,14 @@ def raster_table_cuda(setup_data: torch.Tensor, bins: torch.Tensor,
     if setup_data.shape[1] != 16:
         raise ValueError(f"setup_data: {tuple(setup_data.shape)}, "
                          f"expected (T, 16)")
-    tiles_y, tiles_x = -(-height // tile_h), -(-width // tile_w)
-    n_tiles = tiles_y * tiles_x
-    if bins.shape[0] != n_tiles or counts.shape[0] != n_tiles:
-        raise ValueError(f"bins {tuple(bins.shape)} / counts "
-                         f"{tuple(counts.shape)} do not match {n_tiles} "
-                         f"tiles of {tile_h}x{tile_w} over {height}x{width}")
+    tiles_x, n_tiles = _check_tiles((bins.shape[0], counts.shape[0]),
+                                    tile_h, tile_w, width, height)
     if setup_data.shape[0] == 0 and bins.shape[1] > 0:
         raise ValueError("empty setup table with a non-empty bin list")
-    if tile_h <= 0 or tile_w <= 0 or height <= 0 or width <= 0:
-        raise ValueError("tile and framebuffer sizes must be positive")
 
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fn = _launcher()
+    fn = _launcher("raster_table_launch", 15, (0, 2, 3, 12, 13, 14))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(setup_data.data_ptr(), setup_data.shape[0],
@@ -143,4 +111,41 @@ def raster_table_cuda(setup_data: torch.Tensor, bins: torch.Tensor,
         raise RuntimeError(f"raster kernel launch failed: CUDA error "
                            f"{status}")
     LAUNCHES += 1
+    return tri_id, depth
+
+
+def raster_padded_cuda(bin_data: torch.Tensor, counts: torch.Tensor,
+                       width: int, height: int, tile_h: int, tile_w: int,
+                       y_offset: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as raster_pallas.rasterize_pallas (K2): bin_data
+    (n_tiles, C, 16) f32 pre-gathered rows with each triangle id bitcast
+    into column 12 (binning.gather_bin_data), counts (n_tiles,) int32.
+    Returns tri_id (H, W) int32 and depth (H, W) f32 of the `height`-row
+    slab starting at global row y_offset."""
+    global PADDED_LAUNCHES
+    _check(bin_data, "bin_data", torch.float32, 3, None)
+    dev = bin_data.device
+    _check(counts, "counts", torch.int32, 1, dev)
+    if bin_data.shape[2] != 16:
+        raise ValueError(f"bin_data: {tuple(bin_data.shape)}, expected "
+                         f"(n_tiles, C, 16)")
+    if bin_data.data_ptr() % 16:
+        raise ValueError("bin_data: rows must be 16-byte aligned")
+    tiles_x, n_tiles = _check_tiles((bin_data.shape[0], counts.shape[0]),
+                                    tile_h, tile_w, width, height)
+
+    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    fn = _launcher("raster_padded_launch", 13, (0, 1, 10, 11, 12))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(bin_data.data_ptr(), counts.data_ptr(), n_tiles,
+                    bin_data.shape[1], int(y_offset), tile_h, tile_w,
+                    tiles_x, height, width, tri_id.data_ptr(),
+                    depth.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"padded raster kernel launch failed: CUDA error "
+                           f"{status}")
+    PADDED_LAUNCHES += 1
     return tri_id, depth

@@ -1,15 +1,24 @@
-"""Contact shadows: screen-space ray march toward the light (port of the
-dense march of funky_tpu/passes/contact.py, lines 40-236). 8 jittered
-linear steps + 4 bisection steps against the previous frame's depth,
-read through both the bilinear and the nearest filter. The sparse
-certificate path is not ported yet.
+"""Contact shadows: screen-space ray march toward the light (port of
+funky_tpu/passes/contact.py). 8 jittered linear steps + 4 bisection steps
+against the previous frame's depth, read through both the bilinear and
+the nearest filter: densely (`compute_contact_shadow`) or sparsely
+(`compute_contact_shadow_sparse`, the default), where an analytic-plane
+residual certificate retires most rays and only a compacted set marches.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-from ..ops.sampling import quad_pack, sample_depth_dual_packed
+from ..ops.binning import triangle_setup_corners
+from ..ops.clipping import expand_near_clipped
+from ..ops.compact import (Compacted, compact_indices, gather_rows,
+                           host_cond, scatter_back)
+from ..ops.sampling import (quad_pack, sample_depth_dual_packed, take_rows,
+                            to_i32)
 from .deferred import pixel_centers
 from .shadow_filter import interleaved_gradient_noise
 from .uniforms import FrameUniforms
@@ -149,16 +158,357 @@ def _jitter(h, w, y0, frame):
         [frag_x + frame * 13.37, frag_y + frame * 17.17], dim=-1))
 
 
+def _jitter_at(frag, frame):
+    """_jitter on explicit pixel centres, any batch (contact.py:208-212)."""
+    return interleaved_gradient_noise(torch.stack(
+        [frag[..., 0] + frame * 13.37, frag[..., 1] + frame * 17.17],
+        dim=-1))
+
+
 def compute_contact_shadow(world: torch.Tensor, normal: torch.Tensor,
                            uni: FrameUniforms, prev_depth: torch.Tensor,
-                           y0: int = 0) -> torch.Tensor:
+                           y0: int = 0, frag: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Shadow factor in [0, 1] for a row slab at global row y0
+    (frag=None), or for any batch with explicit `frag` pixel centres
     (contact.py:215-236); prev_depth is the full previous frame."""
     depth_packed = quad_pack(prev_depth)
     march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
                                                            uni)
-    h, w = world.shape[:2]
-    jitter = _jitter(h, w, y0, uni.debug_flags[3])
+    if frag is None:
+        h, w = world.shape[:2]
+        jitter = _jitter(h, w, y0, uni.debug_flags[3])
+    else:
+        jitter = _jitter_at(frag, uni.debug_flags[3])
     intersected, max_t, last_pen = _march(depth_packed, march_start,
                                           march_dir, jitter)
     return _soft_term(intersected & on_screen & facing, max_t, last_pen)
+
+
+# ---------------------------------------------------------------------------
+# Sparse evaluation (contact.py:239-820): stage 1 certifies whole march
+# segments outside the measured occluder bbox with dense arithmetic, stage 2
+# re-certifies the candidates probe by probe against a level-0 min map,
+# stage 3 marches the survivors exactly. The theory is in the JAX module.
+# ---------------------------------------------------------------------------
+
+FOOT = 2.0        # dual-sampler footprint half-width in texels
+_PAD_BIG = 1e9    # min-reduce padding
+
+
+class ResidualPyramid(NamedTuple):
+    """contact.py:286-296."""
+    rows: torch.Tensor         # (lh * lw, 4) quad-packed level-0 min-R
+    lw: int
+    lh: int
+    base: int                  # level-0 cell size in pixels
+    plane: torch.Tensor        # (3,) plane_ndc = a*px + b*py + c
+    eps: torch.Tensor          # () f32 rounding slack
+    occl_lo: torch.Tensor      # (2,) (x, y) pixel bbox of {R < -eps},
+    occl_hi: torch.Tensor      # padded; lo > hi when empty
+
+
+def _reduce_min(d: torch.Tensor, f: int) -> torch.Tensor:
+    """f x f min pool with 1e9 padding (contact.py:302-312)."""
+    h, w = d.shape
+    d = torch.nn.functional.pad(d, (0, -w % f, 0, -h % f), value=_PAD_BIG)
+    hp, wp = d.shape
+    rows = d.reshape(hp // f, f, wp).amin(dim=1)
+    return rows.reshape(hp // f, wp // f, f).amin(dim=-1)
+
+
+def reference_plane(positions: torch.Tensor, tri_indices: torch.Tensor,
+                    view_proj: torch.Tensor, width: int,
+                    height: int) -> torch.Tensor:
+    """The screen-space z-plane [a, b, c] the rasterizer uses for the
+    ground (the scene's first two triangles, identity model), through the
+    same near-clip expansion and triangle setup as the main raster, shifted
+    down to the lowest of its valid pieces; [0, 0, 0] when none is valid
+    (contact.py:315-376)."""
+    dev = positions.device
+    corners = positions[tri_indices[:2].long()]             # (2, 3, 3)
+    ones = torch.ones((2, 3, 1), dtype=torch.float32, device=dev)
+    tri_clip = torch.cat([corners, ones], dim=-1) @ view_proj.T
+    g = expand_near_clipped(
+        tri_clip, torch.zeros((2, 3, 1), dtype=torch.float32, device=dev),
+        torch.zeros((2,), dtype=torch.int32, device=dev), 2, capacity=2,
+        w_eps=NEAR * 0.1)
+    setup = triangle_setup_corners(g.tri_clip, width, height, g.valid)
+    zp = setup.data[:, 9:12]
+    valid = setup.valid
+    any_valid = valid.any()
+    base_i = torch.argmax(valid.to(torch.uint8))
+    base = zp[base_i]
+    corners_m = torch.tensor([[0.0, float(width), 0.0, float(width)],
+                              [0.0, 0.0, float(height), float(height)],
+                              [1.0, 1.0, 1.0, 1.0]], dtype=torch.float32,
+                             device=dev)
+    vals = zp @ corners_m                                   # (T', 4)
+    gaps = torch.where(valid[:, None], vals[base_i][None] - vals,
+                       -float("inf"))
+    shift = torch.clamp(gaps.max(), min=0.0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    plane = base - torch.stack([zero, zero, shift])
+    return torch.where(any_valid, plane, 0.0)
+
+
+def fit_ground_plane(view_proj: torch.Tensor, width: int, height: int,
+                     camera_pos: torch.Tensor,
+                     plane_y: float = 0.0) -> torch.Tensor:
+    """Screen-space NDC-depth plane of y = plane_y fitted from 3 projected
+    points near the camera, by Cramer's rule (contact.py:379-412). The
+    frame passes reference_plane instead; this is the fallback when no
+    plane is given."""
+    dev = view_proj.device
+    base = torch.stack([camera_pos[0],
+                        torch.tensor(plane_y, dtype=torch.float32,
+                                     device=dev), camera_pos[2]])
+    offs = torch.tensor([[0.0, 0.0, -4.0], [3.0, 0.0, -9.0],
+                         [-3.0, 0.0, -9.0]], dtype=torch.float32, device=dev)
+    pts = base[None] + offs
+    ones = torch.ones((3, 1), dtype=torch.float32, device=dev)
+    clip = torch.cat([pts, ones], dim=-1) @ view_proj.T
+    w = clip[:, 3]
+    w = torch.where(torch.abs(w) > 1e-4, w, 1e-4)
+    ndc = clip[:, :3] / w[:, None]
+    px = (ndc[:, 0] + 1.0) * (0.5 * width)
+    py = (ndc[:, 1] + 1.0) * (0.5 * height)
+    a_mat = torch.stack([px, py, torch.ones(3, dtype=torch.float32,
+                                            device=dev)], dim=-1)
+    det = torch.linalg.det(a_mat)
+    safe = torch.where(torch.abs(det) > 1e-6, det, 1e-6)
+    sol = []
+    for k in range(3):
+        m = a_mat.clone()
+        m[:, k] = ndc[:, 2]
+        sol.append(torch.linalg.det(m) / safe)
+    return torch.stack(sol)
+
+
+def build_residual_pyramid(prev_depth: torch.Tensor, plane: torch.Tensor,
+                           base: int = 8) -> ResidualPyramid:
+    """Level-0 min map of R = stored - min(plane_ndc, 1), quad-packed, plus
+    the padded pixel bbox of {R < -eps} (contact.py:415-463)."""
+    h, w = prev_depth.shape
+    dev = prev_depth.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5
+    plane_tex = plane[0] * xs + plane[1] * ys + plane[2]
+    resid = prev_depth - torch.clamp(plane_tex, max=1.0)
+
+    eps = ((torch.abs(plane[0]) * w + torch.abs(plane[1]) * h
+            + torch.abs(plane[2])) * 4e-7 + 2e-7)
+
+    occ = resid < -eps
+    col_any = occ.any(dim=0)
+    row_any = occ.any(dim=1)
+    any_occ = occ.any()
+
+    def span(any_vec, n):
+        a = any_vec.to(torch.uint8)
+        lo = torch.argmax(a).to(torch.float32)
+        hi = (n - torch.argmax(a.flip(0))).to(torch.float32) - 1.0
+        return lo, hi
+
+    x_lo, x_hi = span(col_any, w)
+    y_lo, y_hi = span(row_any, h)
+    pad = FOOT + 1.5
+    big = torch.tensor(float(w + h), dtype=torch.float32, device=dev)
+    occl_lo = torch.where(any_occ, torch.stack([x_lo, y_lo]) - pad,
+                          torch.stack([big, big]))
+    occl_hi = torch.where(any_occ, torch.stack([x_hi, y_hi]) + pad,
+                          torch.stack([-big, -big]))
+
+    d0 = _reduce_min(resid, base)
+    lh, lw = d0.shape
+    return ResidualPyramid(rows=quad_pack(d0).reshape(lh * lw, 4),
+                           lw=lw, lh=lh, base=base, plane=plane, eps=eps,
+                           occl_lo=occl_lo, occl_hi=occl_hi)
+
+
+def _point_min_l0(pyr: ResidualPyramid, p: torch.Tensor) -> torch.Tensor:
+    """Lower bound of R over [p - FOOT, p + FOOT] (contact.py:466-475)."""
+    lo = p - FOOT
+    cx = to_i32(torch.floor(lo[..., 0] / pyr.base)).clamp(0, pyr.lw - 1)
+    cy = to_i32(torch.floor(lo[..., 1] / pyr.base)).clamp(0, pyr.lh - 1)
+    quad = take_rows(pyr.rows, cy * pyr.lw + cx)
+    return quad.amin(dim=-1)
+
+
+def _probe_bound(pyr: ResidualPyramid, q: torch.Tensor, size: torch.Tensor):
+    """Analytic lower bound of the dual-sampled stored depth at screen
+    point q before the box min-R (contact.py:478-493)."""
+    a, b, c = pyr.plane[0], pyr.plane[1], pyr.plane[2]
+    plane_q = a * q[..., 0] + b * q[..., 1] + c
+    m = (torch.abs(a) + torch.abs(b)) * (FOOT + 0.5)
+    bound = torch.where(
+        plane_q + m <= 1.0, plane_q,
+        torch.where(plane_q - m >= 1.0, 1.0,
+                    torch.clamp(plane_q, max=1.0) - m))
+    band = ((q[..., 0] < FOOT) | (q[..., 0] > size[0] - FOOT)
+            | (q[..., 1] < FOOT) | (q[..., 1] > size[1] - FOOT))
+    return bound - torch.where(band, m, 0.0)
+
+
+def _segment_cert(pyr: ResidualPyramid, march_start, march_dir, size):
+    """Whole-segment no-hit certificate outside the occluder bbox: the gap
+    is checked at the 4 interval endpoints (contact.py:496-587). Returns
+    (certified, intersects)."""
+    dev = march_start.device
+    p0 = (march_start[..., :2] * 0.5 + 0.5) * size
+    p1 = ((march_start[..., :2] + march_dir[..., :2]) * 0.5 + 0.5) * size
+
+    t_in = torch.zeros(p0.shape[:-1], dtype=torch.float32, device=dev)
+    t_out = torch.ones(p0.shape[:-1], dtype=torch.float32, device=dev)
+    for axis in range(2):
+        d = p1[..., axis] - p0[..., axis]
+        s = p0[..., axis]
+        safe_d = torch.where(torch.abs(d) > 1e-6, d, 1e-6)
+        t1 = (pyr.occl_lo[axis] - s) / safe_d
+        t2 = (pyr.occl_hi[axis] - s) / safe_d
+        lo_t = torch.minimum(t1, t2)
+        hi_t = torch.maximum(t1, t2)
+        moving = torch.abs(d) > 1e-6
+        inside = (s >= pyr.occl_lo[axis]) & (s <= pyr.occl_hi[axis])
+        t_in = torch.where(moving, torch.maximum(t_in, lo_t),
+                           torch.where(inside, t_in, 2.0))
+        t_out = torch.where(moving, torch.minimum(t_out, hi_t),
+                            torch.where(inside, t_out, -1.0))
+    nonempty = pyr.occl_lo[0] <= pyr.occl_hi[0]
+    intersects = (nonempty & (t_in <= t_out) & (t_in <= 1.0)
+                  & (t_out >= 0.0))
+    a = torch.where(intersects, t_in.clamp(0.0, 1.0), 1.0)
+    b = torch.where(intersects, t_out.clamp(0.0, 1.0), 1.0)
+
+    aa, bb = pyr.plane[0], pyr.plane[1]
+    m = (torch.abs(aa) + torch.abs(bb)) * (FOOT + 0.5)
+    thresh = -pyr.eps - pyr.eps
+
+    def endpoint(t):
+        cs_z = march_start[..., 2] + march_dir[..., 2] * t
+        q = p0 + (p1 - p0) * t[..., None]
+        plane_q = aa * q[..., 0] + bb * q[..., 1] + pyr.plane[2]
+        return cs_z, plane_q, q
+
+    def interval_ok(ts, te):
+        z_s, pl_s, q_s = endpoint(ts)
+        z_e, pl_e, q_e = endpoint(te)
+        touch = torch.zeros(ts.shape, dtype=torch.bool, device=dev)
+        for k in range(2):
+            cmin = torch.minimum(q_s[..., k], q_e[..., k])
+            cmax = torch.maximum(q_s[..., k], q_e[..., k])
+            touch = touch | (cmin < FOOT) | (cmax > size[k] - FOOT)
+        pen = m + torch.where(touch, m, 0.0)
+        okc = ((z_s - (torch.clamp(pl_s, max=1.0) - pen) <= thresh)
+               & (z_e - (torch.clamp(pl_e, max=1.0) - pen) <= thresh))
+        case_a = (torch.maximum(pl_s, pl_e) + m <= 1.0) & ~touch
+        oka = case_a & (z_s - pl_s <= thresh) & (z_e - pl_e <= thresh)
+        case_b = (torch.minimum(pl_s, pl_e) - m >= 1.0) & ~touch
+        okb = case_b & (z_s <= 1.0 + thresh) & (z_e <= 1.0 + thresh)
+        return okc | oka | okb
+
+    zeros = torch.zeros_like(a)
+    ones = torch.ones_like(a)
+    cert = interval_ok(zeros, a) & interval_ok(b, ones)
+    return cert, intersects
+
+
+def _stage2_certify(pyr: ResidualPyramid, start, direction, jitter,
+                    size) -> torch.Tensor:
+    """Per-probe level-0 box re-certification (contact.py:590-608)."""
+    steps = torch.arange(LINEAR_STEPS, dtype=torch.float32,
+                         device=jitter.device).reshape(
+                             (LINEAR_STEPS,) + (1,) * jitter.ndim)
+    t_all = (steps + jitter[None]) / LINEAR_STEPS
+    cs = start[None] + direction[None] * t_all[..., None]
+    uv = cs[..., :2] * 0.5 + 0.5
+    inb = ((uv[..., 0] >= 0.0) & (uv[..., 0] <= 1.0)
+           & (uv[..., 1] >= 0.0) & (uv[..., 1] <= 1.0))
+    q = uv * size
+    min_r = _point_min_l0(pyr, q)
+    bound = _probe_bound(pyr, q, size)
+    ok = cs[..., 2] <= bound + min_r - pyr.eps
+    return (~inb | ok).all(dim=0)
+
+
+def contact_classify(pyr: ResidualPyramid, march_start, march_dir, cand,
+                     depth_shape):
+    """Stage-1 mask of rays that may hit (contact.py:611-621)."""
+    hd, wd = depth_shape
+    size = torch.tensor([wd, hd], dtype=torch.float32,
+                        device=march_start.device)
+    cert, intersects = _segment_cert(pyr, march_start, march_dir, size)
+    return cand & (intersects | ~cert)
+
+
+def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
+                                  uni: FrameUniforms,
+                                  prev_depth: torch.Tensor, y0: int = 0,
+                                  capacity: int | None = None,
+                                  march_capacity: int | None = None,
+                                  valid: torch.Tensor | None = None,
+                                  frag: torch.Tensor | None = None,
+                                  plane: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """Sparse-exact contact shadows (contact.py:671-820 with no block
+    budget, no march window, not committed): equal to
+    compute_contact_shadow wherever `valid`. `capacity` (default
+    max(n // 4, 256)) bounds the stage-2 set, `march_capacity` (default
+    max(capacity // 4, 256)) the marched set; overflow at either takes
+    the dense march (one host branch). Domain: a row slab at y0
+    (frag=None) or any batch with explicit `frag` pixel centres."""
+    batch = world.shape[:-1]
+    hd, wd = prev_depth.shape
+    n = int(np.prod(batch))
+    cap2 = capacity if capacity is not None else max(n // 4, 256)
+    cap3 = march_capacity if march_capacity is not None else max(
+        cap2 // 4, 256)
+    dev = world.device
+    size = torch.tensor([wd, hd], dtype=torch.float32, device=dev)
+
+    depth_packed = quad_pack(prev_depth)
+    if plane is None:
+        plane = fit_ground_plane(uni.prev_view_proj, wd, hd, uni.camera_pos)
+    pyr = build_residual_pyramid(prev_depth, plane)
+
+    march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
+                                                           uni)
+    if frag is None:
+        h, w = batch
+        jitter = _jitter(h, w, y0, uni.debug_flags[3])
+    else:
+        jitter = _jitter_at(frag, uni.debug_flags[3])
+
+    cand = facing & on_screen
+    if valid is not None:
+        cand = cand & valid
+    stage2 = contact_classify(pyr, march_start, march_dir, cand,
+                              prev_depth.shape)
+
+    comp2 = compact_indices(stage2, cap2)
+    payload = torch.cat([march_start, march_dir, jitter[..., None]],
+                        dim=-1).reshape(n, 7)
+    rows2 = gather_rows(payload, comp2)
+    start2, dir2, jit2 = rows2[:, 0:3], rows2[:, 3:6], rows2[:, 6]
+
+    cert2 = _stage2_certify(pyr, start2, dir2, jit2, size)
+
+    stage3 = comp2.slot_valid & ~cert2
+    comp3_local = compact_indices(stage3, cap3)
+    safe_slot = comp3_local.idx.clamp(min=0).long()
+    comp3 = Compacted(
+        idx=torch.where(comp3_local.slot_valid, comp2.idx[safe_slot], -1),
+        slot_valid=comp3_local.slot_valid, count=comp3_local.count)
+
+    fits = (comp2.count <= cap2) & (comp3.count <= cap3)
+    if host_cond(fits, "contact", [(comp2.count, cap2),
+                                           (comp3.count, cap3)]):
+        dense = torch.ones((n,), dtype=torch.float32, device=dev)
+        rows = gather_rows(payload, comp3)
+        start3, dir3, jit3 = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
+        inter, max_t, last_pen = _march(depth_packed, start3, dir3, jit3)
+        term = _soft_term(inter & comp3.slot_valid, max_t, last_pen)
+        return scatter_back(dense, comp3, term).reshape(batch)
+    inter, max_t, last_pen = _march(depth_packed, march_start, march_dir,
+                                    jitter)
+    return _soft_term(inter & cand, max_t, last_pen)

@@ -1,6 +1,5 @@
-"""Fragment shading (port of funky_tpu/passes/shading.py::shade_gltf with
-dense texture sampling, and the cascade debug view). The block-sparse
-texture sampling (texture_block_capacity) is not ported yet.
+"""Fragment shading (port of funky_tpu/passes/shading.py::shade_gltf, with
+dense or block-sparse texture sampling, and the cascade debug view).
 """
 
 from __future__ import annotations
@@ -8,6 +7,8 @@ from __future__ import annotations
 import torch
 
 from ..models.scene import FLAG_USE_TEXTURE
+from ..ops.compact import (compact_blocks_any, gather_rows, host_cond,
+                           scatter_back)
 from ..ops.sampling import (quad_pack_nhwc,
                             sample_bilinear_repeat_packed_layers)
 from .deferred import GBuffer
@@ -23,14 +24,35 @@ def _normalize(v):
 def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
                texture_sizes: torch.Tensor, camera_pos: torch.Tensor,
                light_dir: torch.Tensor, shadow: torch.Tensor,
-               background: torch.Tensor) -> torch.Tensor:
+               background: torch.Tensor,
+               texture_block_capacity: int | None = None) -> torch.Tensor:
     """gltf.frag main lighting with the shadow term supplied
-    (shading.py:67-157, dense sampling). Returns (H, W, 4) linear RGBA."""
+    (shading.py:67-157). Returns (..., 4) linear RGBA.
+
+    texture_block_capacity: sample the texture only for the 8x8 screen
+    blocks (64-runs on a flat domain) that hold textured pixels; overflow
+    takes the dense sampling (one host branch). None = dense. The same
+    sampler on the same inputs either way."""
     use_texture = (gbuf.flags & FLAG_USE_TEXTURE) != 0
     layer = gbuf.flags >> 8
     tex_packed = quad_pack_nhwc(texture)
-    tex = sample_bilinear_repeat_packed_layers(tex_packed, texture_sizes,
-                                               layer, gbuf.uv)
+    comp = None
+    if texture_block_capacity is not None:
+        comp = compact_blocks_any(use_texture, texture_block_capacity)
+    if comp is not None and host_cond(
+            comp.count <= texture_block_capacity, "texture_blocks",
+            [(comp.count, texture_block_capacity)]):
+        n = use_texture.numel()
+        uv_e = gather_rows(gbuf.uv.reshape(n, 2), comp)
+        layer_e = gather_rows(layer.reshape(n), comp)
+        vals = sample_bilinear_repeat_packed_layers(tex_packed, texture_sizes,
+                                                    layer_e, uv_e)
+        ones = torch.ones((n, 4), dtype=torch.float32, device=uv_e.device)
+        tex = scatter_back(ones, comp, vals).reshape(
+            use_texture.shape + (4,))
+    else:
+        tex = sample_bilinear_repeat_packed_layers(tex_packed, texture_sizes,
+                                                   layer, gbuf.uv)
     tex = torch.where(use_texture[..., None], tex, 1.0)
 
     normal = _normalize(gbuf.normal)

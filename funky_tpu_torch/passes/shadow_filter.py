@@ -1,9 +1,16 @@
-"""Shadow filtering: cascade select/blend + PCF + PCSS (port of the dense
-half of funky_tpu/passes/shadow_filter.py, lines 32-344). The sparse
-evaluation (classify -> compact -> taps) is not ported yet.
+"""Shadow filtering: cascade select/blend + PCF + PCSS (port of
+funky_tpu/passes/shadow_filter.py): the dense filter (lines 32-344) and
+the sparse-exact one (`cascaded_shadow_sparse`, lines 359-890, default
+knobs only), which classifies pixels, runs the exact taps on the
+compacted penumbra pairs and writes closed forms elsewhere.
 
 Returns the reference's ShadowResult moments (v, m1, m2, kernel radius)
 that feed the shadow TAA variance clamp.
+
+The 16 taps of each filter are summed in a fixed order (`_sum_taps`), not
+by a reduction: a reduction kernel's order can depend on how many
+outputs it has, and the sparse filter must equal the dense one bit for
+bit on batches of any size.
 """
 
 from __future__ import annotations
@@ -12,8 +19,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
+                           gather_rows, host_cond, scatter_back)
 from ..ops.sampling import (sample_nearest_border_packed,
                             sample_shadow_compare_packed)
+from .shadow_classify import classify
 from .uniforms import FrameUniforms
 
 BLOCKER_SAMPLES = 16
@@ -41,6 +51,14 @@ def shadow_frame_phi(screen_pos: torch.Tensor, frame: torch.Tensor,
     offset = torch.stack([frame * 13.37, frame * 17.17])
     p = torch.where(taa_enabled > 0.5, screen_pos + offset, screen_pos)
     return interleaved_gradient_noise(p) * 6.2831853
+
+
+def _sum_taps(x: torch.Tensor) -> torch.Tensor:
+    """x[0] + x[1] + ... in that order, for any batch shape."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
 
 
 def vogel_disk_all(count: int, phi: torch.Tensor):
@@ -128,8 +146,8 @@ def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi):
     d = sample_nearest_border_packed(shadow_maps, layer[None],
                                      uv[None] + off, border=1.0)
     hit = d < receiver[None]
-    blocker_sum = torch.where(hit, d, 0.0).sum(dim=0)
-    blocker_cnt = hit.to(torch.float32).sum(dim=0)
+    blocker_sum = _sum_taps(torch.where(hit, d, 0.0))
+    blocker_cnt = _sum_taps(hit.to(torch.float32))
 
     has_blockers = blocker_cnt > 0.0
     blocker_depth = blocker_sum / torch.clamp(blocker_cnt, min=1.0)
@@ -144,8 +162,8 @@ def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi):
     off = torch.stack([dx, dy], dim=-1) * (penumbra * texel)[None, ..., None]
     s = sample_shadow_compare_packed(shadow_maps, layer[None],
                                      uv[None] + off, receiver[None])
-    s_sum = s.sum(dim=0)
-    s_sum2 = (s * s).sum(dim=0)
+    s_sum = _sum_taps(s)
+    s_sum2 = _sum_taps(s * s)
     return s_sum / PCF_SAMPLES, s_sum2 / PCF_SAMPLES, penumbra, has_blockers
 
 
@@ -183,11 +201,11 @@ def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi):
                              for dx in (-1, 0, 1)], dtype=torch.float32,
                             device=uv.device) * texel
         s = compare(offs.reshape((9,) + (1,) * ref.ndim + (2,)))
-        return (s.sum(dim=0) / 9.0, (s * s).sum(dim=0) / 9.0,
+        return (_sum_taps(s) / 9.0, _sum_taps(s * s) / 9.0,
                 torch.ones_like(ref))
     dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
     s = compare(torch.stack([dx, dy], dim=-1) * (radius * texel))
-    return (s.sum(dim=0) / PCF_SAMPLES, (s * s).sum(dim=0) / PCF_SAMPLES,
+    return (_sum_taps(s) / PCF_SAMPLES, _sum_taps(s * s) / PCF_SAMPLES,
             torch.full_like(ref, float(radius)))
 
 
@@ -232,4 +250,182 @@ def cascaded_shadow(uni: FrameUniforms, shadow_maps: torch.Tensor,
     fn = shadow_pcss if use_pcss else shadow_pcf
     s0 = fn(uni, shadow_maps, c0, world, normal, n_dot_l, phi)
     s1 = fn(uni, shadow_maps, c1, world, normal, n_dot_l, phi)
+    return mix_shadow(s0, s1, t), c0, c1, t
+
+
+def pcf_frame_kernel(uni: FrameUniforms) -> torch.Tensor:
+    """The frame-constant PCF kernel radius (shadow_filter.py:286-290)."""
+    radius = torch.clamp(uni.shadow_bias[0], min=0.5)
+    return torch.where(radius <= 1.25, 1.0, radius)
+
+
+# ---------------------------------------------------------------------------
+# Sparse evaluation: classify -> compact -> exact taps on penumbra pairs
+# (shadow_filter.py:347-890). Only the default knobs: no tap windows, light
+# maps, routes or radius-only groups, not committed, back faces included.
+# ---------------------------------------------------------------------------
+
+
+def _classified_select(cmaps, proj_all, bias, cascade, softness, use_pcss):
+    """shadow_filter.py:370-378."""
+    uv, receiver, inb = _select_cascade(proj_all, cascade)
+    receiver = receiver - bias
+    lit, umbra = classify(cmaps, cascade, uv, receiver, softness, use_pcss)
+    return uv, receiver, inb, lit, umbra
+
+
+def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
+                         normal, n_dot_l, softness, use_pcss: bool, valid):
+    """Project once, classify both cascades and derive the pair masks
+    that need exact taps (shadow_filter.py:381-471, committed=False). c1
+    is classified only on the 8x8 blocks (64-runs on a flat domain) that
+    touch a blend band, with the dense classification as the overflow
+    branch. Returns (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1,
+    needs0, needs1)."""
+    n = blend.numel()
+    proj_all, bias = _project_all(uni, world, normal, n_dot_l)
+    uv0, r0, inb0, lit0, um0 = _classified_select(
+        cmaps, proj_all, bias, c0, softness, use_pcss)
+
+    uv1, recv1, inb1 = _select_cascade(proj_all, c1)
+    r1 = recv1 - bias
+    band_mask = blend & valid
+
+    band_bcap = max((n // 64) // 8, 128)
+    comp_band = compact_blocks_any(band_mask, band_bcap)
+    if comp_band is not None and host_cond(
+            comp_band.count <= band_bcap, "shadow_band",
+            [(comp_band.count, band_bcap)]):
+        uv_e = gather_rows(uv1.reshape(n, 2), comp_band)
+        r_e = gather_rows(r1.reshape(n), comp_band)
+        c_e = gather_rows(c1.reshape(n), comp_band)
+        lit_e, um_e = classify(cmaps, c_e, uv_e, r_e, softness, use_pcss)
+        none = torch.zeros((n,), dtype=torch.bool, device=blend.device)
+        lit1 = scatter_back(none, comp_band, lit_e & comp_band.slot_valid)
+        um1 = scatter_back(none, comp_band, um_e & comp_band.slot_valid)
+        lit1, um1 = lit1.reshape(blend.shape), um1.reshape(blend.shape)
+    else:
+        lit1, um1 = classify(cmaps, c1, uv1, r1, softness, use_pcss)
+
+    if use_pcss:
+        # Inside a blend band the pair must close the same way on both
+        # sides, else both cascades evaluate exactly (the kernel radius
+        # feeds the TAA variance clamp); see the JAX comments.
+        lit0e = lit0 | ~inb0
+        lit1e = lit1 | ~inb1
+        closed = torch.where(blend,
+                             (lit0e & lit1e) | (um0 & um1 & inb0 & inb1),
+                             lit0e | um0)
+        needs0 = valid & inb0 & ~closed
+        needs1 = valid & inb1 & blend & ~closed
+    else:
+        needs0 = valid & inb0 & ~lit0 & ~um0
+        needs1 = valid & inb1 & blend & ~lit1 & ~um1
+    return (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0,
+            needs1)
+
+
+def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
+                           cmaps, world: torch.Tensor, normal: torch.Tensor,
+                           n_dot_l: torch.Tensor, view_depth: torch.Tensor,
+                           screen_pos: torch.Tensor, use_pcss: bool,
+                           valid: torch.Tensor | None = None,
+                           capacity: int | None = None):
+    """Sparse-exact main shadow evaluation (shadow_filter.py:474-890 with
+    the default knobs): identical outputs to `cascaded_shadow` on every
+    valid pixel. The needed (pixel, cascade) pairs are compacted grouped
+    by cascade, each cascade's group runs the exact taps against its own
+    (S, S, 4) table, and the results are scattered into the closed-form
+    base. capacity (default max(n // 16, 256) pairs, for the total and
+    for each cascade) overflowing takes the dense filter instead (one host
+    branch). Works on any domain shape. Returns (ShadowResult, c0, c1,
+    t)."""
+    c0, c1, t = select_cascade_blend(view_depth, uni.cascade_splits)
+    phi = shadow_frame_phi(screen_pos, uni.debug_flags[3],
+                           uni.debug_flags[2])
+    softness = uni.shadow_bias[0]
+    dev = c0.device
+
+    n = c0.numel()
+    cap = capacity if capacity is not None else max(n // 16, 256)
+    if valid is None:
+        valid = torch.ones(c0.shape, dtype=torch.bool, device=dev)
+    blend = t > 0.0
+
+    (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0,
+     needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
+                                    normal, n_dot_l, softness, use_pcss,
+                                    valid)
+
+    def dense_base(inb, umbra):
+        m = torch.where(umbra & inb, 0.0, 1.0)
+        if use_pcss:
+            r = torch.zeros(c0.shape, dtype=torch.float32, device=dev)
+        else:
+            r = torch.where(inb, pcf_frame_kernel(uni), 0.0)
+        return torch.stack([m, m, m, r], dim=-1)
+
+    needs = torch.stack([needs0, needs1])
+    n_casc = shadow_maps.shape[0]
+    group_key = torch.stack([c0, c1])              # the pair's cascade
+
+    comp = compact_indices(needs, cap, group_key=group_key)
+    counts_c = torch.stack([(needs & (group_key == g)).sum(dtype=torch.int32)
+                            for g in range(n_casc)])
+    offs = torch.cumsum(counts_c, 0) - counts_c
+    fits = (comp.count <= cap) & (counts_c <= cap).all()
+
+    if host_cond(fits, "shadow_pairs", [(comp.count, cap)] + [
+            (counts_c[c], cap) for c in range(n_casc)]):
+        dense = torch.stack([dense_base(inb0, um0),
+                             dense_base(inb1, um1)]).reshape(2 * n, 4)
+        # phi rides the payload row
+        phi2 = phi.reshape(1, n).expand(2, n)
+        payload = torch.stack([
+            torch.stack([uv0[..., 0], uv0[..., 1], r0], dim=-1),
+            torch.stack([uv1[..., 0], uv1[..., 1], r1], dim=-1),
+        ]).reshape(2 * n, 3)
+        payload = torch.cat([payload, phi2.reshape(2 * n, 1)], dim=-1)
+        idx_pad = torch.cat([comp.idx, torch.full((cap,), -1,
+                                                  dtype=torch.int32,
+                                                  device=dev)])
+        slot = torch.arange(cap, dtype=torch.int32, device=dev)
+        for c in range(n_casc):
+            # Under `fits` the group's segment lies inside idx_pad, so
+            # this is the JAX dynamic_slice without its start clamp.
+            idx_c = idx_pad[(offs[c] + slot).long()]
+            valid_c = slot < counts_c[c]
+            compc = Compacted(idx=torch.where(valid_c, idx_c, -1),
+                              slot_valid=valid_c, count=counts_c[c])
+            rows = gather_rows(payload, compc)
+            uv_e, recv_e, phi_e = rows[:, :2], rows[:, 2], rows[:, 3]
+            maps_c = shadow_maps[c:c + 1]
+            layer0 = torch.zeros((cap,), dtype=torch.int32, device=dev)
+            if use_pcss:
+                m1, m2, pen, hasb = _pcss_taps(uni, maps_c, layer0, uv_e,
+                                               recv_e, phi_e)
+                # Entries are in bounds by construction; the no-blocker
+                # lit override still applies.
+                vals = torch.stack([torch.where(hasb, m1, 1.0),
+                                    torch.where(hasb, m1, 1.0),
+                                    torch.where(hasb, m2, 1.0),
+                                    torch.where(hasb, pen, 0.0)], dim=-1)
+            else:
+                m1, m2, kern = _pcf_taps(uni, maps_c, layer0, uv_e, recv_e,
+                                         phi_e)
+                vals = torch.stack([m1, m1, m2, kern], dim=-1)
+            dense = scatter_back(dense, compc, vals)
+        out = dense
+    else:
+        fn = shadow_pcss if use_pcss else shadow_pcf
+        sd0 = fn(uni, shadow_maps, c0, world, normal, n_dot_l, phi)
+        sd1 = fn(uni, shadow_maps, c1, world, normal, n_dot_l, phi)
+        out = torch.stack([torch.stack(sd0, dim=-1),
+                           torch.stack(sd1, dim=-1)]).reshape(2 * n, 4)
+
+    out = out.reshape((2,) + tuple(c0.shape) + (4,))
+    s0 = ShadowResult(out[0, ..., 0], out[0, ..., 1], out[0, ..., 2],
+                      out[0, ..., 3])
+    s1 = ShadowResult(out[1, ..., 0], out[1, ..., 1], out[1, ..., 2],
+                      out[1, ..., 3])
     return mix_shadow(s0, s1, t), c0, c1, t

@@ -1,10 +1,11 @@
 """Shadow TAA: history reprojection + variance clamp (port of
-funky_tpu/passes/taa.py::apply_shadow_taa on a row slab).
+funky_tpu/passes/taa.py::apply_shadow_taa), on a row slab or on any batch
+with explicit pixel centres (the blocked back half's flat domain).
 
-The JAX version picks between an aligned-history fast path (taa.py:159-189)
-and the gathered read (taa.py:131-133) with a lax.cond; both give the same
-output, so the port always takes the gathered read. The sparse `need`-set
-read (taa_need_capacity) is not ported yet.
+On a row slab the JAX version picks between an aligned-history fast path
+(taa.py:159-189) and the gathered read (taa.py:131-133) with a lax.cond;
+both give the same output, so the port always takes the gathered read.
+The sparse `need`-set read (taa_need_capacity) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,16 +28,25 @@ def init_history(height: int, width: int, device) -> torch.Tensor:
 def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
                      uni: FrameUniforms, history: torch.Tensor,
                      use_shadow_taa: bool, y0: int = 0,
-                     full_height: int | None = None
+                     full_height: int | None = None,
+                     frag: torch.Tensor | None = None,
+                     full_width: int | None = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """taa.py:30-193 for an (h, W) row slab at global row y0 with the
-    dense gathered history read. `history` is the full-frame buffer.
-    Returns (out_shadow, new_history (h, W, 2))."""
+    """taa.py:30-193 with the dense gathered history read, for an (h, W)
+    row slab at global row y0 (frag=None), or for any batch shape with
+    explicit `frag` pixel centres (x + 0.5 convention) and the full
+    framebuffer size. `history` is the full-frame buffer. Returns
+    (out_shadow, new_history (..., 2)) shaped like cur.v."""
     current = cur.v
-    h, w = current.shape
-    fh = full_height if full_height is not None else h
-    fw = w
-    frag_x, frag_y = pixel_centers(h, w, y0, current.device)
+    if frag is None:
+        h, w = current.shape
+        fh = full_height if full_height is not None else h
+        fw = w
+        frag_x, frag_y = pixel_centers(h, w, y0, current.device)
+    else:
+        assert full_height is not None and full_width is not None
+        fh, fw = full_height, full_width
+        frag_x, frag_y = frag[..., 0], frag[..., 1]
 
     ones = torch.ones(world.shape[:-1] + (1,), dtype=torch.float32,
                       device=world.device)

@@ -1,41 +1,61 @@
 #!/usr/bin/env python3
-"""Where the time of the port's dense glTF frame goes, on one NVIDIA GPU.
+"""Where the time of the port's glTF frame goes, on one NVIDIA GPU.
 
-    python3 profile_port.py [trace.json]
+    python3 profile_port.py [--config dense|default] [--scene multimesh|large]
+                            [--trace trace.json]
 
-Renders chip_smoke.py's configuration (multimesh scene, 1920x1080, 4 x
-2048^2 cascades, dense path, kernel raster): 8 chained frames with a
+Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
+2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
+default) or GltfConfig() (`default`: sparse shadows and contact,
+valid-block back half, block-sparse texture sampling), on the multimesh
+or the large scene. 8 chained frames (2 parked, 6 orbit poses) with a
 synchronize around every stage (per-stage host-clock medians), 8 more
-without (frame time), then one frame under torch.profiler (device time by
-kernel, device busy and idle share). Writes the profiler's chrome trace to
-the path given, if any. Needs a CUDA card; imports no jax.
+without (frame time), then one frame under torch.profiler (device time
+by kernel, device busy and idle share). Writes the profiler's chrome
+trace to the path given, if any. Needs a CUDA card; imports no jax.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
-import sys
 import time
 
 import torch
 
-from chip_smoke import (HEIGHT, SHADOW, WIDTH, dense_config, fail, gpu_line,
-                        multimesh)
+from chip_smoke import (HEIGHT, SHADOW, WIDTH, default_config, dense_config,
+                        fail, gpu_line, load_scene, poses_for, scene_params)
 
-# (module, attribute, label) of each stage render_gltf_frame calls.
-STAGES = (
+# (module, attribute, label) of each stage render_gltf_frame calls, shared
+# by both configurations.
+COMMON = (
     ("frame", "compute_frame_uniforms", "uniforms"),
     ("geometry", "transform_vertices", "geometry"),
     ("shadow", "render_shadow_maps", "shadow rasters x4"),
     ("frame", "quad_pack", "quad_pack"),
     ("frame", "_main_raster_inputs", "near clip"),
     ("frame", "raster_corners", "main raster"),
-    ("deferred", "interpolate", "deferred"),
-    ("shadow_filter", "cascaded_shadow", "shadow filter"),
     ("taa", "apply_shadow_taa", "taa"),
-    ("contact", "compute_contact_shadow", "contact"),
     ("shading", "shade_gltf", "shading"),
 )
+STAGES = {
+    "dense": COMMON + (
+        ("deferred", "interpolate", "deferred"),
+        ("shadow_filter", "cascaded_shadow", "shadow filter"),
+        ("contact", "compute_contact_shadow", "contact"),
+    ),
+    "default": COMMON + (
+        ("frame", "light_ground_planes", "class planes"),
+        ("frame", "build_class_maps", "class maps"),
+        ("frame", "compact_valid_blocks", "valid-block compaction"),
+        ("frame", "gather_blocks", "valid-block gather"),
+        ("deferred", "interpolate_at", "deferred"),
+        ("shadow_filter", "cascaded_shadow_sparse", "shadow filter (sparse)"),
+        ("contact", "reference_plane", "contact plane"),
+        ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
+        ("frame", "scatter_blocks", "valid-block scatter"),
+    ),
+}
 
 
 def chain(scene, poses, cfg, dev):
@@ -53,7 +73,7 @@ def chain(scene, poses, cfg, dev):
     return ms, state
 
 
-def stage_times(scene, poses, cfg, dev):
+def stage_times(scene, poses, cfg, dev, stages):
     """Per-stage ms: each stage function wrapped in synchronizes for the
     length of one chain, then restored."""
     from funky_tpu_torch import frame
@@ -63,7 +83,7 @@ def stage_times(scene, poses, cfg, dev):
     mods = dict(frame=frame, geometry=geometry, shadow=shadow,
                 deferred=deferred, shadow_filter=shadow_filter, taa=taa,
                 contact=contact, shading=shading)
-    times = {label: [] for _, _, label in STAGES}
+    times = {label: [] for _, _, label in stages}
     saved = []
 
     def timed(fn, label):
@@ -76,7 +96,7 @@ def stage_times(scene, poses, cfg, dev):
             return out
         return run
 
-    for mod, attr, label in STAGES:
+    for mod, attr, label in stages:
         fn = getattr(mods[mod], attr)
         saved.append((mods[mod], attr, fn))
         setattr(mods[mod], attr, timed(fn, label))
@@ -89,29 +109,43 @@ def stage_times(scene, poses, cfg, dev):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(STAGES), default="dense")
+    ap.add_argument("--scene", choices=("multimesh", "large"),
+                    default="multimesh")
+    ap.add_argument("--trace", help="write the profiler's chrome trace here")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this profile needs an NVIDIA GPU")
     from funky_tpu_torch import frame
+    from funky_tpu_torch.ops import compact
     from torch.profiler import ProfilerActivity, profile
 
     gpu = gpu_line()
     print(gpu, flush=True)
     dev = torch.device("cuda:0")
-    gltf, scene = multimesh(dev)
-    cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
-    params = frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
-                                       gltf_scale=1.0, device=dev)
-    poses = [params] * 2 + [frame.orbit_params(params, i) for i in range(1, 7)]
+    gltf, scene = load_scene(dev, large=args.scene == "large")
+    cfg = (dense_config(WIDTH, HEIGHT, SHADOW, "auto")
+           if args.config == "dense" else default_config())
+    params = scene_params(gltf, dev)
+    poses = poses_for(params, 2, 6)
+    print(f"{args.config} configuration, {args.scene} scene", flush=True)
 
-    times = stage_times(scene, poses, cfg, dev)
-    total = sum(statistics.median(v[1:]) for v in times.values())
+    times = stage_times(scene, poses, cfg, dev, STAGES[args.config])
+    total = sum(statistics.median(v[1:]) for v in times.values() if v[1:])
     for label, v in times.items():
+        if not v[1:]:
+            print(f"stage {label:24s} not run", flush=True)
+            continue
         m = statistics.median(v[1:])
-        print(f"stage {label:18s} {m:10.3f} ms  {m / total:6.1%}", flush=True)
+        print(f"stage {label:24s} {m:10.3f} ms  {m / total:6.1%}  "
+              f"({len(v)} calls)", flush=True)
+    compact.reset_host_syncs()
     ms, state = chain(scene, poses, cfg, dev)
     frame_ms = statistics.median(ms[1:])
     print(f"frame {WIDTH}x{HEIGHT}: median {frame_ms:.3f} ms host clock "
-          f"without stage syncs, stages summed {total:.3f} ms [{gpu}]",
+          f"without stage syncs, stages summed {total:.3f} ms; host branches "
+          f"over {len(poses)} frames {dict(compact.BRANCHES)} [{gpu}]",
           flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -128,8 +162,8 @@ def main() -> None:
           f"launches, device busy {busy:.3f} ms; idle share against the "
           f"unprofiled frame {1 - busy / frame_ms:.3f} [{gpu}]", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
-    if len(sys.argv) > 1:
-        prof.export_chrome_trace(sys.argv[1])
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":

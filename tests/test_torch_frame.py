@@ -78,19 +78,20 @@ def test_loader_matches_jax(which):
     """The port's own loader + packing equals the JAX package's, array
     for array (dtypes included)."""
     if which == "multimesh":
-        port = tbuild(port_multimesh_scene())
+        port = tbuild(port_multimesh_scene(), device="cpu")
         ref = jbuild(multimesh_gltf())
     elif which == "ground_only":
-        port, ref = tbuild(None), jbuild(None)
+        port, ref = tbuild(None, device="cpu"), jbuild(None)
     else:
-        port, ref = tcube(), jcube()
+        port, ref = tcube(device="cpu"), jcube()
     assert_scene_equal(port, ref)
 
 
 def test_params_and_orbit_poses_match():
     jp = multimesh_params()
     tp = tf.default_gltf_params(
-        gltf_min_y=float(multimesh_gltf().bounds_min[1]), gltf_scale=1.0)
+        gltf_min_y=float(multimesh_gltf().bounds_min[1]), gltf_scale=1.0,
+        device="cpu")
     for i in (0, 1, 2, 5):
         jo, to = bench.orbit_params(jp, i), tf.orbit_params(tp, i)
         for name in tf.GltfParams.__dataclass_fields__:
@@ -130,7 +131,7 @@ def test_slice_matches_jax():
     frame = jf.compiled_gltf_frame(jcfg)
     main = _jax_main_raster(jcfg)
     jstate = jf.init_frame_state(jcfg)
-    tstate = tf.init_frame_state(tcfg)
+    tstate = tf.init_frame_state(tcfg, "cpu")
     n_px = jcfg.width * jcfg.height
     for i, pose in enumerate(poses):
         jid, jdepth = main(scene, pose, jstate)
@@ -165,16 +166,17 @@ def jpeg_quad_case():
     _, cfg = slice_configs(width=192, height=112, shadow=64)
     tile = dataclasses.replace(cfg.raster, capacity=64)
     cfg = dataclasses.replace(cfg, raster=tile, shadow_raster=tile)
-    params = tf.default_gltf_params(gltf_min_y=0.0, gltf_scale=1.0)
-    return tbuild(gltf), params, cfg, "jpeg_quad_192x112.png"
+    params = tf.default_gltf_params(gltf_min_y=0.0, gltf_scale=1.0,
+                                    device="cpu")
+    return tbuild(gltf, device="cpu"), params, cfg, "jpeg_quad_192x112.png"
 
 
 def multimesh_case():
     _, cfg = slice_configs()
     gltf = port_multimesh_scene()
     params = tf.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
-                                    gltf_scale=1.0)
-    return tbuild(gltf), params, cfg, "multimesh_pbr_256x144.png"
+                                    gltf_scale=1.0, device="cpu")
+    return tbuild(gltf, device="cpu"), params, cfg, "multimesh_pbr_256x144.png"
 
 
 @pytest.mark.parametrize("case", [multimesh_case, jpeg_quad_case],
@@ -183,7 +185,7 @@ def test_slice_matches_golden(case):
     """Two parked frames of the port match the committed golden image
     (rendered by the JAX package) under the golden tolerance."""
     scene, params, cfg, golden = case()
-    state = tf.init_frame_state(cfg)
+    state = tf.init_frame_state(cfg, "cpu")
     for _ in range(2):
         rgba, state = tf.render_gltf_frame(scene, params, state, cfg)
     got = linear_to_srgb(t2n(rgba)[..., :3])
@@ -206,7 +208,7 @@ from funky_tpu_torch.ops.raster import RasterConfig
 with tempfile.TemporaryDirectory() as td:
     gltf = GltfScene.load(build_multimesh_glb(pathlib.Path(td) / "m.glb",
                                               two_textures=True))
-scene = build_device_scene(gltf)
+scene = build_device_scene(gltf, device="cpu")
 tile = RasterConfig(tile_h=16, tile_w=128)
 cfg = frame.GltfConfig(width=64, height=32, shadow_map_size=32, raster=tile,
                        shadow_raster=tile, valid_block_capacity=0,
@@ -214,9 +216,10 @@ cfg = frame.GltfConfig(width=64, height=32, shadow_map_size=32, raster=tile,
                        flags=frame.GltfFrameFlags(sparse_shadows=False,
                                                   sparse_contact=False))
 params = frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
-                                   gltf_scale=1.0)
+                                   gltf_scale=1.0, device="cpu")
 rgba, state = frame.render_gltf_frame(scene, params,
-                                      frame.init_frame_state(cfg), cfg)
+                                      frame.init_frame_state(cfg, "cpu"),
+                                      cfg)
 assert rgba.shape == (32, 64, 4) and bool(torch.isfinite(rgba).all())
 assert "jax" not in sys.modules and "funky_tpu" not in sys.modules
 assert not torch.backends.cuda.matmul.allow_tf32
@@ -229,6 +232,12 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+# The knobs this port honours since the default exact-sparse frame was
+# ported: their cases now check that check_supported accepts them.
+PORTED_KNOBS = ("sparse_shadows", "sparse_contact", "valid_block_capacity",
+                "texture_block_capacity")
 
 
 @pytest.mark.parametrize("override", [
@@ -244,16 +253,47 @@ def test_port_imports_no_jax():
     dict(texture_block_capacity=64),
     dict(valid_slab_rows=64),
     dict(taa_need_capacity=1024),
+    dict(shadow_tap_windows=(384, 0, 0, 0)),
+    dict(shadow_route_windows=(256, 256, 0, 0)),
+    dict(shadow_route_caps=(1024, 1024, 0, 0)),
+    dict(shadow_lit_cascade_caps=(1024, 1024, 0, 0)),
+    dict(shadow_pen_cascade_caps=(1024, 1024, 0, 0)),
+    dict(shadow_pen_block_capacity=256),
+    dict(contact_block_capacity=256),
 ], ids=lambda o: ",".join(
     f"{k}" if k != "flags" else ",".join(o["flags"]) for k in o))
 def test_unsupported_knobs_raise(override):
+    """check_supported names every knob the port refuses, and accepts the
+    ones it has ported."""
     import dataclasses
 
     override = dict(override)
     _, cfg = slice_configs()
-    flags = dataclasses.replace(cfg.flags, **override.pop("flags", {}))
+    flag_kw = override.pop("flags", {})
+    flags = dataclasses.replace(cfg.flags, **flag_kw)
     cfg = dataclasses.replace(cfg, flags=flags, **override)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    (name,) = list(flag_kw) + list(override)
+    if name in PORTED_KNOBS:
         tf.check_supported(cfg)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="not yet ported.*" + name):
+            tf.check_supported(cfg)
     _, ok = slice_configs()
     tf.check_supported(ok)
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that makes tensors puts them on the card unless
+    the caller asks for the CPU."""
+    import inspect
+
+    from funky_tpu_torch import convert
+    from funky_tpu_torch.models import scene
+
+    for fn in (scene.build_device_scene, scene.build_cube_scene,
+               tf.default_gltf_params, tf.init_frame_state,
+               convert.scene_from_numpy, convert.params_from_numpy,
+               convert.state_from_numpy, convert.uniforms_from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__

@@ -258,7 +258,7 @@ def test_frame_flag_variants_match_jax():
         tcfg = dataclasses.replace(
             tcfg0, flags=dataclasses.replace(tcfg0.flags, **variant))
         jstate = jf.init_frame_state(jcfg)
-        tstate = tf.init_frame_state(tcfg)
+        tstate = tf.init_frame_state(tcfg, "cpu")
         frame = jf.compiled_gltf_frame(jcfg)
         for _ in range(2):
             jr, jstate = frame(scene, params, jstate)

@@ -1,5 +1,6 @@
 """Port parity: the tile raster (funky_tpu_torch/ops/{binning,raster}.py)
-against funky_tpu's, and the Hopper kernel against its plain twin.
+against funky_tpu's, the route between the table kernel (K1) and the
+pre-gathered one (K2), and the Hopper kernels' wrappers on the CPU.
 
 Tolerances:
 - tri_id, bins and counts are compared exactly.
@@ -18,6 +19,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from funky_tpu.ops import binning as jbin
+from funky_tpu.ops import raster_pallas as jpallas
 from funky_tpu.ops.raster import RasterConfig as JRC
 from funky_tpu.ops.raster import raster_scene as jraster_scene
 
@@ -152,3 +154,72 @@ def test_auto_backend_takes_the_plain_twin_on_cpu(scene):
         port_raster(clip, tris, TRC(tile_h=8, tile_w=128, backend="cuda"))
     with pytest.raises(ValueError, match="backend"):
         TRC(backend="pallas")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pregather_route_matches_pallas_padded(scene, case, monkeypatch):
+    """With the table limit patched to 0 every raster takes the
+    pre-gather route: gather_bin_data, then (on the CPU) the plain twin.
+    It matches JAX's _rasterize_pallas_padded run in interpret mode on
+    JAX's own pre-gathered rows: tri_id equal, depth within DEPTH_TOL
+    (the interpreted kernel body is jitted, so XLA contracts its planes)."""
+    monkeypatch.setattr(traster, "TABLE_LIMIT_BYTES", 0)
+    clip, tris = scene
+    c = CASES[case]
+    sh = HEIGHT if c["slice_height"] is None else c["slice_height"]
+    jcfg = JRC(tile_h=8, tile_w=128, capacity=c["capacity"], backend="jnp")
+    jsetup = jbin.triangle_setup(jnp.asarray(clip), jnp.asarray(tris),
+                                 WIDTH, HEIGHT, len(tris))
+    cap = jcfg.resolve_capacity(len(tris))
+    jb, jc = jbin.bin_triangles(jsetup, WIDTH, sh, 8, 128, cap,
+                                c["y_offset"])
+    with pltpu.force_tpu_interpret_mode():
+        id_j, z_j = jpallas.rasterize_pallas(
+            jbin.gather_bin_data(jsetup, jb), jb, jc, WIDTH, sh, jcfg,
+            c["y_offset"])
+    tcfg = TRC(tile_h=8, tile_w=128, capacity=c["capacity"])
+    id_t, z_t, _ = port_raster(clip, tris, tcfg, c["y_offset"],
+                               c["slice_height"])
+    np.testing.assert_array_equal(id_t, np.asarray(id_j))
+    np.testing.assert_allclose(z_t, np.asarray(z_j), rtol=0, atol=DEPTH_TOL)
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["at_limit", "past_limit"])
+def test_route_selection_at_the_table_limit(scene, monkeypatch, over):
+    """On a card, raster_corners takes K1 exactly when T * 64 bytes fit
+    TABLE_LIMIT_BYTES and K2, on pre-gathered rows, past it. The kernel
+    wrappers are replaced by recorders that run the plain twin."""
+    from funky_tpu_torch.ops.binning import TriangleSetup
+
+    clip, tris = scene
+    t_rows = len(tris)
+    monkeypatch.setattr(traster, "TABLE_LIMIT_BYTES", t_rows * 64 - over)
+    calls = []
+    cfg = TRC(tile_h=8, tile_w=128, backend="cuda")
+    plain = TRC(tile_h=8, tile_w=128, backend="torch")
+
+    def table(setup_data, bins, counts, w, h, th, tw, y0):
+        calls.append("K1")
+        rows = tbin.gather_bin_data(TriangleSetup(setup_data, None), bins)
+        return traster._rasterize_torch(rows, bins, counts, y0, w, h, plain)
+
+    def padded(bin_data, counts, w, h, th, tw, y0):
+        calls.append("K2")
+        bins = bin_data[..., 12].contiguous().view(torch.int32)
+        return traster._rasterize_torch(bin_data, bins, counts, y0, w, h,
+                                        plain)
+
+    monkeypatch.setattr(raster_cuda, "raster_table_cuda", table)
+    monkeypatch.setattr(raster_cuda, "raster_padded_cuda", padded)
+    id_k, z_k, _ = port_raster(clip, tris, cfg)
+    id_p, z_p, _ = port_raster(clip, tris, plain)
+    assert calls == (["K2"] if over else ["K1"])
+    np.testing.assert_array_equal(id_k, id_p)
+    np.testing.assert_array_equal(z_k, z_p)
+
+
+def test_padded_wrapper_refuses_cpu_tensors():
+    rows = torch.zeros((2, 8, 16))
+    counts = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        raster_cuda.raster_padded_cuda(rows, counts, 256, 8, 8, 128)

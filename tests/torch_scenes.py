@@ -32,3 +32,136 @@ def with_coplanar_duplicates(clip, n_dup_tris=10):
     the first-drawn (lower) id must win."""
     clip = np.concatenate([clip, clip[:3 * n_dup_tris]])
     return clip, np.arange(len(clip), dtype=np.int32).reshape(-1, 3)
+
+
+def build_large_glb(path, quads: int = 192, size: float = 40.0,
+                    amplitude: float = 0.12):
+    """Write a GLB past the raster's 4 MiB table limit to `path`: the
+    multimesh scene's two cubes over a gently displaced, textured
+    `quads` x `quads` terrain patch of side `size` (2 * quads**2
+    triangles: 73,728 at the default). The terrain is a smooth height
+    field, so it casts and receives shadows and spreads its triangles
+    evenly over the screen and the shadow maps (no tile holds a large
+    share of them). Returns `path`."""
+    import io
+    import json
+    import struct
+
+    from funky_tpu_torch.models.png_io import write_png
+
+    def cube_mesh(offset, s=0.5):
+        verts = np.array([
+            [-s, -s, s], [s, -s, s], [s, s, s], [-s, s, s],
+            [-s, -s, -s], [-s, s, -s], [s, s, -s], [s, -s, -s],
+        ], np.float32) + np.asarray(offset, np.float32)
+        idx = np.array([0, 1, 2, 2, 3, 0, 4, 5, 6, 6, 7, 4,
+                        3, 2, 6, 6, 5, 3, 0, 4, 7, 7, 1, 0,
+                        1, 7, 6, 6, 2, 1, 0, 3, 5, 5, 4, 0], np.uint16)
+        return verts, idx
+
+    n = quads + 1
+    g = np.linspace(-size / 2, size / 2, n, dtype=np.float64)
+    x, z = np.meshgrid(g, g)
+    k1, k2 = 2 * np.pi / 5.0, 2 * np.pi / 3.1
+    y = amplitude * (1.0 + np.sin(k1 * x) * np.cos(k1 * z)
+                     + 0.5 * np.sin(k2 * (x + z)))
+    dydx = amplitude * (k1 * np.cos(k1 * x) * np.cos(k1 * z)
+                        + 0.5 * k2 * np.cos(k2 * (x + z)))
+    dydz = amplitude * (-k1 * np.sin(k1 * x) * np.sin(k1 * z)
+                        + 0.5 * k2 * np.cos(k2 * (x + z)))
+    nrm = np.stack([-dydx, np.ones_like(y), -dydz], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tv = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    tn = nrm.reshape(-1, 3).astype(np.float32)
+    tuv = (np.stack([x, z], -1).reshape(-1, 2) / size * 4.0).astype(
+        np.float32)
+    i = np.arange(quads)
+    a = (i[:, None] * n + i[None, :]).ravel()          # quad corners
+    quad_tris = np.stack([a, a + n, a + 1, a + 1, a + n, a + n + 1], -1)
+    ti = quad_tris.reshape(-1).astype(np.uint16)
+
+    top = float(y.max())
+    v0, i0 = cube_mesh((-1.5, top + 0.45, 0.0))
+    v1, i1 = cube_mesh((1.5, top + 0.45, 0.0))
+
+    tex_path = path.parent / "terrain.png"
+    c = np.zeros((8, 8, 4), np.uint8)
+    c[..., 3] = 255
+    c[..., :3] = [90, 140, 70]
+    c[(np.arange(8)[:, None] + np.arange(8)[None, :]) % 2 == 0, :3] = \
+        [150, 170, 90]
+    write_png(tex_path, c)
+    tex_blob = tex_path.read_bytes()
+
+    blobs, views, accessors = [], [], []
+
+    def add(data, count, ctype, atype, vmin=None, vmax=None):
+        offset = sum(len(b) for b in blobs)
+        blobs.append(data + b"\0" * ((-len(data)) % 4))
+        views.append({"buffer": 0, "byteOffset": offset,
+                      "byteLength": len(data)})
+        acc = {"bufferView": len(views) - 1, "componentType": ctype,
+               "count": count, "type": atype}
+        if vmin is not None:
+            acc["min"] = vmin
+            acc["max"] = vmax
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    def pos(v):
+        return add(v.tobytes(), len(v), 5126, "VEC3", v.min(0).tolist(),
+                   v.max(0).tolist())
+
+    a_v0, a_i0 = pos(v0), add(i0.tobytes(), len(i0), 5123, "SCALAR")
+    a_v1, a_i1 = pos(v1), add(i1.tobytes(), len(i1), 5123, "SCALAR")
+    a_tv = pos(tv)
+    a_tn = add(tn.tobytes(), len(tn), 5126, "VEC3")
+    a_tuv = add(tuv.tobytes(), len(tuv), 5126, "VEC2")
+    a_ti = add(ti.tobytes(), len(ti), 5123, "SCALAR")
+    off = sum(len(b) for b in blobs)
+    blobs.append(tex_blob + b"\0" * ((-len(tex_blob)) % 4))
+    views.append({"buffer": 0, "byteOffset": off,
+                  "byteLength": len(tex_blob)})
+
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1, 2]}],
+        "nodes": [{"mesh": 0}, {"mesh": 1}, {"mesh": 2}],
+        "meshes": [
+            {"primitives": [{"attributes": {"POSITION": a_v0},
+                             "indices": a_i0, "material": 0}]},
+            {"primitives": [{"attributes": {"POSITION": a_v1},
+                             "indices": a_i1, "material": 1}]},
+            {"primitives": [{"attributes": {"POSITION": a_tv,
+                                            "NORMAL": a_tn,
+                                            "TEXCOORD_0": a_tuv},
+                             "indices": a_ti, "material": 2}]},
+        ],
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.8, 0.1, 0.1, 1],
+                                      "metallicFactor": 0.9,
+                                      "roughnessFactor": 0.2}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.1, 0.1, 0.8, 1],
+                                      "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.9}},
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                      "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.8}},
+        ],
+        "textures": [{"source": 0}],
+        "images": [{"bufferView": len(views) - 1, "mimeType": "image/png"}],
+        "bufferViews": views,
+        "accessors": accessors,
+        "buffers": [{"byteLength": sum(len(b) for b in blobs)}],
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    binv = b"".join(blobs)
+    glb = io.BytesIO()
+    glb.write(struct.pack("<III", 0x46546C67, 2,
+                          12 + 8 + len(js) + 8 + len(binv)))
+    glb.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+    glb.write(struct.pack("<II", len(binv), 0x004E4942) + binv)
+    path.write_bytes(glb.getvalue())
+    return path
