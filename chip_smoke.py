@@ -63,6 +63,11 @@ RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32 non-tensor.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 TAP_SHAPE = (16, HEIGHT, WIDTH)
+# Kernel settings timed per raster besides the shipped ones, as
+# (raster_cuda attribute, value): rectangle height (32: 32x32 rectangles
+# in the frame's tiles, 16: 16x64) and staging buffers per block.
+SWEEP = (("RECT_H", 32), ("RECT_H", 16), ("STAGES", 2), ("STAGES", 3),
+         ("STAGES", 4))
 
 _GPU = ""
 
@@ -70,13 +75,19 @@ _GPU = ""
 def kernel_cases():
     """(name, clip, tris, width, height, RasterConfig kwargs, y_offset,
     slice_height) for the kernel-vs-plain comparison: numpy-seeded random
-    screen triangles, one zero-area and one w-culled among them."""
-    from tests.torch_scenes import random_clip_scene, with_coplanar_duplicates
+    screen triangles, one zero-area and one w-culled among them; a long
+    bin (thousands of small triangles in one tile); a ragged framebuffer
+    (width not a multiple of 4 or of the rectangle); tiles smaller than
+    the kernel's rectangle, one of them 6 pixels wide."""
+    from tests.torch_scenes import (random_clip_scene, small_triangles_scene,
+                                    with_coplanar_duplicates)
 
     small = random_clip_scene(0, 300, 128, 64)
     dup = with_coplanar_duplicates(small[0])
     main = random_clip_scene(1, 2000, WIDTH, HEIGHT)
     shadow = random_clip_scene(2, 2000, SHADOW, SHADOW)
+    long_bin = small_triangles_scene(3, 4000, (0, 0, 256, 128), 2.0, 256, 256)
+    ragged = random_clip_scene(4, 400, 250, 130)
     return [
         ("small_full", *small, 128, 64, dict(tile_h=8, tile_w=128), 0, None),
         ("small_tight", *small, 128, 64,
@@ -91,6 +102,18 @@ def kernel_cases():
          dict(tile_h=128, tile_w=256), 0, None),
         ("shadow_2048_slab", *shadow, SHADOW, SHADOW,
          dict(tile_h=128, tile_w=256), 512, 256),
+        ("long_bin", *long_bin, 256, 256, dict(tile_h=128, tile_w=256), 0,
+         None),
+        ("long_bin_main_tiles", *long_bin, 256, 256,
+         dict(tile_h=32, tile_w=128), 0, None),
+        ("ragged_250x130", *ragged, 250, 130, dict(tile_h=32, tile_w=128), 0,
+         None),
+        ("ragged_250x130_shadow_tiles", *ragged, 250, 130,
+         dict(tile_h=128, tile_w=256), 0, None),
+        ("tiny_tiles_8x16", *small, 128, 64, dict(tile_h=8, tile_w=16), 0,
+         None),
+        ("tiny_tiles_5x6", *small, 128, 64, dict(tile_h=5, tile_w=6), 0,
+         None),
     ]
 
 
@@ -139,6 +162,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of fn() over `iters` runs. The runs are
+    enqueued behind a ~5 ms sleep kernel, so the events bracket the
+    kernels alone and not the host's cost of enqueueing them (cuda_ms
+    includes that wherever a run is shorter than its enqueue). fn must not
+    synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def reset_counts() -> None:
     from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
 
@@ -172,7 +216,7 @@ def phase_build() -> None:
 
 def phase_kernel_cases(dev, padded: bool) -> float:
     """K1 (padded=False) or K2 (the table limit patched to 0) against the
-    plain twin on the eight cases. Returns the max |depth| difference."""
+    plain twin on every case. Returns the max |depth| difference."""
     import torch
 
     from funky_tpu_torch.ops import raster, raster_cuda
@@ -506,8 +550,51 @@ def raster_bound(c, padded: bool):
         read + written, ops
 
 
+def culled_work(c):
+    """What the kernels' exact cull leaves of one recorded raster, counted
+    on the card with the cull's plain twin (ops/raster.py::subtile_keep)
+    over every (bin entry, rectangle) pair of the kernel's rectangles:
+    (survivors in the fullest block, survivors in all blocks, FP32 ops =
+    16 x survivors x their rectangle's pixels)."""
+    import torch
+
+    from funky_tpu_torch.ops.raster import subtile_keep
+    from funky_tpu_torch.ops.raster_cuda import rect_shape
+
+    bins, counts = c["bins"], c["counts"]
+    th, tw, w, h = c["th"], c["tw"], c["w"], c["h"]
+    rh, rw = rect_shape(th, tw)
+    dev = bins.device
+    live = (torch.arange(bins.shape[1], device=dev)[None, :]
+            < counts[:, None].clamp(max=bins.shape[1]))
+    tile_of = live.nonzero()[:, 0]
+    rows = c["table"][bins[live].long()]                  # (E, 16)
+    tiles_x = -(-w // tw)
+    ty, tx = tile_of // tiles_x, tile_of % tiles_x
+    ry, rx = torch.meshgrid(torch.arange(-(-th // rh), device=dev),
+                            torch.arange(-(-tw // rw), device=dev),
+                            indexing="ij")
+    ry, rx = ry.reshape(1, -1), rx.reshape(1, -1)         # (1, R)
+    x0 = tx[:, None] * tw + rx * rw
+    y0 = ty[:, None] * th + ry * rh
+    x1 = torch.minimum(x0 + rw, (tx[:, None] + 1) * tw).clamp(max=w)
+    y1 = torch.minimum(y0 + rh, (ty[:, None] + 1) * th).clamp(max=h)
+    pixels = (x1 - x0).clamp(min=0) * (y1 - y0).clamp(min=0)   # (E, R)
+    keep = subtile_keep(rows[:, None, :], x0, x1 - 1, y0 + c["y0"],
+                        y1 - 1 + c["y0"]) & (pixels > 0)
+    block = tile_of[:, None] * ry.shape[1] + torch.arange(
+        ry.shape[1], device=dev)[None, :]
+    per_block = torch.bincount(block[keep], minlength=1)
+    return (int(per_block.max()) if per_block.numel() else 0,
+            int(keep.sum()), 16 * int((keep * pixels).sum()))
+
+
 def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
-    """Per-raster ms of K1, K2 and the plain twin on recorded calls."""
+    """Per-raster ms of K1 and K2 on recorded calls: device time at the
+    shipped settings (key "K1") and at every other setting of SWEEP
+    ("K1 STAGES=2"), and the time through the wrapper with its enqueue
+    ("K1 wrapper", cuda_ms as PR 2 timed it); and the plain twin's."""
+    from funky_tpu_torch.ops import raster_cuda
     from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
     from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
     from funky_tpu_torch.ops.raster_cuda import (raster_padded_cuda,
@@ -518,27 +605,65 @@ def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
         setup = TriangleSetup(data=c["table"], valid=None)
         args = (c["w"], c["h"], c["th"], c["tw"], c["y0"])
         bin_data = gather_bin_data(setup, c["bins"])
+        run = {"K1": lambda: raster_table_cuda(c["table"], c["bins"],
+                                               c["counts"], *args),
+               "K2": lambda: raster_padded_cuda(bin_data, c["counts"],
+                                                *args)}
         r = dict(c, tiles=tuple(c["bins"].shape),
                  fullest=int(c["counts"].max()))
-        if "K1" in kernels:
-            r["K1"] = cuda_ms(lambda: raster_table_cuda(
-                c["table"], c["bins"], c["counts"], *args), iters=20)
-        if "K2" in kernels:
-            r["K2"] = cuda_ms(lambda: raster_padded_cuda(
-                bin_data, c["counts"], *args), iters=20)
+        for k in kernels:
+            r[k] = device_ms(run[k])
+            r[k + " wrapper"] = cuda_ms(run[k], iters=20)
+        for attr, value in SWEEP:
+            shipped = getattr(raster_cuda, attr)
+            if value == shipped:
+                continue
+            setattr(raster_cuda, attr, value)
+            try:
+                for k in kernels:
+                    r[f"{k} {attr}={value}"] = device_ms(run[k])
+            finally:
+                setattr(raster_cuda, attr, shipped)
         cfg = RasterConfig(tile_h=c["th"], tile_w=c["tw"], backend="torch")
         r["plain"] = cuda_ms(lambda: _rasterize_torch(
             gather_bin_data(setup, c["bins"]), c["bins"], c["counts"],
             c["y0"], c["w"], c["h"], cfg), iters=plain_iters,
             warmup=min(plain_iters, 1))
-        del bin_data
+        del bin_data, run
+        r["fullest_block"], r["survivors"], r["culled_ops"] = culled_work(c)
         rows.append(r)
     return rows
 
 
+def say_raster(label, r, kernels, padded):
+    """One raster's line: kernel device times (and through the wrapper, and
+    at the other settings of SWEEP), the PR 2 bound, the culled-work bound
+    and the cull's survivors. Returns (bound ms, bytes, ops, culled bound
+    ms)."""
+    from funky_tpu_torch.ops import raster_cuda
+
+    b, nbytes, ops = raster_bound(r, padded)
+    culled = max(nbytes / HBM_BPS, r["culled_ops"] / FP32_OPS) * 1e3
+    times = ", ".join(f"{k} {r[k]:.4f} ms ({r[k + ' wrapper']:.4f} ms "
+                      f"through the wrapper)" for k in kernels)
+    rh, rw = raster_cuda.rect_shape(r["th"], r["tw"])
+    sweep = "".join(f"; {key} {r[key]:.4f} ms" for key in r
+                    if key.split(" ")[0] in kernels and "=" in key)
+    say(f"{label} {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
+        f"{r['tiles']} fullest bin {r['fullest']} binned "
+        f"{int(r['counts'].sum())}: {times} (rect {rh}x{rw}, stages "
+        f"{raster_cuda.stages_for(r['tiles'][1])}{sweep}), plain "
+        f"{r['plain']:.4f} ms; bound {b:.4f} ms ({nbytes} B, {ops} FP32 "
+        f"ops), culled bound {culled:.4f} ms ({r['culled_ops']} FP32 "
+        f"ops); survivors per block: fullest {r['fullest_block']}, total "
+        f"{r['survivors']} [{_GPU}]")
+    return b, nbytes, ops, culled
+
+
 def phase_timings(dev, scene, params):
     """K1 vs plain raster on the dense path's own five rasters. Returns
-    per-frame sums (kernel ms, plain ms, bound ms, bound_by)."""
+    per-frame sums (kernel ms, plain ms, bound ms, bound_by, culled bound
+    ms)."""
     from funky_tpu_torch import frame
 
     cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
@@ -546,22 +671,18 @@ def phase_timings(dev, scene, params):
         scene, params, frame.init_frame_state(cfg, dev), cfg))
     check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
     rows = time_rasters(calls, plain_iters=5, kernels=("K1",))
-    bounds = [raster_bound(r, padded=False) for r in rows]
-    for r, (b, nbytes, ops) in zip(rows, bounds):
-        say(f"K1 raster {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
-            f"{r['tiles']} fullest {r['fullest']}: kernel {r['K1']:.4f} ms, "
-            f"plain {r['plain']:.4f} ms, bound {b:.4f} ms ({nbytes} B, "
-            f"{ops} FP32 ops) [{_GPU}]")
+    bounds = [say_raster("K1 raster", r, ("K1",), padded=False)
+              for r in rows]
     by = ("bytes" if sum(x[1] for x in bounds) / HBM_BPS
           >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
     return (sum(r["K1"] for r in rows), sum(r["plain"] for r in rows),
-            sum(b[0] for b in bounds), by)
+            sum(b[0] for b in bounds), by, sum(b[3] for b in bounds))
 
 
 def phase_large(dev):
     """GltfConfig() on the large scene: every raster past the table limit
     takes K2. Returns (launch counts, per-frame sums of K2 ms, plain ms,
-    bound ms, bound_by, K1 ms on the same rasters)."""
+    bound ms, bound_by, K1 ms on the same rasters, culled bound ms)."""
     from funky_tpu_torch import frame
 
     gltf, scene = load_scene(dev, large=True)
@@ -593,18 +714,13 @@ def phase_large(dev):
         scene, poses[-1], frame.init_frame_state(cfg, dev), cfg))
     check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
     rows = time_rasters(calls, plain_iters=1)
-    bounds = [raster_bound(r, padded=True) for r in rows]
-    for r, (b, nbytes, ops) in zip(rows, bounds):
-        say(f"large raster {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
-            f"{r['tiles']} fullest bin {r['fullest']} binned "
-            f"{int(r['counts'].sum())}: K2 {r['K2']:.4f} ms, K1 "
-            f"{r['K1']:.4f} ms, plain {r['plain']:.4f} ms, K2 bound "
-            f"{b:.4f} ms ({nbytes} B, {ops} FP32 ops) [{_GPU}]")
+    bounds = [say_raster("large raster", r, ("K2", "K1"), padded=True)
+              for r in rows]
     by = ("bytes" if sum(x[1] for x in bounds) / HBM_BPS
           >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
     return (counts, sum(r["K2"] for r in rows),
             sum(r["plain"] for r in rows), sum(b[0] for b in bounds), by,
-            sum(r["K1"] for r in rows))
+            sum(r["K1"] for r in rows), sum(b[3] for b in bounds))
 
 
 def record_tap_indices(scene, params, dev):
@@ -712,14 +828,16 @@ def main() -> None:
     phase_golden(dev, gltf, scene)
     params, _, _ = phase_dense(dev, gltf, scene)
     counts, _, _ = phase_default(dev, gltf, scene, params)
-    k1_ms, k1_plain, k1_bound, k1_by = phase_timings(dev, scene, params)
+    k1_ms, k1_plain, k1_bound, k1_by, k1_culled = phase_timings(dev, scene,
+                                                                params)
     say(f"K1 per frame (4 cascades + main, multimesh): kernel {k1_ms:.4f} "
-        f"ms, plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms [{_GPU}]")
-    (large_counts, k2_ms, k2_plain, k2_bound, k2_by,
-     k1_large) = phase_large(dev)
+        f"ms, plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms, culled "
+        f"bound {k1_culled:.4f} ms [{_GPU}]")
+    (large_counts, k2_ms, k2_plain, k2_bound, k2_by, k1_large,
+     k2_culled) = phase_large(dev)
     say(f"large scene per frame (5 rasters): K2 {k2_ms:.4f} ms, K1 on the "
         f"same rasters {k1_large:.4f} ms, plain {k2_plain:.4f} ms, K2 bound "
-        f"{k2_bound:.4f} ms [{_GPU}]")
+        f"{k2_bound:.4f} ms, culled bound {k2_culled:.4f} ms [{_GPU}]")
     g_ms, g_plain, g_lib, g_bound, g_err = phase_gather(dev, scene, params)
     say("K3 row_gather is a probe on no frame path: 0 launches on the main "
         "paths above")
@@ -731,13 +849,13 @@ def main() -> None:
              replaces="funky_tpu/ops/raster_pallas.py:208",
              launches=counts["raster_table"], max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=None),
+             library_ms=None, bound_culled_ms=k1_culled),
         dict(name="raster_padded", route="cuda",
              source="funky_tpu_torch/csrc/raster.cu",
              replaces="funky_tpu/ops/raster_pallas.py:90",
              launches=large_counts["raster_padded"], max_abs_err=err_k2,
              ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None),
+             library_ms=None, bound_culled_ms=k2_culled),
         dict(name="row_gather", route="cuda",
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",

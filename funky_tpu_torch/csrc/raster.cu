@@ -25,204 +25,440 @@
 // eager torch computes op by op. The kernel is therefore bit-equal to its
 // plain twin on the card.
 //
-// What bounds it on this card: per bin entry, one 48-byte row fetch that
-// every thread of the tile needs (L2 traffic if each thread read it), and
-// ~16 ALU ops per pixel. Design against that:
-//   - threads own pixels and keep z and id in registers; the serial loop
-//     over the bin list runs per thread, so no atomics are needed and the
-//     first-drawn tie rule holds by construction;
-//   - rows are staged through shared memory in chunks of RASTER_THREADS
-//     entries: each thread loads one row, then all threads read it as a
-//     broadcast, so each row leaves L2 once per block, not once per pixel;
-//   - each tile is split over several blocks (one pixel per thread), so a
-//     frame with few large tiles (the 128x256 shadow tiles of a 2048^2
-//     cascade: 128 tiles) still launches thousands of blocks for 132 SMs.
-// No TPU tuning is carried over (VMEM budget, 8-wide unroll).
-// Measured on an H100 SXM (700 W limit), multimesh scene: 0.031 ms per
-// 2048^2 cascade and 0.030 ms for the 1080p main pass. At that size the
-// 8 bytes written per pixel dominate (32 MB in 31 us, about a third of
-// HBM bandwidth); the row fetches and plane ALU only matter for scenes
-// with long bins.
+// What bounds it on this card. Unculled, every pixel of a tile tests every
+// entry of the tile's bin list: 16 FP32 operations per pixel and entry,
+// which on long bins (8.7k entries in a 128x256 shadow tile of a 74k
+// triangle scene) is far more than the bytes. Few binned triangles touch
+// any one part of a tile, so after an exact cull the work left is the rows
+// read (64 B each) and the 8 B written per pixel: bytes.
+//
+// Design against that:
+//   - a block owns one rectangle of one tile (rect_h x rect_w, at most
+//     1024 pixels, picked by the wrapper); each of its 256 threads owns
+//     1x4 pixels along x and keeps their z and id in registers. The loop
+//     over the bin list runs per thread in bin order, so no atomics are
+//     needed and the first-drawn tie rule holds by construction;
+//   - the tile's rows are staged in chunks of 256, double-buffered: K2 with
+//     one 1-D TMA bulk copy per chunk (cp.async.bulk + mbarrier), K1 with
+//     three 16-byte cp.async copies per row (columns 0-11, by id). Chunk
+//     k+1 is in flight while chunk k is culled and rastered;
+//   - each staged entry is culled exactly against the block's rectangle:
+//     one thread per entry evaluates the kernel's own plane() at the
+//     pixel-centre corner where it is largest (and z where it is smallest).
+//     Round-to-nearest is monotone, so that corner value is the plane's
+//     maximum over the rectangle bit for bit: an entry is dropped only if
+//     no pixel of the rectangle could pass its test. A NaN corner is kept.
+//     The survivors are compacted in bin order (warp ballot + popc + warp
+//     offsets) and only they reach the pixel loop;
+//   - the 4 pixels of a thread are stored as one int4 and one float4 where
+//     the quad lies inside a framebuffer whose width is a multiple of 4.
+// ops/raster.py::subtile_corners is the cull's plain twin (the CPU tests
+// hold its exactness); PERF.md has the measured times and bounds.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int RASTER_THREADS = 256;
-constexpr int ROW = 12;        // setup columns the raster reads: 9 bary + 3 z
+constexpr int THREADS = 256;   // threads per block = entries per chunk
+constexpr int WARPS = THREADS / 32;
 constexpr int SETUP_WIDTH = 16;
+constexpr int MAX_STAGES = 4;  // staging buffers of THREADS rows
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px,
                                        float py) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
 }
 
-__global__ void __launch_bounds__(RASTER_THREADS)
-raster_table_kernel(const float* __restrict__ table, int t_rows,
-                    const int* __restrict__ bins,
-                    const int* __restrict__ counts, int capacity,
-                    int y_offset, int tile_h, int tile_w, int tiles_x,
-                    int blocks_per_tile, int height, int width,
-                    int* __restrict__ id_out, float* __restrict__ z_out) {
-  __shared__ float s_rows[RASTER_THREADS][ROW];
-  __shared__ int s_ids[RASTER_THREADS];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int part = blockIdx.x - tile * blocks_per_tile;
-  const int local = part * RASTER_THREADS + threadIdx.x;
-  const int ly = local / tile_w;
-  const int lx = local - ly * tile_w;
+// True iff no pixel centre in [x0, x1] x [y0, y1] can pass the coverage
+// test of the row (r0, r1, r2) = columns 0-11. Each plane's maximum over
+// the rectangle's centres is its value at one corner (z: also the minimum).
+__device__ __forceinline__ bool culled(const float4& r0, const float4& r1,
+                                       const float4& r2, float x0, float x1,
+                                       float y0, float y1) {
+  const float b0 = plane(r0.x, r0.y, r0.z, r0.x >= 0.0f ? x1 : x0,
+                         r0.y >= 0.0f ? y1 : y0);
+  const float b1 = plane(r0.w, r1.x, r1.y, r0.w >= 0.0f ? x1 : x0,
+                         r1.x >= 0.0f ? y1 : y0);
+  const float b2 = plane(r1.z, r1.w, r2.x, r1.z >= 0.0f ? x1 : x0,
+                         r1.w >= 0.0f ? y1 : y0);
+  const float zmax = plane(r2.y, r2.z, r2.w, r2.y >= 0.0f ? x1 : x0,
+                           r2.z >= 0.0f ? y1 : y0);
+  const float zmin = plane(r2.y, r2.z, r2.w, r2.y >= 0.0f ? x0 : x1,
+                           r2.z >= 0.0f ? y0 : y1);
+  return b0 < 0.0f || b1 < 0.0f || b2 < 0.0f || zmax < 0.0f || zmin >= 1.0f;
+}
+
+// Row staging: a ring of `stages` buffers of THREADS rows in dynamic
+// shared memory. K2 (PADDED): the tile's rows are contiguous 64-byte rows,
+// so thread 0 copies a whole chunk with one TMA bulk copy that completes
+// on the buffer's mbarrier. K1: thread t copies columns 0-11 of its entry's
+// table row with cp.async (16-byte copies where the table is 16-byte
+// aligned, else 4-byte ones) and stores its id; each thread only ever reads
+// the row it copied itself, so its own cp.async.wait_group suffices.
+template <bool PADDED>
+struct Ring {
+  static constexpr int VEC = PADDED ? 4 : 3;   // float4 per staged row
+  float4* rows;                 // [stages][THREADS][VEC]
+  int* ids;                     // K1: [stages][THREADS]
+  unsigned long long* bars;     // K2: [stages]
+  static size_t bytes(int stages) {
+    return (size_t)stages * THREADS * VEC * sizeof(float4) +
+           (size_t)stages * (PADDED ? sizeof(unsigned long long)
+                                    : THREADS * sizeof(int));
+  }
+  __device__ Ring(unsigned char* base, int stages)
+      : rows(reinterpret_cast<float4*>(base)),
+        ids(reinterpret_cast<int*>(rows + stages * THREADS * VEC)),
+        bars(reinterpret_cast<unsigned long long*>(ids)) {}
+  __device__ float4* row(int buf, int t) const {
+    return rows + (buf * THREADS + t) * VEC;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// cp.async.wait_group takes an immediate: all but the newest n groups
+// done, for the ring sizes the launcher accepts (n < MAX_STAGES).
+__device__ __forceinline__ void cp_async_wait_all_but(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+template <bool PADDED>
+__global__ void __launch_bounds__(THREADS)
+raster_kernel(const float* __restrict__ src, int t_rows,
+              const int* __restrict__ bins, const int* __restrict__ counts,
+              int capacity, int y_offset, int tile_h, int tile_w,
+              int tiles_x, int rect_h, int rect_w, int rects_x,
+              int rects_per_tile, int stages, int height, int width,
+              int* __restrict__ id_out, float* __restrict__ z_out) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const Ring<PADDED> ring(ring_smem, stages);
+  __shared__ __align__(16) float4 s_surv[THREADS][3];
+  __shared__ int s_sid[THREADS];
+  __shared__ int s_warp[WARPS];
+
+  const int tile = blockIdx.x / rects_per_tile;
+  const int r = blockIdx.x - tile * rects_per_tile;
+  const int ry = r / rects_x;
+  const int rx = r - ry * rects_x;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
-  const int gy = ty * tile_h + ly;   // row within this slice
-  const int gx = tx * tile_w + lx;
-  const bool live = local < tile_h * tile_w && gy < height && gx < width;
+  // The block's rectangle [x0, x1) x [y0, y1) (slab rows), clipped to its
+  // tile and to the framebuffer.
+  const int x0 = tx * tile_w + rx * rect_w;
+  const int y0 = ty * tile_h + ry * rect_h;
+  const int x1 = min(min(x0 + rect_w, (tx + 1) * tile_w), width);
+  const int y1 = min(min(y0 + rect_h, (ty + 1) * tile_h), height);
+  if (x0 >= x1 || y0 >= y1) return;   // the whole block: nothing to draw
+
+  // Thread -> 1x4 pixel quad. Where the rectangle is made of whole 8x16
+  // pixel footprints (8 rows x 4 quads) each warp takes one, else the quads
+  // go row-major; threads past the rectangle own no pixel.
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int quads_w = (rect_w + 3) >> 2;
+  int qy, qx;
+  if ((rect_h & 7) == 0 && (quads_w & 3) == 0) {
+    const int wy = warp / (quads_w >> 2);
+    qy = wy * 8 + (lane >> 2);
+    qx = (warp - wy * (quads_w >> 2)) * 4 + (lane & 3);
+  } else {
+    qy = t / quads_w;
+    qx = t - qy * quads_w;
+  }
+  const int gy = y0 + qy;
+  const int gx = x0 + 4 * qx;
+  const int n_live = gy < y1 ? max(0, min(4, x1 - gx)) : 0;
+
+  // The warp's bounding box of live pixels, for the second cull.
+  const int big = 1 << 30;
+  const int wx0 = __reduce_min_sync(~0u, n_live ? gx : big);
+  const int wx1 = __reduce_max_sync(~0u, n_live ? gx + n_live - 1 : -big);
+  const int wy0 = __reduce_min_sync(~0u, n_live ? gy : big);
+  const int wy1 = __reduce_max_sync(~0u, n_live ? gy : -big);
+  const bool warp_live = wx0 <= wx1;
 
   // Pixel centres are small integers + 0.5: exact in f32 in any order.
-  const float px = (float)gx + 0.5f;
-  const float py = (float)(gy + y_offset) + 0.5f;
-
-  float zbuf = 1.0f;
-  int idbuf = -1;
-  const int count = min(counts[tile], capacity);
-  const int* tile_bins = bins + (size_t)tile * capacity;
-
-  for (int base = 0; base < count; base += RASTER_THREADS) {
-    const int n = min(RASTER_THREADS, count - base);
-    __syncthreads();  // previous chunk fully consumed
-    if (threadIdx.x < n) {
-      const int tid = tile_bins[base + threadIdx.x];
-      // Clamped read, as the Pallas kernel reads max(bins, 0).
-      const int row = min(max(tid, 0), t_rows - 1);
-      const float* src = table + (size_t)row * SETUP_WIDTH;
+  float px[4];
 #pragma unroll
-      for (int j = 0; j < ROW; ++j) s_rows[threadIdx.x][j] = __ldg(src + j);
-      s_ids[threadIdx.x] = tid;
-    }
-    __syncthreads();
-    if (live) {
-      for (int k = 0; k < n; ++k) {
-        const float* d = s_rows[k];
-        const float b0 = plane(d[0], d[1], d[2], px, py);
-        const float b1 = plane(d[3], d[4], d[5], px, py);
-        const float b2 = plane(d[6], d[7], d[8], px, py);
-        const float z = plane(d[9], d[10], d[11], px, py);
-        if (b0 >= 0.0f && b1 >= 0.0f && b2 >= 0.0f && z >= 0.0f &&
-            z < zbuf) {
-          zbuf = z;
-          idbuf = s_ids[k];
-        }
-      }
-    }
-  }
-  if (live) {
-    const size_t o = (size_t)gy * width + gx;
-    id_out[o] = idbuf;
-    z_out[o] = zbuf;
-  }
-}
-
-// K2: the same pixel loop, fed from the tile's contiguous pre-gathered
-// rows. What bounds it: each tile's C x 64 B row block is read once per
-// block of the tile (L2 serves the repeats) plus 8 B written per pixel, or
-// ~16 FP32 operations per pixel and row when bins are long. Design: each
-// chunk of RASTER_THREADS rows is staged in shared memory with 16-byte
-// loads (thread k loads row k: four float4, so a warp reads 2 KB of
-// contiguous rows), then every thread reads the staged rows as
-// broadcasts. Arithmetic and tie rule as K1, so it is bit-equal to the
-// plain twin.
-__global__ void __launch_bounds__(RASTER_THREADS)
-raster_padded_kernel(const float* __restrict__ rows,
-                     const int* __restrict__ counts, int capacity,
-                     int y_offset, int tile_h, int tile_w, int tiles_x,
-                     int blocks_per_tile, int height, int width,
-                     int* __restrict__ id_out, float* __restrict__ z_out) {
-  __shared__ float s_rows[RASTER_THREADS][ROW];
-  __shared__ int s_ids[RASTER_THREADS];
-
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int part = blockIdx.x - tile * blocks_per_tile;
-  const int local = part * RASTER_THREADS + threadIdx.x;
-  const int ly = local / tile_w;
-  const int lx = local - ly * tile_w;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const int gy = ty * tile_h + ly;
-  const int gx = tx * tile_w + lx;
-  const bool live = local < tile_h * tile_w && gy < height && gx < width;
-
-  const float px = (float)gx + 0.5f;
+  for (int k = 0; k < 4; ++k) px[k] = (float)(gx + k) + 0.5f;
   const float py = (float)(gy + y_offset) + 0.5f;
+  // The extreme pixel centres of the rectangle and of the warp's box.
+  const float cx0 = (float)x0 + 0.5f, cx1 = (float)(x1 - 1) + 0.5f;
+  const float cy0 = (float)(y0 + y_offset) + 0.5f;
+  const float cy1 = (float)(y1 - 1 + y_offset) + 0.5f;
+  const float wcx0 = (float)wx0 + 0.5f, wcx1 = (float)wx1 + 0.5f;
+  const float wcy0 = (float)(wy0 + y_offset) + 0.5f;
+  const float wcy1 = (float)(wy1 + y_offset) + 0.5f;
 
-  float zbuf = 1.0f;
-  int idbuf = -1;
+  float zbuf[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  int idbuf[4] = {-1, -1, -1, -1};
   const int count = min(counts[tile], capacity);
-  const float4* tile_rows = reinterpret_cast<const float4*>(
-      rows + (size_t)tile * capacity * SETUP_WIDTH);
+  const int n_chunks = (count + THREADS - 1) / THREADS;
+  const int* tile_bins = bins + (size_t)tile * capacity;
+  const float* tile_rows = src + (size_t)tile * capacity * SETUP_WIDTH;
+  const bool aligned16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
 
-  for (int base = 0; base < count; base += RASTER_THREADS) {
-    const int n = min(RASTER_THREADS, count - base);
-    __syncthreads();  // previous chunk fully consumed
-    if (threadIdx.x < n) {
-      const float4* src = tile_rows + (size_t)(base + threadIdx.x) * 4;
-      const float4 a = __ldg(src), b = __ldg(src + 1), c = __ldg(src + 2),
-                   d = __ldg(src + 3);
-      float* dst = s_rows[threadIdx.x];
-      dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-      dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-      dst[8] = c.x; dst[9] = c.y; dst[10] = c.z; dst[11] = c.w;
-      s_ids[threadIdx.x] = __float_as_int(d.x);   // id bitcast in column 12
+  // Issue the copies of chunk k into buffer k % stages. K1: `id` is this
+  // thread's entry of that chunk (loaded a chunk ahead).
+  auto issue = [&](int k, int id) {
+    const int buf = k % stages;
+    const int n = min(THREADS, count - k * THREADS);
+    if constexpr (PADDED) {
+      if (t == 0) {
+        const uint32_t bar = smem_addr(&ring.bars[buf]);
+        const uint32_t bytes = (uint32_t)n * SETUP_WIDTH * sizeof(float);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                bar),
+            "r"(bytes)
+            : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                smem_addr(ring.row(buf, 0))),
+            "l"(tile_rows + (size_t)k * THREADS * SETUP_WIDTH), "r"(bytes),
+            "r"(bar)
+            : "memory");
+      }
+    } else {
+      if (t < n) {
+        // Clamped read, as the Pallas kernel reads max(bins, 0).
+        const int row = min(max(id, 0), t_rows - 1);
+        const float* g = src + (size_t)row * SETUP_WIDTH;
+        float4* s = ring.row(buf, t);
+        if (aligned16) {
+          cp_async16(s, g);
+          cp_async16(s + 1, g + 4);
+          cp_async16(s + 2, g + 8);
+        } else {
+          float* sf = reinterpret_cast<float*>(s);
+#pragma unroll
+          for (int j = 0; j < 12; ++j) cp_async4(sf + j, g + j);
+        }
+        ring.ids[buf * THREADS + t] = id;
+      }
     }
-    __syncthreads();
-    if (live) {
-      for (int k = 0; k < n; ++k) {
-        const float* e = s_rows[k];
-        const float b0 = plane(e[0], e[1], e[2], px, py);
-        const float b1 = plane(e[3], e[4], e[5], px, py);
-        const float b2 = plane(e[6], e[7], e[8], px, py);
-        const float z = plane(e[9], e[10], e[11], px, py);
-        if (b0 >= 0.0f && b1 >= 0.0f && b2 >= 0.0f && z >= 0.0f &&
-            z < zbuf) {
-          zbuf = z;
-          idbuf = s_ids[k];
+  };
+  auto load_id = [&](int k) {
+    const int e = k * THREADS + t;
+    return (k < n_chunks && e < count) ? __ldg(tile_bins + e) : -1;
+  };
+  // K1: one cp.async group per chunk slot, empty past the last chunk, so
+  // that "all but the newest `ahead` groups" is always chunk k and older.
+  auto commit = [&]() {
+    if constexpr (!PADDED)
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (n_chunks > 0) {
+    // Chunks in flight ahead of the one being culled and rastered.
+    const int ahead = stages - 1;
+    if constexpr (PADDED) {
+      if (t == 0) {
+        for (int b = 0; b < stages; ++b)
+          asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                           smem_addr(&ring.bars[b]))
+                       : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      __syncthreads();
+    }
+    int next_id = -1;   // K1: this thread's entry of chunk k + ahead
+    for (int k = 0; k < ahead; ++k) {
+      if (k < n_chunks) issue(k, load_id(k));
+      commit();
+    }
+    if constexpr (!PADDED) next_id = load_id(ahead);
+
+    for (int k = 0; k < n_chunks; ++k) {
+      const int buf = k % stages;
+      const int n = min(THREADS, count - k * THREADS);
+      // Chunk k + ahead takes the buffer of chunk k - 1, whose last reader
+      // passed barrier (C) of iteration k - 1.
+      if (k + ahead < n_chunks) {
+        issue(k + ahead, next_id);
+        if constexpr (!PADDED) next_id = load_id(k + ahead + 1);
+      }
+      commit();
+      // Chunk k has landed.
+      if constexpr (PADDED) {
+        const uint32_t bar = smem_addr(&ring.bars[buf]);
+        while (!mbar_try_wait(bar, (uint32_t)(k / stages) & 1u)) {
+        }
+      } else {
+        cp_async_wait_all_but(ahead);
+      }
+
+      // Cull: thread t tests entry t of the chunk against the rectangle.
+      bool keep = false;
+      float4 e0, e1, e2;
+      int eid = 0;
+      if (t < n) {
+        const float4* e = ring.row(buf, t);
+        e0 = e[0];
+        e1 = e[1];
+        e2 = e[2];
+        if constexpr (PADDED) {
+          eid = __float_as_int(e[3].x);   // id in column 12
+        } else {
+          eid = ring.ids[buf * THREADS + t];
+        }
+        keep = !culled(e0, e1, e2, cx0, cx1, cy0, cy1);
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();   // (B): s_warp complete; pixel loop k-1 finished
+      int offset = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = s_warp[w];
+        offset += w < warp ? c : 0;
+        total += c;
+      }
+      if (keep) {   // survivors in bin order
+        const int pos = offset + __popc(ballot & ((1u << lane) - 1u));
+        s_surv[pos][0] = e0;
+        s_surv[pos][1] = e1;
+        s_surv[pos][2] = e2;
+        s_sid[pos] = eid;
+      }
+      __syncthreads();   // (C): survivors complete
+
+      // Second cull, per warp: lane l tests block survivor g + l against
+      // the warp's box; the warp rasters the hits in ascending order.
+      if (warp_live) {
+        for (int g = 0; g < total; g += 32) {
+          bool hit = false;
+          if (g + lane < total)
+            hit = !culled(s_surv[g + lane][0], s_surv[g + lane][1],
+                          s_surv[g + lane][2], wcx0, wcx1, wcy0, wcy1);
+          unsigned hits = __ballot_sync(0xffffffffu, hit);
+          while (hits) {
+            const int j = g + __ffs(hits) - 1;
+            hits &= hits - 1;
+            const float4 r0 = s_surv[j][0], r1 = s_surv[j][1],
+                         r2 = s_surv[j][2];
+            const float q0 = __fmul_rn(r0.y, py), q1 = __fmul_rn(r1.x, py),
+                        q2 = __fmul_rn(r1.w, py), q3 = __fmul_rn(r2.z, py);
+            const int sid = s_sid[j];
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              const float b0 = __fadd_rn(
+                  __fadd_rn(__fmul_rn(r0.x, px[p]), q0), r0.z);
+              const float b1 = __fadd_rn(
+                  __fadd_rn(__fmul_rn(r0.w, px[p]), q1), r1.y);
+              const float b2 = __fadd_rn(
+                  __fadd_rn(__fmul_rn(r1.z, px[p]), q2), r2.x);
+              const float z = __fadd_rn(
+                  __fadd_rn(__fmul_rn(r2.y, px[p]), q3), r2.w);
+              if (b0 >= 0.0f && b1 >= 0.0f && b2 >= 0.0f && z >= 0.0f &&
+                  z < zbuf[p]) {
+                zbuf[p] = z;
+                idbuf[p] = sid;
+              }
+            }
+          }
         }
       }
     }
   }
-  if (live) {
-    const size_t o = (size_t)gy * width + gx;
-    id_out[o] = idbuf;
-    z_out[o] = zbuf;
+
+  if (n_live == 0) return;
+  const size_t o = (size_t)gy * width + gx;
+  if (n_live == 4 && (width & 3) == 0 && (gx & 3) == 0) {
+    *reinterpret_cast<int4*>(id_out + o) =
+        make_int4(idbuf[0], idbuf[1], idbuf[2], idbuf[3]);
+    *reinterpret_cast<float4*>(z_out + o) =
+        make_float4(zbuf[0], zbuf[1], zbuf[2], zbuf[3]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p < n_live) {
+        id_out[o + p] = idbuf[p];
+        z_out[o + p] = zbuf[p];
+      }
+    }
   }
 }
 
-int blocks_for(int n_tiles, int tile_h, int tile_w, int* blocks_per_tile,
-               unsigned* grid) {
-  *blocks_per_tile = (tile_h * tile_w + RASTER_THREADS - 1) / RASTER_THREADS;
-  const long long blocks = (long long)n_tiles * *blocks_per_tile;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return 0;
-  *grid = (unsigned)blocks;
-  return 1;
+// One block per rectangle of every tile, with a ring of `stages` staging
+// buffers in dynamic shared memory. Returns cudaErrorInvalidValue for a
+// rectangle the block cannot hold or a ring size out of [1, MAX_STAGES].
+template <bool PADDED>
+int launch(const float* src, int t_rows, const int* bins, const int* counts,
+           int n_tiles, int capacity, int y_offset, int tile_h, int tile_w,
+           int tiles_x, int rect_h, int rect_w, int stages, int height,
+           int width, int* id_out, float* z_out, void* stream) {
+  if (rect_h <= 0 || rect_w <= 0 || rect_h > tile_h || rect_w > tile_w ||
+      rect_h * ((rect_w + 3) / 4) > THREADS || stages < 1 ||
+      stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  const int rects_x = (tile_w + rect_w - 1) / rect_w;
+  const int rects_per_tile = rects_x * ((tile_h + rect_h - 1) / rect_h);
+  const long long blocks = (long long)n_tiles * rects_per_tile;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // Static and dynamic shared memory together may pass the default 48 KB.
+  const size_t smem = Ring<PADDED>::bytes(stages);
+  const cudaError_t err = cudaFuncSetAttribute(
+      raster_kernel<PADDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  raster_kernel<PADDED>
+      <<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+          src, t_rows, bins, counts, capacity, y_offset, tile_h, tile_w,
+          tiles_x, rect_h, rect_w, rects_x, rects_per_tile, stages, height,
+          width, id_out, z_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// Plain C entry points (loaded with ctypes). Each launches on `stream`,
+// does not synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int raster_table_launch(const float* table, int t_rows,
                                    const int* bins, const int* counts,
                                    int n_tiles, int capacity, int y_offset,
                                    int tile_h, int tile_w, int tiles_x,
+                                   int rect_h, int rect_w, int stages,
                                    int height, int width, int* id_out,
                                    float* z_out, void* stream) {
-  int blocks_per_tile;
-  unsigned grid;
-  if (!blocks_for(n_tiles, tile_h, tile_w, &blocks_per_tile, &grid))
-    return (int)cudaErrorInvalidValue;
-  raster_table_kernel<<<grid, RASTER_THREADS, 0, (cudaStream_t)stream>>>(
-      table, t_rows, bins, counts, capacity, y_offset, tile_h, tile_w,
-      tiles_x, blocks_per_tile, height, width, id_out, z_out);
-  return (int)cudaGetLastError();
+  return launch<false>(table, t_rows, bins, counts, n_tiles, capacity,
+                       y_offset, tile_h, tile_w, tiles_x, rect_h, rect_w,
+                       stages, height, width, id_out, z_out, stream);
 }
 
 // K2's entry point: `rows` is the contiguous (n_tiles, capacity, 16) f32
@@ -230,14 +466,10 @@ extern "C" int raster_table_launch(const float* table, int t_rows,
 extern "C" int raster_padded_launch(const float* rows, const int* counts,
                                     int n_tiles, int capacity, int y_offset,
                                     int tile_h, int tile_w, int tiles_x,
+                                    int rect_h, int rect_w, int stages,
                                     int height, int width, int* id_out,
                                     float* z_out, void* stream) {
-  int blocks_per_tile;
-  unsigned grid;
-  if (!blocks_for(n_tiles, tile_h, tile_w, &blocks_per_tile, &grid))
-    return (int)cudaErrorInvalidValue;
-  raster_padded_kernel<<<grid, RASTER_THREADS, 0, (cudaStream_t)stream>>>(
-      rows, counts, capacity, y_offset, tile_h, tile_w, tiles_x,
-      blocks_per_tile, height, width, id_out, z_out);
-  return (int)cudaGetLastError();
+  return launch<true>(rows, 0, nullptr, counts, n_tiles, capacity, y_offset,
+                      tile_h, tile_w, tiles_x, rect_h, rect_w, stages,
+                      height, width, id_out, z_out, stream);
 }

@@ -14,6 +14,9 @@ Two interchangeable implementations, picked by `RasterConfig.backend`:
 - "torch": `_rasterize_torch`, the kernels' plain twin — a Python loop over
   bin entries of `_rasterize_jnp`'s body with all tiles batched;
 - "auto": the kernels for CUDA tensors, the plain twin for CPU tensors.
+
+`subtile_keep` is the plain twin of the kernels' exact per-rectangle cull;
+the frame path never calls it (tests and chip_smoke.py do).
 """
 
 from __future__ import annotations
@@ -149,3 +152,40 @@ def _rasterize_torch(bin_data: torch.Tensor, bins: torch.Tensor,
                 .contiguous())
 
     return untile(idbuf), untile(zbuf)
+
+
+def subtile_corners(rows: torch.Tensor, x0, x1, y0, y1):
+    """Each setup plane of `rows` (..., >= 12) f32 at the pixel centre of
+    the rectangle [x0, x1] x [y0, y1] (inclusive pixel columns and global
+    rows, broadcast against rows[..., 0]) where it is largest: (b_max
+    (..., 3), z_max, z_min), z_min at the corner where z is smallest.
+
+    The planes are evaluated as the raster evaluates them, (a*px + b*py) + c
+    op by op in f32. Each rounding is monotone, so the value at that corner
+    is the plane's maximum (minimum) over all the rectangle's pixel
+    centres bit for bit; a NaN corner stays NaN."""
+    def centre(v):
+        return torch.as_tensor(v, device=rows.device).to(torch.float32) + 0.5
+
+    cx0, cx1, cy0, cy1 = centre(x0), centre(x1), centre(y0), centre(y1)
+
+    def at(a, b, c, high):
+        px = torch.where((a >= 0) == high, cx1, cx0)
+        py = torch.where((b >= 0) == high, cy1, cy0)
+        return a * px + b * py + c
+
+    d = rows[..., :12]
+    b_max = torch.stack([at(d[..., 3 * i], d[..., 3 * i + 1],
+                            d[..., 3 * i + 2], True) for i in range(3)], -1)
+    return (b_max, at(d[..., 9], d[..., 10], d[..., 11], True),
+            at(d[..., 9], d[..., 10], d[..., 11], False))
+
+
+def subtile_keep(rows: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
+    """The kernels' cull (csrc/raster.cu::culled) as a bool mask over
+    rows[..., 0]: False exactly where no pixel centre of the rectangle
+    can pass the raster's test (some edge plane below 0 everywhere, or z
+    below 0 or at least 1 everywhere). Dropping those entries from a bin
+    list changes no pixel of the rectangle."""
+    b_max, z_max, z_min = subtile_corners(rows, x0, x1, y0, y1)
+    return ~((b_max < 0).any(-1) | (z_max < 0) | (z_min >= 1.0))

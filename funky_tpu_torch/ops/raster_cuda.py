@@ -7,10 +7,15 @@
   (raster_pallas.py:90-127): rows read from the pre-gathered per-tile
   stream of binning.gather_bin_data.
 
+Both launch one block per rectangle of every tile (`rect_shape`): the
+block culls the tile's bin list exactly against its rectangle and rasters
+the survivors, four pixels per thread.
+
 The source is built with nvcc at first use (ops/cuda_build.py) and bound
 with ctypes through plain C entry points. The plain twin of both is
-ops/raster.py::_rasterize_torch. These wrappers never fall back to it:
-they launch the kernel or raise.
+ops/raster.py::_rasterize_torch (of the cull: ops/raster.py::
+subtile_keep). These wrappers never fall back to it: they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,7 +32,34 @@ from . import cuda_build
 LAUNCHES = 0
 PADDED_LAUNCHES = 0
 
+# A block has 256 threads of 1x4 pixels: its rectangle holds at most 1024
+# pixels, RECT_H rows of the tile (fewer in a shorter tile) by as many
+# columns as fill the block (fewer in a narrower tile).
+THREADS, PIXELS_PER_THREAD = 256, 4
+RECT_H = 32
+# Staging buffers of THREADS bin rows each (1 to 4): a block culls and
+# rasters one chunk while the next STAGES - 1 are in flight.
+STAGES = 3
+
 _FNS = {}
+
+
+def rect_shape(tile_h: int, tile_w: int,
+               rect_h: int | None = None) -> Tuple[int, int]:
+    """(rows, columns) of the rectangle one block rasters in a tile of
+    tile_h x tile_w, at most `rect_h` (default RECT_H) rows: 32 x 32 in
+    the 32x128 and 128x256 tiles, 16 x 64 in a 16-row tile, 8 x 128 in an
+    8-row one. Rectangles tile the tile; the last row and column of them
+    may be cut short."""
+    rh = min(tile_h, RECT_H if rect_h is None else rect_h)
+    rw = min(tile_w, PIXELS_PER_THREAD * (THREADS // rh))
+    return rh, rw
+
+
+def stages_for(capacity: int) -> int:
+    """STAGES, or fewer where no bin can fill them (one for bins of at
+    most THREADS entries)."""
+    return max(1, min(STAGES, -(-capacity // THREADS)))
 
 
 def reset_launches() -> None:
@@ -99,12 +131,13 @@ def raster_table_cuda(setup_data: torch.Tensor, bins: torch.Tensor,
 
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fn = _launcher("raster_table_launch", 15, (0, 2, 3, 12, 13, 14))
+    fn = _launcher("raster_table_launch", 18, (0, 2, 3, 15, 16, 17))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(setup_data.data_ptr(), setup_data.shape[0],
                     bins.data_ptr(), counts.data_ptr(), n_tiles,
                     bins.shape[1], int(y_offset), tile_h, tile_w, tiles_x,
+                    *rect_shape(tile_h, tile_w), stages_for(bins.shape[1]),
                     height, width, tri_id.data_ptr(), depth.data_ptr(),
                     stream)
     if status != 0:
@@ -137,13 +170,14 @@ def raster_padded_cuda(bin_data: torch.Tensor, counts: torch.Tensor,
 
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fn = _launcher("raster_padded_launch", 13, (0, 1, 10, 11, 12))
+    fn = _launcher("raster_padded_launch", 16, (0, 1, 13, 14, 15))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(bin_data.data_ptr(), counts.data_ptr(), n_tiles,
                     bin_data.shape[1], int(y_offset), tile_h, tile_w,
-                    tiles_x, height, width, tri_id.data_ptr(),
-                    depth.data_ptr(), stream)
+                    tiles_x, *rect_shape(tile_h, tile_w),
+                    stages_for(bin_data.shape[1]), height, width,
+                    tri_id.data_ptr(), depth.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"padded raster kernel launch failed: CUDA error "
                            f"{status}")

@@ -25,7 +25,8 @@ from funky_tpu_torch.models.scene import build_device_scene
 from funky_tpu_torch.ops import compact, gather_cuda, raster, raster_cuda
 from funky_tpu_torch.ops.raster import RasterConfig
 
-from .torch_scenes import random_clip_scene, with_coplanar_duplicates
+from .torch_scenes import (random_clip_scene, small_triangles_scene,
+                           with_coplanar_duplicates)
 
 pytestmark = pytest.mark.cuda
 
@@ -146,6 +147,54 @@ def test_padded_kernel_bit_equal_to_plain(dev, case, tiles, monkeypatch):
     np.testing.assert_array_equal(ik, ip)
     np.testing.assert_array_equal(zk.view(np.int32), zp.view(np.int32))
     assert (ik >= 0).any()
+
+
+# Cases of the per-rectangle kernels: (scene, width, height, tiles).
+RECT_CASES = {
+    # thousands of small triangles in one tile: many chunks of 256 rows,
+    # most culled from each rectangle
+    "long_bin": (lambda: small_triangles_scene(5, 3000, (0, 0, 256, 128),
+                                               2.0, 256, 256),
+                 256, 256, [(128, 256), (32, 128)]),
+    # width not a multiple of 4 or of the rectangle: scalar stores, cut
+    # rectangles, tiles hanging over the edge
+    "ragged_250x130": (lambda: random_clip_scene(6, 300, 250, 130),
+                       250, 130, [(32, 128), (128, 256), (8, 128)]),
+    # tiles smaller than the rectangle, one of them not 4-aligned
+    "tiny_tiles": (lambda: random_clip_scene(7, 300, 256, 128),
+                   256, 128, [(8, 16), (5, 6), (16, 8)]),
+}
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("case", sorted(RECT_CASES))
+def test_kernels_on_long_bins_ragged_and_tiny_tiles(dev, case, padded,
+                                                    monkeypatch):
+    """K1 and K2 (the table limit patched to 0) against the plain twin,
+    bit for bit, on the cases that stress the rectangles and the cull."""
+    if padded:
+        monkeypatch.setattr(raster, "TABLE_LIMIT_BYTES", 0)
+    make, w, h, tiles = RECT_CASES[case]
+    clip, tris = make()
+    for th, tw in tiles:
+        out = []
+        for backend in ("cuda", "torch"):
+            before = (raster_cuda.LAUNCHES, raster_cuda.PADDED_LAUNCHES)
+            tri_id, depth, _ = raster.raster_scene(
+                torch.from_numpy(clip).to(dev),
+                torch.from_numpy(tris).to(dev), w, h, len(tris),
+                RasterConfig(tile_h=th, tile_w=tw, backend=backend))
+            torch.cuda.synchronize()
+            launched = (raster_cuda.LAUNCHES - before[0],
+                        raster_cuda.PADDED_LAUNCHES - before[1])
+            want = int(backend == "cuda")
+            assert launched == ((0, want) if padded else (want, 0))
+            out.append((tri_id.cpu().numpy(), depth.cpu().numpy()))
+        (ik, zk), (ip, zp) = out
+        np.testing.assert_array_equal(ik, ip, err_msg=f"tiles {th}x{tw}")
+        np.testing.assert_array_equal(zk.view(np.int32), zp.view(np.int32),
+                                      err_msg=f"tiles {th}x{tw}")
+        assert (ik >= 0).any()
 
 
 def test_padded_wrapper_rejects_bad_inputs(dev):

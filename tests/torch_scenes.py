@@ -26,6 +26,31 @@ def random_clip_scene(seed=0, n_tris=40, width=128, height=64):
     return clip, tris
 
 
+def screen_clip(pts, z, width, height):
+    """Clip coordinates (3n, 4), w = 1, and index triples (n, 3) of the
+    screen-space triangles `pts` (n, 3, 2) in pixels at NDC depths `z`
+    (n, 3). Exact for power-of-two framebuffer sizes."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 2)
+    ndc_x = pts[:, 0] / width * 2.0 - 1.0
+    ndc_y = pts[:, 1] / height * 2.0 - 1.0
+    clip = np.stack([ndc_x, ndc_y, np.asarray(z, np.float32).reshape(-1),
+                     np.ones(len(pts), np.float32)], -1).astype(np.float32)
+    return clip, np.arange(len(pts), dtype=np.int32).reshape(-1, 3)
+
+
+def small_triangles_scene(seed=0, n_tris=2000, region=(0, 0, 128, 32),
+                          size=3.0, width=256, height=128):
+    """`n_tris` random triangles of about `size` pixels, all inside the
+    pixel rectangle `region` = (x0, y0, x1, y1): one long bin list."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1 = region
+    centre = rng.uniform([x0 + size, y0 + size], [x1 - size, y1 - size],
+                         (n_tris, 1, 2))
+    pts = centre + rng.uniform(-size, size, (n_tris, 3, 2))
+    z = rng.uniform(0.05, 0.95, (n_tris, 3))
+    return screen_clip(pts, z, width, height)
+
+
 def with_coplanar_duplicates(clip, n_dup_tris=10):
     """Appends copies of the first `n_dup_tris` triangles (higher ids,
     identical planes): every pixel they cover is an exact depth tie, which
