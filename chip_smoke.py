@@ -12,8 +12,10 @@ failure raises and the script exits non-zero):
 2. K1 and K2 vs their plain torch twin on numpy-seeded random triangles
    (degenerate and w-culled ones included) at small and at the main
    path's shapes: full capacity, an overflowing tight capacity, a row
-   slab, coplanar equal-depth duplicates. K2 is reached by patching the
-   4 MiB table limit to 0. tri_id and depth bit-equal;
+   slab, coplanar equal-depth duplicates, a long bin (4,000 small
+   triangles in one tile), a ragged 250x130 framebuffer and tiles smaller
+   than the kernels' rectangle. K2 is reached by patching the 4 MiB table
+   limit to 0. tri_id and depth bit-equal;
 3. a 256x144 multimesh frame on the card against the committed golden
    image (tests/goldens/multimesh_pbr_256x144.png, 3/255 tolerance);
 4. the dense path: 4 chained 1920x1080 frames of the exact dense glTF
@@ -28,12 +30,17 @@ failure raises and the script exits non-zero):
    triangles, past the table limit): 3 chained GltfConfig() frames, K2
    launches 5 times per frame and K1 never; one frame through the plain
    raster is equal to the K2 run; K1, K2 and the plain raster timed on
-   the frame's own rasters;
+   the frame's own rasters, with the survivors of the kernels' exact cull
+   counted by its plain twin (ops/raster.py::subtile_keep) for a
+   culled-work bound;
 7. K3, the row-gather probe, at the dense shadow filter's tap shape: a
    (4*2048*2048, 4) f32 table and 16 x 1080 x 1920 indices (uniform, one
    recorded PCF tap set), and a table that fits in L2; bit-equal to the
    plain gather, timed beside torch's `table[idx]`;
-8. timings with CUDA events and the median frame times.
+8. timings with CUDA events and the median frame times. Kernel times are
+   device times (launches queued behind a sleep kernel, `device_ms`),
+   printed beside the time through the wrapper with its host enqueue
+   (`cuda_ms`: what a caller enqueueing one raster at a time waits).
 
 Before the last line stdout carries the card's nvidia-smi line and a JSON
 object describing the kernels; the last is {"ok": true, "device": {...}}.
@@ -64,10 +71,9 @@ RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 TAP_SHAPE = (16, HEIGHT, WIDTH)
 # Kernel settings timed per raster besides the shipped ones, as
-# (raster_cuda attribute, value): rectangle height (32: 32x32 rectangles
-# in the frame's tiles, 16: 16x64) and staging buffers per block.
-SWEEP = (("RECT_H", 32), ("RECT_H", 16), ("STAGES", 2), ("STAGES", 3),
-         ("STAGES", 4))
+# (raster_cuda attribute, value): the rectangle height (32: 32x32
+# rectangles in the frame's tiles, 16: 16x64).
+SWEEP = (("RECT_H", 32), ("RECT_H", 16))
 
 _GPU = ""
 
@@ -592,8 +598,8 @@ def culled_work(c):
 def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
     """Per-raster ms of K1 and K2 on recorded calls: device time at the
     shipped settings (key "K1") and at every other setting of SWEEP
-    ("K1 STAGES=2"), and the time through the wrapper with its enqueue
-    ("K1 wrapper", cuda_ms as PR 2 timed it); and the plain twin's."""
+    ("K1 RECT_H=16"), and the time through the wrapper with its enqueue
+    ("K1 wrapper", cuda_ms); and the plain twin's."""
     from funky_tpu_torch.ops import raster_cuda
     from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
     from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
@@ -637,7 +643,7 @@ def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
 
 def say_raster(label, r, kernels, padded):
     """One raster's line: kernel device times (and through the wrapper, and
-    at the other settings of SWEEP), the PR 2 bound, the culled-work bound
+    at the other settings of SWEEP), the unculled bound, the culled-work bound
     and the cull's survivors. Returns (bound ms, bytes, ops, culled bound
     ms)."""
     from funky_tpu_torch.ops import raster_cuda
@@ -651,8 +657,7 @@ def say_raster(label, r, kernels, padded):
                     if key.split(" ")[0] in kernels and "=" in key)
     say(f"{label} {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
         f"{r['tiles']} fullest bin {r['fullest']} binned "
-        f"{int(r['counts'].sum())}: {times} (rect {rh}x{rw}, stages "
-        f"{raster_cuda.stages_for(r['tiles'][1])}{sweep}), plain "
+        f"{int(r['counts'].sum())}: {times} (rect {rh}x{rw}{sweep}), plain "
         f"{r['plain']:.4f} ms; bound {b:.4f} ms ({nbytes} B, {ops} FP32 "
         f"ops), culled bound {culled:.4f} ms ({r['culled_ops']} FP32 "
         f"ops); survivors per block: fullest {r['fullest_block']}, total "

@@ -29,8 +29,13 @@
 // entry of the tile's bin list: 16 FP32 operations per pixel and entry,
 // which on long bins (8.7k entries in a 128x256 shadow tile of a 74k
 // triangle scene) is far more than the bytes. Few binned triangles touch
-// any one part of a tile, so after an exact cull the work left is the rows
-// read (64 B each) and the 8 B written per pixel: bytes.
+// any one part of a tile, so what bounds it is the FP32 work the exact
+// cull below leaves (long bins) or the 8 B written per pixel (short bins).
+// Measured with chip_smoke.py on an H100 80GB HBM3 (700 W power limit):
+// K2 0.296 ms per frame (5 rasters) of the 74k-triangle scene against a
+// culled-FP32 bound of 0.129 ms; K1 0.076 ms per frame of the multimesh
+// scene against a byte bound of 0.045 ms. The rest is the serial chunk
+// loop of the blocks whose tile holds the longest bins.
 //
 // Design against that:
 //   - a block owns one rectangle of one tile (rect_h x rect_w, at most
@@ -49,7 +54,9 @@
 //     maximum over the rectangle bit for bit: an entry is dropped only if
 //     no pixel of the rectangle could pass its test. A NaN corner is kept.
 //     The survivors are compacted in bin order (warp ballot + popc + warp
-//     offsets) and only they reach the pixel loop;
+//     offsets); each warp then culls them again against the box of its own
+//     pixels (an 8x16 footprint in the frame's rectangles), one survivor
+//     per lane, and rasters its hits in ascending order;
 //   - the 4 pixels of a thread are stored as one int4 and one float4 where
 //     the quad lies inside a framebuffer whose width is a multiple of 4.
 // ops/raster.py::subtile_corners is the cull's plain twin (the CPU tests
@@ -63,7 +70,7 @@ namespace {
 constexpr int THREADS = 256;   // threads per block = entries per chunk
 constexpr int WARPS = THREADS / 32;
 constexpr int SETUP_WIDTH = 16;
-constexpr int MAX_STAGES = 4;  // staging buffers of THREADS rows
+constexpr int STAGES = 2;      // staging buffers of THREADS rows
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px,
                                        float py) {
@@ -93,31 +100,24 @@ __device__ __forceinline__ bool culled(const float4& r0, const float4& r1,
   return b0 < 0.0f || b1 < 0.0f || b2 < 0.0f || zmax < 0.0f || zmin >= 1.0f;
 }
 
-// Row staging: a ring of `stages` buffers of THREADS rows in dynamic
-// shared memory. K2 (PADDED): the tile's rows are contiguous 64-byte rows,
-// so thread 0 copies a whole chunk with one TMA bulk copy that completes
-// on the buffer's mbarrier. K1: thread t copies columns 0-11 of its entry's
-// table row with cp.async (16-byte copies where the table is 16-byte
-// aligned, else 4-byte ones) and stores its id; each thread only ever reads
-// the row it copied itself, so its own cp.async.wait_group suffices.
+// Row staging: STAGES buffers of THREADS rows, used in turn. K2 (PADDED):
+// the tile's rows are contiguous 64-byte rows, so thread 0 copies a whole
+// chunk with one TMA bulk copy that completes on the buffer's mbarrier.
+// K1: thread t copies columns 0-11 of its entry's table row with cp.async
+// (16-byte copies where the table is 16-byte aligned, else 4-byte ones)
+// and stores its id; each thread only ever reads the row it copied itself,
+// so its own cp.async.wait_group suffices.
 template <bool PADDED>
-struct Ring {
-  static constexpr int VEC = PADDED ? 4 : 3;   // float4 per staged row
-  float4* rows;                 // [stages][THREADS][VEC]
-  int* ids;                     // K1: [stages][THREADS]
-  unsigned long long* bars;     // K2: [stages]
-  static size_t bytes(int stages) {
-    return (size_t)stages * THREADS * VEC * sizeof(float4) +
-           (size_t)stages * (PADDED ? sizeof(unsigned long long)
-                                    : THREADS * sizeof(int));
-  }
-  __device__ Ring(unsigned char* base, int stages)
-      : rows(reinterpret_cast<float4*>(base)),
-        ids(reinterpret_cast<int*>(rows + stages * THREADS * VEC)),
-        bars(reinterpret_cast<unsigned long long*>(ids)) {}
-  __device__ float4* row(int buf, int t) const {
-    return rows + (buf * THREADS + t) * VEC;
-  }
+struct Ring;
+template <>
+struct Ring<true> {               // K2: whole 64-byte rows, id in column 12
+  float4 rows[STAGES][THREADS][4];
+  unsigned long long bars[STAGES];
+};
+template <>
+struct Ring<false> {              // K1: columns 0-11 of the table row
+  float4 rows[STAGES][THREADS][3];
+  int ids[STAGES][THREADS];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -132,17 +132,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src)
                : "memory");
-}
-
-// cp.async.wait_group takes an immediate: all but the newest n groups
-// done, for the ring sizes the launcher accepts (n < MAX_STAGES).
-__device__ __forceinline__ void cp_async_wait_all_but(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -163,10 +152,9 @@ raster_kernel(const float* __restrict__ src, int t_rows,
               const int* __restrict__ bins, const int* __restrict__ counts,
               int capacity, int y_offset, int tile_h, int tile_w,
               int tiles_x, int rect_h, int rect_w, int rects_x,
-              int rects_per_tile, int stages, int height, int width,
+              int rects_per_tile, int height, int width,
               int* __restrict__ id_out, float* __restrict__ z_out) {
-  extern __shared__ __align__(128) unsigned char ring_smem[];
-  const Ring<PADDED> ring(ring_smem, stages);
+  __shared__ __align__(128) Ring<PADDED> ring;
   __shared__ __align__(16) float4 s_surv[THREADS][3];
   __shared__ int s_sid[THREADS];
   __shared__ int s_warp[WARPS];
@@ -232,10 +220,10 @@ raster_kernel(const float* __restrict__ src, int t_rows,
   const float* tile_rows = src + (size_t)tile * capacity * SETUP_WIDTH;
   const bool aligned16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
 
-  // Issue the copies of chunk k into buffer k % stages. K1: `id` is this
+  // Issue the copies of chunk k into buffer k % STAGES. K1: `id` is this
   // thread's entry of that chunk (loaded a chunk ahead).
   auto issue = [&](int k, int id) {
-    const int buf = k % stages;
+    const int buf = k % STAGES;
     const int n = min(THREADS, count - k * THREADS);
     if constexpr (PADDED) {
       if (t == 0) {
@@ -249,7 +237,7 @@ raster_kernel(const float* __restrict__ src, int t_rows,
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
             "bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                smem_addr(ring.row(buf, 0))),
+                smem_addr(ring.rows[buf])),
             "l"(tile_rows + (size_t)k * THREADS * SETUP_WIDTH), "r"(bytes),
             "r"(bar)
             : "memory");
@@ -259,7 +247,7 @@ raster_kernel(const float* __restrict__ src, int t_rows,
         // Clamped read, as the Pallas kernel reads max(bins, 0).
         const int row = min(max(id, 0), t_rows - 1);
         const float* g = src + (size_t)row * SETUP_WIDTH;
-        float4* s = ring.row(buf, t);
+        float4* s = ring.rows[buf][t];
         if (aligned16) {
           cp_async16(s, g);
           cp_async16(s + 1, g + 4);
@@ -269,7 +257,7 @@ raster_kernel(const float* __restrict__ src, int t_rows,
 #pragma unroll
           for (int j = 0; j < 12; ++j) cp_async4(sf + j, g + j);
         }
-        ring.ids[buf * THREADS + t] = id;
+        ring.ids[buf][t] = id;
       }
     }
   };
@@ -278,7 +266,7 @@ raster_kernel(const float* __restrict__ src, int t_rows,
     return (k < n_chunks && e < count) ? __ldg(tile_bins + e) : -1;
   };
   // K1: one cp.async group per chunk slot, empty past the last chunk, so
-  // that "all but the newest `ahead` groups" is always chunk k and older.
+  // that "all but the newest AHEAD groups" is always chunk k and older.
   auto commit = [&]() {
     if constexpr (!PADDED)
       asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -286,10 +274,10 @@ raster_kernel(const float* __restrict__ src, int t_rows,
 
   if (n_chunks > 0) {
     // Chunks in flight ahead of the one being culled and rastered.
-    const int ahead = stages - 1;
+    constexpr int AHEAD = STAGES - 1;
     if constexpr (PADDED) {
       if (t == 0) {
-        for (int b = 0; b < stages; ++b)
+        for (int b = 0; b < STAGES; ++b)
           asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
                            smem_addr(&ring.bars[b]))
                        : "memory");
@@ -297,30 +285,30 @@ raster_kernel(const float* __restrict__ src, int t_rows,
       }
       __syncthreads();
     }
-    int next_id = -1;   // K1: this thread's entry of chunk k + ahead
-    for (int k = 0; k < ahead; ++k) {
+    int next_id = -1;   // K1: this thread's entry of chunk k + AHEAD
+    for (int k = 0; k < AHEAD; ++k) {
       if (k < n_chunks) issue(k, load_id(k));
       commit();
     }
-    if constexpr (!PADDED) next_id = load_id(ahead);
+    if constexpr (!PADDED) next_id = load_id(AHEAD);
 
     for (int k = 0; k < n_chunks; ++k) {
-      const int buf = k % stages;
+      const int buf = k % STAGES;
       const int n = min(THREADS, count - k * THREADS);
-      // Chunk k + ahead takes the buffer of chunk k - 1, whose last reader
+      // Chunk k + AHEAD takes the buffer of chunk k - 1, whose last reader
       // passed barrier (C) of iteration k - 1.
-      if (k + ahead < n_chunks) {
-        issue(k + ahead, next_id);
-        if constexpr (!PADDED) next_id = load_id(k + ahead + 1);
+      if (k + AHEAD < n_chunks) {
+        issue(k + AHEAD, next_id);
+        if constexpr (!PADDED) next_id = load_id(k + AHEAD + 1);
       }
       commit();
       // Chunk k has landed.
       if constexpr (PADDED) {
         const uint32_t bar = smem_addr(&ring.bars[buf]);
-        while (!mbar_try_wait(bar, (uint32_t)(k / stages) & 1u)) {
+        while (!mbar_try_wait(bar, (uint32_t)(k / STAGES) & 1u)) {
         }
       } else {
-        cp_async_wait_all_but(ahead);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD) : "memory");
       }
 
       // Cull: thread t tests entry t of the chunk against the rectangle.
@@ -328,14 +316,14 @@ raster_kernel(const float* __restrict__ src, int t_rows,
       float4 e0, e1, e2;
       int eid = 0;
       if (t < n) {
-        const float4* e = ring.row(buf, t);
+        const float4* e = ring.rows[buf][t];
         e0 = e[0];
         e1 = e[1];
         e2 = e[2];
         if constexpr (PADDED) {
           eid = __float_as_int(e[3].x);   // id in column 12
         } else {
-          eid = ring.ids[buf * THREADS + t];
+          eid = ring.ids[buf][t];
         }
         keep = !culled(e0, e1, e2, cx0, cx1, cy0, cy1);
       }
@@ -415,33 +403,25 @@ raster_kernel(const float* __restrict__ src, int t_rows,
   }
 }
 
-// One block per rectangle of every tile, with a ring of `stages` staging
-// buffers in dynamic shared memory. Returns cudaErrorInvalidValue for a
-// rectangle the block cannot hold or a ring size out of [1, MAX_STAGES].
+// One block per rectangle of every tile. Returns cudaErrorInvalidValue
+// for a rectangle the block cannot hold.
 template <bool PADDED>
 int launch(const float* src, int t_rows, const int* bins, const int* counts,
            int n_tiles, int capacity, int y_offset, int tile_h, int tile_w,
-           int tiles_x, int rect_h, int rect_w, int stages, int height,
-           int width, int* id_out, float* z_out, void* stream) {
+           int tiles_x, int rect_h, int rect_w, int height, int width,
+           int* id_out, float* z_out, void* stream) {
   if (rect_h <= 0 || rect_w <= 0 || rect_h > tile_h || rect_w > tile_w ||
-      rect_h * ((rect_w + 3) / 4) > THREADS || stages < 1 ||
-      stages > MAX_STAGES)
+      rect_h * ((rect_w + 3) / 4) > THREADS)
     return (int)cudaErrorInvalidValue;
   const int rects_x = (tile_w + rect_w - 1) / rect_w;
   const int rects_per_tile = rects_x * ((tile_h + rect_h - 1) / rect_h);
   const long long blocks = (long long)n_tiles * rects_per_tile;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // Static and dynamic shared memory together may pass the default 48 KB.
-  const size_t smem = Ring<PADDED>::bytes(stages);
-  const cudaError_t err = cudaFuncSetAttribute(
-      raster_kernel<PADDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   raster_kernel<PADDED>
-      <<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      <<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
           src, t_rows, bins, counts, capacity, y_offset, tile_h, tile_w,
-          tiles_x, rect_h, rect_w, rects_x, rects_per_tile, stages, height,
-          width, id_out, z_out);
+          tiles_x, rect_h, rect_w, rects_x, rects_per_tile, height, width,
+          id_out, z_out);
   return (int)cudaGetLastError();
 }
 
@@ -453,12 +433,12 @@ extern "C" int raster_table_launch(const float* table, int t_rows,
                                    const int* bins, const int* counts,
                                    int n_tiles, int capacity, int y_offset,
                                    int tile_h, int tile_w, int tiles_x,
-                                   int rect_h, int rect_w, int stages,
-                                   int height, int width, int* id_out,
-                                   float* z_out, void* stream) {
+                                   int rect_h, int rect_w, int height,
+                                   int width, int* id_out, float* z_out,
+                                   void* stream) {
   return launch<false>(table, t_rows, bins, counts, n_tiles, capacity,
                        y_offset, tile_h, tile_w, tiles_x, rect_h, rect_w,
-                       stages, height, width, id_out, z_out, stream);
+                       height, width, id_out, z_out, stream);
 }
 
 // K2's entry point: `rows` is the contiguous (n_tiles, capacity, 16) f32
@@ -466,10 +446,10 @@ extern "C" int raster_table_launch(const float* table, int t_rows,
 extern "C" int raster_padded_launch(const float* rows, const int* counts,
                                     int n_tiles, int capacity, int y_offset,
                                     int tile_h, int tile_w, int tiles_x,
-                                    int rect_h, int rect_w, int stages,
-                                    int height, int width, int* id_out,
-                                    float* z_out, void* stream) {
+                                    int rect_h, int rect_w, int height,
+                                    int width, int* id_out, float* z_out,
+                                    void* stream) {
   return launch<true>(rows, 0, nullptr, counts, n_tiles, capacity, y_offset,
-                      tile_h, tile_w, tiles_x, rect_h, rect_w, stages,
-                      height, width, id_out, z_out, stream);
+                      tile_h, tile_w, tiles_x, rect_h, rect_w, height, width,
+                      id_out, z_out, stream);
 }

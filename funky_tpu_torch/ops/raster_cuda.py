@@ -37,9 +37,6 @@ PADDED_LAUNCHES = 0
 # columns as fill the block (fewer in a narrower tile).
 THREADS, PIXELS_PER_THREAD = 256, 4
 RECT_H = 32
-# Staging buffers of THREADS bin rows each (1 to 4): a block culls and
-# rasters one chunk while the next STAGES - 1 are in flight.
-STAGES = 3
 
 _FNS = {}
 
@@ -54,12 +51,6 @@ def rect_shape(tile_h: int, tile_w: int,
     rh = min(tile_h, RECT_H if rect_h is None else rect_h)
     rw = min(tile_w, PIXELS_PER_THREAD * (THREADS // rh))
     return rh, rw
-
-
-def stages_for(capacity: int) -> int:
-    """STAGES, or fewer where no bin can fill them (one for bins of at
-    most THREADS entries)."""
-    return max(1, min(STAGES, -(-capacity // THREADS)))
 
 
 def reset_launches() -> None:
@@ -131,15 +122,14 @@ def raster_table_cuda(setup_data: torch.Tensor, bins: torch.Tensor,
 
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fn = _launcher("raster_table_launch", 18, (0, 2, 3, 15, 16, 17))
+    fn = _launcher("raster_table_launch", 17, (0, 2, 3, 14, 15, 16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(setup_data.data_ptr(), setup_data.shape[0],
                     bins.data_ptr(), counts.data_ptr(), n_tiles,
                     bins.shape[1], int(y_offset), tile_h, tile_w, tiles_x,
-                    *rect_shape(tile_h, tile_w), stages_for(bins.shape[1]),
-                    height, width, tri_id.data_ptr(), depth.data_ptr(),
-                    stream)
+                    *rect_shape(tile_h, tile_w), height, width,
+                    tri_id.data_ptr(), depth.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error "
                            f"{status}")
@@ -170,13 +160,12 @@ def raster_padded_cuda(bin_data: torch.Tensor, counts: torch.Tensor,
 
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fn = _launcher("raster_padded_launch", 16, (0, 1, 13, 14, 15))
+    fn = _launcher("raster_padded_launch", 15, (0, 1, 12, 13, 14))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(bin_data.data_ptr(), counts.data_ptr(), n_tiles,
                     bin_data.shape[1], int(y_offset), tile_h, tile_w,
-                    tiles_x, *rect_shape(tile_h, tile_w),
-                    stages_for(bin_data.shape[1]), height, width,
+                    tiles_x, *rect_shape(tile_h, tile_w), height, width,
                     tri_id.data_ptr(), depth.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"padded raster kernel launch failed: CUDA error "
