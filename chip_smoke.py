@@ -70,10 +70,10 @@ RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32 non-tensor.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 TAP_SHAPE = (16, HEIGHT, WIDTH)
-# Kernel settings timed per raster besides the shipped ones, as
-# (raster_cuda attribute, value): the rectangle height (32: 32x32
-# rectangles in the frame's tiles, 16: 16x64).
-SWEEP = (("RECT_H", 32), ("RECT_H", 16))
+# Rectangle heights (raster_cuda.RECT_H) timed per raster besides the
+# shipped one: 32 gives 32x32 rectangles in the frame's tiles, 16 gives
+# 16x64.
+RECT_HEIGHTS = (32, 16)
 
 _GPU = ""
 
@@ -597,9 +597,9 @@ def culled_work(c):
 
 def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
     """Per-raster ms of K1 and K2 on recorded calls: device time at the
-    shipped settings (key "K1") and at every other setting of SWEEP
-    ("K1 RECT_H=16"), and the time through the wrapper with its enqueue
-    ("K1 wrapper", cuda_ms); and the plain twin's."""
+    shipped rectangle (key "K1") and at every other height of
+    RECT_HEIGHTS (key "K1 at 16x64"), and the time through the wrapper
+    with its enqueue ("K1 wrapper", cuda_ms); and the plain twin's."""
     from funky_tpu_torch.ops import raster_cuda
     from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
     from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
@@ -620,16 +620,17 @@ def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
         for k in kernels:
             r[k] = device_ms(run[k])
             r[k + " wrapper"] = cuda_ms(run[k], iters=20)
-        for attr, value in SWEEP:
-            shipped = getattr(raster_cuda, attr)
-            if value == shipped:
-                continue
-            setattr(raster_cuda, attr, value)
-            try:
+        shipped = raster_cuda.RECT_H
+        try:
+            for rect_h in RECT_HEIGHTS:
+                if rect_h == shipped:
+                    continue
+                raster_cuda.RECT_H = rect_h
+                rh, rw = raster_cuda.rect_shape(c["th"], c["tw"])
                 for k in kernels:
-                    r[f"{k} {attr}={value}"] = device_ms(run[k])
-            finally:
-                setattr(raster_cuda, attr, shipped)
+                    r[f"{k} at {rh}x{rw}"] = device_ms(run[k])
+        finally:
+            raster_cuda.RECT_H = shipped
         cfg = RasterConfig(tile_h=c["th"], tile_w=c["tw"], backend="torch")
         r["plain"] = cuda_ms(lambda: _rasterize_torch(
             gather_bin_data(setup, c["bins"]), c["bins"], c["counts"],
@@ -642,10 +643,10 @@ def time_rasters(calls, plain_iters, kernels=("K1", "K2")):
 
 
 def say_raster(label, r, kernels, padded):
-    """One raster's line: kernel device times (and through the wrapper, and
-    at the other settings of SWEEP), the unculled bound, the culled-work bound
-    and the cull's survivors. Returns (bound ms, bytes, ops, culled bound
-    ms)."""
+    """One raster's line: kernel device times (and through the wrapper,
+    and at the other rectangle heights), the unculled bound, the
+    culled-work bound and the cull's survivors. Returns (bound ms, bytes,
+    ops, culled bound ms)."""
     from funky_tpu_torch.ops import raster_cuda
 
     b, nbytes, ops = raster_bound(r, padded)
@@ -654,7 +655,7 @@ def say_raster(label, r, kernels, padded):
                       f"through the wrapper)" for k in kernels)
     rh, rw = raster_cuda.rect_shape(r["th"], r["tw"])
     sweep = "".join(f"; {key} {r[key]:.4f} ms" for key in r
-                    if key.split(" ")[0] in kernels and "=" in key)
+                    if key.split(" ")[0] in kernels and " at " in key)
     say(f"{label} {r['w']}x{r['h']} tiles {r['th']}x{r['tw']} bins "
         f"{r['tiles']} fullest bin {r['fullest']} binned "
         f"{int(r['counts'].sum())}: {times} (rect {rh}x{rw}{sweep}), plain "

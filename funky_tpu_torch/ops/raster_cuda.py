@@ -41,14 +41,12 @@ RECT_H = 32
 _FNS = {}
 
 
-def rect_shape(tile_h: int, tile_w: int,
-               rect_h: int | None = None) -> Tuple[int, int]:
+def rect_shape(tile_h: int, tile_w: int) -> Tuple[int, int]:
     """(rows, columns) of the rectangle one block rasters in a tile of
-    tile_h x tile_w, at most `rect_h` (default RECT_H) rows: 32 x 32 in
-    the 32x128 and 128x256 tiles, 16 x 64 in a 16-row tile, 8 x 128 in an
-    8-row one. Rectangles tile the tile; the last row and column of them
-    may be cut short."""
-    rh = min(tile_h, RECT_H if rect_h is None else rect_h)
+    tile_h x tile_w: 32 x 32 in the 32x128 and 128x256 tiles, 16 x 64 in
+    a 16-row tile, 8 x 128 in an 8-row one. Rectangles tile the tile; the
+    last row and column of them may be cut short."""
+    rh = min(tile_h, RECT_H)
     rw = min(tile_w, PIXELS_PER_THREAD * (THREADS // rh))
     return rh, rw
 

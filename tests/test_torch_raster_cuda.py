@@ -22,7 +22,8 @@ from funky_tpu_torch import frame
 from funky_tpu_torch.models.gltf import GltfScene
 from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
 from funky_tpu_torch.models.scene import build_device_scene
-from funky_tpu_torch.ops import compact, gather_cuda, raster, raster_cuda
+from funky_tpu_torch.ops import (binning, compact, gather_cuda, raster,
+                                  raster_cuda)
 from funky_tpu_torch.ops.raster import RasterConfig
 
 from .torch_scenes import (random_clip_scene, small_triangles_scene,
@@ -195,6 +196,29 @@ def test_kernels_on_long_bins_ragged_and_tiny_tiles(dev, case, padded,
         np.testing.assert_array_equal(zk.view(np.int32), zp.view(np.int32),
                                       err_msg=f"tiles {th}x{tw}")
         assert (ik >= 0).any()
+
+
+def test_table_kernel_on_an_unaligned_table(dev):
+    """A contiguous setup table starting 4 bytes past a 16-byte boundary
+    takes K1's 4-byte row copies: still bit-equal to the plain twin."""
+    clip, tris = random_clip_scene(seed=8, n_tris=300, width=W, height=H)
+    setup = binning.triangle_setup(torch.from_numpy(clip).to(dev),
+                                   torch.from_numpy(tris).to(dev), W, H,
+                                   len(tris))
+    bins, counts = binning.bin_triangles(setup, W, H, 32, 128, len(tris))
+    flat = torch.empty(setup.data.numel() + 1, device=dev)
+    table = flat[1:].view(setup.data.shape)
+    table.copy_(setup.data)
+    assert table.data_ptr() % 16 == 4
+    ik, zk = raster_cuda.raster_table_cuda(table, bins, counts, W, H, 32, 128)
+    ip, zp = raster._rasterize_torch(
+        binning.gather_bin_data(setup, bins), bins, counts, 0, W, H,
+        RasterConfig(tile_h=32, tile_w=128, backend="torch"))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    np.testing.assert_array_equal(zk.cpu().numpy().view(np.int32),
+                                  zp.cpu().numpy().view(np.int32))
+    assert (ik >= 0).any()
 
 
 def test_padded_wrapper_rejects_bad_inputs(dev):
