@@ -26,6 +26,19 @@ failure raises and the script exits non-zero):
    back half, block-sparse texture sampling) on the multimesh scene, 8
    chained frames (2 parked, 6 orbit): equal to the dense path bit for
    bit (tri_id, depth, rgba, history), host syncs per frame counted;
+5b. the shipped path: bench.py's configuration, committed mode with
+   synthesized cascade maps (GltfFrameFlags(committed=True,
+   synth_shadow_maps=True)), autotuned over bench_poses(params, 24) by
+   utils/autotune.py's tune_raster_capacities and tune_sparse_capacities
+   (called directly, so a failure fails the run). Prints the tuned config,
+   the occupancy and each cascade's light-fetch entries with the tap caps
+   JAX's rule and the port's give. 8 chained committed frames (2 parked,
+   6 orbit): no host sync, K1 launched once per nonzero occluder window
+   plus once for the main pass in every frame, K1 == plain bit for bit on
+   every recorded raster, the sync count torch's sync debug mode reports
+   for one frame; then the same poses with committed=False: equal bit for
+   bit when capacity_overflows names nothing on those poses but the
+   band-block budget, whose committed drop is conservative;
 6. the large scene (tests/torch_scenes.build_large_glb: 73,754
    triangles, past the table limit): 3 chained GltfConfig() frames, K2
    launches 5 times per frame and K1 never; one frame through the plain
@@ -48,6 +61,7 @@ object describing the kernels; the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -64,7 +78,8 @@ GOLDEN = REPO / "tests" / "goldens" / "multimesh_pbr_256x144.png"
 GOLDEN_TOL, GOLDEN_BAD_FRAC = 3.0 / 255.0, 2e-3
 WIDTH, HEIGHT, SHADOW = 1920, 1080, 2048
 N_DENSE = 4                # dense path: 2 parked + 2 orbit poses
-N_PARKED, N_ORBIT = 2, 6   # default path
+N_PARKED, N_ORBIT = 2, 6   # default and shipped paths
+N_TUNE = 24                # bench.py's chain: autotune over bench_poses(, 24)
 N_LARGE = 3                # large scene: parked + 2 orbit poses
 RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32 non-tensor.
@@ -305,14 +320,15 @@ def dense_config(width, height, shadow, backend, tiles=None, stiles=None):
         valid_block_capacity=0, texture_block_capacity=0, clip_capacity=64)
 
 
-def default_config(backend="auto"):
+def default_config(backend="auto", **flags):
     """GltfConfig() at its defaults (1920x1080, 4 x 2048^2), the raster
-    backend aside."""
+    backend and the flags given aside."""
     import dataclasses
 
-    from funky_tpu_torch.frame import GltfConfig
+    from funky_tpu_torch.frame import GltfConfig, GltfFrameFlags
 
-    cfg = GltfConfig(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW)
+    cfg = GltfConfig(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
+                     flags=GltfFrameFlags(**flags))
     return dataclasses.replace(
         cfg, raster=dataclasses.replace(cfg.raster, backend=backend),
         shadow_raster=dataclasses.replace(cfg.shadow_raster,
@@ -362,19 +378,20 @@ def poses_for(params, n_parked, n_orbit):
 def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
-    ms up to the frame's synchronize, host syncs per frame, and the
-    peak device memory (GiB)."""
+    ms up to the frame's synchronize, host syncs and K1 launches per
+    frame, and the peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import compact
+    from funky_tpu_torch.ops import compact, raster_cuda
 
     state = frame.init_frame_state(cfg, dev)
-    out = dict(frames=[], ms=[], wall=[], syncs=[])
+    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
         syncs0 = compact.HOST_SYNCS
+        k1_0 = raster_cuda.LAUNCHES
         sync(dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -390,10 +407,22 @@ def run_frames(scene, poses, cfg, dev):
         out["ms"].append(start.elapsed_time(end) if dev.type == "cuda"
                          else out["wall"][-1])
         out["syncs"].append(compact.HOST_SYNCS - syncs0)
+        out["k1"].append(raster_cuda.LAUNCHES - k1_0)
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                        if dev.type == "cuda" else float("nan"))
+    return out
+
+
+def frames_diff(a, b) -> list:
+    """(frame, field, differing elements) wherever two runs differ."""
+    out = []
+    for i, (fa, fb) in enumerate(zip(a["frames"], b["frames"])):
+        for name, x, y in zip(("tri_id", "depth", "rgba", "history"), fa, fb):
+            n = int((x.view(np.int32) != y.view(np.int32)).sum())
+            if n:
+                out.append((i, name, n))
     return out
 
 
@@ -509,6 +538,191 @@ def phase_default(dev, gltf, scene, params):
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, same "
            f"poses)", drun)
     return counts, srun, drun
+
+
+def autotune_shipped(dev, scene, params):
+    """bench.py's configuration before tuning (GltfConfig() with committed
+    mode and synthesized maps) and after: the raster capacities, then the
+    sparse ones, each step called directly so that a failure raises.
+    Returns (raster-tuned config, tuned config, occupancy, seconds)."""
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils import autotune
+
+    base = default_config(committed=True, synth_shadow_maps=True)
+    poses = frame.bench_poses(params, N_TUNE)
+    sync(dev)
+    t0 = time.perf_counter()
+    raster_cfg = autotune.tune_raster_capacities(scene, poses, base)
+    cfg, occ = autotune.tune_sparse_capacities(scene, poses, raster_cfg)
+    sync(dev)
+    return raster_cfg, cfg, occ, time.perf_counter() - t0
+
+
+def check_rasters_bitwise(calls, label) -> float:
+    """K1 against the plain raster on every recorded raster's inputs (these
+    launches are comparisons, not the main path's). Returns the max |depth|
+    difference."""
+    import torch
+
+    from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
+    from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
+    from funky_tpu_torch.ops.raster_cuda import raster_table_cuda
+
+    err = 0.0
+    for i, c in enumerate(calls):
+        args = (c["w"], c["h"], c["th"], c["tw"], c["y0"])
+        tri_k, dep_k = raster_table_cuda(c["table"], c["bins"], c["counts"],
+                                         *args)
+        tri_p, dep_p = _rasterize_torch(
+            gather_bin_data(TriangleSetup(data=c["table"], valid=None),
+                            c["bins"]), c["bins"], c["counts"], c["y0"],
+            c["w"], c["h"], RasterConfig(tile_h=c["th"], tile_w=c["tw"],
+                                         backend="torch"))
+        err = max(err, float((dep_k - dep_p).abs().max()))
+        check(torch.equal(tri_k, tri_p)
+              and torch.equal(dep_k.view(torch.int32),
+                              dep_p.view(torch.int32)),
+              f"{label}: raster {i} ({c['w']}x{c['h']}, tiles {c['th']}x"
+              f"{c['tw']}): K1 differs from the plain raster")
+    return err
+
+
+def count_syncs_reported(fn) -> list:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") and return
+    the synchronising calls it reports, as 'file:line'."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def phase_shipped(dev, gltf, scene, params):
+    """bench.py's shipped configuration on the multimesh scene: autotune,
+    8 chained committed frames, and the same poses cond'd. Returns (K1
+    launches, max |depth| difference of K1 against plain, the tuned
+    config)."""
+    import dataclasses
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils import autotune, diagnostics
+
+    label = "shipped path (multimesh)"
+    raster_cfg, cfg, occ, tune_s = autotune_shipped(dev, scene, params)
+    base = default_config(committed=True, synth_shadow_maps=True)
+    tuned = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+             if getattr(cfg, f.name) != getattr(base, f.name)}
+    say(f"{label}: autotune over bench_poses(params, {N_TUNE}) took "
+        f"{tune_s:.3f} s [{_GPU}]")
+    say(f"{label}: tuned config (fields changed from the base): {tuned}")
+    say(f"{label}: occupancy {occ}")
+    # derive_sparse_config folds the light-fetch entries into the tap caps
+    # only when the frame builds no light maps; with them on, the same
+    # occupancy gives the JAX package's rule.
+    with_maps = dataclasses.replace(raster_cfg, flags=dataclasses.replace(
+        raster_cfg.flags, light_space_ground_shadows=True))
+    jax_caps = autotune.derive_sparse_config(
+        with_maps, occ).shadow_pen_cascade_caps
+    for c in range(4):
+        say(f"{label}: cascade {c}: light_fetch_per_cascade "
+            f"{occ['light_fetch_per_cascade'][c]}, full-group pairs "
+            f"{occ['pairs_per_cascade'][c]}; tap cap by JAX's rule "
+            f"{jax_caps[c]}, by the port's {cfg.shadow_pen_cascade_caps[c]}")
+    windows = cfg.effective_light_windows() or (0, 0, 0, 0)
+    n_win = sum(1 for s in windows if s)
+    say(f"{label}: occluder windows {windows}: {n_win} window rasters + the "
+        f"main raster per frame")
+
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    reset_counts()
+    box = {}
+    calls = record_raster_calls(lambda: box.update(
+        run=run_frames(scene, poses, cfg, dev)))
+    crun = box["run"]
+    counts = read_counts()
+    say(f"{label}: {len(poses)} committed frames, launches {counts}, K1 per "
+        f"frame {crun['k1']}, host syncs per frame {crun['syncs']}")
+    check(all(s == 0 for s in crun["syncs"]),
+          f"{label}: a committed frame took a host branch")
+    check(all(k == n_win + 1 for k in crun["k1"])
+          and counts["raster_padded"] == 0,
+          f"{label}: expected {n_win + 1} K1 launches per frame")
+    check(len(calls) == (n_win + 1) * len(poses),
+          f"{label}: {len(calls)} rasters recorded")
+    err = check_rasters_bitwise(calls, label)
+    say(f"{label}: K1 == plain raster bit for bit on all {len(calls)} "
+        f"recorded rasters ({n_win * len(poses)} window rasters)")
+    check_image(crun, poses, cfg, dev, label)
+
+    state = frame.init_frame_state(cfg, dev)
+    _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
+    sync(dev)
+    reported = count_syncs_reported(lambda: frame.render_gltf_frame(
+        scene, poses[-1], state, cfg))
+    say(f"{label}: one committed frame under torch.cuda.set_sync_debug_mode"
+        f"('warn'): {len(reported)} synchronising calls reported")
+    for line, n in collections.Counter(reported).items():
+        say(f"  {n} x {line}")
+
+    conded = dataclasses.replace(cfg, flags=dataclasses.replace(
+        cfg.flags, committed=False))
+    # The tuned poses as the autotuner renders them: the first pose twice,
+    # then each other pose once.
+    tuned_poses = [params] + frame.bench_poses(params, N_TUNE)
+    for name, ps, poll in (
+            ("tuned poses", tuned_poses, occ),
+            ("frame poses", poses, diagnostics.measure_sparse_occupancy(
+                scene, poses, cfg, frames=1))):
+        crun_p = crun if ps is poses else run_frames(scene, ps, cfg, dev)
+        reset_counts()
+        drun = run_frames(scene, ps, conded, dev)
+        say_branches(f"{label}, cond'd, {name}")
+        over = autotune.capacity_overflows(cfg, poll)
+        diffs = frames_diff(crun_p, drun)
+        say(f"{label}, {name}: capacity_overflows {over}; committed vs "
+            f"cond'd: {diffs or 'all frames bit for bit'}")
+        if set(over) <= {"band_block_capacity"}:
+            check(not diffs, f"{label}, {name}: committed != cond'd with no "
+                  f"capacity overflow")
+    for name, run in (("committed", crun), ("cond'd", drun)):
+        ev, wall = run["ms"], run["wall"]
+        say(f"shipped frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, "
+            f"{name}): parked {ev[1]:.3f} ms (the second frame), motion "
+            f"median {statistics.median(ev[N_PARKED:]):.3f} ms over "
+            f"{N_ORBIT} orbit frames (CUDA events); host clock "
+            f"{wall[1]:.3f} / {statistics.median(wall[N_PARKED:]):.3f} ms; "
+            f"peak device memory {run['peak_gib']:.2f} GiB; host syncs per "
+            f"frame {run['syncs']} [{_GPU}]")
+        check(all(math.isfinite(x) for x in ev + wall), f"{name}: timing")
+    return counts["raster_table"], err, cfg
+
+
+def phase_shipped_timings(dev, scene, params, cfg):
+    """K1 vs plain raster on one shipped frame's rasters (the occluder
+    windows, then the main pass). Returns the window rasters' summed
+    device ms."""
+    from funky_tpu_torch import frame
+
+    calls = record_raster_calls(lambda: frame.render_gltf_frame(
+        scene, frame.orbit_params(params, N_ORBIT), frame.init_frame_state(
+            cfg, dev), cfg))
+    rows = time_rasters(calls, plain_iters=3, kernels=("K1",))
+    for r in rows:
+        say_raster("shipped raster", r, ("K1",), padded=False)
+    win = [r for r in rows if (r["th"], r["tw"]) == (128, 128)]
+    ms = sum(r["K1"] for r in win)
+    say(f"shipped path: {len(win)} window rasters per frame: K1 {ms:.4f} ms "
+        f"device time, plain {sum(r['plain'] for r in win):.4f} ms; with the "
+        f"main raster K1 {sum(r['K1'] for r in rows):.4f} ms [{_GPU}]")
+    return ms
 
 
 def record_raster_calls(fn):
@@ -834,11 +1048,15 @@ def main() -> None:
     phase_golden(dev, gltf, scene)
     params, _, _ = phase_dense(dev, gltf, scene)
     counts, _, _ = phase_default(dev, gltf, scene, params)
+    k1_shipped, err_shipped, shipped_cfg = phase_shipped(dev, gltf, scene,
+                                                         params)
+    err_k1 = max(err_k1, err_shipped)
     k1_ms, k1_plain, k1_bound, k1_by, k1_culled = phase_timings(dev, scene,
                                                                 params)
     say(f"K1 per frame (4 cascades + main, multimesh): kernel {k1_ms:.4f} "
         f"ms, plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms, culled "
         f"bound {k1_culled:.4f} ms [{_GPU}]")
+    phase_shipped_timings(dev, scene, params, shipped_cfg)
     (large_counts, k2_ms, k2_plain, k2_bound, k2_by, k1_large,
      k2_culled) = phase_large(dev)
     say(f"large scene per frame (5 rasters): K2 {k2_ms:.4f} ms, K1 on the "
@@ -853,7 +1071,8 @@ def main() -> None:
         dict(name="raster_table", route="cuda",
              source="funky_tpu_torch/csrc/raster.cu",
              replaces="funky_tpu/ops/raster_pallas.py:208",
-             launches=counts["raster_table"], max_abs_err=err_k1, ms=k1_ms,
+             launches=counts["raster_table"] + k1_shipped,
+             max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None, bound_culled_ms=k1_culled),
         dict(name="raster_padded", route="cuda",

@@ -3,8 +3,10 @@
 Each function takes the fields of a funky_tpu object (DeviceScene,
 GltfParams, FrameState, FrameUniforms) as numpy arrays, under the same
 field names — any mapping, e.g. `{f: np.asarray(getattr(obj, f))}` — and
-returns the port's counterpart on `device`. Both packages then compute
-from bit-identical inputs. This module imports no jax.
+returns the port's counterpart on `device`; `config_from_jax_fields`
+takes a GltfConfig's plain Python fields. Both packages then compute
+from bit-identical inputs under the same configuration. This module
+imports no jax.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .frame import FrameState, GltfParams
+from .frame import FrameState, GltfConfig, GltfFrameFlags, GltfParams
 from .models.scene import TENSOR_FIELDS, DeviceScene
+from .ops.raster import RasterConfig
 from .passes.uniforms import FrameUniforms
 
 SCENE_COUNTS = ("num_vertices", "num_triangles", "num_objects")
@@ -51,3 +54,31 @@ def state_from_numpy(fields: Mapping, device="cuda") -> FrameState:
 def uniforms_from_numpy(fields: Mapping, device="cuda") -> FrameUniforms:
     return FrameUniforms(**{f: _t(fields[f], device)
                             for f in FrameUniforms._fields})
+
+
+# JAX raster backends and the port's: the plain jnp raster is the plain
+# torch twin, the Pallas kernels are the CUDA kernels.
+RASTER_BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
+
+
+def raster_config_from_jax_fields(fields: Mapping) -> RasterConfig:
+    kw = dict(fields)
+    kw["backend"] = RASTER_BACKENDS[kw.get("backend", "auto")]
+    return RasterConfig(**kw)
+
+
+def config_from_jax_fields(fields: Mapping) -> GltfConfig:
+    """The port's GltfConfig from a funky_tpu GltfConfig given as plain
+    Python fields, e.g. `dataclasses.asdict(jax_cfg)`: `raster` and
+    `shadow_raster` as RasterConfig field mappings, `flags` as a
+    GltfFrameFlags field mapping, tuples as tuples or lists."""
+    kw = {}
+    for name, value in fields.items():
+        if name in ("raster", "shadow_raster"):
+            value = raster_config_from_jax_fields(value)
+        elif name == "flags":
+            value = GltfFrameFlags(**value)
+        elif isinstance(value, list):
+            value = tuple(value)
+        kw[name] = value
+    return GltfConfig(**kw)

@@ -3,22 +3,29 @@ cascades -> main visibility pass -> deferred PCF/PCSS shading -> shadow
 TAA -> contact shadows.
 
 Frames are chained through `FrameState`, as in JAX. Configuration classes
-keep the JAX package's fields and defaults, and `GltfConfig()` runs: the
+keep the JAX package's fields and defaults. `GltfConfig()` runs (the
 sparse-exact shadow filter and contact march, block-sparse texture
-sampling and the valid-block back half. A flag or knob that selects a
-path this port does not have yet raises NotImplementedError naming it
-(`check_supported`).
+sampling, the valid-block back half), and so does the configuration
+bench.py ships: `GltfFrameFlags(committed=True, synth_shadow_maps=True)`
+with the capacities of utils/autotune.py::autotune_config (synthesized
+cascade maps, the row-slab back half, per-cascade, radius-only and routed
+tap groups, tap and march windows, two-level compactions, the sparse TAA
+read). `check_supported` names the flags that select a path this port
+does not have yet.
 
 Each of the JAX package's capacity-overflow `lax.cond`s becomes a host
 branch on one device bool (ops/compact.py::host_cond, counted in
-HOST_SYNCS): at most five per frame on the default path. On overflow the
-branch takes the exact dense computation, as in JAX, so the image does
-not depend on the capacities.
+HOST_SYNCS). On overflow the branch takes the exact dense computation, as
+in JAX, so the image does not depend on the capacities. A committed frame
+takes no branch: it runs the tuned sparse paths unconditionally and slices
+at device-valued offsets by index arithmetic, so it never waits on the
+card. An overflow then gives JAX's bounded artifact, not a dense frame.
 
 Entry points put their tensors on the card unless asked for the CPU
-(`device="cpu"`). On a card every raster (four cascades + the main pass)
-runs a hand-written kernel (ops/raster.py picks K1 or K2 by table size):
-five launches per frame.
+(`device="cpu"`). On a card every raster runs a hand-written kernel
+(ops/raster.py picks K1 or K2 by table size): the four cascades and the
+main pass, or, with synthesized maps, one occluder window per cascade
+with a nonzero window size and the main pass.
 """
 
 from __future__ import annotations
@@ -36,9 +43,9 @@ from .ops.clipping import expand_near_clipped
 from .ops.compact import (compact_valid_blocks, gather_blocks, host_cond,
                           scatter_blocks)
 from .ops.raster import RasterConfig, raster_corners
-from .ops.sampling import quad_pack
+from .ops.sampling import dynamic_slice, dynamic_update_slice, quad_pack
 from .passes import (contact, deferred, geometry, shading, shadow,
-                     shadow_filter, taa, uniforms)
+                     shadow_filter, shadow_lightspace, taa, uniforms)
 from .passes.shadow_classify import build_class_maps, light_ground_planes
 
 GLTF_CLEAR = (0.53, 0.81, 0.92)    # frame.py:29
@@ -120,6 +127,18 @@ class GltfConfig:
             return min(self.valid_block_capacity, nb)
         return min(max(-(-nb * 3 // 4 // 128) * 128, 128), nb)
 
+    def effective_light_windows(self) -> tuple | None:
+        """Per-cascade footprint window sizes, or None when neither the
+        synthesized maps nor the light-space ground evaluation is on
+        (frame.py:380-389)."""
+        if not ((self.flags.light_space_ground_shadows
+                 or self.flags.synth_shadow_maps)
+                and self.flags.sparse_shadows):
+            return None
+        sizes = (self.light_window_sizes if self.light_window_sizes
+                 is not None else (512, 512, 512, 512))
+        return tuple(min(s, self.shadow_map_size) for s in sizes)
+
     def effective_slab_rows(self, h: int) -> int | None:
         if not self.valid_slab_rows:
             return None
@@ -132,28 +151,16 @@ class GltfConfig:
 
 
 def check_supported(cfg: GltfConfig) -> None:
-    """Raise NotImplementedError naming every flag or knob of `cfg` that
-    selects a path this port does not have yet. GltfConfig()'s defaults
-    pass."""
+    """Raise NotImplementedError naming every flag of `cfg` that selects a
+    path this port does not have yet. GltfConfig()'s defaults and the
+    shipped committed + synth configuration, with every knob the
+    autotuner sets, pass."""
     f = cfg.flags
     names = [name for name, on in (
-        ("flags.synth_shadow_maps", f.synth_shadow_maps),
-        ("flags.committed", f.committed),
         ("flags.light_space_ground_shadows", f.light_space_ground_shadows),
         ("flags.skip_backfacing_shadows", f.skip_backfacing_shadows),
         ("flags.shadow_eval_scale > 1 (or half_res_shadows)",
          f.effective_shadow_scale > 1),
-        ("valid_slab_rows", cfg.effective_slab_rows(cfg.height) is not None),
-        ("taa_need_capacity", cfg.taa_need_capacity is not None),
-        ("shadow_tap_windows", cfg.shadow_tap_windows is not None),
-        ("shadow_route_windows / shadow_route_caps",
-         cfg.shadow_route_windows is not None
-         or cfg.shadow_route_caps is not None),
-        ("shadow_pen_cascade_caps", cfg.shadow_pen_cascade_caps is not None),
-        ("shadow_lit_cascade_caps", cfg.shadow_lit_cascade_caps is not None),
-        ("shadow_pen_block_capacity",
-         cfg.shadow_pen_block_capacity is not None),
-        ("contact_block_capacity", cfg.contact_block_capacity is not None),
     ) if on]
     if names:
         raise NotImplementedError(
@@ -222,6 +229,13 @@ def orbit_params(params: GltfParams, i: int) -> GltfParams:
         duck_position=params.duck_position + slide)
 
 
+def bench_poses(params: GltfParams, n: int) -> list:
+    """The poses bench.py autotunes over (bench.py:67-70): the parked view
+    and orbit poses n // 3, 2n // 3 and n - 1."""
+    return [params, orbit_params(params, n // 3),
+            orbit_params(params, 2 * n // 3), orbit_params(params, n - 1)]
+
+
 class FrameState(NamedTuple):
     """Carried temporal state (frame.py:450-458)."""
     shadow_history: torch.Tensor  # (H, W, 2): shadow, ndcDepth
@@ -281,32 +295,44 @@ def _main_raster_inputs(scene: DeviceScene, clip: torch.Tensor,
     return g.tri_clip, g.blocks, g.tri_flags, g.valid
 
 
+def _background(dev, alpha: bool = False) -> torch.Tensor:
+    """The clear colour (with alpha 1) as an f32 tensor on `dev`."""
+    rgb = GLTF_CLEAR + ((1.0,) if alpha else ())
+    return m3.f32(rgb, dev)
+
+
 def shade_slab(scene: DeviceScene, uni, state: FrameState, shadow_maps,
                tri_id, depth, setup_data, blocks, cfg: GltfConfig,
-               y0: int = 0, class_maps=None, tri_flags=None):
+               y0=0, class_maps=None, tri_flags=None, tap_routes=None):
     """Per-pixel back half for the row slab [y0, y0 + h) (frame.py:509-553):
-    the valid-block back half when cfg's block budget applies to this
-    shape, else the dense 2D one. Identical outputs either way. Returns
-    (rgba (h, W, 4), history slab (h, W, 2))."""
+    the row-slab back half when cfg sets one, else the valid-block back
+    half when cfg's block budget applies to this shape, else the dense 2D
+    one. Identical outputs while the capacities hold. Returns (rgba
+    (h, W, 4), history slab (h, W, 2))."""
     if tri_flags is None:
         tri_flags = scene.tri_flags
     h, w = tri_id.shape
+    args = (scene, uni, state, shadow_maps, tri_id, depth, setup_data,
+            blocks, cfg, y0, class_maps, tri_flags)
+    srows = cfg.effective_slab_rows(h)
+    if srows is not None:
+        return _shade_slab_rows(*args, srows, tap_routes)
     bcap = cfg.effective_valid_blocks(h, w)
     if bcap is not None and cfg.flags.effective_shadow_scale == 1:
-        return _shade_slab_blocked(scene, uni, state, shadow_maps, tri_id,
-                                   depth, setup_data, blocks, cfg, y0,
-                                   class_maps, tri_flags, bcap)
-    return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id, depth,
-                             setup_data, blocks, cfg, y0, class_maps,
-                             tri_flags)
+        return _shade_slab_blocked(*args, bcap, tap_routes)
+    return _shade_slab_dense(*args, tap_routes)
 
 
 def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
-                gbuf, frag, cfg: GltfConfig, class_maps, old_history):
-    """The per-pixel back half on any domain shape (frame.py:556-638):
-    shadow filter -> TAA -> contact -> final shading. `frag` holds pixel
-    centres (x + 0.5) in global framebuffer coordinates, `old_history`
-    matches gbuf's shape + (2,). Returns (rgba, new_history)."""
+                gbuf, frag, cfg: GltfConfig, class_maps, old_history,
+                y0=None, tap_routes=None):
+    """The per-pixel back half on any domain shape (frame.py:556-638 and
+    764-892 at shadow_eval_scale 1): shadow filter -> TAA -> contact ->
+    final shading. `frag` holds pixel centres (x + 0.5) in global
+    framebuffer coordinates, `old_history` matches gbuf's shape + (2,).
+    `y0` marks a 2D row slab starting at that global row (an int or a 0-d
+    device tensor), for which TAA takes JAX's row-slab form. Returns
+    (rgba, new_history)."""
     flags = cfg.flags
     dev = gbuf.valid.device
     normal = gbuf.normal / torch.clamp(
@@ -321,7 +347,10 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
         sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
             uni, shadow_maps, class_maps, gbuf.world, normal, n_dot_l,
             view_depth, frag, flags.use_pcss, gbuf.valid,
-            cfg.shadow_pen_capacity)
+            cfg.shadow_pen_capacity, cfg.shadow_pen_cascade_caps,
+            cfg.shadow_pen_block_capacity, cfg.shadow_tap_windows,
+            flags.committed, cfg.shadow_lit_cascade_caps, tap_routes,
+            cfg.shadow_route_caps)
     elif flags.enable_shadows:
         sres, c0, c1, ct = shadow_filter.cascaded_shadow(
             uni, shadow_maps, gbuf.world, normal, n_dot_l, view_depth,
@@ -334,9 +363,12 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
         c1 = c0
         ct = torch.zeros_like(one)
 
+    taa_domain = (dict(y0=y0) if y0 is not None
+                  else dict(frag=frag, full_width=cfg.width))
     shadow_term, new_history = taa.apply_shadow_taa(
         sres, gbuf.world, uni, state.shadow_history, flags.use_shadow_taa,
-        full_height=cfg.height, frag=frag, full_width=cfg.width)
+        full_height=cfg.height, need_capacity=cfg.taa_need_capacity,
+        committed=flags.committed, **taa_domain)
 
     if flags.enable_contact_shadows:
         if flags.sparse_contact:
@@ -344,10 +376,12 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
                 gbuf.world, normal, uni, state.prev_depth,
                 capacity=cfg.contact_capacity,
                 march_capacity=cfg.contact_march_capacity,
-                valid=gbuf.valid, frag=frag,
+                valid=gbuf.valid, block_capacity=cfg.contact_block_capacity,
+                frag=frag,
                 plane=contact.reference_plane(
                     scene.positions, scene.tri_indices, uni.prev_view_proj,
-                    cfg.width, cfg.height))
+                    cfg.width, cfg.height),
+                committed=flags.committed, march_window=cfg.contact_window)
         else:
             contact_term = contact.compute_contact_shadow(
                 gbuf.world, normal, uni, state.prev_depth, frag=frag)
@@ -357,7 +391,7 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
     new_history = torch.where(gbuf.valid[..., None], new_history,
                               old_history)
 
-    background = torch.tensor(GLTF_CLEAR, dtype=torch.float32, device=dev)
+    background = _background(dev)
     if flags.debug_cascades:
         rgba = shading.cascade_debug_color(gbuf, c0, c1, ct, shadow_term,
                                            background)
@@ -365,27 +399,65 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
         rgba = shading.shade_gltf(gbuf, scene.texture, scene.texture_sizes,
                                   uni.camera_pos, uni.light_dir,
                                   shadow_term, background,
-                                  cfg.effective_texture_blocks)
+                                  cfg.effective_texture_blocks,
+                                  committed=flags.committed)
     return rgba, new_history
+
+
+def _shade_slab_rows(scene: DeviceScene, uni, state: FrameState,
+                     shadow_maps, tri_id, depth, setup_data, blocks,
+                     cfg: GltfConfig, y0, class_maps, tri_flags,
+                     slab_h: int, tap_routes=None):
+    """The row-slab back half (frame.py:641-699 at shadow_eval_scale 1):
+    the dense back half on the (slab_h, W) slab at the first covered row,
+    rounded down to a multiple of 8; rows outside keep the clear colour
+    and the carried history. The slab start stays on the device. A covered
+    span taller than the slab takes the full-height dense path (one host
+    branch), or in committed mode leaves the rows past the slab unshaded,
+    as in JAX."""
+    h, w = tri_id.shape
+    row_any = (tri_id >= 0).any(dim=1)
+    any_valid = row_any.any()
+    row_any = row_any.to(torch.uint8)
+    y_lo = torch.argmax(row_any).to(torch.int32)
+    y_hi = (h - torch.argmax(row_any.flip(0))).to(torch.int32)
+    y0d = torch.clamp(torch.where(any_valid, (y_lo // 8) * 8, 0), 0,
+                      h - slab_h)
+    span = torch.where(any_valid, y_hi - y0d, 0)
+    if not (cfg.flags.committed or host_cond(
+            span <= slab_h, "valid_slab_rows", [(span, slab_h)])):
+        return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id,
+                                 depth, setup_data, blocks, cfg, y0,
+                                 class_maps, tri_flags, tap_routes)
+    rgba_s, hist_s = _shade_slab_dense(
+        scene, uni, state, shadow_maps,
+        dynamic_slice(tri_id, (y0d,), (slab_h,)),
+        dynamic_slice(depth, (y0d,), (slab_h,)), setup_data, blocks, cfg,
+        y0 + y0d, class_maps, tri_flags, tap_routes)
+    dev = tri_id.device
+    rgba = dynamic_update_slice(_background(dev, alpha=True).expand(h, w, 4),
+                                rgba_s, (y0d,))
+    old = dynamic_slice(state.shadow_history, (y0,), (h,))
+    return rgba, dynamic_update_slice(old, hist_s, (y0d,))
 
 
 def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
                         shadow_maps, tri_id, depth, setup_data, blocks,
                         cfg: GltfConfig, y0, class_maps, tri_flags,
-                        bcap: int):
+                        bcap: int, tap_routes=None):
     """The valid-block back half (frame.py:702-761): compact the 8x8
     blocks with any coverage, run the whole back half on flat (bcap*64,)
     block-major arrays, scatter (rgba, history) back in one block write.
     More than `bcap` covered blocks takes the dense 2D path (one host
-    branch)."""
+    branch), or in committed mode drops the excess blocks, as in JAX."""
     h, w = tri_id.shape
     bc = compact_valid_blocks(tri_id >= 0, 8, 8, bcap)
-    if not host_cond(bc.fits, "valid_blocks",
-                     [(bc.comp_b.count, bcap)]):
+    if not (cfg.flags.committed or host_cond(
+            bc.fits, "valid_blocks", [(bc.comp_b.count, bcap)])):
         return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id,
                                  depth, setup_data, blocks, cfg, y0,
-                                 class_maps, tri_flags)
-    old_slab = state.shadow_history[y0:y0 + h]
+                                 class_maps, tri_flags, tap_routes)
+    old_slab = dynamic_slice(state.shadow_history, (y0,), (h,))
     # One block-row gather moves the raster outputs and the carried
     # history; the int32 ids ride as bitcast f32 lanes.
     payload = torch.cat([tri_id.view(torch.float32)[..., None],
@@ -403,10 +475,10 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
     gbuf = deferred.interpolate_at(tri_e, depth_e, setup_data, blocks,
                                    tri_flags, pxf, pyf)
     rgba_e, hist_e = _shade_core(scene, uni, state, shadow_maps, gbuf,
-                                 frag, cfg, class_maps, old_hist_e)
+                                 frag, cfg, class_maps, old_hist_e,
+                                 tap_routes=tap_routes)
 
-    background = torch.tensor(GLTF_CLEAR + (1.0,), dtype=torch.float32,
-                              device=tri_id.device)
+    background = _background(tri_id.device, alpha=True)
     base = torch.cat([background.expand(h, w, 4), old_slab], dim=-1)
     out = scatter_blocks(base, bc, torch.cat([rgba_e, hist_e], dim=-1))
     return out[..., 0:4], out[..., 4:6]
@@ -414,11 +486,12 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
 
 def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
                       shadow_maps, tri_id, depth, setup_data, blocks,
-                      cfg: GltfConfig, y0: int = 0, class_maps=None,
-                      tri_flags=None):
-    """Dense 2D back half for the row slab [y0, y0 + h) (frame.py:764-892
-    at shadow_eval_scale 1): the blocked path's overflow branch and the
-    parity reference. Returns (rgba (h, W, 4), history slab (h, W, 2))."""
+                      cfg: GltfConfig, y0=0, class_maps=None,
+                      tri_flags=None, tap_routes=None):
+    """Dense 2D back half for the row slab [y0, y0 + h), y0 an int or a
+    0-d device tensor (frame.py:764-892 at shadow_eval_scale 1): the other
+    back halves' overflow branch and the parity reference. Returns (rgba
+    (h, W, 4), history slab (h, W, 2))."""
     if tri_flags is None:
         tri_flags = scene.tri_flags
     gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
@@ -427,7 +500,32 @@ def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
     frag = torch.stack(deferred.pixel_centers(h, w, y0, tri_id.device),
                        dim=-1)
     return _shade_core(scene, uni, state, shadow_maps, gbuf, frag, cfg,
-                       class_maps, state.shadow_history[y0:y0 + h])
+                       class_maps,
+                       dynamic_slice(state.shadow_history, (y0,), (h,)),
+                       y0, tap_routes)
+
+
+def _cascade_maps(scene: DeviceScene, uni, world_v, cfg: GltfConfig):
+    """The four raw cascade depth maps (frame.py:907-958): the full raster,
+    or with synth_shadow_maps the synthesized maps on the planned
+    footprint windows. An occluder outgrowing its window takes the full
+    raster (one host branch); committed mode keeps the synthesized maps,
+    whose window-fit certificate the occupancy poll reads instead."""
+    flags = cfg.flags
+    sizes = cfg.effective_light_windows()
+    if flags.synth_shadow_maps and sizes is not None and any(sizes):
+        origins, _ = shadow_lightspace.plan_windows(
+            uni, world_v, scene.vert_object, sizes, cfg.shadow_map_size,
+            cfg.max_softness, cfg.class_coarse)
+        maps, ok = shadow.synthesize_shadow_maps(
+            scene, world_v, uni, cfg.shadow_map_size, sizes, origins,
+            RasterConfig(tile_h=128, tile_w=128,
+                         backend=cfg.shadow_raster.backend))
+        if flags.committed or host_cond(ok, "synth_window_fit"):
+            return maps
+    return shadow.render_shadow_maps(
+        world_v, scene.tri_indices, scene.num_triangles,
+        uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
 
 
 def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
@@ -445,14 +543,22 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
 
     shadow_maps = None
     class_maps = None
+    tap_routes = None
     if flags.enable_shadows:
-        raw_maps = shadow.render_shadow_maps(
-            world_v, scene.tri_indices, scene.num_triangles,
-            uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
+        raw_maps = _cascade_maps(scene, uni, world_v, cfg)
         if flags.sparse_shadows:
             class_maps = build_class_maps(
                 raw_maps, cfg.class_coarse, cfg.max_softness,
                 light_ground_planes(uni.light_view_proj))
+            routes = cfg.shadow_route_windows
+            if routes is not None and any(routes) \
+                    and cfg.shadow_route_caps is not None:
+                # Routed tap groups on the footprint windows at the route
+                # sizes (frame.py:990-1003).
+                r_origins, _ = shadow_lightspace.plan_windows(
+                    uni, world_v, scene.vert_object, routes,
+                    cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
+                tap_routes = (r_origins, tuple(routes))
         shadow_maps = quad_pack(raw_maps)              # (4, S, S, 4)
 
     tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
@@ -462,7 +568,7 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
 
     rgba, new_history = shade_slab(
         scene, uni, state, shadow_maps, tri_id, depth, setup.data, blocks_m,
-        cfg, 0, class_maps, tri_flags_m)
+        cfg, 0, class_maps, tri_flags_m, tap_routes)
 
     new_state = FrameState(
         shadow_history=new_history,

@@ -15,8 +15,12 @@ F32 = torch.float32
 
 
 def f32(x, device) -> torch.Tensor:
-    """x as a float32 tensor on `device` (a tensor input keeps its data)."""
-    return torch.as_tensor(x, dtype=F32, device=device)
+    """x as a float32 tensor on `device` (a tensor input keeps its data).
+    A host value is copied without blocking: the host does not wait for
+    the card's queue to drain."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=F32)
+    return torch.tensor(x, dtype=F32).to(device, non_blocking=True)
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:

@@ -148,6 +148,19 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     return bins, counts
 
 
+def bin_stats(clip: torch.Tensor, tri_indices: torch.Tensor, width: int,
+              height: int, tile_h: int, tile_w: int,
+              num_triangles: int | None = None):
+    """Per-tile bin occupancy of one view (binning.py:203-222): dict of
+    device tensors max, mean, total and the tile count n_tiles. It sizes
+    RasterConfig.capacity (a full bin drops its highest ids)."""
+    setup = triangle_setup(clip, tri_indices, width, height, num_triangles)
+    _, counts = bin_triangles(setup, width, height, tile_h, tile_w,
+                              capacity=setup.data.shape[0])
+    return {"max": counts.max(), "mean": counts.to(torch.float32).mean(),
+            "total": counts.sum(), "n_tiles": counts.shape[0]}
+
+
 def gather_bin_data(setup: TriangleSetup, bins: torch.Tensor) -> torch.Tensor:
     """Pre-gathered (n_tiles, C, 16) rows with the id bitcast into column
     12 (binning.py:225-237)."""

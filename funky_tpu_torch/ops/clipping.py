@@ -84,17 +84,21 @@ def expand_near_clipped(tri_clip: torch.Tensor, blocks: torch.Tensor,
     inv_w = 1.0 / torch.clamp(quad_clip[..., 3], min=1e-12)
     quad_blocks = torch.cat([attr, inv_w[..., None]], dim=-1)
 
-    corners_a = [0, 1, 2]
-    corners_b = [0, 2, 3]
+    def corners_a(q):                  # quad corners (0, 1, 2)
+        return q[:, 0:3]
+
+    def corners_b(q):                  # quad corners (0, 2, 3), by slices:
+        return torch.cat([q[:, 0:1], q[:, 2:4]], dim=1)  # no host index
+
     valid_a = comp.slot_valid
     valid_b = comp.slot_valid & (cnt == 2)
     valid_orig = real & torch.all(inside, dim=-1)
 
     return ClippedGeometry(
-        tri_clip=torch.cat([tri_clip, quad_clip[:, corners_a],
-                            quad_clip[:, corners_b]], dim=0),
-        blocks=torch.cat([blocks, quad_blocks[:, corners_a],
-                          quad_blocks[:, corners_b]], dim=0),
+        tri_clip=torch.cat([tri_clip, corners_a(quad_clip),
+                            corners_b(quad_clip)], dim=0),
+        blocks=torch.cat([blocks, corners_a(quad_blocks),
+                          corners_b(quad_blocks)], dim=0),
         tri_flags=torch.cat([tri_flags, f, f], dim=0),
         valid=torch.cat([valid_orig, valid_a, valid_b], dim=0),
         overflow=comp.count > k,

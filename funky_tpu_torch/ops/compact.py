@@ -239,11 +239,15 @@ def gather_blocks(a: torch.Tensor, bc: BlockCompaction) -> torch.Tensor:
 
 def _set_rows_drop(table: torch.Tensor, idx: torch.Tensor,
                    values: torch.Tensor) -> torch.Tensor:
-    """table.at[idx].set(values, mode="drop") for idx in [0, n]: row n is
-    a scratch row that padding slots write to, cut off afterwards."""
+    """table.at[idx].set(values, mode="drop") for idx in [-n, n]: row n is
+    a scratch row that padding slots write to, cut off afterwards. As in
+    JAX, a negative index counts from the end: a committed frame whose
+    group segment runs past its compaction writes its -1 slots to the last
+    row, and the port reproduces that artifact."""
     n = table.shape[0]
     out = torch.cat([table, table[:1]])
-    out[idx.long()] = values.to(out.dtype)
+    idx = idx.long()
+    out[torch.where(idx < 0, idx + n, idx)] = values.to(out.dtype)
     return out[:n]
 
 

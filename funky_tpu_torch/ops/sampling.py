@@ -1,6 +1,8 @@
 """Texture / shadow-map samplers as gathers (port of funky_tpu/ops/sampling.py).
 
-Only the samplers the dense glTF frame calls are ported. Two semantic
+The samplers the glTF frame calls are ported, with the windowed variants
+of the committed and routed tap groups, and `dynamic_slice` /
+`dynamic_update_slice`, JAX's slices at device-valued starts. Two semantic
 differences between the libraries are handled here for every sampler:
 
 - A JAX gather clamps out-of-range indices; torch raises on the CPU and
@@ -37,6 +39,48 @@ def take_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = flat.shape[0]
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return flat[idx.long()]
+
+
+def _slice_start(s, dim: int, size: int):
+    """jax.lax.dynamic_slice's rule for one start: a negative start counts
+    from the end, then it is clamped so that the slice stays in bounds."""
+    if isinstance(s, torch.Tensor):
+        s = s.to(torch.int64)
+        return torch.clamp(torch.where(s < 0, s + dim, s), 0, dim - size)
+    s = s + dim if s < 0 else s
+    return min(max(int(s), 0), dim - size)
+
+
+def _slice_index(x: torch.Tensor, starts, sizes):
+    """Index of the dynamic slice over x's leading axes: plain slices for
+    host starts, broadcast index tensors once any start is a tensor."""
+    starts = [_slice_start(s, x.shape[d], n)
+              for d, (s, n) in enumerate(zip(starts, sizes))]
+    if not any(isinstance(s, torch.Tensor) for s in starts):
+        return tuple(slice(s, s + n) for s, n in zip(starts, sizes))
+    k = len(sizes)
+    index = []
+    for d, (s, n) in enumerate(zip(starts, sizes)):
+        shape = [1] * k
+        shape[d] = n
+        index.append((torch.arange(n, device=x.device) + s).reshape(shape))
+    return tuple(index)
+
+
+def dynamic_slice(x: torch.Tensor, starts, sizes) -> torch.Tensor:
+    """jax.lax.dynamic_slice over the leading len(starts) axes of x (the
+    others whole). A start may be a 0-d device tensor: it is clamped and
+    applied by index arithmetic on the device, never read on the host."""
+    return x[_slice_index(x, starts, sizes)]
+
+
+def dynamic_update_slice(x: torch.Tensor, update: torch.Tensor,
+                         starts) -> torch.Tensor:
+    """jax.lax.dynamic_update_slice over x's leading axes (starts clamped
+    as in dynamic_slice); returns a new tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    out[_slice_index(x, starts, update.shape[:len(starts)])] = update
+    return out
 
 
 def _gather2d(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor):
@@ -174,7 +218,47 @@ def sample_nearest_border_packed(packed_maps: torch.Tensor,
     flat = packed_maps.reshape(l * s * s, 4)
     quad = take_rows(flat, (layer * s + cy) * s + cx)
     c00, c10, c01, c11 = _quad_corners(quad, x0 >= 0, y0 >= 0)
+    return _nearest_of_quad(uv, s, cx, cy, c00, c10, c01, c11, border)
 
+
+# Windowed variants (sampling.py:365-434): the same arithmetic in full-map
+# coordinates, with the row read from a (Wh, Ww, 4) window of one cascade's
+# quad-packed table at `origin` (oy, ox). Bit-identical to the full-table
+# samplers for taps whose clamped base texel lies inside the window; others
+# clamp to the window's edge.
+
+def _window_fetch(window: torch.Tensor, origin, cy: torch.Tensor,
+                  cx: torch.Tensor) -> torch.Tensor:
+    """sampling.py:381-386."""
+    wh, ww = window.shape[0], window.shape[1]
+    ly = (cy - origin[0]).clamp(0, wh - 1)
+    lx = (cx - origin[1]).clamp(0, ww - 1)
+    return take_rows(window.reshape(wh * ww, 4), ly * ww + lx)
+
+
+def sample_shadow_compare_window(window: torch.Tensor, origin,
+                                 full_size: int, uv: torch.Tensor,
+                                 ref_depth: torch.Tensor) -> torch.Tensor:
+    """sample_shadow_compare_packed through a window (sampling.py:
+    389-408); the border is white outside the full map."""
+    s = full_size
+    cy, cx, fy, fx, inside, x_ok, y_ok = _quad_tap_setup((s, s), uv)
+    quad = _window_fetch(window, origin, cy, cx)
+    c00, c10, c01, c11 = _quad_corners(quad, x_ok, y_ok)
+
+    def cmp(d, inb):
+        return torch.where(inb, (ref_depth <= d).to(torch.float32), 1.0)
+
+    t00 = cmp(c00, inside[0])
+    t10 = cmp(c10, inside[1])
+    t01 = cmp(c01, inside[2])
+    t11 = cmp(c11, inside[3])
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _nearest_of_quad(uv, s, cx, cy, c00, c10, c01, c11, border):
     nxi = to_i32(torch.floor(uv[..., 0] * s))
     nyi = to_i32(torch.floor(uv[..., 1] * s))
     inb = (nxi >= 0) & (nxi < s) & (nyi >= 0) & (nyi < s)
@@ -187,22 +271,23 @@ def sample_nearest_border_packed(packed_maps: torch.Tensor,
     return torch.where(inb, nearest, border)
 
 
-def sample_depth_dual_packed(packed: torch.Tensor, uv: torch.Tensor):
-    """Bilinear + nearest CLAMP_TO_EDGE reads of one quad-packed depth
-    buffer (H, W, 4) from one row gather (sampling.py:437-473). Returns
-    (bilinear, nearest)."""
-    h, w, _ = packed.shape
-    x = uv[..., 0] * w - 0.5
-    y = uv[..., 1] * h - 0.5
-    x0f = torch.floor(x)
-    y0f = torch.floor(y)
-    fx = x - x0f
-    fy = y - y0f
-    x0 = to_i32(x0f)
-    y0 = to_i32(y0f)
-    ix = x0.clamp(0, w - 1)
-    iy = y0.clamp(0, h - 1)
-    quad = _row_gather(packed, iy, ix)
+def sample_nearest_border_window(window: torch.Tensor, origin,
+                                 full_size: int, uv: torch.Tensor,
+                                 border: float = 1.0) -> torch.Tensor:
+    """sample_nearest_border_packed through a window (sampling.py:
+    411-434)."""
+    s = full_size
+    x0 = to_i32(torch.floor(uv[..., 0] * s - 0.5))
+    y0 = to_i32(torch.floor(uv[..., 1] * s - 0.5))
+    cx = x0.clamp(0, s - 1)
+    cy = y0.clamp(0, s - 1)
+    quad = _window_fetch(window, origin, cy, cx)
+    c00, c10, c01, c11 = _quad_corners(quad, x0 >= 0, y0 >= 0)
+    return _nearest_of_quad(uv, s, cx, cy, c00, c10, c01, c11, border)
+
+
+def _dual_read(quad, uv, h, w, ix, iy, fx, fy, x0, y0):
+    """Bilinear + nearest of one gathered quad (sampling.py:455-473)."""
     c00, c10, c01, c11 = _quad_corners(quad, x0 >= 0, y0 >= 0)
     fx = fx.clamp(0.0, 1.0)
     fy = fy.clamp(0.0, 1.0)
@@ -218,6 +303,40 @@ def sample_depth_dual_packed(packed: torch.Tensor, uv: torch.Tensor):
         torch.where(nx == 0, c00, c10),
         torch.where(nx == 0, c01, c11))
     return bilinear, nearest
+
+
+def _dual_setup(uv, h, w):
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    x0 = to_i32(x0f)
+    y0 = to_i32(y0f)
+    return x - x0f, y - y0f, x0, y0, x0.clamp(0, w - 1), y0.clamp(0, h - 1)
+
+
+def sample_depth_dual_window(window: torch.Tensor, origin, full_hw,
+                             uv: torch.Tensor):
+    """sample_depth_dual_packed through a (wh, ww, 4) window of the full
+    (H, W, 4) quad-packed depth at `origin` (oy, ox) (sampling.py:
+    476-516)."""
+    h, w = full_hw
+    wh, ww = window.shape[0], window.shape[1]
+    fx, fy, x0, y0, ix, iy = _dual_setup(uv, h, w)
+    lx = (ix - origin[1]).clamp(0, ww - 1)
+    ly = (iy - origin[0]).clamp(0, wh - 1)
+    quad = _row_gather(window, ly, lx)
+    return _dual_read(quad, uv, h, w, ix, iy, fx, fy, x0, y0)
+
+
+def sample_depth_dual_packed(packed: torch.Tensor, uv: torch.Tensor):
+    """Bilinear + nearest CLAMP_TO_EDGE reads of one quad-packed depth
+    buffer (H, W, 4) from one row gather (sampling.py:437-473). Returns
+    (bilinear, nearest)."""
+    h, w, _ = packed.shape
+    fx, fy, x0, y0, ix, iy = _dual_setup(uv, h, w)
+    return _dual_read(_row_gather(packed, iy, ix), uv, h, w, ix, iy, fx, fy,
+                      x0, y0)
 
 
 def sample_nearest_edge(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

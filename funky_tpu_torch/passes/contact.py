@@ -3,7 +3,8 @@ funky_tpu/passes/contact.py). 8 jittered linear steps + 4 bisection steps
 against the previous frame's depth, read through both the bilinear and
 the nearest filter: densely (`compute_contact_shadow`) or sparsely
 (`compute_contact_shadow_sparse`, the default), where an analytic-plane
-residual certificate retires most rays and only a compacted set marches.
+residual certificate retires most rays and only a compacted set marches;
+`contact_occupancy` counts those sets for the autotuner.
 """
 
 from __future__ import annotations
@@ -13,12 +14,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..math3d import f32
 from ..ops.binning import triangle_setup_corners
 from ..ops.clipping import expand_near_clipped
-from ..ops.compact import (Compacted, compact_indices, gather_rows,
-                           host_cond, scatter_back)
-from ..ops.sampling import (quad_pack, sample_depth_dual_packed, take_rows,
-                            to_i32)
+from ..ops.compact import (Compacted, compact_indices,
+                           compact_indices_blocked, gather_rows, host_cond,
+                           scatter_back)
+from ..ops.sampling import (dynamic_slice, quad_pack,
+                            sample_depth_dual_packed,
+                            sample_depth_dual_window, take_rows, to_i32)
 from .deferred import pixel_centers
 from .shadow_filter import interleaved_gradient_noise
 from .uniforms import FrameUniforms
@@ -95,9 +99,11 @@ def _ray_setup(world, normal, uni: FrameUniforms):
     return march_start, march_dir, on_screen, facing
 
 
-def _march(depth_packed, march_start, march_dir, jitter):
+def _march(depth_packed, march_start, march_dir, jitter, window=None):
     """8-linear + 4-bisection hybrid root find (contact.py:124-186).
-    Returns (intersected, max_t, last_pen)."""
+    `window` = (win (cw, cw, 4), origin (oy, ox), (H, W)) reads the depth
+    through a window of the packed buffer. Returns (intersected, max_t,
+    last_pen)."""
     shape = jitter.shape
     dev = jitter.device
     min_t = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -110,7 +116,13 @@ def _march(depth_packed, march_start, march_dir, jitter):
         uv = cs[..., :2] * 0.5 + 0.5
         inb = ((uv[..., 0] >= 0.0) & (uv[..., 0] <= 1.0)
                & (uv[..., 1] >= 0.0) & (uv[..., 1] <= 1.0))
-        d_max, d_min = _sample_depth_dual(depth_packed, uv)
+        if window is not None:
+            raw_l, raw_n = sample_depth_dual_window(window[0], window[1],
+                                                    window[2], uv)
+            d_max = torch.maximum(_linearize(raw_l), _linearize(raw_n))
+            d_min = torch.minimum(_linearize(raw_l), _linearize(raw_n))
+        else:
+            d_max, d_min = _sample_depth_dual(depth_packed, uv)
         ray_depth = _linearize(cs[..., 2])
         distance = d_max - ray_depth
         penetration = ray_depth - d_min
@@ -237,14 +249,14 @@ def reference_plane(positions: torch.Tensor, tri_indices: torch.Tensor,
     zp = setup.data[:, 9:12]
     valid = setup.valid
     any_valid = valid.any()
-    base_i = torch.argmax(valid.to(torch.uint8))
-    base = zp[base_i]
-    corners_m = torch.tensor([[0.0, float(width), 0.0, float(width)],
-                              [0.0, 0.0, float(height), float(height)],
-                              [1.0, 1.0, 1.0, 1.0]], dtype=torch.float32,
-                             device=dev)
-    vals = zp @ corners_m                                   # (T', 4)
-    gaps = torch.where(valid[:, None], vals[base_i][None] - vals,
+    # a (1,) index gathers on the card; a 0-d one would be read on the host
+    base_i = torch.argmax(valid.to(torch.uint8)).reshape(1)
+    base = zp[base_i][0]
+    corners_m = f32([[0.0, float(width), 0.0, float(width)],
+                     [0.0, 0.0, float(height), float(height)],
+                     [1.0, 1.0, 1.0, 1.0]], dev)
+    vals = zp @ corners_m                                  # (T', 4)
+    gaps = torch.where(valid[:, None], vals[base_i] - vals,
                        -float("inf"))
     shift = torch.clamp(gaps.max(), min=0.0)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -313,11 +325,9 @@ def build_residual_pyramid(prev_depth: torch.Tensor, plane: torch.Tensor,
     x_lo, x_hi = span(col_any, w)
     y_lo, y_hi = span(row_any, h)
     pad = FOOT + 1.5
-    big = torch.tensor(float(w + h), dtype=torch.float32, device=dev)
-    occl_lo = torch.where(any_occ, torch.stack([x_lo, y_lo]) - pad,
-                          torch.stack([big, big]))
-    occl_hi = torch.where(any_occ, torch.stack([x_hi, y_hi]) + pad,
-                          torch.stack([-big, -big]))
+    big = float(w + h)
+    occl_lo = torch.where(any_occ, torch.stack([x_lo, y_lo]) - pad, big)
+    occl_hi = torch.where(any_occ, torch.stack([x_hi, y_hi]) + pad, -big)
 
     d0 = _reduce_min(resid, base)
     lh, lw = d0.shape
@@ -434,29 +444,79 @@ def _stage2_certify(pyr: ResidualPyramid, start, direction, jitter,
 def contact_classify(pyr: ResidualPyramid, march_start, march_dir, cand,
                      depth_shape):
     """Stage-1 mask of rays that may hit (contact.py:611-621)."""
-    hd, wd = depth_shape
-    size = torch.tensor([wd, hd], dtype=torch.float32,
-                        device=march_start.device)
-    cert, intersects = _segment_cert(pyr, march_start, march_dir, size)
+    cert, intersects = _segment_cert(pyr, march_start, march_dir,
+                                     _size(depth_shape, march_start.device))
     return cand & (intersects | ~cert)
+
+
+def _size(depth_shape, device) -> torch.Tensor:
+    """(W, H) of the depth buffer as f32, made on the device."""
+    hd, wd = depth_shape
+    return torch.stack([torch.full((), float(wd), device=device),
+                        torch.full((), float(hd), device=device)])
+
+
+def contact_occupancy(world: torch.Tensor, normal: torch.Tensor,
+                      uni: FrameUniforms, prev_depth: torch.Tensor, y0=0,
+                      valid: torch.Tensor | None = None,
+                      plane: torch.Tensor | None = None):
+    """Diagnostic (contact.py:624-668): dense per-stage counts that size
+    contact_capacity / contact_march_capacity, and the stage-3 probe
+    bbox extent that sizes the committed march window, as a dict of
+    device tensors. Pass the frame's `plane` (reference_plane)."""
+    h, w = world.shape[:2]
+    size = _size(prev_depth.shape, world.device)
+    if plane is None:
+        plane = fit_ground_plane(uni.prev_view_proj, prev_depth.shape[1],
+                                 prev_depth.shape[0], uni.camera_pos)
+    pyr = build_residual_pyramid(prev_depth, plane)
+    march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
+                                                           uni)
+    jitter = _jitter(h, w, y0, uni.debug_flags[3])
+    cand = facing & on_screen
+    if valid is not None:
+        cand = cand & valid
+    stage2 = contact_classify(pyr, march_start, march_dir, cand,
+                              prev_depth.shape)
+    cert2 = _stage2_certify(pyr, march_start, march_dir, jitter, size)
+    st3 = stage2 & ~cert2
+    p0 = (march_start[..., :2] * 0.5 + 0.5) * size
+    p1 = ((march_start[..., :2] + march_dir[..., :2]) * 0.5 + 0.5) * size
+    big = float(1 << 28)
+    m = st3[..., None]
+    lo = torch.where(m, torch.minimum(p0, p1), big).reshape(-1, 2).amin(0)
+    hi = torch.where(m, torch.maximum(p0, p1), -big).reshape(-1, 2).amax(0)
+    ext = torch.where(st3.any(),
+                      torch.ceil((hi - lo).amax() + 2.0 * (FOOT + 1.0)), 0.0)
+    return {"_stage2": stage2,
+            "contact_stage2": stage2.sum(dtype=torch.int32),
+            "contact_march": st3.sum(dtype=torch.int32),
+            "contact_march_extent": to_i32(ext)}
 
 
 def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
                                   uni: FrameUniforms,
-                                  prev_depth: torch.Tensor, y0: int = 0,
+                                  prev_depth: torch.Tensor, y0=0,
                                   capacity: int | None = None,
                                   march_capacity: int | None = None,
                                   valid: torch.Tensor | None = None,
+                                  block_capacity: int | None = None,
                                   frag: torch.Tensor | None = None,
-                                  plane: torch.Tensor | None = None
+                                  plane: torch.Tensor | None = None,
+                                  committed: bool = False,
+                                  march_window: int | None = None
                                   ) -> torch.Tensor:
-    """Sparse-exact contact shadows (contact.py:671-820 with no block
-    budget, no march window, not committed): equal to
-    compute_contact_shadow wherever `valid`. `capacity` (default
-    max(n // 4, 256)) bounds the stage-2 set, `march_capacity` (default
-    max(capacity // 4, 256)) the marched set; overflow at either takes
-    the dense march (one host branch). Domain: a row slab at y0
-    (frag=None) or any batch with explicit `frag` pixel centres."""
+    """Sparse-exact contact shadows (contact.py:671-820): equal to
+    compute_contact_shadow wherever `valid` while the capacities hold.
+    `capacity` (default max(n // 4, 256)) bounds the stage-2 set,
+    `march_capacity` (default max(capacity // 4, 256)) the marched set;
+    `block_capacity` compacts stage 2 two-level over 8x8 blocks (64-runs
+    on a flat domain). Without `committed` an overflow takes the dense
+    march (one host branch); with it the march runs on the first entries
+    (the others stay lit), and `march_window` (committed only) reads the
+    probes from a (cw, cw) window of the depth on the marched rays' bbox.
+    Domain: a row slab at y0 (frag=None) or any batch with explicit
+    `frag` pixel centres."""
     batch = world.shape[:-1]
     hd, wd = prev_depth.shape
     n = int(np.prod(batch))
@@ -464,7 +524,7 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
     cap3 = march_capacity if march_capacity is not None else max(
         cap2 // 4, 256)
     dev = world.device
-    size = torch.tensor([wd, hd], dtype=torch.float32, device=dev)
+    size = _size(prev_depth.shape, dev)
 
     depth_packed = quad_pack(prev_depth)
     if plane is None:
@@ -485,7 +545,15 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
     stage2 = contact_classify(pyr, march_start, march_dir, cand,
                               prev_depth.shape)
 
-    comp2 = compact_indices(stage2, cap2)
+    blocked = None
+    if (block_capacity is not None and stage2.ndim == 2
+            and batch[0] % 8 == 0 and batch[1] % 8 == 0):
+        blocked = compact_indices_blocked(stage2, cap2, 8, 8, block_capacity)
+    elif block_capacity is not None and stage2.ndim == 1 and n % 64 == 0:
+        blocked = compact_indices_blocked(stage2.reshape(n // 64, 64), cap2,
+                                          1, 64, block_capacity)
+    comp2 = (blocked.comp if blocked is not None
+             else compact_indices(stage2, cap2))
     payload = torch.cat([march_start, march_dir, jitter[..., None]],
                         dim=-1).reshape(n, 7)
     rows2 = gather_rows(payload, comp2)
@@ -501,12 +569,30 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
         slot_valid=comp3_local.slot_valid, count=comp3_local.count)
 
     fits = (comp2.count <= cap2) & (comp3.count <= cap3)
-    if host_cond(fits, "contact", [(comp2.count, cap2),
-                                           (comp3.count, cap3)]):
+    occupancy = [(comp2.count, cap2), (comp3.count, cap3)]
+    if blocked is not None:
+        fits = fits & (blocked.block_count <= block_capacity)
+        occupancy.append((blocked.block_count, block_capacity))
+    if committed or host_cond(fits, "contact", occupancy):
         dense = torch.ones((n,), dtype=torch.float32, device=dev)
         rows = gather_rows(payload, comp3)
         start3, dir3, jit3 = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
-        inter, max_t, last_pen = _march(depth_packed, start3, dir3, jit3)
+        window = None
+        if committed and march_window is not None \
+                and march_window < min(hd, wd):
+            cw = march_window
+            p0 = (start3[:, :2] * 0.5 + 0.5) * size
+            p1 = ((start3[:, :2] + dir3[:, :2]) * 0.5 + 0.5) * size
+            big = float(1 << 28)
+            v = comp3.slot_valid[:, None]
+            lo = torch.clamp(torch.where(v, torch.minimum(p0, p1), big)
+                             .amin(0) - FOOT - 1.0, max=big)
+            oy = to_i32(lo[1]).clamp(0, hd - cw)
+            ox = to_i32(lo[0]).clamp(0, wd - cw)
+            window = (dynamic_slice(depth_packed, (oy, ox), (cw, cw)),
+                      (oy, ox), (hd, wd))
+        inter, max_t, last_pen = _march(depth_packed, start3, dir3, jit3,
+                                        window)
         term = _soft_term(inter & comp3.slot_valid, max_t, last_pen)
         return scatter_back(dense, comp3, term).reshape(batch)
     inter, max_t, last_pen = _march(depth_packed, march_start, march_dir,

@@ -65,20 +65,22 @@ def interpolate_at(tri_id: torch.Tensor, depth: torch.Tensor,
     )
 
 
-def pixel_centers(h: int, w: int, y0: int, device):
-    """(H, W) x + 0.5 and global-row y + 0.5 + y0 pixel centres."""
+def pixel_centers(h: int, w: int, y0, device):
+    """(H, W) x + 0.5 and global-row y + 0.5 + y0 pixel centres; y0 is an
+    int or a 0-d device tensor (the row slab's start)."""
     px = (torch.arange(w, dtype=torch.float32, device=device)[None, :]
           + 0.5).expand(h, w)
+    y0 = y0.to(torch.float32) if isinstance(y0, torch.Tensor) else float(y0)
     py = (torch.arange(h, dtype=torch.float32, device=device)[:, None]
-          + 0.5 + float(y0)).expand(h, w)
+          + 0.5 + y0).expand(h, w)
     return px, py
 
 
 def interpolate(tri_id: torch.Tensor, depth: torch.Tensor,
                 setup_data: torch.Tensor, shade_blocks: torch.Tensor,
-                tri_flags: torch.Tensor, y0: int = 0) -> GBuffer:
-    """Full-slab interpolation starting at global row y0
-    (deferred.py:94-106)."""
+                tri_flags: torch.Tensor, y0=0) -> GBuffer:
+    """Full-slab interpolation starting at global row y0, an int or a 0-d
+    device tensor (deferred.py:94-106)."""
     h, w = tri_id.shape
     px, py = pixel_centers(h, w, y0, tri_id.device)
     return interpolate_at(tri_id, depth, setup_data, shade_blocks,

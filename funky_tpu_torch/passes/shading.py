@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..math3d import f32
 from ..models.scene import FLAG_USE_TEXTURE
 from ..ops.compact import (compact_blocks_any, gather_rows, host_cond,
                            scatter_back)
@@ -25,13 +26,15 @@ def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
                texture_sizes: torch.Tensor, camera_pos: torch.Tensor,
                light_dir: torch.Tensor, shadow: torch.Tensor,
                background: torch.Tensor,
-               texture_block_capacity: int | None = None) -> torch.Tensor:
+               texture_block_capacity: int | None = None,
+               committed: bool = False) -> torch.Tensor:
     """gltf.frag main lighting with the shadow term supplied
     (shading.py:67-157). Returns (..., 4) linear RGBA.
 
     texture_block_capacity: sample the texture only for the 8x8 screen
     blocks (64-runs on a flat domain) that hold textured pixels; overflow
-    takes the dense sampling (one host branch). None = dense. The same
+    takes the dense sampling (one host branch), or with `committed` leaves
+    the dropped blocks flat white, as in JAX. None = dense. The same
     sampler on the same inputs either way."""
     use_texture = (gbuf.flags & FLAG_USE_TEXTURE) != 0
     layer = gbuf.flags >> 8
@@ -39,9 +42,9 @@ def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
     comp = None
     if texture_block_capacity is not None:
         comp = compact_blocks_any(use_texture, texture_block_capacity)
-    if comp is not None and host_cond(
+    if comp is not None and (committed or host_cond(
             comp.count <= texture_block_capacity, "texture_blocks",
-            [(comp.count, texture_block_capacity)]):
+            [(comp.count, texture_block_capacity)])):
         n = use_texture.numel()
         uv_e = gather_rows(gbuf.uv.reshape(n, 2), comp)
         layer_e = gather_rows(layer.reshape(n), comp)
@@ -62,8 +65,7 @@ def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
     n_dot_l = (normal * light).sum(dim=-1, keepdim=True)
     diff = torch.clamp(n_dot_l, min=0.0)
 
-    fill_dir = _normalize(torch.tensor(_FILL_DIR, dtype=torch.float32,
-                                       device=normal.device))
+    fill_dir = _normalize(f32(_FILL_DIR, normal.device))
     fill_diff = torch.clamp((normal * fill_dir).sum(dim=-1, keepdim=True),
                             min=0.0) * 0.3
 
@@ -89,9 +91,8 @@ def cascade_debug_color(gbuf: GBuffer, c0: torch.Tensor, c1: torch.Tensor,
                         ct: torch.Tensor, shadow: torch.Tensor,
                         background: torch.Tensor) -> torch.Tensor:
     """Cascade visualization (shading.py:160-179)."""
-    colors = torch.tensor([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2],
-                           [0.2, 0.4, 1.0], [1.0, 1.0, 0.2]],
-                          dtype=torch.float32, device=shadow.device)
+    colors = f32([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.4, 1.0],
+                  [1.0, 1.0, 0.2]], shadow.device)
 
     def pick(idx):
         oh = (idx[..., None] == torch.arange(

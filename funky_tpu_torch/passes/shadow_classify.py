@@ -18,6 +18,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..math3d import f32
 from ..ops.sampling import take_rows, to_i32
 
 BORDER_DEPTH = 1.0
@@ -97,9 +98,8 @@ def light_ground_planes(light_view_proj: torch.Tensor,
     gives inf/nan coefficients, which only stop the closed forms from
     firing."""
     dev = light_view_proj.device
-    pts = torch.tensor([[0.0, plane_y, 0.0], [7.0, plane_y, 1.0],
-                        [3.0, plane_y, -6.0]], dtype=torch.float32,
-                       device=dev)
+    pts = f32([[0.0, plane_y, 0.0], [7.0, plane_y, 1.0],
+               [3.0, plane_y, -6.0]], dev)
     hom = torch.cat([pts, torch.ones((3, 1), dtype=torch.float32,
                                      device=dev)], dim=-1)
     clip = torch.einsum("cij,nj->cni", light_view_proj, hom)   # (L, 3, 4)

@@ -1,8 +1,9 @@
 """Shadow filtering: cascade select/blend + PCF + PCSS (port of
 funky_tpu/passes/shadow_filter.py): the dense filter (lines 32-344) and
-the sparse-exact one (`cascaded_shadow_sparse`, lines 359-890, default
-knobs only), which classifies pixels, runs the exact taps on the
-compacted penumbra pairs and writes closed forms elsewhere.
+the sparse-exact one (`cascaded_shadow_sparse`, lines 359-890), which
+classifies pixels, runs the exact taps on the compacted penumbra pairs
+and writes closed forms elsewhere, and its diagnostic `classify_stats`
+(lines 893-1037).
 
 Returns the reference's ShadowResult moments (v, m1, m2, kernel radius)
 that feed the shadow TAA variance clamp.
@@ -20,9 +21,12 @@ from typing import NamedTuple
 import torch
 
 from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
-                           gather_rows, host_cond, scatter_back)
-from ..ops.sampling import (sample_nearest_border_packed,
-                            sample_shadow_compare_packed)
+                           compact_indices_blocked, gather_rows, host_cond,
+                           scatter_back)
+from ..ops.sampling import (dynamic_slice, sample_nearest_border_packed,
+                            sample_nearest_border_window,
+                            sample_shadow_compare_packed,
+                            sample_shadow_compare_window, to_i32)
 from .shadow_classify import classify
 from .uniforms import FrameUniforms
 
@@ -66,8 +70,8 @@ def vogel_disk_all(count: int, phi: torch.Tensor):
     (shadow_filter.py:63-73)."""
     i = torch.arange(count, dtype=torch.float32, device=phi.device).reshape(
         (count,) + (1,) * phi.ndim)
-    r = torch.sqrt(i + 0.5) / torch.sqrt(
-        torch.tensor(float(count), dtype=torch.float32, device=phi.device))
+    r = torch.sqrt(i + 0.5) / torch.full((), float(count),
+                                         device=phi.device).sqrt()
     theta = i * GOLDEN_ANGLE + phi[None]
     return r * torch.cos(theta), r * torch.sin(theta)
 
@@ -134,17 +138,25 @@ def _light_project(uni, cascade, world, normal, n_dot_l):
     return uv, receiver, bias, in_bounds
 
 
-def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi):
+def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi,
+               window=None, radius_only: bool = False):
     """Blocker search + penumbra + penumbra-radius PCF
-    (shadow_filter.py:159-219, full-table form). Returns
-    (m1, m2, penumbra, has_blockers)."""
+    (shadow_filter.py:159-219). `window` = (rows (Wc, Wc, 4), origin
+    (oy, ox), full map size) reads every tap from a window of one cascade
+    (bit-identical values for in-window taps); radius_only skips the PCF
+    phase and returns m1 = m2 = 1 (the LIT-certified radius-only groups).
+    Returns (m1, m2, penumbra, has_blockers)."""
     texel = uni.shadow_map_size[2]
     light_size_texels = uni.shadow_bias[0] * 2.0
 
     dx, dy = vogel_disk_all(BLOCKER_SAMPLES, phi)
     off = torch.stack([dx, dy], dim=-1) * (light_size_texels * texel)
-    d = sample_nearest_border_packed(shadow_maps, layer[None],
-                                     uv[None] + off, border=1.0)
+    if window is not None:
+        d = sample_nearest_border_window(window[0], window[1], window[2],
+                                         uv[None] + off, border=1.0)
+    else:
+        d = sample_nearest_border_packed(shadow_maps, layer[None],
+                                         uv[None] + off, border=1.0)
     hit = d < receiver[None]
     blocker_sum = _sum_taps(torch.where(hit, d, 0.0))
     blocker_cnt = _sum_taps(hit.to(torch.float32))
@@ -157,11 +169,18 @@ def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi):
     penumbra = torch.clamp(penumbra_ratio * light_size_texels,
                            min=0.5)
     penumbra = torch.minimum(penumbra, light_size_texels * 2.0)
+    if radius_only:
+        one = torch.ones_like(penumbra)
+        return one, one, penumbra, has_blockers
 
     dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
     off = torch.stack([dx, dy], dim=-1) * (penumbra * texel)[None, ..., None]
-    s = sample_shadow_compare_packed(shadow_maps, layer[None],
-                                     uv[None] + off, receiver[None])
+    if window is not None:
+        s = sample_shadow_compare_window(window[0], window[1], window[2],
+                                         uv[None] + off, receiver[None])
+    else:
+        s = sample_shadow_compare_packed(shadow_maps, layer[None],
+                                         uv[None] + off, receiver[None])
     s_sum = _sum_taps(s)
     s_sum2 = _sum_taps(s * s)
     return s_sum / PCF_SAMPLES, s_sum2 / PCF_SAMPLES, penumbra, has_blockers
@@ -186,13 +205,18 @@ def shadow_pcss(uni: FrameUniforms, shadow_maps: torch.Tensor,
     )
 
 
-def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi):
-    """Fixed-radius PCF (shadow_filter.py:248-283). The frame-uniform
-    lax.cond becomes a host branch on the radius."""
+def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
+               window=None):
+    """Fixed-radius PCF (shadow_filter.py:248-283), `window` as in
+    _pcss_taps. The frame-uniform lax.cond becomes a host branch on the
+    radius (a read of the card, also in committed mode)."""
     texel = uni.shadow_map_size[2]
     radius = torch.clamp(uni.shadow_bias[0], min=0.5)
 
     def compare(off):
+        if window is not None:
+            return sample_shadow_compare_window(
+                window[0], window[1], window[2], uv[None] + off, ref[None])
         return sample_shadow_compare_packed(shadow_maps, layer[None],
                                             uv[None] + off, ref[None])
 
@@ -261,8 +285,10 @@ def pcf_frame_kernel(uni: FrameUniforms) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Sparse evaluation: classify -> compact -> exact taps on penumbra pairs
-# (shadow_filter.py:347-890). Only the default knobs: no tap windows, light
-# maps, routes or radius-only groups, not committed, back faces included.
+# (shadow_filter.py:347-1037), with every knob the autotuner sets:
+# per-cascade pair caps, two-level compaction, radius-only groups, routed
+# window groups, committed-mode tap windows, and committed mode itself.
+# The light-space fetch groups wait for light_space_ground_shadows.
 # ---------------------------------------------------------------------------
 
 
@@ -275,13 +301,15 @@ def _classified_select(cmaps, proj_all, bias, cascade, softness, use_pcss):
 
 
 def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
-                         normal, n_dot_l, softness, use_pcss: bool, valid):
+                         normal, n_dot_l, softness, use_pcss: bool, valid,
+                         committed: bool = False):
     """Project once, classify both cascades and derive the pair masks
-    that need exact taps (shadow_filter.py:381-471, committed=False). c1
-    is classified only on the 8x8 blocks (64-runs on a flat domain) that
-    touch a blend band, with the dense classification as the overflow
-    branch. Returns (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1,
-    needs0, needs1)."""
+    that need exact taps (shadow_filter.py:381-471). c1 is classified only
+    on the 8x8 blocks (64-runs on a flat domain) that touch a blend band;
+    an overflow of that block budget takes the dense classification (one
+    host branch), or in committed mode drops the excess blocks, whose
+    pixels then become pairs. Returns (uv0, r0, inb0, lit0, um0, uv1, r1,
+    inb1, lit1, um1, needs0, needs1)."""
     n = blend.numel()
     proj_all, bias = _project_all(uni, world, normal, n_dot_l)
     uv0, r0, inb0, lit0, um0 = _classified_select(
@@ -293,9 +321,9 @@ def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
 
     band_bcap = max((n // 64) // 8, 128)
     comp_band = compact_blocks_any(band_mask, band_bcap)
-    if comp_band is not None and host_cond(
+    if comp_band is not None and (committed or host_cond(
             comp_band.count <= band_bcap, "shadow_band",
-            [(comp_band.count, band_bcap)]):
+            [(comp_band.count, band_bcap)])):
         uv_e = gather_rows(uv1.reshape(n, 2), comp_band)
         r_e = gather_rows(r1.reshape(n), comp_band)
         c_e = gather_rows(c1.reshape(n), comp_band)
@@ -325,21 +353,75 @@ def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
             needs1)
 
 
+def _tap_reach(softness: torch.Tensor) -> torch.Tensor:
+    """The traced tap-reach margin in texels (shadow_filter.py:616-620)."""
+    return to_i32(torch.ceil(4.0 * torch.clamp(softness, min=1.0))) + 2
+
+
+def _base_texel(uv: torch.Tensor, s: int):
+    """Each entry's bilinear base texel (x, y) in a size-s map."""
+    return (to_i32(torch.floor(uv[..., 0] * s - 0.5)),
+            to_i32(torch.floor(uv[..., 1] * s - 0.5)))
+
+
+def _in_windows(cas, uv, origins, sizes, pad, s: int, use):
+    """Entries of cascade c whose base texel lies inside its window minus
+    the tap reach, for each cascade with use(c) (shadow_filter.py:643-656,
+    961-974)."""
+    bx, by = _base_texel(uv, s)
+    inw = torch.zeros(cas.shape, dtype=torch.bool, device=cas.device)
+    for c in range(len(sizes)):
+        if use(c):
+            oy, ox = origins[c]
+            inw = inw | ((cas == c)
+                         & (bx >= ox + pad) & (bx < ox + sizes[c] - pad - 1)
+                         & (by >= oy + pad) & (by < oy + sizes[c] - pad - 1))
+    return inw
+
+
+def _group_counts(needs, group_key, n_groups: int) -> torch.Tensor:
+    """(n_groups,) int32: how many needed entries each group key holds."""
+    key = torch.where(needs, group_key, n_groups).reshape(-1).long()
+    counts = torch.zeros(n_groups + 1, dtype=torch.int32,
+                         device=needs.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    return counts[:n_groups]
+
+
 def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
                            cmaps, world: torch.Tensor, normal: torch.Tensor,
                            n_dot_l: torch.Tensor, view_depth: torch.Tensor,
                            screen_pos: torch.Tensor, use_pcss: bool,
                            valid: torch.Tensor | None = None,
-                           capacity: int | None = None):
-    """Sparse-exact main shadow evaluation (shadow_filter.py:474-890 with
-    the default knobs): identical outputs to `cascaded_shadow` on every
-    valid pixel. The needed (pixel, cascade) pairs are compacted grouped
-    by cascade, each cascade's group runs the exact taps against its own
-    (S, S, 4) table, and the results are scattered into the closed-form
-    base. capacity (default max(n // 16, 256) pairs, for the total and
-    for each cascade) overflowing takes the dense filter instead (one host
-    branch). Works on any domain shape. Returns (ShadowResult, c0, c1,
-    t)."""
+                           capacity: int | None = None,
+                           cascade_caps: tuple | None = None,
+                           block_capacity: int | None = None,
+                           tap_windows: tuple | None = None,
+                           committed: bool = False,
+                           lit_cascade_caps: tuple | None = None,
+                           route_windows=None,
+                           route_caps: tuple | None = None):
+    """Sparse-exact main shadow evaluation (shadow_filter.py:474-890):
+    identical outputs to `cascaded_shadow` on every valid pixel while the
+    capacities hold. The needed (pixel, cascade) pairs are compacted in
+    groups, each group runs the exact taps and the results are scattered
+    into the closed-form base. Groups, in order: the full tap core per
+    cascade (`cascade_caps`, default `capacity` each), the radius-only
+    LIT-side entries (`lit_cascade_caps`, PCSS only), the routed entries
+    inside a pre-planned footprint window (`route_windows` = (origins,
+    sizes), `route_caps`), which read their taps from that window.
+
+    capacity: total pairs (default max(n // 16, 256)). block_capacity:
+    compact two-level over 8x8 blocks (64-runs on a flat domain).
+    tap_windows: committed mode reads each cascade's full and radius-only
+    groups from a (Wc, Wc) window on the group's base-texel bbox; an entry
+    outside it clamps to the edge. Without `committed`, any overflow takes
+    the dense filter (one host branch), and the groups read the full tables:
+    JAX's window-fit cond picks between two bit-identical reads, so the
+    port reads the one that needs no branch. With `committed` nothing is
+    read on the host and an overflow truncates each group to its first
+    entries, as in JAX. Works on any domain shape. Returns (ShadowResult,
+    c0, c1, t)."""
     c0, c1, t = select_cascade_blend(view_depth, uni.cascade_splits)
     phi = shadow_frame_phi(screen_pos, uni.debug_flags[3],
                            uni.debug_flags[2])
@@ -355,7 +437,7 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0,
      needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
                                     normal, n_dot_l, softness, use_pcss,
-                                    valid)
+                                    valid, committed)
 
     def dense_base(inb, umbra):
         m = torch.where(umbra & inb, 0.0, 1.0)
@@ -367,43 +449,123 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
 
     needs = torch.stack([needs0, needs1])
     n_casc = shadow_maps.shape[0]
-    group_key = torch.stack([c0, c1])              # the pair's cascade
+    s_full = shadow_maps.shape[1]
+    pair_layer = torch.stack([c0, c1])
+    pad = _tap_reach(softness)
 
-    comp = compact_indices(needs, cap, group_key=group_key)
-    counts_c = torch.stack([(needs & (group_key == g)).sum(dtype=torch.int32)
-                            for g in range(n_casc)])
+    rad_split = use_pcss and lit_cascade_caps is not None
+    rad = (torch.stack([needs0 & lit0, needs1 & lit1]) if rad_split
+           else torch.zeros_like(needs))
+    caps_r = tuple(lit_cascade_caps) if rad_split else ()
+    routable = (route_windows is not None and route_caps is not None
+                and any(route_caps))
+    caps_rt = tuple(route_caps) if routable else ()
+    if routable:
+        r_origins, r_sizes = route_windows
+
+        def use_route(c):
+            return r_sizes[c] and caps_rt[c] and r_sizes[c] < s_full
+
+        route = torch.stack([
+            _in_windows(c0, uv0, r_origins, r_sizes, pad, s_full, use_route),
+            _in_windows(c1, uv1, r_origins, r_sizes, pad, s_full,
+                        use_route)]) & needs
+        rad = rad & ~route
+
+    # Group keys: [full x n_casc][radius-only][route], each kind present
+    # only when configured (shadow_filter.py:665-687).
+    n_kinds, rad_k, route_k = 1, None, None
+    if rad_split:
+        rad_k, n_kinds = n_kinds, n_kinds + 1
+    if routable:
+        route_k, n_kinds = n_kinds, n_kinds + 1
+    kind = torch.zeros(needs.shape, dtype=torch.int32, device=dev)
+    if rad_split:
+        kind = torch.where(rad, rad_k, kind)
+    if routable:
+        kind = torch.where(route, route_k, kind)
+    group_key = pair_layer + n_casc * kind
+    n_groups = n_kinds * n_casc
+
+    fits_blocks = torch.ones((), dtype=torch.bool, device=dev)
+    blocked = None
+    if block_capacity is not None and c0.ndim == 2 \
+            and c0.shape[0] % 8 == 0 and c0.shape[1] % 8 == 0:
+        blocked = compact_indices_blocked(needs, cap, 8, 8, block_capacity,
+                                          group_key=group_key)
+    elif block_capacity is not None and c0.ndim == 1 and n % 64 == 0:
+        blocked = compact_indices_blocked(
+            needs.reshape(2, n // 64, 64), cap, 1, 64, block_capacity,
+            group_key=group_key.reshape(2, n // 64, 64))
+    if blocked is not None:
+        comp = blocked.comp
+        fits_blocks = blocked.block_count <= block_capacity
+    else:
+        comp = compact_indices(needs, cap, group_key=group_key)
+    counts_c = _group_counts(needs, group_key, n_groups)
     offs = torch.cumsum(counts_c, 0) - counts_c
-    fits = (comp.count <= cap) & (counts_c <= cap).all()
+    caps_c = tuple(cascade_caps) if cascade_caps is not None \
+        else (cap,) * n_casc
+    caps_all = caps_c + caps_r + caps_rt
+    caps_t = torch.tensor(caps_all, dtype=torch.int32).to(dev,
+                                                           non_blocking=True)
+    fits = (comp.count <= cap) & fits_blocks & (counts_c <= caps_t).all()
 
-    if host_cond(fits, "shadow_pairs", [(comp.count, cap)] + [
-            (counts_c[c], cap) for c in range(n_casc)]):
-        dense = torch.stack([dense_base(inb0, um0),
-                             dense_base(inb1, um1)]).reshape(2 * n, 4)
-        # phi rides the payload row
+    occupancy = [(comp.count, cap)] + [(counts_c[g], caps_all[g])
+                                       for g in range(n_groups)]
+    if blocked is not None:
+        occupancy.append((blocked.block_count, block_capacity))
+    if committed or host_cond(fits, "shadow_pairs", occupancy):
+        out = torch.stack([dense_base(inb0, um0),
+                           dense_base(inb1, um1)]).reshape(2 * n, 4)
         phi2 = phi.reshape(1, n).expand(2, n)
         payload = torch.stack([
             torch.stack([uv0[..., 0], uv0[..., 1], r0], dim=-1),
             torch.stack([uv1[..., 0], uv1[..., 1], r1], dim=-1),
         ]).reshape(2 * n, 3)
         payload = torch.cat([payload, phi2.reshape(2 * n, 1)], dim=-1)
-        idx_pad = torch.cat([comp.idx, torch.full((cap,), -1,
+        idx_pad = torch.cat([comp.idx, torch.full((max(caps_all),), -1,
                                                   dtype=torch.int32,
                                                   device=dev)])
-        slot = torch.arange(cap, dtype=torch.int32, device=dev)
-        for c in range(n_casc):
-            # Under `fits` the group's segment lies inside idx_pad, so
-            # this is the JAX dynamic_slice without its start clamp.
-            idx_c = idx_pad[(offs[c] + slot).long()]
-            valid_c = slot < counts_c[c]
+        for g, cc in enumerate(caps_all):
+            if cc == 0:
+                continue
+            c = g % n_casc
+            slot = torch.arange(cc, dtype=torch.int32, device=dev)
+            # JAX's dynamic_slice: past the compaction (a committed
+            # overflow) the start clamps and the slots read -1 padding.
+            idx_c = dynamic_slice(idx_pad, (offs[g],), (cc,))
+            valid_c = slot < counts_c[g]
             compc = Compacted(idx=torch.where(valid_c, idx_c, -1),
-                              slot_valid=valid_c, count=counts_c[c])
+                              slot_valid=valid_c, count=counts_c[g])
             rows = gather_rows(payload, compc)
             uv_e, recv_e, phi_e = rows[:, :2], rows[:, 2], rows[:, 3]
+            window = None
+            if routable and g // n_casc == route_k:
+                wcr = int(r_sizes[c])
+                if 0 < wcr < s_full:
+                    oy, ox = r_origins[c]
+                    window = (dynamic_slice(shadow_maps[c], (oy, ox),
+                                            (wcr, wcr)), (oy, ox), s_full)
+            elif committed and tap_windows is not None \
+                    and 0 < int(tap_windows[c]) < s_full:
+                # The full and the radius-only groups, each on its own
+                # entries' bbox (shadow_filter.py:832-858).
+                wc = int(tap_windows[c])
+                big = 1 << 28
+                bx_e, by_e = _base_texel(uv_e, s_full)
+                lo_x = torch.where(valid_c, bx_e, big).amin() - pad
+                lo_y = torch.where(valid_c, by_e, big).amin() - pad
+                oy = torch.clamp(lo_y, 0, s_full - wc)
+                ox = torch.clamp(lo_x, 0, s_full - wc)
+                window = (dynamic_slice(shadow_maps[c], (oy, ox), (wc, wc)),
+                          (oy, ox), s_full)
             maps_c = shadow_maps[c:c + 1]
-            layer0 = torch.zeros((cap,), dtype=torch.int32, device=dev)
+            layer0 = torch.zeros((cc,), dtype=torch.int32, device=dev)
             if use_pcss:
-                m1, m2, pen, hasb = _pcss_taps(uni, maps_c, layer0, uv_e,
-                                               recv_e, phi_e)
+                m1, m2, pen, hasb = _pcss_taps(
+                    uni, maps_c, layer0, uv_e, recv_e, phi_e, window=window,
+                    radius_only=rad_split and g // n_casc == rad_k)
                 # Entries are in bounds by construction; the no-blocker
                 # lit override still applies.
                 vals = torch.stack([torch.where(hasb, m1, 1.0),
@@ -412,10 +574,9 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
                                     torch.where(hasb, pen, 0.0)], dim=-1)
             else:
                 m1, m2, kern = _pcf_taps(uni, maps_c, layer0, uv_e, recv_e,
-                                         phi_e)
+                                         phi_e, window=window)
                 vals = torch.stack([m1, m1, m2, kern], dim=-1)
-            dense = scatter_back(dense, compc, vals)
-        out = dense
+            out = scatter_back(out, compc, vals)
     else:
         fn = shadow_pcss if use_pcss else shadow_pcf
         sd0 = fn(uni, shadow_maps, c0, world, normal, n_dot_l, phi)
@@ -429,3 +590,124 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     s1 = ShadowResult(out[1, ..., 0], out[1, ..., 1], out[1, ..., 2],
                       out[1, ..., 3])
     return mix_shadow(s0, s1, t), c0, c1, t
+
+
+def _sum(mask) -> torch.Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
+                   view_depth, screen_pos, use_pcss: bool,
+                   valid: torch.Tensor | None = None, light_windows=None,
+                   committed: bool = False, route_windows=None):
+    """Diagnostic (shadow_filter.py:893-1037): the classification
+    histogram and the pair counts the sparse path compacts, split the way
+    the frame groups them, as a dict of device tensors. light_windows /
+    route_windows: (origins, sizes) of the light-space and route windows.
+
+    Besides JAX's keys, `light_fetch_lit_per_cascade` and
+    `light_fetch_route_per_cascade` count the fetch entries that a frame
+    without light maps sends to its radius-only and routed groups, and
+    `need_extent_per_cascade` is the tap extent with the fetch entries in
+    it; the port's derive_sparse_config folds them back. `band_bcap` is
+    sized from this (dense) domain as in JAX, not from the frame's slab or
+    block domain (a reproduced fault, ROADMAP queue 3)."""
+    from .shadow_lightspace import ground_eligible
+
+    c0, c1, t = select_cascade_blend(view_depth, uni.cascade_splits)
+    softness = uni.shadow_bias[0]
+    if valid is None:
+        valid = torch.ones(c0.shape, dtype=torch.bool, device=c0.device)
+    blend = t > 0.0
+    (uv0, r0, _, lit0, um0, uv1, r1, _, lit1, _, needs0,
+     needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
+                                    normal, n_dot_l, softness, use_pcss,
+                                    valid, committed)
+    needs = torch.stack([needs0, needs1])
+    pair_layer = torch.stack([c0, c1])
+    s_full = cmaps.size
+
+    fetch = torch.zeros_like(needs)
+    if light_windows is not None:
+        origins, sizes = light_windows
+        ok_soft = softness <= cmaps.max_softness
+
+        def _fetchable(cas, uv, recv, needs_h):
+            el = ground_eligible(world, normal, recv) & ok_soft
+            tx = to_i32(torch.floor(uv[..., 0] * s_full))
+            ty = to_i32(torch.floor(uv[..., 1] * s_full))
+            inw = torch.zeros(needs_h.shape, dtype=torch.bool,
+                              device=needs_h.device)
+            for c in range(4):
+                if sizes[c]:
+                    oy, ox = origins[c]
+                    inw = inw | ((cas == c)
+                                 & (tx >= ox) & (tx < ox + sizes[c])
+                                 & (ty >= oy) & (ty < oy + sizes[c]))
+            return needs_h & el & inw
+
+        fetch = torch.stack([_fetchable(c0, uv0, r0, needs0),
+                             _fetchable(c1, uv1, r1, needs1)])
+    taps = needs & ~fetch
+
+    in_route = torch.zeros_like(needs)
+    if route_windows is not None:
+        r_origins, r_sizes = route_windows
+        pad = _tap_reach(softness)
+
+        def use(c):
+            return bool(r_sizes[c])
+
+        in_route = torch.stack([
+            _in_windows(c0, uv0, r_origins, r_sizes, pad, s_full, use),
+            _in_windows(c1, uv1, r_origins, r_sizes, pad, s_full, use)])
+    routem = taps & in_route
+    lit_side = (torch.stack([lit0, lit1]) if use_pcss
+                else torch.zeros_like(needs))
+    radm = taps & lit_side & ~routem
+    taps_full = taps & ~radm & ~routem
+
+    # Per-cascade base-texel bbox extents of the needed taps.
+    bx, by = _base_texel(torch.stack([uv0, uv1]), s_full)
+    big = 1 << 28
+
+    def extents(mask):
+        out = []
+        for c in range(4):
+            m = mask & (pair_layer == c)
+            ex = (torch.where(m, bx, -big).amax()
+                  - torch.where(m, bx, big).amin() + 1)
+            ey = (torch.where(m, by, -big).amax()
+                  - torch.where(m, by, big).amin() + 1)
+            out.append(torch.where(m.any(), torch.maximum(ex, ey), 0))
+        return torch.stack(out)
+
+    band_mask = blend & valid
+    hh, ww = band_mask.shape
+    bm = torch.nn.functional.pad(band_mask, (0, -ww % 8, 0, -hh % 8))
+    band_blocks = bm.reshape(bm.shape[0] // 8, 8, bm.shape[1] // 8,
+                             8).any(dim=3).any(dim=1).sum(dtype=torch.int32)
+    band_bcap = max((band_mask.numel() // 64) // 8, 128)
+
+    def per_cascade(mask):
+        return torch.stack([_sum(mask & (pair_layer == c))
+                            for c in range(4)])
+
+    return {
+        "_needs": needs,
+        "band_blocks": band_blocks,
+        "band_bcap": torch.tensor(band_bcap, dtype=torch.int32),
+        "pairs": _sum(needs),
+        "pairs_per_cascade": per_cascade(taps_full),
+        "pairs_lit_per_cascade": per_cascade(radm),
+        "pairs_route_per_cascade": per_cascade(routem),
+        "light_fetch_per_cascade": per_cascade(fetch),
+        "light_fetch_lit_per_cascade": per_cascade(
+            fetch & lit_side & ~in_route),
+        "light_fetch_route_per_cascade": per_cascade(fetch & in_route),
+        "tap_extent_per_cascade": extents(taps),
+        "need_extent_per_cascade": extents(needs),
+        "lit0": _sum(valid & lit0),
+        "umbra0": _sum(valid & um0),
+        "pixels": _sum(valid),
+    }

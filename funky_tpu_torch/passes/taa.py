@@ -2,10 +2,19 @@
 funky_tpu/passes/taa.py::apply_shadow_taa), on a row slab or on any batch
 with explicit pixel centres (the blocked back half's flat domain).
 
-On a row slab the JAX version picks between an aligned-history fast path
-(taa.py:159-189) and the gathered read (taa.py:131-133) with a lax.cond;
-both give the same output, so the port always takes the gathered read.
-The sparse `need`-set read (taa_need_capacity) is not ported yet.
+The history read, and how the port takes it:
+- by default the gathered read (taa.py:131-133). On a row slab JAX picks
+  between it and an aligned fast path (taa.py:159-189) with a lax.cond;
+  both give the same output, so the port always gathers;
+- with `need_capacity`, the compacted read of the pixels that consume
+  their history (taa.py:135-157). Without `committed` an overflow takes
+  the gathered read (one host branch). With `committed` the compacted
+  read runs unconditionally and an overflow truncates it: the dropped
+  pixels blend with the (1, 1) init value, as in JAX. On a row slab JAX
+  still takes its aligned fast path where every pixel reads its own
+  texel; the port selects the slab's own history rows there on the
+  device, with no branch. On the flat domain there is no fast path, so a
+  parked view truncates (ROADMAP queue 3: reproduced on purpose).
 """
 
 from __future__ import annotations
@@ -14,7 +23,8 @@ from typing import Tuple
 
 import torch
 
-from ..ops.sampling import sample_nearest_edge
+from ..ops.compact import compact_indices, gather_rows, host_cond, scatter_back
+from ..ops.sampling import dynamic_slice, sample_nearest_edge, to_i32
 from .deferred import pixel_centers
 from .shadow_filter import ShadowResult
 from .uniforms import FrameUniforms
@@ -27,16 +37,18 @@ def init_history(height: int, width: int, device) -> torch.Tensor:
 
 def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
                      uni: FrameUniforms, history: torch.Tensor,
-                     use_shadow_taa: bool, y0: int = 0,
+                     use_shadow_taa: bool, y0=0,
                      full_height: int | None = None,
                      frag: torch.Tensor | None = None,
-                     full_width: int | None = None
+                     full_width: int | None = None,
+                     need_capacity: int | None = None,
+                     committed: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """taa.py:30-193 with the dense gathered history read, for an (h, W)
-    row slab at global row y0 (frag=None), or for any batch shape with
-    explicit `frag` pixel centres (x + 0.5 convention) and the full
-    framebuffer size. `history` is the full-frame buffer. Returns
-    (out_shadow, new_history (..., 2)) shaped like cur.v."""
+    """taa.py:30-193 for an (h, W) row slab at global row y0 (an int or a
+    0-d device tensor; frag=None), or for any batch shape with explicit
+    `frag` pixel centres (x + 0.5 convention) and the full framebuffer
+    size. `history` is the full-frame buffer. Returns (out_shadow,
+    new_history (..., 2)) shaped like cur.v."""
     current = cur.v
     if frag is None:
         h, w = current.shape
@@ -73,6 +85,7 @@ def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
                  & (prev_ndc[..., 2] >= 0.0) & (prev_ndc[..., 2] <= 1.0))
 
     motion = torch.linalg.vector_norm(prev_uv - current_uv, dim=-1)
+    need = in_bounds & (motion <= 0.02)
 
     variance = torch.clamp(cur.m2 - cur.m1 * cur.m1, min=0.0)
     stdev = torch.sqrt(variance)
@@ -82,7 +95,31 @@ def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
     hi = cur.m1 + sigma * stdev
     history_weight = 0.55 + (0.85 - 0.55) * softness
 
-    hist = sample_nearest_edge(history, prev_uv)
+    hist = None
+    if need_capacity is not None:
+        n = need.numel()
+        cap = min(need_capacity, n)
+        comp = compact_indices(need, cap)
+        if committed or host_cond(comp.count <= cap, "taa_need",
+                                  [(comp.count, cap)]):
+            uv_rows = gather_rows(prev_uv.reshape(n, 2), comp)
+            rows = sample_nearest_edge(history, uv_rows)
+            ones2 = torch.ones((n, 2), dtype=torch.float32,
+                               device=need.device)
+            hist = scatter_back(ones2, comp, rows).reshape(need.shape + (2,))
+        if committed and frag is None:
+            # JAX's aligned fast path (taa.py:159-189): where every needed
+            # pixel reprojects onto its own texel, the slab's own rows.
+            ix = to_i32(torch.floor(prev_uv[..., 0] * fw)).clamp(0, fw - 1)
+            iy = to_i32(torch.floor(prev_uv[..., 1] * fh)).clamp(0, fh - 1)
+            aligned = ((ix == to_i32(frag_x - 0.5))
+                       & (iy == to_i32(frag_y - 0.5)))
+            all_aligned = (aligned | ~need).all()
+            own = dynamic_slice(history, (y0, 0), (h, w))
+            hist = torch.where(all_aligned, own, hist)
+    if hist is None:
+        hist = sample_nearest_edge(history, prev_uv)
+
     history_shadow = hist[..., 0]
     history_depth = hist[..., 1]
     delta = torch.abs(history_shadow - current)

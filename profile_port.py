@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's glTF frame goes, on one NVIDIA GPU.
 
-    python3 profile_port.py [--config dense|default] [--scene multimesh|large]
-                            [--trace trace.json]
+    python3 profile_port.py [--config dense|default|shipped]
+                            [--scene multimesh|large] [--trace trace.json]
 
 Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
 2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
-default) or GltfConfig() (`default`: sparse shadows and contact,
-valid-block back half, block-sparse texture sampling), on the multimesh
-or the large scene. 8 chained frames (2 parked, 6 orbit poses) with a
+default), GltfConfig() (`default`: sparse shadows and contact,
+valid-block back half, block-sparse texture sampling) or bench.py's
+shipped configuration (`shipped`: committed mode with synthesized
+cascade maps, autotuned over bench_poses first), on the multimesh or the
+large scene. 8 chained frames (2 parked, 6 orbit poses) with a
 synchronize around every stage (per-stage host-clock medians), 8 more
 without (frame time), then one frame under torch.profiler (device time
 by kernel, device busy and idle share). Writes the profiler's chrome
@@ -23,11 +25,12 @@ import time
 
 import torch
 
-from chip_smoke import (HEIGHT, SHADOW, WIDTH, default_config, dense_config,
-                        fail, gpu_line, load_scene, poses_for, scene_params)
+from chip_smoke import (HEIGHT, SHADOW, WIDTH, autotune_shipped,
+                        default_config, dense_config, fail, gpu_line,
+                        load_scene, poses_for, scene_params)
 
-# (module, attribute, label) of each stage render_gltf_frame calls, shared
-# by both configurations.
+# (module, attribute, label) of each stage render_gltf_frame calls: the
+# common stages, then each configuration's own. No stage calls another.
 COMMON = (
     ("frame", "compute_frame_uniforms", "uniforms"),
     ("geometry", "transform_vertices", "geometry"),
@@ -55,6 +58,16 @@ STAGES = {
         ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
         ("frame", "scatter_blocks", "valid-block scatter"),
     ),
+    "shipped": COMMON + (
+        ("shadow_lightspace", "plan_windows", "window plans"),
+        ("shadow", "synthesize_shadow_maps", "synthesized maps"),
+        ("frame", "light_ground_planes", "class planes"),
+        ("frame", "build_class_maps", "class maps"),
+        ("deferred", "interpolate", "deferred (row slab)"),
+        ("shadow_filter", "cascaded_shadow_sparse", "shadow filter (sparse)"),
+        ("contact", "reference_plane", "contact plane"),
+        ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
+    ),
 }
 
 
@@ -78,11 +91,13 @@ def stage_times(scene, poses, cfg, dev, stages):
     length of one chain, then restored."""
     from funky_tpu_torch import frame
     from funky_tpu_torch.passes import (contact, deferred, geometry, shading,
-                                        shadow, shadow_filter, taa)
+                                        shadow, shadow_filter,
+                                        shadow_lightspace, taa)
 
     mods = dict(frame=frame, geometry=geometry, shadow=shadow,
                 deferred=deferred, shadow_filter=shadow_filter, taa=taa,
-                contact=contact, shading=shading)
+                contact=contact, shading=shading,
+                shadow_lightspace=shadow_lightspace)
     times = {label: [] for _, _, label in stages}
     saved = []
 
@@ -125,9 +140,14 @@ def main() -> None:
     print(gpu, flush=True)
     dev = torch.device("cuda:0")
     gltf, scene = load_scene(dev, large=args.scene == "large")
-    cfg = (dense_config(WIDTH, HEIGHT, SHADOW, "auto")
-           if args.config == "dense" else default_config())
     params = scene_params(gltf, dev)
+    if args.config == "dense":
+        cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
+    elif args.config == "default":
+        cfg = default_config()
+    else:
+        _, cfg, _, tune_s = autotune_shipped(dev, scene, params)
+        print(f"autotune {tune_s:.3f} s: {cfg}", flush=True)
     poses = poses_for(params, 2, 6)
     print(f"{args.config} configuration, {args.scene} scene", flush=True)
 

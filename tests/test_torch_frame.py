@@ -92,8 +92,10 @@ def test_params_and_orbit_poses_match():
     tp = tf.default_gltf_params(
         gltf_min_y=float(multimesh_gltf().bounds_min[1]), gltf_scale=1.0,
         device="cpu")
-    for i in (0, 1, 2, 5):
-        jo, to = bench.orbit_params(jp, i), tf.orbit_params(tp, i)
+    pairs = [(bench.orbit_params(jp, i), tf.orbit_params(tp, i))
+             for i in (0, 1, 2, 5)]
+    pairs += list(zip(bench.bench_poses(jp, 24), tf.bench_poses(tp, 24)))
+    for jo, to in pairs:
         for name in tf.GltfParams.__dataclass_fields__:
             np.testing.assert_allclose(t2n(getattr(to, name)),
                                        np.asarray(getattr(jo, name)),
@@ -234,10 +236,17 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-# The knobs this port honours since the default exact-sparse frame was
-# ported: their cases now check that check_supported accepts them.
+# The knobs this port honours since the default exact-sparse frame and
+# the shipped committed + synth configuration were ported: their cases
+# now check that check_supported accepts them. The light-space ground
+# evaluation, the back-face skip and the reduced-rate shadow evaluation
+# are still refused.
 PORTED_KNOBS = ("sparse_shadows", "sparse_contact", "valid_block_capacity",
-                "texture_block_capacity")
+                "texture_block_capacity", "synth_shadow_maps", "committed",
+                "valid_slab_rows", "taa_need_capacity", "shadow_tap_windows",
+                "shadow_route_windows", "shadow_route_caps",
+                "shadow_lit_cascade_caps", "shadow_pen_cascade_caps",
+                "shadow_pen_block_capacity", "contact_block_capacity")
 
 
 @pytest.mark.parametrize("override", [

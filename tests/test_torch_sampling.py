@@ -9,6 +9,7 @@ and saturates float->int conversions, and the port must do the same
 instead of raising or reading out of bounds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,6 +103,60 @@ def test_depth_dual_packed():
     jb, jn = js.sample_depth_dual_packed(jnp.asarray(packed), jnp.asarray(uv))
     check(tb, jb)
     check(tn, jn)
+
+
+# (origin (oy, ox), window size): inside the map, against its far corner,
+# and hanging off the map's edge, so that taps fall on both sides of the
+# window and clamp to its edge.
+WINDOWS = [((8, 4), 12), ((20, 20), 12), ((0, 24), 8)]
+
+
+@pytest.mark.parametrize("origin,wc", WINDOWS)
+def test_window_samplers(origin, wc):
+    """The windowed shadow and depth samplers read a (wc, wc) window of
+    the quad-packed map at a device-valued origin and equal JAX's for
+    every tap, the ones clamped to the window's edge included."""
+    maps = rng(5).uniform(0, 1, (32, 32)).astype(np.float32)
+    packed = np.asarray(js.quad_pack(jnp.asarray(maps)))
+    oy, ox = origin
+    win = packed[oy:oy + wc, ox:ox + wc]
+    uv = uvs((6, 20, 24), seed=6)
+    ref = rng(7).uniform(0, 1, (6, 20, 24)).astype(np.float32)
+    torg = (torch.tensor(oy, dtype=torch.int32),
+            torch.tensor(ox, dtype=torch.int32))
+    jorg = (jnp.int32(oy), jnp.int32(ox))
+    check(ts.sample_shadow_compare_window(T(win), torg, 32, T(uv), T(ref)),
+          js.sample_shadow_compare_window(jnp.asarray(win), jorg, 32,
+                                          jnp.asarray(uv), jnp.asarray(ref)))
+    check(ts.sample_nearest_border_window(T(win), torg, 32, T(uv)),
+          js.sample_nearest_border_window(jnp.asarray(win), jorg, 32,
+                                          jnp.asarray(uv)))
+    for t, j in zip(ts.sample_depth_dual_window(T(win), torg, (32, 32),
+                                                T(uv)),
+                    js.sample_depth_dual_window(jnp.asarray(win), jorg,
+                                                (32, 32), jnp.asarray(uv))):
+        check(t, j)
+
+
+@pytest.mark.parametrize("starts", [(3, 5), (-4, 2), (30, -40), (9, 9)])
+@pytest.mark.parametrize("device_starts", [False, True],
+                         ids=["host", "device"])
+def test_dynamic_slices_clamp_like_jax(starts, device_starts):
+    """dynamic_slice and dynamic_update_slice over the leading axes take
+    JAX's start rule (negative counts from the end, then clamp to keep the
+    slice in bounds), from Python ints and from 0-d device tensors."""
+    x = rng(8).normal(size=(12, 10, 2)).astype(np.float32)
+    upd = rng(9).normal(size=(4, 6, 2)).astype(np.float32)
+    tstarts = tuple(torch.tensor(s, dtype=torch.int32) for s in starts) \
+        if device_starts else starts
+    jstarts = tuple(starts) + (0,)
+    np.testing.assert_array_equal(
+        t2n(ts.dynamic_slice(T(x), tstarts, (4, 6))),
+        np.asarray(jax.lax.dynamic_slice(jnp.asarray(x), jstarts, (4, 6, 2))))
+    np.testing.assert_array_equal(
+        t2n(ts.dynamic_update_slice(T(x), T(upd), tstarts)),
+        np.asarray(jax.lax.dynamic_update_slice(jnp.asarray(x),
+                                                jnp.asarray(upd), jstarts)))
 
 
 @pytest.mark.parametrize("channels", [None, 2])

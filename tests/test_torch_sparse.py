@@ -298,6 +298,51 @@ def test_sparse_filter_matches_jax(ref):
                          np.asarray(getattr(jres, name))[v], 5e-4) <= 0.002
 
 
+def test_sparse_filter_radius_only_groups(ref):
+    """The radius-only split (lit_cascade_caps, PCSS): LIT-side pair
+    entries run only the blocker search. Committed with tap windows on
+    every cascade, and cond'd without: equal to the default-knob filter
+    bit for bit on covered pixels, and the committed run equals JAX's on
+    the same inputs within test_sparse_filter_matches_jax's tolerance."""
+    args = sparse_inputs(ref)
+    uni, maps, cmaps, world, normal, ndl, vdepth, frag = args
+    valid = T(ref["gbuf"].valid)
+    v = t2n(valid)
+    st = tsf.classify_stats(uni, cmaps, world, normal, ndl, vdepth, frag,
+                            True, valid)
+    assert int(t2n(st["pairs_lit_per_cascade"]).sum()) > 0
+    cap = 2 * H * W
+    lit_caps = (H * W,) * 4
+    # windows that hold each cascade's taps: the entries' extent, 2 x 12
+    # texels of tap reach at softness 2.5, and the bilinear footprint
+    windows = tuple(int(e) + 26 if 0 < int(e) + 26 < 2048 else 0
+                    for e in t2n(st["need_extent_per_cascade"]))
+    assert any(windows)
+    base, *_ = tsf.cascaded_shadow_sparse(*args, True, valid, cap)
+    for committed in (True, False):
+        tcompact.reset_host_syncs()
+        got, *_ = tsf.cascaded_shadow_sparse(
+            *args, True, valid, cap, committed=committed,
+            lit_cascade_caps=lit_caps,
+            tap_windows=windows if committed else None)
+        assert (tcompact.HOST_SYNCS == 0) == committed
+        for name in ("v", "m1", "m2", "kernel_radius_texels"):
+            np.testing.assert_array_equal(t2n(getattr(got, name))[v],
+                                          t2n(getattr(base, name))[v], name)
+    jcmaps = jcls.ShadowClassMaps(
+        cell_rows=jnp.asarray(t2n(cmaps.cell_rows)),
+        planes=jnp.asarray(t2n(cmaps.planes)), size=cmaps.size,
+        coarse=cmaps.coarse, max_softness=cmaps.max_softness)
+    jres, *_ = jsf.cascaded_shadow_sparse(
+        ref["uni"], ref["maps"], jcmaps, *(jnp.asarray(t2n(a))
+                                           for a in args[3:]),
+        True, jnp.asarray(v), cap, None, None, windows, None, False, True,
+        lit_caps)
+    for name in ("v", "m1", "m2"):
+        assert frac_over(t2n(getattr(got, name))[v],
+                         np.asarray(getattr(jres, name))[v], 5e-4) <= 0.002
+
+
 def test_sparse_filter_overflow_takes_dense(ref):
     """A capacity below the pair count takes the dense filter: every
     field, the kernel radius included, equals cascaded_shadow."""
@@ -455,7 +500,22 @@ def test_tiny_capacities_take_every_dense_branch():
 
 
 def test_check_supported_accepts_defaults():
+    """GltfConfig() and the shipped configuration with every knob the
+    autotuner sets pass; the light-space ground evaluation is refused."""
     tf.check_supported(tf.GltfConfig())
-    with pytest.raises(NotImplementedError, match="shadow_tap_windows"):
+    shipped = dataclasses.replace(
+        tf.GltfConfig(), flags=tf.GltfFrameFlags(committed=True,
+                                                 synth_shadow_maps=True),
+        shadow_tap_windows=(384, 0, 0, 0), valid_slab_rows=512,
+        taa_need_capacity=4096, shadow_route_windows=(256, 256, 0, 0),
+        shadow_route_caps=(1024, 1024, 0, 0),
+        shadow_lit_cascade_caps=(1024, 1024, 0, 0),
+        shadow_pen_cascade_caps=(1024, 1024, 1024, 1024),
+        shadow_pen_block_capacity=256, contact_block_capacity=256,
+        contact_window=256, light_window_sizes=(384, 256, 256, 0))
+    tf.check_supported(shipped)
+    with pytest.raises(NotImplementedError,
+                       match="light_space_ground_shadows"):
         tf.check_supported(dataclasses.replace(
-            tf.GltfConfig(), shadow_tap_windows=(384, 0, 0, 0)))
+            shipped, flags=dataclasses.replace(
+                shipped.flags, light_space_ground_shadows=True)))
