@@ -9,6 +9,11 @@ failure raises and the script exits non-zero):
 
 1. build both kernel sources (csrc/raster.cu: K1 and K2; csrc/gather.cu:
    K3) with one nvcc each, started together, and print the ptxas lines;
+1b. K3, the frame's row gather, vs its plain twin (take_rows_plain) bit
+   for bit on unit cases: f32 rows of 1, 2, 4, 7, 8, 16 and 46, 1-D f32,
+   int32, bool and f16 tables, f64 rows, tables 4 and 2 bytes past a
+   16-byte boundary, negative and out-of-range indices, an empty index, a
+   1-row table;
 2. K1 and K2 vs their plain torch twin on numpy-seeded random triangles
    (degenerate and w-culled ones included) at small and at the main
    path's shapes: full capacity, an overflowing tight capacity, a row
@@ -20,12 +25,14 @@ failure raises and the script exits non-zero):
    image (tests/goldens/multimesh_pbr_256x144.png, 3/255 tolerance);
 4. the dense path: 4 chained 1920x1080 frames of the exact dense glTF
    frame with 4 x 2048^2 cascades (2 parked poses, then bench.py's
-   orbit), once through the kernel and once with the plain raster: K1
-   launches 5 times per frame, the runs are equal;
+   orbit), once through the kernels, once with the plain raster and once
+   with the plain row gather: K1 launches 5 times per frame and K3 on
+   every frame (0 times in the plain-gather run), the runs are equal;
 5. the default path: GltfConfig() (sparse shadows and contact, valid-block
    back half, block-sparse texture sampling) on the multimesh scene, 8
    chained frames (2 parked, 6 orbit): equal to the dense path bit for
-   bit (tri_id, depth, rgba, history), host syncs per frame counted;
+   bit (tri_id, depth, rgba, history), host syncs per frame counted; K3
+   on every frame, and the same frames with the plain row gather equal;
 5b. the shipped path: bench.py's configuration, committed mode with
    synthesized cascade maps (GltfFrameFlags(committed=True,
    synth_shadow_maps=True)), autotuned over bench_poses(params, 24) by
@@ -36,20 +43,26 @@ failure raises and the script exits non-zero):
    6 orbit): no host sync, K1 launched once per nonzero occluder window
    plus once for the main pass in every frame, K1 == plain bit for bit on
    every recorded raster, the sync count torch's sync debug mode reports
-   for one frame; then the same poses with committed=False: equal bit for
-   bit when capacity_overflows names nothing on those poses but the
-   band-block budget, whose committed drop is conservative;
+   for one frame; K3 on every frame, and the same committed frames with the
+   plain row gather equal bit for bit; then the same poses with
+   committed=False: equal bit for bit when capacity_overflows names
+   nothing on those poses but the band-block budget, whose committed drop
+   is conservative;
 6. the large scene (tests/torch_scenes.build_large_glb: 73,754
    triangles, past the table limit): 3 chained GltfConfig() frames, K2
-   launches 5 times per frame and K1 never; one frame through the plain
-   raster is equal to the K2 run; K1, K2 and the plain raster timed on
+   launches 5 times per frame and K1 never, K3 on every frame; one frame
+   through the plain raster and the frames with the plain row gather are
+   equal to the K2 run; K1, K2 and the plain raster timed on
    the frame's own rasters, with the survivors of the kernels' exact cull
    counted by its plain twin (ops/raster.py::subtile_keep) for a
    culled-work bound;
-7. K3, the row-gather probe, at the dense shadow filter's tap shape: a
-   (4*2048*2048, 4) f32 table and 16 x 1080 x 1920 indices (uniform, one
-   recorded PCF tap set), and a table that fits in L2; bit-equal to the
-   plain gather, timed beside torch's `table[idx]`;
+7. K3 at the dense shadow filter's tap shape: a (4*2048*2048, 4) f32
+   table and 16 x 1080 x 1920 indices (uniform, one recorded PCF tap set),
+   and a table that fits in L2; bit-equal to the plain gather, timed
+   beside torch's `table[idx]` and the plain twin, and in every design of
+   the kernel (units per thread, cache hints, resident grid); then every
+   K3 call of one dense and one shipped frame, recorded and replayed: the
+   summed device time per frame against its byte bound, in every design;
 8. timings with CUDA events and the median frame times. Kernel times are
    device times (launches queued behind a sleep kernel, `device_ms`),
    printed beside the time through the wrapper with its host enqueue
@@ -62,6 +75,7 @@ object describing the kernels; the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import pathlib
@@ -204,6 +218,20 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def plain_gathers():
+    """take_rows runs its plain twin on the card (0 K3 launches) inside the
+    block: the script's own reference run, never the port's path."""
+    from funky_tpu_torch.ops import gather_cuda, sampling
+
+    kernel = gather_cuda.row_gather
+    gather_cuda.row_gather = sampling.take_rows_plain
+    try:
+        yield
+    finally:
+        gather_cuda.row_gather = kernel
+
+
 def reset_counts() -> None:
     from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
 
@@ -283,6 +311,70 @@ def phase_kernel_cases(dev, padded: bool) -> float:
     finally:
         raster.TABLE_LIMIT_BYTES = saved
     return max_err
+
+
+def gather_cases():
+    """(label, table, idx) of K3's unit cases (tests/torch_scenes.py): the
+    frame's row types at 150,001 indices into 100,000 rows, 3-D, empty,
+    1-row and tap-major (16, 3, 4099) cases."""
+    from tests.torch_scenes import GATHER_ROWS, gather_case
+
+    out = [(f"{rows} large", *gather_case(rows, "large"))
+           for rows in GATHER_ROWS]
+    out += [(f"f32x4 {kind}", *gather_case("f32x4", kind))
+            for kind in ("3d", "empty", "one_row", "taps")]
+    out += [(f"{rows} taps", *gather_case(rows, "taps"))
+            for rows in ("f32x46", "f32x7", "i32", "bool")]
+    out += [(f"bool {kind}", *gather_case("bool", kind))
+            for kind in ("empty", "one_row")]
+    return out
+
+
+def offset_table(table, offset: int, dev):
+    """A contiguous copy of `table` on the card whose first byte lies
+    `offset` bytes past a 16-byte boundary, as bytes (N, row bytes)."""
+    import torch
+
+    raw = torch.from_numpy(table).to(dev).reshape(table.shape[0], -1)
+    rows = raw.view(torch.uint8)
+    buf = torch.empty(rows.numel() + offset, dtype=torch.uint8, device=dev)
+    view = buf[offset:].view(rows.shape)
+    view.copy_(rows)
+    check(view.data_ptr() % 16 == offset, "offset table misplaced")
+    return view
+
+
+def phase_gather_cases(dev) -> float:
+    """K3 against its plain twin on every unit case, bit for bit. Returns
+    the max |difference| (0 when bit-equal)."""
+    import torch
+
+    from funky_tpu_torch.ops import gather_cuda
+    from funky_tpu_torch.ops.sampling import take_rows_plain
+    from tests.torch_scenes import gather_case
+
+    cases = [(label, torch.from_numpy(t).to(dev), torch.from_numpy(i).to(dev))
+             for label, t, i in gather_cases()]
+    for rows, offset in (("f32x4", 4), ("f32x46", 4), ("f32x4", 2)):
+        t, i = gather_case(rows, "large")
+        cases.append((f"{rows} {offset} bytes off", offset_table(t, offset, dev),
+                      torch.from_numpy(i).to(dev)))
+    for label, table, idx in cases:
+        before = gather_cuda.LAUNCHES
+        got = gather_cuda.row_gather(table, idx)
+        sync(dev)
+        check(gather_cuda.LAUNCHES - before == (idx.numel() > 0),
+              f"K3 case {label}: {gather_cuda.LAUNCHES - before} launches")
+        want = take_rows_plain(table, idx)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"K3 case {label}: {tuple(got.shape)} {got.dtype}")
+        check(torch.equal(got.contiguous().view(torch.uint8),
+                          want.contiguous().view(torch.uint8)),
+              f"K3 case {label}: not bit-equal to the plain twin")
+        say(f"K3 case {label}: table {tuple(table.shape)} {table.dtype} at "
+            f"{table.data_ptr() % 16} past 16 B, idx {tuple(idx.shape)}: "
+            f"bit-equal")
+    return 0.0
 
 
 def load_scene(dev, large: bool):
@@ -378,20 +470,21 @@ def poses_for(params, n_parked, n_orbit):
 def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
-    ms up to the frame's synchronize, host syncs and K1 launches per
+    ms up to the frame's synchronize, host syncs, K1 and K3 launches per
     frame, and the peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import compact, raster_cuda
+    from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
 
     state = frame.init_frame_state(cfg, dev)
-    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[])
+    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
         syncs0 = compact.HOST_SYNCS
         k1_0 = raster_cuda.LAUNCHES
+        k3_0 = gather_cuda.LAUNCHES
         sync(dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -408,6 +501,7 @@ def run_frames(scene, poses, cfg, dev):
                          else out["wall"][-1])
         out["syncs"].append(compact.HOST_SYNCS - syncs0)
         out["k1"].append(raster_cuda.LAUNCHES - k1_0)
+        out["k3"].append(gather_cuda.LAUNCHES - k3_0)
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -432,6 +526,20 @@ def frames_equal(a, b, label):
             check(np.array_equal(x.view(np.int32), y.view(np.int32)),
                   f"{label}: frame {i} {name} differs (max "
                   f"{np.abs(x.astype(np.float64) - y).max()})")
+
+
+def check_gathers(run, plain_run, label) -> None:
+    """K3 launched on every frame of `run` and never in `plain_run` (the
+    same frames with the plain row gather), and the two equal bit for
+    bit."""
+    check(all(k > 0 for k in run["k3"]),
+          f"{label}: a frame launched no K3: {run['k3']}")
+    check(all(k == 0 for k in plain_run["k3"]),
+          f"{label}: the plain-gather run launched K3: {plain_run['k3']}")
+    frames_equal(run, plain_run, f"{label}: K3 vs plain row gather")
+    say(f"{label}: K3 launches per frame {run['k3']}; the frames with the "
+        f"plain row gather == the K3 frames, tri_id, depth, rgba and history "
+        f"of all {len(plain_run['frames'])} frames bit for bit")
 
 
 def report(label, run):
@@ -502,15 +610,23 @@ def phase_dense(dev, gltf, scene):
     reset_counts()
     prun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
                                                  "torch"), dev)
-    check(sum(read_counts().values()) == 0, "the plain run launched a kernel")
+    counts = read_counts()
+    check(counts["raster_table"] + counts["raster_padded"] == 0,
+          "the plain-raster run launched a raster kernel")
     frames_equal(krun, prun, "dense kernel vs plain raster")
-    say(f"dense path: kernel run == plain run, all {len(poses)} frames bit "
-        f"for bit")
+    say(f"dense path: kernel run == plain-raster run, all {len(poses)} "
+        f"frames bit for bit")
+    with plain_gathers():
+        grun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
+                                                     "auto"), dev)
+    check_gathers(krun, grun, "dense path")
     check_image(krun, poses, dense_config(WIDTH, HEIGHT, SHADOW, "auto"),
                 dev, "dense path")
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, kernel raster",
            krun)
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, plain raster", prun)
+    report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, plain row gather",
+           grun)
     return params, poses, krun
 
 
@@ -528,6 +644,9 @@ def phase_default(dev, gltf, scene, params):
     check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
           and counts["raster_padded"] == 0,
           "default path: expected 5 K1 launches per frame")
+    with plain_gathers():
+        grun = run_frames(scene, poses, default_config(), dev)
+    check_gathers(srun, grun, "default path (multimesh)")
     drun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
                                                  "auto"), dev)
     frames_equal(srun, drun, "default (sparse) vs dense")
@@ -537,6 +656,8 @@ def phase_default(dev, gltf, scene, params):
     report(f"default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh)", srun)
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, same "
            f"poses)", drun)
+    report(f"default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh), plain "
+           f"row gather", grun)
     return counts, srun, drun
 
 
@@ -657,6 +778,9 @@ def phase_shipped(dev, gltf, scene, params):
           f"{label}: expected {n_win + 1} K1 launches per frame")
     check(len(calls) == (n_win + 1) * len(poses),
           f"{label}: {len(calls)} rasters recorded")
+    with plain_gathers():
+        grun = run_frames(scene, poses, cfg, dev)
+    check_gathers(crun, grun, label)
     err = check_rasters_bitwise(calls, label)
     say(f"{label}: K1 == plain raster bit for bit on all {len(calls)} "
         f"recorded rasters ({n_win * len(poses)} window rasters)")
@@ -702,7 +826,11 @@ def phase_shipped(dev, gltf, scene, params):
             f"peak device memory {run['peak_gib']:.2f} GiB; host syncs per "
             f"frame {run['syncs']} [{_GPU}]")
         check(all(math.isfinite(x) for x in ev + wall), f"{name}: timing")
-    return counts["raster_table"], err, cfg
+    say(f"shipped frame (committed), plain row gather: parked "
+        f"{grun['ms'][1]:.3f} ms, motion median "
+        f"{statistics.median(grun['ms'][N_PARKED:]):.3f} ms (CUDA events) "
+        f"[{_GPU}]")
+    return counts["raster_table"], err, cfg, crun["k3"]
 
 
 def phase_shipped_timings(dev, scene, params, cfg):
@@ -924,6 +1052,9 @@ def phase_large(dev):
     frames_equal(krun1, prun, "large scene K2 vs plain raster")
     say("large scene: the first frame through the plain raster == the K2 "
         "run, tri_id, depth, rgba and history bit for bit")
+    with plain_gathers():
+        grun = run_frames(scene, poses, default_config(), dev)
+    check_gathers(krun, grun, "large scene")
     check_image(krun, poses, default_config(), dev, "large scene",
                 on_ground=False)
     report(f"large-scene default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2", krun)
@@ -940,85 +1071,190 @@ def phase_large(dev):
           >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
     return (counts, sum(r["K2"] for r in rows),
             sum(r["plain"] for r in rows), sum(b[0] for b in bounds), by,
-            sum(r["K1"] for r in rows), sum(b[3] for b in bounds))
+            sum(r["K1"] for r in rows), sum(b[3] for b in bounds), krun["k3"])
 
 
-def record_tap_indices(scene, params, dev):
-    """The row indices of one PCF tap set (the first cascade's 16 compare
-    taps over the 1080p frame) from a dense frame of the main path."""
+# K3 designs measured by phase_gather (gather_cuda's ROWS_PER_THREAD,
+# CACHE_HINTS, PERSISTENT, TAP_SLICES): rows in flight per thread, L2
+# hints, resident grid, tap axis as slices. (1, False, False, False) is
+# PR 2's kernel: one thread per row, one block per 256 rows, no hints.
+GATHER_DESIGNS = [(r, h, p, t) for r in (1, 4, 8) for h in (False, True)
+                  for p in (False, True) for t in (False, True)]
+_DESIGN_KNOBS = ("ROWS_PER_THREAD", "CACHE_HINTS", "PERSISTENT", "TAP_SLICES")
+
+
+@contextlib.contextmanager
+def gather_design(design):
+    from funky_tpu_torch.ops import gather_cuda
+
+    saved = [getattr(gather_cuda, k) for k in _DESIGN_KNOBS]
+    for k, v in zip(_DESIGN_KNOBS, design):
+        setattr(gather_cuda, k, v)
+    try:
+        yield
+    finally:
+        for k, v in zip(_DESIGN_KNOBS, saved):
+            setattr(gather_cuda, k, v)
+
+
+def design_name(design) -> str:
+    r, h, p, t = design
+    return (f"R={r} {'hints' if h else 'no hints'} "
+            f"{'resident grid' if p else 'grid of tiles'} "
+            f"{'tap slices' if t else 'flat'}")
+
+
+def record_gather_calls(fn):
+    """Run fn() and return the (table, idx) of every K3 call it makes."""
+    from funky_tpu_torch.ops import gather_cuda
+
+    calls = []
+    kernel = gather_cuda.row_gather
+
+    def record(table, idx):
+        calls.append((table, idx))
+        return kernel(table, idx)
+
+    gather_cuda.row_gather = record
+    try:
+        fn()
+    finally:
+        gather_cuda.row_gather = kernel
+    return calls
+
+
+def gather_bytes(table, idx) -> int:
+    """Bytes one gather must move: the indices read, the rows written, and
+    each distinct row of the table read once."""
     import torch
 
+    n = table.shape[0]
+    row = table[0].numel() * table.element_size()
+    norm = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return 4 * idx.numel() + row * idx.numel() \
+        + row * int(torch.unique(norm).numel())
+
+
+def dense_frame_gathers(scene, params, dev):
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import sampling
-
-    sets = []
-    take_rows = sampling.take_rows
-    n_rows = 4 * SHADOW * SHADOW
-
-    def record(flat, idx):
-        if flat.shape == (n_rows, 4) and tuple(idx.shape) == TAP_SHAPE:
-            sets.append(idx.to(torch.int32).clone())
-        return take_rows(flat, idx)
 
     cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
-    sampling.take_rows = record
-    try:
-        frame.render_gltf_frame(scene, params,
-                                frame.init_frame_state(cfg, dev), cfg)
-    finally:
-        sampling.take_rows = take_rows
-    # per cascade: blocker search (nearest), then PCF compare
-    check(len(sets) >= 2, f"recorded {len(sets)} tap sets")
-    return sets[1]
+    return record_gather_calls(lambda: frame.render_gltf_frame(
+        scene, params, frame.init_frame_state(cfg, dev), cfg))
 
 
 def phase_gather(dev, scene, params):
-    """K3 at the tap shape. Returns the JSON numbers of the recorded PCF
-    tap set: (ms, plain_ms, library_ms, bound_ms, max_abs_err)."""
+    """K3 at the tap shape, in the shipped design and every other one.
+    Returns the JSON numbers of the recorded PCF tap set: (ms, plain_ms,
+    library_ms, bound_ms, max_abs_err)."""
     import torch
 
     from funky_tpu_torch.ops import gather_cuda
-    from funky_tpu_torch.ops.sampling import take_rows
+    from funky_tpu_torch.ops.sampling import take_rows_plain
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     n_big = 4 * SHADOW * SHADOW
     n_l2 = 1 << 20                       # 16 MB table: fits the 50 MB L2
-    tap = record_tap_indices(scene, params, dev)
+    # one PCF tap set of the dense frame: per cascade the blocker search
+    # (nearest), then the PCF compare; the first cascade's compare
+    taps = [i for t, i in dense_frame_gathers(scene, params, dev)
+            if t.shape == (n_big, 4) and tuple(i.shape) == TAP_SHAPE]
+    check(len(taps) >= 2, f"recorded {len(taps)} tap sets")
     cases = [
         (f"uniform, {16 * n_big / 1e6:.0f} MB table", n_big,
          torch.randint(0, n_big, TAP_SHAPE, generator=gen, device=dev,
                        dtype=torch.int32)),
-        (f"PCF tap set, {16 * n_big / 1e6:.0f} MB table", n_big, tap),
+        (f"PCF tap set, {16 * n_big / 1e6:.0f} MB table", n_big, taps[1]),
         (f"uniform, {16 * n_l2 / 1e6:.0f} MB table (in L2)", n_l2,
          torch.randint(0, n_l2, TAP_SHAPE, generator=gen, device=dev,
                        dtype=torch.int32)),
     ]
+    del taps
     out = None
     for name, n, idx in cases:
         table = torch.rand((n, 4), generator=gen, device=dev)
         got = gather_cuda.row_gather(table, idx)
-        want = take_rows(table, idx)
+        want = take_rows_plain(table, idx)
         sync(dev)
         err = float((got - want).abs().max())
         check(torch.equal(got, want), f"K3 {name}: not bit-equal")
         idx64 = idx.long().clamp(0, n - 1)   # in range already; no device
         ms = cuda_ms(lambda: gather_cuda.row_gather(table, idx), iters=10)
-        plain = cuda_ms(lambda: take_rows(table, idx), iters=5)
+        plain = cuda_ms(lambda: take_rows_plain(table, idx), iters=5)
         lib = cuda_ms(lambda: table[idx64], iters=10)
         m = idx.numel()
-        rows = int(torch.unique(idx64).numel())
-        nbytes = 4 * m + 16 * m + 16 * rows
+        nbytes = gather_bytes(table, idx)
         bound = nbytes / HBM_BPS * 1e3
+        rows = (nbytes - 20 * m) // 16
         sectors = 4 * m + 16 * m + 32 * m   # a 32 B sector per random row
         say(f"K3 {name}: {m} rows of 16 B from {n} ({rows} distinct): "
-            f"kernel {ms:.4f} ms ({16 * m / ms / 1e6:.1f} GB/s written), "
-            f"torch table[idx] {lib:.4f} ms, plain take_rows {plain:.4f} ms; "
-            f"bound {bound:.4f} ms ({nbytes} B), {sectors / HBM_BPS * 1e3:.4f}"
-            f" ms counting 32 B sectors; bit-equal [{_GPU}]")
+            f"kernel {ms:.4f} ms ({16 * m / ms / 1e6:.1f} GB/s written, "
+            f"{bound / ms:.0%} of the bound), torch table[idx] {lib:.4f} ms, "
+            f"plain take_rows {plain:.4f} ms; bound {bound:.4f} ms "
+            f"({nbytes} B), {sectors / HBM_BPS * 1e3:.4f} ms counting 32 B "
+            f"sectors; bit-equal [{_GPU}]")
+        for design in GATHER_DESIGNS:
+            with gather_design(design):
+                d_ms = cuda_ms(lambda: gather_cuda.row_gather(table, idx),
+                               iters=10)
+                check(torch.equal(gather_cuda.row_gather(table, idx), want),
+                      f"K3 {name}, {design_name(design)}: not bit-equal")
+            say(f"K3 {name}: design {design_name(design)}: {d_ms:.4f} ms "
+                f"({bound / d_ms:.0%} of the bound) [{_GPU}]")
         if name.startswith("PCF"):
             out = (ms, plain, lib, bound, err)
         del table, idx64, got, want
+    return out
+
+
+def time_frame_gathers(calls, label):
+    """Summed device ms of one frame's recorded K3 calls, each replayed
+    alone (device_ms), in the shipped design and every other, and of the
+    plain twin; and the bound: every call's bytes over 3.35 TB/s. Returns
+    (K3 ms, plain ms, bound ms)."""
+    from funky_tpu_torch.ops import gather_cuda
+    from funky_tpu_torch.ops.sampling import take_rows_plain
+
+    nbytes = sum(gather_bytes(t, i) for t, i in calls)
+    bound = nbytes / HBM_BPS * 1e3
+    ms = sum(device_ms(lambda: gather_cuda.row_gather(t, i))
+             for t, i in calls)
+    plain = sum(device_ms(lambda: take_rows_plain(t, i), iters=5)
+                for t, i in calls)
+    rows = sum(i.numel() for _, i in calls)
+    say(f"K3 per {label} frame: {len(calls)} calls, {rows} rows, "
+        f"{nbytes} B: kernel {ms:.4f} ms device time ({bound / ms:.0%} of "
+        f"the bound), plain twin {plain:.4f} ms; bound {bound:.4f} ms "
+        f"[{_GPU}]")
+    for design in GATHER_DESIGNS:
+        with gather_design(design):
+            d_ms = sum(device_ms(lambda: gather_cuda.row_gather(t, i))
+                       for t, i in calls)
+        say(f"K3 per {label} frame: design {design_name(design)}: "
+            f"{d_ms:.4f} ms [{_GPU}]")
+    by_size = sorted(calls, key=lambda c: -c[1].numel())[:6]
+    for t, i in by_size:
+        say(f"  {label} gather: table {tuple(t.shape)} {t.dtype}, idx "
+            f"{tuple(i.shape)}: {device_ms(lambda: gather_cuda.row_gather(t, i)):.4f}"
+            f" ms, bound {gather_bytes(t, i) / HBM_BPS * 1e3:.4f} ms")
+    return ms, plain, bound
+
+
+def phase_gather_frames(dev, scene, params, shipped_cfg):
+    """K3 per dense and per shipped frame (orbit pose N_ORBIT): every call
+    recorded from one frame, then replayed. Returns {path: (ms, plain ms,
+    bound ms)}."""
+    from funky_tpu_torch import frame
+
+    pose = frame.orbit_params(params, N_ORBIT)
+    out = {"dense": time_frame_gathers(dense_frame_gathers(scene, pose, dev),
+                                       "dense")}
+    state = frame.init_frame_state(shipped_cfg, dev)
+    _, state = frame.render_gltf_frame(scene, params, state, shipped_cfg)
+    calls = record_gather_calls(lambda: frame.render_gltf_frame(
+        scene, pose, state, shipped_cfg))
+    out["shipped"] = time_frame_gathers(calls, "shipped")
     return out
 
 
@@ -1042,14 +1278,15 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
+    err_k3 = phase_gather_cases(dev)
     err_k1 = phase_kernel_cases(dev, padded=False)
     err_k2 = phase_kernel_cases(dev, padded=True)
     gltf, scene = load_scene(dev, large=False)
     phase_golden(dev, gltf, scene)
-    params, _, _ = phase_dense(dev, gltf, scene)
-    counts, _, _ = phase_default(dev, gltf, scene, params)
-    k1_shipped, err_shipped, shipped_cfg = phase_shipped(dev, gltf, scene,
-                                                         params)
+    params, _, dense_run = phase_dense(dev, gltf, scene)
+    counts, default_run, _ = phase_default(dev, gltf, scene, params)
+    k1_shipped, err_shipped, shipped_cfg, k3_shipped = phase_shipped(
+        dev, gltf, scene, params)
     err_k1 = max(err_k1, err_shipped)
     k1_ms, k1_plain, k1_bound, k1_by, k1_culled = phase_timings(dev, scene,
                                                                 params)
@@ -1058,13 +1295,15 @@ def main() -> None:
         f"bound {k1_culled:.4f} ms [{_GPU}]")
     phase_shipped_timings(dev, scene, params, shipped_cfg)
     (large_counts, k2_ms, k2_plain, k2_bound, k2_by, k1_large,
-     k2_culled) = phase_large(dev)
+     k2_culled, k3_large) = phase_large(dev)
     say(f"large scene per frame (5 rasters): K2 {k2_ms:.4f} ms, K1 on the "
         f"same rasters {k1_large:.4f} ms, plain {k2_plain:.4f} ms, K2 bound "
         f"{k2_bound:.4f} ms, culled bound {k2_culled:.4f} ms [{_GPU}]")
     g_ms, g_plain, g_lib, g_bound, g_err = phase_gather(dev, scene, params)
-    say("K3 row_gather is a probe on no frame path: 0 launches on the main "
-        "paths above")
+    g_frames = phase_gather_frames(dev, scene, params, shipped_cfg)
+    k3_per_frame = {"dense": dense_run["k3"], "default": default_run["k3"],
+                    "shipped": k3_shipped, "large": k3_large}
+    say(f"K3 launches per frame on the main paths: {k3_per_frame}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1084,9 +1323,15 @@ def main() -> None:
         dict(name="row_gather", route="cuda",
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",
-             launches=counts["row_gather"] + large_counts["row_gather"],
-             max_abs_err=g_err, ms=g_ms, plain_ms=g_plain, bound_ms=g_bound,
-             bound_by="bytes", library_ms=g_lib),
+             launches=sum(sum(v) for v in k3_per_frame.values()),
+             max_abs_err=max(g_err, err_k3), ms=g_ms, plain_ms=g_plain,
+             bound_ms=g_bound, bound_by="bytes", library_ms=g_lib,
+             timed_on="PCF tap set: (16, 1080, 1920) int32 rows of 16 B from "
+                      "the 268 MB cascade table",
+             launches_per_frame=k3_per_frame,
+             frame_ms={k: v[0] for k, v in g_frames.items()},
+             frame_plain_ms={k: v[1] for k, v in g_frames.items()},
+             frame_bound_ms={k: v[2] for k, v in g_frames.items()}),
     ]
     say(_GPU)
     say(json.dumps({"kernels": kernels}))

@@ -1,71 +1,287 @@
-// Row gather for Hopper (sm_90a): out[i, :] = table[clamp(idx[i]), :].
+// Row gather for Hopper (sm_90a): out[i] = table[normalise(idx[i])], for
+// rows of any byte width. The frame's row gather: ops/sampling.py::
+// take_rows launches it for every CUDA table (the samplers' quad rows, the
+// compactions' masks and keys, the deferred pass's fused 184-byte rows).
 //
 // Replaces the TPU row-gather probes of experiments/ (bench_gather.py
 // vmem_gather/dma_gather, pallas_gather_bisect*.py gather_*,
-// pallas_gather_retest.py): all of them compute out[i] = table[idx[i]] on
-// an (N, w) f32 table with int32 indices. Index semantics are the port's
-// take_rows (ops/sampling.py): a negative index counts from the end, then
-// the index is clamped into [0, N).
+// pallas_gather_retest.py): all of them compute out[i] = table[idx[i]] with
+// int32 indices. Index semantics are take_rows': a negative index counts
+// from the end, then the index is clamped into [0, N).
 //
 // What bounds it on this card: bytes. Per row it reads a 4-byte index and
-// one w*4-byte table row and writes w*4 bytes; a random 16-byte row costs a
-// whole 32-byte sector from device memory once the table exceeds L2
-// (50 MB). Design: one thread per row, and for w = 4 one 16-byte load and
-// one 16-byte store per thread (neighbouring threads write neighbouring
-// rows, so the stores coalesce); other widths copy element by element.
-// Nothing is staged: there is no reuse to exploit inside a block.
+// one table row and writes the row; a random row costs at least a 32-byte
+// sector from device memory unless L2 (50 MB) still holds it. The
+// samplers' neighbouring pixels read neighbouring texels, so most rows are
+// read many times and the bound counts each distinct row once.
+//
+// Design:
+// - The kernel moves copy units of U bytes: the largest of 16/8/4/2/1 that
+//   divides the row size and both base addresses. A row is K = row/U
+//   units, and consecutive threads copy consecutive units of the output
+//   (coalesced) whatever K is; for K > 1 a run of K lanes copies one row.
+// - The m rows are cut into S slices of equal length. A thread owns one
+//   unit position and copies it in every slice, R slices at a time: all R
+//   index loads, then all R table loads, then all R stores, so R
+//   independent rows are in flight instead of one dependent pair. When
+//   the index's leading axis holds a few taps ((16, H, W) PCF taps, (16,
+//   N) pair taps) the slices are the taps: the 16 taps of a pixel, which
+//   read overlapping texels, go through one thread and one SM's L1, and
+//   fewer sector requests reach L2. Any other index is cut into R slices.
+// - Cache hints: the table loads carry an L2 evict_last policy, the index
+//   loads and the output stores stream (evict first), so the write stream
+//   does not push out the table rows that neighbouring pixels read again.
+// - A grid-stride loop over tiles with as many blocks as the card holds at
+//   once (SMs x resident blocks, asked once per instantiation): small
+//   gathers take one wave, large ones do not pay block scheduling per tile.
+// - The index is normalised in the kernel, on int32, so take_rows issues one
+//   launch and no index arithmetic.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int GATHER_THREADS = 256;
+constexpr int THREADS = 256;
 
-__device__ __forceinline__ long long clamp_index(int i, long long n) {
-  long long j = i < 0 ? (long long)i + n : (long long)i;
+template <int U> struct UnitOf;
+template <> struct UnitOf<16> { typedef uint4 T; };
+template <> struct UnitOf<8> { typedef uint2 T; };
+template <> struct UnitOf<4> { typedef unsigned int T; };
+template <> struct UnitOf<2> { typedef unsigned short T; };
+template <> struct UnitOf<1> { typedef unsigned char T; };
+
+__device__ __forceinline__ long long normalise(int i, long long n) {
+  const long long j = i < 0 ? (long long)i + n : (long long)i;
   return j < 0 ? 0 : (j >= n ? n - 1 : j);
 }
 
-__global__ void __launch_bounds__(GATHER_THREADS)
-row_gather_f4(const float4* __restrict__ table, long long n_rows,
-              const int* __restrict__ idx, long long m,
-              float4* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
-  if (i < m) out[i] = __ldg(table + clamp_index(__ldg(idx + i), n_rows));
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
 }
 
-__global__ void __launch_bounds__(GATHER_THREADS)
-row_gather_any(const float* __restrict__ table, long long n_rows, int w,
-               const int* __restrict__ idx, long long m,
-               float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
-  if (e >= m * w) return;
-  const long long i = e / w;
-  const int c = (int)(e - i * w);
-  out[e] = __ldg(table + clamp_index(__ldg(idx + i), n_rows) * w + c);
+// Table loads through the read-only path with an L2 cache policy.
+__device__ __forceinline__ uint4 load_kept(const uint4* p, uint64_t pol) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint2 load_kept(const uint2* p, uint64_t pol) {
+  uint2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+      : "=r"(v.x), "=r"(v.y) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned int load_kept(const unsigned int* p,
+                                                  uint64_t pol) {
+  unsigned int v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned short load_kept(const unsigned short* p,
+                                                    uint64_t pol) {
+  unsigned short v;
+  asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
+      : "=h"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ unsigned char load_kept(const unsigned char* p,
+                                                   uint64_t pol) {
+  unsigned short v;   // a u8 load into a 16-bit register, zero-extended
+  asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;"
+      : "=h"(v) : "l"(p), "l"(pol));
+  return (unsigned char)v;
+}
+
+template <bool HINTS>
+__device__ __forceinline__ int load_index(const int* p) {
+  return HINTS ? __ldcs(p) : __ldg(p);
+}
+
+template <bool HINTS, typename T>
+__device__ __forceinline__ T load_row(const T* p, uint64_t pol) {
+  return HINTS ? load_kept(p, pol) : __ldg(p);
+}
+
+template <bool HINTS, typename T>
+__device__ __forceinline__ void store_unit(T* p, T v) {
+  if (HINTS) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// table: n_rows rows of k units; idx and out: m rows, cut into `slices`
+// slices of slice_rows rows (the last one may be short); a tile is THREADS
+// unit positions of a slice.
+template <int U, int R, bool HINTS>
+__global__ void __launch_bounds__(THREADS)
+row_gather_kernel(const typename UnitOf<U>::T* __restrict__ table,
+                  long long n_rows, unsigned k,
+                  const int* __restrict__ idx, long long m, int slices,
+                  long long slice_rows, long long n_tiles,
+                  typename UnitOf<U>::T* __restrict__ out) {
+  typedef typename UnitOf<U>::T T;
+  const uint64_t policy = HINTS ? evict_last_policy() : 0;
+  const long long slice_units = slice_rows * k;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long q = tile * THREADS + threadIdx.x;
+    if (q >= slice_units) continue;
+    const long long row_in = k == 1 ? q
+        : (q <= 0xffffffffLL ? (long long)((unsigned)q / k) : q / k);
+    const unsigned u = (unsigned)(q - row_in * k);   // the unit in its row
+    for (int b0 = 0; b0 < slices; b0 += R) {
+      long long row[R];
+      int id[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        row[r] = (long long)(b0 + r) * slice_rows + row_in;
+        const bool ok = b0 + r < slices && row[r] < m;
+        id[r] = ok ? load_index<HINTS>(idx + row[r]) : 0;
+      }
+      T v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (b0 + r < slices && row[r] < m) {
+          v[r] = load_row<HINTS>(table + normalise(id[r], n_rows) * k + u,
+                                 policy);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (b0 + r < slices && row[r] < m) {
+          store_unit<HINTS>(out + row[r] * k + u, v[r]);
+        }
+      }
+    }
+  }
+}
+
+template <int U, int R, bool HINTS>
+cudaError_t launch(const void* table, long long n_rows, unsigned k,
+                   const int* idx, long long m, int slices, void* out,
+                   bool persistent, cudaStream_t stream) {
+  typedef typename UnitOf<U>::T T;
+  if (slices <= 0) slices = R;   // no tap axis: R slices of the flat rows
+  const long long slice_rows = (m + slices - 1) / slices;
+  const long long n_tiles = (slice_rows * k + THREADS - 1) / THREADS;
+  long long grid = n_tiles;
+  if (persistent) {
+    // resident blocks per SM of this instantiation, asked once
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, row_gather_kernel<U, R, HINTS>, THREADS, 0);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) per_sm = 1;
+    }
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (e != cudaSuccess) return e;
+    const long long resident = (long long)sms * per_sm;
+    if (grid > resident) grid = resident;
+  }
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  row_gather_kernel<U, R, HINTS><<<(unsigned)grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(table), n_rows, k, idx, m, slices, slice_rows,
+      n_tiles, static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <int U, int R>
+cudaError_t launch_hints(bool hints, const void* table, long long n_rows,
+                         unsigned k, const int* idx, long long m, int slices,
+                         void* out, bool persistent, cudaStream_t stream) {
+  return hints ? launch<U, R, true>(table, n_rows, k, idx, m, slices, out,
+                                    persistent, stream)
+               : launch<U, R, false>(table, n_rows, k, idx, m, slices, out,
+                                     persistent, stream);
+}
+
+template <int U>
+cudaError_t launch_unit(int rows_per_thread, bool hints, const void* table,
+                        long long n_rows, unsigned k, const int* idx,
+                        long long m, int slices, void* out, bool persistent,
+                        cudaStream_t stream) {
+  switch (rows_per_thread) {
+    case 1:
+      return launch_hints<U, 1>(hints, table, n_rows, k, idx, m, slices, out,
+                                persistent, stream);
+    case 4:
+      return launch_hints<U, 4>(hints, table, n_rows, k, idx, m, slices, out,
+                                persistent, stream);
+    case 8:
+      return launch_hints<U, 8>(hints, table, n_rows, k, idx, m, slices, out,
+                                persistent, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing, and returns cudaGetLastError(). The
-// w = 4 path needs 16-byte aligned table and out.
-extern "C" int row_gather_launch(const float* table, long long n_rows, int w,
-                                 const int* idx, long long m, float* out,
-                                 void* stream) {
-  if (n_rows <= 0 || w <= 0 || m < 0) return (int)cudaErrorInvalidValue;
-  if (m == 0) return (int)cudaGetLastError();
-  const long long work = w == 4 ? m : m * w;
-  const long long blocks = (work + GATHER_THREADS - 1) / GATHER_THREADS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (w == 4) {
-    row_gather_f4<<<(unsigned)blocks, GATHER_THREADS, 0, s>>>(
-        reinterpret_cast<const float4*>(table), n_rows, idx, m,
-        reinterpret_cast<float4*>(out));
-  } else {
-    row_gather_any<<<(unsigned)blocks, GATHER_THREADS, 0, s>>>(
-        table, n_rows, w, idx, m, out);
+// Plain C entry point (loaded with ctypes). table: n_rows contiguous rows of
+// row_bytes; idx: m contiguous int32; out: m rows of row_bytes. The copy
+// unit is the largest of 16/8/4/2/1 bytes that divides row_bytes and the
+// table's and out's addresses; idx must be 4-byte aligned. slices: the
+// length of the index's leading tap axis (it divides m), or 0 for none.
+// rows_per_thread (1, 4 or 8), hints and persistent select the design
+// measured by chip_smoke.py. Launches on `stream`, does not synchronise,
+// allocates nothing, and returns a CUDA error code (0: launched, or
+// nothing to do).
+extern "C" int row_gather_launch(const void* table, long long n_rows,
+                                 long long row_bytes, const int* idx,
+                                 long long m, int slices, void* out,
+                                 int rows_per_thread, int hints,
+                                 int persistent, void* stream) {
+  if (n_rows <= 0 || row_bytes <= 0 || m < 0 || table == nullptr ||
+      out == nullptr || reinterpret_cast<uintptr_t>(idx) % 4 != 0 ||
+      slices < 0 || (slices > 0 && m % slices != 0)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (m == 0) return (int)cudaSuccess;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(table) |
+                         reinterpret_cast<uintptr_t>(out) |
+                         (uintptr_t)row_bytes;
+  int unit = 16;
+  while (bits % unit) unit /= 2;
+  const long long k = row_bytes / unit;
+  if (k > 0x7fffffffLL || m > 0x7fffffffffffffffLL / k) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool h = hints != 0, p = persistent != 0;
+  cudaError_t e;
+  switch (unit) {
+    case 16:
+      e = launch_unit<16>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
+                          m, slices, out, p, s);
+      break;
+    case 8:
+      e = launch_unit<8>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
+                         m, slices, out, p, s);
+      break;
+    case 4:
+      e = launch_unit<4>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
+                         m, slices, out, p, s);
+      break;
+    case 2:
+      e = launch_unit<2>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
+                         m, slices, out, p, s);
+      break;
+    default:
+      e = launch_unit<1>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
+                         m, slices, out, p, s);
+      break;
+  }
+  return (int)e;
 }

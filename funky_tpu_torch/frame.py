@@ -481,7 +481,8 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
     background = _background(tri_id.device, alpha=True)
     base = torch.cat([background.expand(h, w, 4), old_slab], dim=-1)
     out = scatter_blocks(base, bc, torch.cat([rgba_e, hist_e], dim=-1))
-    return out[..., 0:4], out[..., 4:6]
+    # the history is the next frame's gather table: a contiguous copy
+    return out[..., 0:4], out[..., 4:6].contiguous()
 
 
 def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,

@@ -7,7 +7,8 @@ differences between the libraries are handled here for every sampler:
 
 - A JAX gather clamps out-of-range indices; torch raises on the CPU and
   device-asserts on CUDA. `take_rows` clamps the flat index itself, which
-  is what XLA's gather does with a 1-D start index.
+  is what XLA's gather does with a 1-D start index (on the card, inside
+  the row-gather kernel).
 - `x.astype(jnp.int32)` saturates (NaN -> 0) in XLA; `.to(torch.int32)` of
   NaN or out-of-range floats is undefined and differs between the CPU and
   CUDA. `to_i32` reproduces XLA's saturating conversion. Sky pixels reach
@@ -34,8 +35,21 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
 def take_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather with jnp indexing semantics (sampling.py:31-61): a
     negative index counts from the end, then the index is clamped into
-    range. The JAX version's index reshape is a TPU layout trick; here it
-    is plain indexing on the normalized indices."""
+    range. A CUDA table goes to the row-gather kernel K3
+    (ops/gather_cuda.py::row_gather), which takes contiguous tensors and
+    int32 indices and raises on anything else; a CPU table to the plain
+    twin. The JAX version's index reshape is a TPU layout trick and changes
+    no value."""
+    if flat.device.type == "cuda":
+        from . import gather_cuda   # imports this module
+
+        return gather_cuda.row_gather(flat, idx)
+    return take_rows_plain(flat, idx)
+
+
+def take_rows_plain(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_rows as torch indexing on the normalized indices: the CPU path
+    and the kernel's test oracle."""
     n = flat.shape[0]
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return flat[idx.long()]

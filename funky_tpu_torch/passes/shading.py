@@ -46,7 +46,9 @@ def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,
             comp.count <= texture_block_capacity, "texture_blocks",
             [(comp.count, texture_block_capacity)])):
         n = use_texture.numel()
-        uv_e = gather_rows(gbuf.uv.reshape(n, 2), comp)
+        # the G-buffer's uv is a column slice: the row gather takes a
+        # contiguous table ((n, 2) f32, one copy)
+        uv_e = gather_rows(gbuf.uv.reshape(n, 2).contiguous(), comp)
         layer_e = gather_rows(layer.reshape(n), comp)
         vals = sample_bilinear_repeat_packed_layers(tex_packed, texture_sizes,
                                                     layer_e, uv_e)

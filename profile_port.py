@@ -13,14 +13,19 @@ cascade maps, autotuned over bench_poses first), on the multimesh or the
 large scene. 8 chained frames (2 parked, 6 orbit poses) with a
 synchronize around every stage (per-stage host-clock medians), 8 more
 without (frame time), then one frame under torch.profiler (device time
-by kernel, device busy and idle share). Writes the profiler's chrome
-trace to the path given, if any. Needs a CUDA card; imports no jax.
+by kernel, device busy and idle share, the device time of the row-gather
+kernel K3 and of torch indexing `aten::index`, and the launch geometry of
+the frame's largest gather kernels). Writes the profiler's chrome trace
+to the path given, if any. Needs a CUDA card; imports no jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import pathlib
 import statistics
+import tempfile
 import time
 
 import torch
@@ -181,9 +186,38 @@ def main() -> None:
     print(f"profiled frame: {sum(e.count for e in dev_rows)} device "
           f"launches, device busy {busy:.3f} ms; idle share against the "
           f"unprofiled frame {1 - busy / frame_ms:.3f} [{gpu}]", flush=True)
+    k3 = [e for e in dev_rows if "row_gather" in e.key]
+    index = [e for e in ka if e.key == "aten::index"]
+    print(f"profiled frame: K3 row_gather {device_ms(k3, self_time=True):.3f}"
+          f" ms device time over {sum(e.count for e in k3)} launches; "
+          f"aten::index {device_ms(index):.3f} ms device time over "
+          f"{sum(e.count for e in index)} calls [{gpu}]", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    with tempfile.TemporaryDirectory() as td:
+        trace = args.trace or str(pathlib.Path(td) / "trace.json")
+        prof.export_chrome_trace(trace)
+        print_gather_launches(trace)
+
+
+def device_ms(rows, self_time=False) -> float:
+    """Summed device ms of profiler rows: a kernel's own time, or an op's
+    time including the kernels it launched."""
+    key = "self_device_time_total" if self_time else "device_time_total"
+    return sum(getattr(e, key) for e in rows) / 1e3
+
+
+def print_gather_launches(trace: str, top: int = 8) -> None:
+    """The longest gather and index kernels of the traced frame with
+    their grid and block: the launch geometry behind their device time."""
+    events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(w in e.get("name", "") for w in ("gather", "index"))]
+    kernels.sort(key=lambda e: -e.get("dur", 0))
+    for e in kernels[:top]:
+        a = e.get("args", {})
+        print(f"gather kernel {e['name'][:90]}: {e.get('dur', 0) / 1e3:.3f}"
+              f" ms, grid {a.get('grid')}, block {a.get('block')}, "
+              f"registers {a.get('registers per thread')}", flush=True)
 
 
 if __name__ == "__main__":

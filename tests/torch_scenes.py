@@ -1,10 +1,58 @@
-"""Seeded test scenes for the port's raster, in numpy only (no jax), so that
-the card-only tests and chip_smoke.py can use them where jax is absent.
-Not a test module itself."""
+"""Seeded test scenes for the port's raster and test cases of its row
+gather, in numpy only (no jax), so that the card-only tests and
+chip_smoke.py can use them where jax is absent. Not a test module itself."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+# Row types of the frame's row gathers (ops/sampling.py::take_rows):
+# name -> (dtype, row shape). The deferred pass's fused rows are 46 f32;
+# the compactions gather bool masks and int32 keys; f16 and f64 rows take
+# the kernel's 2- and 8-byte copy units.
+GATHER_ROWS = {
+    "f32x4": (np.float32, (4,)),
+    "f32x2": (np.float32, (2,)),
+    "f32x8": (np.float32, (8,)),
+    "f32x7": (np.float32, (7,)),
+    "f32x16": (np.float32, (16,)),
+    "f32x46": (np.float32, (46,)),
+    "f32x3x12": (np.float32, (3, 12)),
+    "f32": (np.float32, ()),
+    "i32": (np.int32, ()),
+    "bool": (np.bool_, ()),
+    "f16": (np.float16, ()),
+    "f64x3": (np.float64, (3,)),
+}
+# Index batches: name -> (table rows, index shape).
+GATHER_INDICES = {
+    "1d": (1000, (4099,)),
+    "3d": (1000, (5, 7, 9)),
+    "empty": (1000, (0,)),
+    "one_row": (1, (37,)),
+    "large": (100_000, (150_001,)),
+    "taps": (100_000, (16, 3, 4099)),
+}
+
+
+def gather_case(rows: str, indices: str, seed: int = 0):
+    """(table, idx) of one row-gather test case: a seeded table of
+    GATHER_ROWS[rows] and int32 indices drawn from [-2N, 2N), so that
+    negative ones (counted from the end) and out-of-range ones (clamped)
+    both occur."""
+    dtype, shape = GATHER_ROWS[rows]
+    n, ishape = GATHER_INDICES[indices]
+    rng = np.random.default_rng(seed)
+    if dtype == np.bool_:
+        table = rng.random((n,) + shape) < 0.5
+    elif np.issubdtype(dtype, np.integer):
+        table = rng.integers(-2**31, 2**31, (n,) + shape, dtype=np.int64)
+        table = table.astype(dtype)
+    else:
+        table = rng.standard_normal((n,) + shape).astype(dtype)
+    idx = rng.integers(-2 * n, 2 * n, ishape).astype(np.int32)
+    return table, idx
 
 
 def random_clip_scene(seed=0, n_tris=40, width=128, height=64):
