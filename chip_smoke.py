@@ -59,10 +59,9 @@ failure raises and the script exits non-zero):
 7. K3 at the dense shadow filter's tap shape: a (4*2048*2048, 4) f32
    table and 16 x 1080 x 1920 indices (uniform, one recorded PCF tap set),
    and a table that fits in L2; bit-equal to the plain gather, timed
-   beside torch's `table[idx]` and the plain twin, and in every design of
-   the kernel (units per thread, cache hints, resident grid); then every
-   K3 call of one dense and one shipped frame, recorded and replayed: the
-   summed device time per frame against its byte bound, in every design;
+   beside torch's `table[idx]` and the plain twin; then every K3 call of
+   one dense and one shipped frame, recorded and replayed: the summed
+   device time per frame against its byte bound;
 8. timings with CUDA events and the median frame times. Kernel times are
    device times (launches queued behind a sleep kernel, `device_ms`),
    printed beside the time through the wrapper with its host enqueue
@@ -344,9 +343,8 @@ def offset_table(table, offset: int, dev):
     return view
 
 
-def phase_gather_cases(dev) -> float:
-    """K3 against its plain twin on every unit case, bit for bit. Returns
-    the max |difference| (0 when bit-equal)."""
+def phase_gather_cases(dev) -> None:
+    """K3 against its plain twin on every unit case, bit for bit."""
     import torch
 
     from funky_tpu_torch.ops import gather_cuda
@@ -374,7 +372,6 @@ def phase_gather_cases(dev) -> float:
         say(f"K3 case {label}: table {tuple(table.shape)} {table.dtype} at "
             f"{table.data_ptr() % 16} past 16 B, idx {tuple(idx.shape)}: "
             f"bit-equal")
-    return 0.0
 
 
 def load_scene(dev, large: bool):
@@ -826,10 +823,16 @@ def phase_shipped(dev, gltf, scene, params):
             f"peak device memory {run['peak_gib']:.2f} GiB; host syncs per "
             f"frame {run['syncs']} [{_GPU}]")
         check(all(math.isfinite(x) for x in ev + wall), f"{name}: timing")
-    say(f"shipped frame (committed), plain row gather: parked "
-        f"{grun['ms'][1]:.3f} ms, motion median "
-        f"{statistics.median(grun['ms'][N_PARKED:]):.3f} ms (CUDA events) "
-        f"[{_GPU}]")
+    # K3 against the plain row gather on the host-bound committed frame,
+    # in turns in one process: the first two runs above, then two more.
+    runs = [("K3", crun), ("plain row gather", grun)]
+    runs.append(("K3", run_frames(scene, poses, cfg, dev)))
+    with plain_gathers():
+        runs.append(("plain row gather", run_frames(scene, poses, cfg, dev)))
+    for name, run in runs:
+        say(f"shipped frame (committed), {name}: host clock per frame "
+            f"{[round(x, 3) for x in run['wall']]} ms, median after the "
+            f"first {statistics.median(run['wall'][1:]):.3f} ms [{_GPU}]")
     return counts["raster_table"], err, cfg, crun["k3"]
 
 
@@ -1074,36 +1077,6 @@ def phase_large(dev):
             sum(r["K1"] for r in rows), sum(b[3] for b in bounds), krun["k3"])
 
 
-# K3 designs measured by phase_gather (gather_cuda's ROWS_PER_THREAD,
-# CACHE_HINTS, PERSISTENT, TAP_SLICES): rows in flight per thread, L2
-# hints, resident grid, tap axis as slices. (1, False, False, False) is
-# PR 2's kernel: one thread per row, one block per 256 rows, no hints.
-GATHER_DESIGNS = [(r, h, p, t) for r in (1, 4, 8) for h in (False, True)
-                  for p in (False, True) for t in (False, True)]
-_DESIGN_KNOBS = ("ROWS_PER_THREAD", "CACHE_HINTS", "PERSISTENT", "TAP_SLICES")
-
-
-@contextlib.contextmanager
-def gather_design(design):
-    from funky_tpu_torch.ops import gather_cuda
-
-    saved = [getattr(gather_cuda, k) for k in _DESIGN_KNOBS]
-    for k, v in zip(_DESIGN_KNOBS, design):
-        setattr(gather_cuda, k, v)
-    try:
-        yield
-    finally:
-        for k, v in zip(_DESIGN_KNOBS, saved):
-            setattr(gather_cuda, k, v)
-
-
-def design_name(design) -> str:
-    r, h, p, t = design
-    return (f"R={r} {'hints' if h else 'no hints'} "
-            f"{'resident grid' if p else 'grid of tiles'} "
-            f"{'tap slices' if t else 'flat'}")
-
-
 def record_gather_calls(fn):
     """Run fn() and return the (table, idx) of every K3 call it makes."""
     from funky_tpu_torch.ops import gather_cuda
@@ -1121,6 +1094,33 @@ def record_gather_calls(fn):
     finally:
         gather_cuda.row_gather = kernel
     return calls
+
+
+def trace_kernels(prof, words=("gather", "index")) -> list:
+    """(name, device ms, grid, block) of every kernel in a torch.profiler
+    run whose name holds one of `words`, longest first, from its trace."""
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    out = [(e["name"], e.get("dur", 0) / 1e3, e.get("args", {}).get("grid"),
+            e.get("args", {}).get("block")) for e in events
+           if e.get("cat") == "kernel"
+           and any(w in e.get("name", "") for w in words)]
+    return sorted(out, key=lambda k: -k[1])
+
+
+def say_launches(label, fn) -> None:
+    """The gather kernels one call of fn() launches, with their grids."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for name, ms, grid, block in trace_kernels(prof):
+        say(f"{label}: kernel {name[:80]}: {ms:.4f} ms, grid {grid}, block "
+            f"{block} [{_GPU}]")
 
 
 def gather_bytes(table, idx) -> int:
@@ -1144,8 +1144,7 @@ def dense_frame_gathers(scene, params, dev):
 
 
 def phase_gather(dev, scene, params):
-    """K3 at the tap shape, in the shipped design and every other one.
-    Returns the JSON numbers of the recorded PCF tap set: (ms, plain_ms,
+    """K3 at the tap shape. Returns the JSON numbers of the recorded PCF tap set: (ms, plain_ms,
     library_ms, bound_ms, max_abs_err)."""
     import torch
 
@@ -1194,25 +1193,19 @@ def phase_gather(dev, scene, params):
             f"plain take_rows {plain:.4f} ms; bound {bound:.4f} ms "
             f"({nbytes} B), {sectors / HBM_BPS * 1e3:.4f} ms counting 32 B "
             f"sectors; bit-equal [{_GPU}]")
-        for design in GATHER_DESIGNS:
-            with gather_design(design):
-                d_ms = cuda_ms(lambda: gather_cuda.row_gather(table, idx),
-                               iters=10)
-                check(torch.equal(gather_cuda.row_gather(table, idx), want),
-                      f"K3 {name}, {design_name(design)}: not bit-equal")
-            say(f"K3 {name}: design {design_name(design)}: {d_ms:.4f} ms "
-                f"({bound / d_ms:.0%} of the bound) [{_GPU}]")
         if name.startswith("PCF"):
             out = (ms, plain, lib, bound, err)
+            say_launches(f"K3 {name}, torch table[idx]", lambda: table[idx64])
+            say_launches(f"K3 {name}, K3",
+                         lambda: gather_cuda.row_gather(table, idx))
         del table, idx64, got, want
     return out
 
 
 def time_frame_gathers(calls, label):
     """Summed device ms of one frame's recorded K3 calls, each replayed
-    alone (device_ms), in the shipped design and every other, and of the
-    plain twin; and the bound: every call's bytes over 3.35 TB/s. Returns
-    (K3 ms, plain ms, bound ms)."""
+    alone (device_ms), and of the plain twin; and the bound: every call's
+    bytes over 3.35 TB/s. Returns (K3 ms, plain ms, bound ms)."""
     from funky_tpu_torch.ops import gather_cuda
     from funky_tpu_torch.ops.sampling import take_rows_plain
 
@@ -1227,12 +1220,6 @@ def time_frame_gathers(calls, label):
         f"{nbytes} B: kernel {ms:.4f} ms device time ({bound / ms:.0%} of "
         f"the bound), plain twin {plain:.4f} ms; bound {bound:.4f} ms "
         f"[{_GPU}]")
-    for design in GATHER_DESIGNS:
-        with gather_design(design):
-            d_ms = sum(device_ms(lambda: gather_cuda.row_gather(t, i))
-                       for t, i in calls)
-        say(f"K3 per {label} frame: design {design_name(design)}: "
-            f"{d_ms:.4f} ms [{_GPU}]")
     by_size = sorted(calls, key=lambda c: -c[1].numel())[:6]
     for t, i in by_size:
         say(f"  {label} gather: table {tuple(t.shape)} {t.dtype}, idx "
@@ -1278,7 +1265,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
-    err_k3 = phase_gather_cases(dev)
+    phase_gather_cases(dev)
     err_k1 = phase_kernel_cases(dev, padded=False)
     err_k2 = phase_kernel_cases(dev, padded=True)
     gltf, scene = load_scene(dev, large=False)
@@ -1324,7 +1311,7 @@ def main() -> None:
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",
              launches=sum(sum(v) for v in k3_per_frame.values()),
-             max_abs_err=max(g_err, err_k3), ms=g_ms, plain_ms=g_plain,
+             max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
              bound_ms=g_bound, bound_by="bytes", library_ms=g_lib,
              timed_on="PCF tap set: (16, 1080, 1920) int32 rows of 16 B from "
                       "the 268 MB cascade table",

@@ -15,27 +15,27 @@
 // samplers' neighbouring pixels read neighbouring texels, so most rows are
 // read many times and the bound counts each distinct row once.
 //
-// Design:
+// Design (each choice measured by chip_smoke.py on the tap set and on
+// whole frames; PERF.md has the alternatives that lost):
 // - The kernel moves copy units of U bytes: the largest of 16/8/4/2/1 that
 //   divides the row size and both base addresses. A row is K = row/U
 //   units, and consecutive threads copy consecutive units of the output
 //   (coalesced) whatever K is; for K > 1 a run of K lanes copies one row.
 // - The m rows are cut into S slices of equal length. A thread owns one
-//   unit position and copies it in every slice, R slices at a time: all R
-//   index loads, then all R table loads, then all R stores, so R
+//   unit position and copies it in every slice, R = 4 slices at a time:
+//   all R index loads, then all R table loads, then all R stores, so four
 //   independent rows are in flight instead of one dependent pair. When
 //   the index's leading axis holds a few taps ((16, H, W) PCF taps, (16,
 //   N) pair taps) the slices are the taps: the 16 taps of a pixel, which
 //   read overlapping texels, go through one thread and one SM's L1, and
-//   fewer sector requests reach L2. Any other index is cut into R slices.
+//   fewer sector requests reach L2, whose request rate bounds a gather of
+//   16-byte rows. Any other index is cut into R slices.
 // - Cache hints: the table loads carry an L2 evict_last policy, the index
 //   loads and the output stores stream (evict first), so the write stream
 //   does not push out the table rows that neighbouring pixels read again.
-// - A grid-stride loop over tiles with as many blocks as the card holds at
-//   once (SMs x resident blocks, asked once per instantiation): small
-//   gathers take one wave, large ones do not pay block scheduling per tile.
-// - The index is normalised in the kernel, on int32, so take_rows issues one
-//   launch and no index arithmetic.
+// - One block per 256 unit positions of a slice. The index is normalised
+//   in the kernel, on int32, so take_rows issues one launch and no index
+//   arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +43,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int R = 4;   // rows in flight per thread
 
 template <int U> struct UnitOf;
 template <> struct UnitOf<16> { typedef uint4 T; };
@@ -98,133 +99,59 @@ __device__ __forceinline__ unsigned char load_kept(const unsigned char* p,
   return (unsigned char)v;
 }
 
-template <bool HINTS>
-__device__ __forceinline__ int load_index(const int* p) {
-  return HINTS ? __ldcs(p) : __ldg(p);
-}
-
-template <bool HINTS, typename T>
-__device__ __forceinline__ T load_row(const T* p, uint64_t pol) {
-  return HINTS ? load_kept(p, pol) : __ldg(p);
-}
-
-template <bool HINTS, typename T>
-__device__ __forceinline__ void store_unit(T* p, T v) {
-  if (HINTS) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
-
 // table: n_rows rows of k units; idx and out: m rows, cut into `slices`
-// slices of slice_rows rows (the last one may be short); a tile is THREADS
-// unit positions of a slice.
-template <int U, int R, bool HINTS>
+// slices of slice_rows rows (the last one may be short); a block copies
+// THREADS unit positions of every slice.
+template <int U>
 __global__ void __launch_bounds__(THREADS)
 row_gather_kernel(const typename UnitOf<U>::T* __restrict__ table,
                   long long n_rows, unsigned k,
                   const int* __restrict__ idx, long long m, int slices,
-                  long long slice_rows, long long n_tiles,
+                  long long slice_rows,
                   typename UnitOf<U>::T* __restrict__ out) {
   typedef typename UnitOf<U>::T T;
-  const uint64_t policy = HINTS ? evict_last_policy() : 0;
-  const long long slice_units = slice_rows * k;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long q = tile * THREADS + threadIdx.x;
-    if (q >= slice_units) continue;
-    const long long row_in = k == 1 ? q
-        : (q <= 0xffffffffLL ? (long long)((unsigned)q / k) : q / k);
-    const unsigned u = (unsigned)(q - row_in * k);   // the unit in its row
-    for (int b0 = 0; b0 < slices; b0 += R) {
-      long long row[R];
-      int id[R];
+  const long long q = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (q >= slice_rows * k) return;
+  const uint64_t policy = evict_last_policy();
+  const long long row_in = k == 1 ? q
+      : (q <= 0xffffffffLL ? (long long)((unsigned)q / k) : q / k);
+  const unsigned u = (unsigned)(q - row_in * k);   // the unit in its row
+  for (int b0 = 0; b0 < slices; b0 += R) {
+    long long row[R];
+    bool ok[R];
+    int id[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        row[r] = (long long)(b0 + r) * slice_rows + row_in;
-        const bool ok = b0 + r < slices && row[r] < m;
-        id[r] = ok ? load_index<HINTS>(idx + row[r]) : 0;
-      }
-      T v[R];
+    for (int r = 0; r < R; ++r) {
+      row[r] = (long long)(b0 + r) * slice_rows + row_in;
+      ok[r] = b0 + r < slices && row[r] < m;
+      id[r] = ok[r] ? __ldcs(idx + row[r]) : 0;
+    }
+    T v[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (b0 + r < slices && row[r] < m) {
-          v[r] = load_row<HINTS>(table + normalise(id[r], n_rows) * k + u,
-                                 policy);
-        }
-      }
+    for (int r = 0; r < R; ++r) {
+      if (ok[r]) v[r] = load_kept(table + normalise(id[r], n_rows) * k + u,
+                                  policy);
+    }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (b0 + r < slices && row[r] < m) {
-          store_unit<HINTS>(out + row[r] * k + u, v[r]);
-        }
-      }
+    for (int r = 0; r < R; ++r) {
+      if (ok[r]) __stcs(out + row[r] * k + u, v[r]);
     }
   }
-}
-
-template <int U, int R, bool HINTS>
-cudaError_t launch(const void* table, long long n_rows, unsigned k,
-                   const int* idx, long long m, int slices, void* out,
-                   bool persistent, cudaStream_t stream) {
-  typedef typename UnitOf<U>::T T;
-  if (slices <= 0) slices = R;   // no tap axis: R slices of the flat rows
-  const long long slice_rows = (m + slices - 1) / slices;
-  const long long n_tiles = (slice_rows * k + THREADS - 1) / THREADS;
-  long long grid = n_tiles;
-  if (persistent) {
-    // resident blocks per SM of this instantiation, asked once
-    static int per_sm = 0;
-    if (per_sm == 0) {
-      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, row_gather_kernel<U, R, HINTS>, THREADS, 0);
-      if (e != cudaSuccess) return e;
-      if (per_sm < 1) per_sm = 1;
-    }
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) {
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (e != cudaSuccess) return e;
-    const long long resident = (long long)sms * per_sm;
-    if (grid > resident) grid = resident;
-  }
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  row_gather_kernel<U, R, HINTS><<<(unsigned)grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(table), n_rows, k, idx, m, slices, slice_rows,
-      n_tiles, static_cast<T*>(out));
-  return cudaGetLastError();
-}
-
-template <int U, int R>
-cudaError_t launch_hints(bool hints, const void* table, long long n_rows,
-                         unsigned k, const int* idx, long long m, int slices,
-                         void* out, bool persistent, cudaStream_t stream) {
-  return hints ? launch<U, R, true>(table, n_rows, k, idx, m, slices, out,
-                                    persistent, stream)
-               : launch<U, R, false>(table, n_rows, k, idx, m, slices, out,
-                                     persistent, stream);
 }
 
 template <int U>
-cudaError_t launch_unit(int rows_per_thread, bool hints, const void* table,
-                        long long n_rows, unsigned k, const int* idx,
-                        long long m, int slices, void* out, bool persistent,
-                        cudaStream_t stream) {
-  switch (rows_per_thread) {
-    case 1:
-      return launch_hints<U, 1>(hints, table, n_rows, k, idx, m, slices, out,
-                                persistent, stream);
-    case 4:
-      return launch_hints<U, 4>(hints, table, n_rows, k, idx, m, slices, out,
-                                persistent, stream);
-    case 8:
-      return launch_hints<U, 8>(hints, table, n_rows, k, idx, m, slices, out,
-                                persistent, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch(const void* table, long long n_rows, unsigned k,
+                   const int* idx, long long m, int slices, void* out,
+                   cudaStream_t stream) {
+  typedef typename UnitOf<U>::T T;
+  if (slices == 0) slices = R;   // no tap axis: R slices of the flat rows
+  const long long slice_rows = (m + slices - 1) / slices;
+  const long long blocks = (slice_rows * k + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  row_gather_kernel<U><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(table), n_rows, k, idx, m, slices, slice_rows,
+      static_cast<T*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -234,15 +161,12 @@ cudaError_t launch_unit(int rows_per_thread, bool hints, const void* table,
 // unit is the largest of 16/8/4/2/1 bytes that divides row_bytes and the
 // table's and out's addresses; idx must be 4-byte aligned. slices: the
 // length of the index's leading tap axis (it divides m), or 0 for none.
-// rows_per_thread (1, 4 or 8), hints and persistent select the design
-// measured by chip_smoke.py. Launches on `stream`, does not synchronise,
-// allocates nothing, and returns a CUDA error code (0: launched, or
-// nothing to do).
+// Launches on `stream`, does not synchronise, allocates nothing, and
+// returns a CUDA error code (0: launched, or nothing to do).
 extern "C" int row_gather_launch(const void* table, long long n_rows,
                                  long long row_bytes, const int* idx,
                                  long long m, int slices, void* out,
-                                 int rows_per_thread, int hints,
-                                 int persistent, void* stream) {
+                                 void* stream) {
   if (n_rows <= 0 || row_bytes <= 0 || m < 0 || table == nullptr ||
       out == nullptr || reinterpret_cast<uintptr_t>(idx) % 4 != 0 ||
       slices < 0 || (slices > 0 && m % slices != 0)) {
@@ -259,29 +183,12 @@ extern "C" int row_gather_launch(const void* table, long long n_rows,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const bool h = hints != 0, p = persistent != 0;
-  cudaError_t e;
+  const unsigned ku = (unsigned)k;
   switch (unit) {
-    case 16:
-      e = launch_unit<16>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
-                          m, slices, out, p, s);
-      break;
-    case 8:
-      e = launch_unit<8>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
-                         m, slices, out, p, s);
-      break;
-    case 4:
-      e = launch_unit<4>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
-                         m, slices, out, p, s);
-      break;
-    case 2:
-      e = launch_unit<2>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
-                         m, slices, out, p, s);
-      break;
-    default:
-      e = launch_unit<1>(rows_per_thread, h, table, n_rows, (unsigned)k, idx,
-                         m, slices, out, p, s);
-      break;
+    case 16: return (int)launch<16>(table, n_rows, ku, idx, m, slices, out, s);
+    case 8: return (int)launch<8>(table, n_rows, ku, idx, m, slices, out, s);
+    case 4: return (int)launch<4>(table, n_rows, ku, idx, m, slices, out, s);
+    case 2: return (int)launch<2>(table, n_rows, ku, idx, m, slices, out, s);
+    default: return (int)launch<1>(table, n_rows, ku, idx, m, slices, out, s);
   }
-  return (int)e;
 }

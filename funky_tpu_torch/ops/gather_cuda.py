@@ -26,13 +26,7 @@ from .sampling import take_rows_plain
 # Kernel launches made by row_gather since the last reset.
 LAUNCHES = 0
 
-# The design the kernel runs (csrc/gather.cu): rows in flight per thread,
-# L2 cache hints on, a grid of resident blocks looping over tiles, and a
-# leading index axis of 2..MAX_SLICES taken as the slices one thread walks.
-ROWS_PER_THREAD = 4
-CACHE_HINTS = True
-PERSISTENT = True
-TAP_SLICES = True
+# The longest leading index axis the kernel walks as taps (tap_slices).
 MAX_SLICES = 32
 
 _FN = None
@@ -48,7 +42,7 @@ def _launcher():
     if _FN is None:
         fn = cuda_build.load("gather").row_gather_launch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, p, ll, i, p, i, i, i, p]
+        fn.argtypes = [p, ll, ll, p, ll, i, p, p]
         fn.restype = i
         _FN = fn
     return _FN
@@ -56,9 +50,9 @@ def _launcher():
 
 def check_args(table: torch.Tensor, idx: torch.Tensor) -> Tuple[int, int]:
     """(rows, bytes per row) of a gather the kernel takes; raises naming
-    the argument otherwise. Reads only types, shapes, strides, devices and
-    addresses, never a value, so the frame's calls can be checked on the
-    CPU as well."""
+    the argument otherwise. Reads only types, shapes, strides and devices,
+    never a value, so the frame's calls can be checked on the CPU as
+    well."""
     for name, t in (("table", table), ("idx", idx)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a tensor, got "
@@ -77,16 +71,15 @@ def check_args(table: torch.Tensor, idx: torch.Tensor) -> Tuple[int, int]:
         raise TypeError(f"idx: {idx.dtype}, expected torch.int32")
     if idx.device != table.device:
         raise ValueError(f"idx: on {idx.device}, table on {table.device}")
-    if idx.data_ptr() % 4:
-        raise ValueError("idx: not 4-byte aligned")
     return table.shape[0], row_bytes
 
 
 def tap_slices(idx: torch.Tensor) -> int:
     """The index's leading axis when it holds a few taps of the same
     pixels ((16, H, W) and (16, N) tap sets, (8, N) probes): 2 to
-    MAX_SLICES long over a longer rest. 0 otherwise: the kernel then cuts
-    the rows into slices of its own."""
+    MAX_SLICES long over a longer rest. One thread then gathers a pixel's
+    taps, whose texels overlap, through one SM's L1. 0 otherwise: the
+    kernel cuts the rows into slices of its own."""
     if idx.ndim < 2 or not 2 <= idx.shape[0] <= MAX_SLICES:
         return 0
     return idx.shape[0] if idx.numel() // idx.shape[0] > idx.shape[0] else 0
@@ -104,13 +97,11 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       dtype=table.dtype, device=table.device)
     if idx.numel() == 0:
         return out
-    slices = tap_slices(idx) if TAP_SLICES else 0
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         status = _launcher()(table.data_ptr(), n, row_bytes, idx.data_ptr(),
-                             idx.numel(), slices, out.data_ptr(),
-                             ROWS_PER_THREAD, int(CACHE_HINTS),
-                             int(PERSISTENT), stream)
+                             idx.numel(), tap_slices(idx), out.data_ptr(),
+                             stream)
     if status != 0:
         raise RuntimeError(f"row gather launch failed: CUDA error {status}")
     LAUNCHES += 1

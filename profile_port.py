@@ -22,17 +22,14 @@ to the path given, if any. Needs a CUDA card; imports no jax.
 from __future__ import annotations
 
 import argparse
-import json
-import pathlib
 import statistics
-import tempfile
 import time
 
 import torch
 
 from chip_smoke import (HEIGHT, SHADOW, WIDTH, autotune_shipped,
                         default_config, dense_config, fail, gpu_line,
-                        load_scene, poses_for, scene_params)
+                        load_scene, poses_for, scene_params, trace_kernels)
 
 # (module, attribute, label) of each stage render_gltf_frame calls: the
 # common stages, then each configuration's own. No stage calls another.
@@ -186,38 +183,21 @@ def main() -> None:
     print(f"profiled frame: {sum(e.count for e in dev_rows)} device "
           f"launches, device busy {busy:.3f} ms; idle share against the "
           f"unprofiled frame {1 - busy / frame_ms:.3f} [{gpu}]", flush=True)
+    # K3's kernel rows, and torch indexing with the kernels it launched
     k3 = [e for e in dev_rows if "row_gather" in e.key]
     index = [e for e in ka if e.key == "aten::index"]
-    print(f"profiled frame: K3 row_gather {device_ms(k3, self_time=True):.3f}"
-          f" ms device time over {sum(e.count for e in k3)} launches; "
-          f"aten::index {device_ms(index):.3f} ms device time over "
-          f"{sum(e.count for e in index)} calls [{gpu}]", flush=True)
+    k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
+    index_ms = sum(e.device_time_total for e in index) / 1e3
+    print(f"profiled frame: K3 row_gather {k3_ms:.3f} ms device time over "
+          f"{sum(e.count for e in k3)} launches; aten::index {index_ms:.3f} "
+          f"ms device time over {sum(e.count for e in index)} calls [{gpu}]",
+          flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
-    with tempfile.TemporaryDirectory() as td:
-        trace = args.trace or str(pathlib.Path(td) / "trace.json")
-        prof.export_chrome_trace(trace)
-        print_gather_launches(trace)
-
-
-def device_ms(rows, self_time=False) -> float:
-    """Summed device ms of profiler rows: a kernel's own time, or an op's
-    time including the kernels it launched."""
-    key = "self_device_time_total" if self_time else "device_time_total"
-    return sum(getattr(e, key) for e in rows) / 1e3
-
-
-def print_gather_launches(trace: str, top: int = 8) -> None:
-    """The longest gather and index kernels of the traced frame with
-    their grid and block: the launch geometry behind their device time."""
-    events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"
-               and any(w in e.get("name", "") for w in ("gather", "index"))]
-    kernels.sort(key=lambda e: -e.get("dur", 0))
-    for e in kernels[:top]:
-        a = e.get("args", {})
-        print(f"gather kernel {e['name'][:90]}: {e.get('dur', 0) / 1e3:.3f}"
-              f" ms, grid {a.get('grid')}, block {a.get('block')}, "
-              f"registers {a.get('registers per thread')}", flush=True)
+    for name, ms, grid, block in trace_kernels(prof)[:8]:
+        print(f"gather kernel {name[:90]}: {ms:.3f} ms, grid {grid}, block "
+              f"{block}", flush=True)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":
