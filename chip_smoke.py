@@ -65,7 +65,33 @@ failure raises and the script exits non-zero):
 8. timings with CUDA events and the median frame times. Kernel times are
    device times (launches queued behind a sleep kernel, `device_ms`),
    printed beside the time through the wrapper with its host enqueue
-   (`cuda_ms`: what a caller enqueueing one raster at a time waits).
+   (`cuda_ms`: what a caller enqueueing one raster at a time waits);
+9. the cube: compiled_cube_frame(FrameConfig(512, 512)) over bench.py's
+   30 rotations, recorded as a CUDA graph: no synchronising call in an
+   eager frame (torch's sync debug mode), K1 once per frame at capture,
+   graph == eager == plain-raster frames bit for bit, the 128x128 frame
+   at rotation 0.6 against tests/goldens/cube_r06_128.png; eager and
+   replay medians;
+10. the compiled shipped frame: compiled_gltf_frame on the tuned
+   committed config, 8 chained frames == the eager frames bit for bit
+   (rgba and every FrameState field), K1 and K3 at capture as the eager
+   frame launches them, the cond'd and default configs refused a capture
+   by the config alone; then eager and replay in turns (eager, graph,
+   eager, graph) with host-clock and CUDA-event medians and peak memory;
+11. the SDF frame: compiled_sdf_frame(SdfConfig(960, 540)) over 20 times
+   (bench.py:221-251), finite, graph == eager, the 160x96 frame at t = 1
+   against tests/goldens/sdf_t1_160x96.png;
+12. the FrameDriver at 1920x1080 with the shipped flags on the multimesh
+   scene, autotuned, the debug panel on and the retune probe every 4
+   frames: 12 steps with camera keys, each == eager render_gltf_frame with
+   the driver's config and params bit for bit, readback, save_png to
+   local/, save_state / load_state and one more step; fails if a step or
+   a probe failed (the driver swallows both by design). Times per step and
+   of the panel's render_over.
+
+Launch counters do not move on a graph replay: the app phases count
+launches at capture (GraphFrame.launches) and in the warm-up and capture
+runs, which the kernels line adds to the main paths' counts.
 
 Before the last line stdout carries the card's nvidia-smi line and a JSON
 object describing the kernels; the last is {"ok": true, "device": {...}}.
@@ -1245,6 +1271,346 @@ def phase_gather_frames(dev, scene, params, shipped_cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The app's entry points: compiled frames (CUDA graphs), the cube and SDF
+# frames, and the FrameDriver with its debug panel.
+# ---------------------------------------------------------------------------
+
+CUBE_GOLDEN = REPO / "tests" / "goldens" / "cube_r06_128.png"
+SDF_GOLDEN = REPO / "tests" / "goldens" / "sdf_t1_160x96.png"
+N_CUBE = 30                # bench.py:255-269: rotations i * 0.02
+N_SDF = 20                 # bench.py:221-251: times 1.0 + i * 0.02
+N_DRIVER = 12              # driver steps with camera keys
+DRIVER_RETUNE_EVERY = 4
+
+
+def golden_bad(img, path) -> tuple:
+    """(share of pixels over 3/255, max diff) of a linear RGBA tensor
+    against a committed sRGB golden."""
+    from funky_tpu_torch.models.png_io import linear_to_srgb, read_png
+
+    got = linear_to_srgb(img[..., :3].cpu().numpy())
+    want = read_png(path)[..., :3].astype(np.float32) / 255.0
+    check(got.shape == want.shape, f"{path.name}: shape {got.shape}")
+    diff = np.abs(got - want).max(-1)
+    return float((diff > GOLDEN_TOL).mean()), float(diff.max())
+
+
+def timed(fn, dev):
+    """(result, host ms up to the synchronize, CUDA-event ms) of fn()."""
+    import torch
+
+    sync(dev)
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def phase_cube(dev):
+    """compiled_cube_frame(FrameConfig(512, 512)) over N_CUBE rotations:
+    no synchronising call in an eager frame, K1 once per frame at capture,
+    graph == eager == plain raster bit for bit, the 128x128 golden.
+    Returns (launch counts of the run, eager ms, replay ms)."""
+    import dataclasses
+
+    import torch
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.models.scene import build_cube_scene
+    from funky_tpu_torch.ops.raster import RasterConfig
+
+    label = "cube 512x512"
+    scene = build_cube_scene(device=dev)
+    cfg = frame.FrameConfig(width=512, height=512)
+    params = [frame.default_cube_params(i * 0.02, device=dev)
+              for i in range(N_CUBE)]
+    frame.render_cube_frame(scene, params[0], cfg)
+    sync(dev)
+    reported = count_syncs_reported(
+        lambda: frame.render_cube_frame(scene, params[1], cfg))
+    say(f"{label}: one eager frame under torch.cuda.set_sync_debug_mode"
+        f"('warn'): {len(reported)} synchronising calls reported")
+    check(not reported, f"{label}: the eager frame synchronises: "
+          f"{collections.Counter(reported)}")
+    fn = frame.compiled_cube_frame(cfg)
+    check(fn.uses_graph(dev), f"{label}: the cube frame is not recorded")
+    reset_counts()
+    graph, g_wall, g_ev = [], [], []
+    for p in params:
+        img, wall, ev = timed(lambda: fn(scene, p), dev)
+        graph.append(img)
+        g_wall.append(wall)
+        g_ev.append(ev)
+    counts = read_counts()
+    g = fn.last
+    say(f"{label}: {N_CUBE} frames through compiled_cube_frame: launches "
+        f"{counts} (warm-up + capture), at capture {g.launches}, "
+        f"{g.replays} replays")
+    check(g.launches["raster_table"] == 1 and counts["raster_table"] >= 1,
+          f"{label}: expected one K1 launch per frame at capture")
+    check(g.replays == N_CUBE, f"{label}: {g.replays} replays")
+    eager, e_wall, e_ev = [], [], []
+    for p in params:
+        img, wall, ev = timed(lambda: frame.render_cube_frame(scene, p, cfg),
+                              dev)
+        eager.append(img)
+        e_wall.append(wall)
+        e_ev.append(ev)
+    plain_cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+        cfg.raster, backend="torch"))
+    for i, p in enumerate(params):
+        check(bits_equal(graph[i], eager[i]),
+              f"{label}: graph frame {i} differs from the eager frame")
+        check(bits_equal(eager[i], frame.render_cube_frame(scene, p,
+                                                           plain_cfg)),
+              f"{label}: frame {i} differs through the plain raster")
+        check(bool(torch.isfinite(graph[i]).all()), f"{label}: non-finite")
+    say(f"{label}: graph frames == eager frames == plain-raster frames, all "
+        f"{N_CUBE} bit for bit")
+    small = frame.FrameConfig(width=128, height=128, raster=RasterConfig(
+        tile_h=16, tile_w=128, capacity=32))
+    img = frame.compiled_cube_frame(small)(
+        scene, frame.default_cube_params(0.6, device=dev))
+    bad, mx = golden_bad(img, CUBE_GOLDEN)
+    say(f"cube 128x128 golden (rotation 0.6, CUDA graph): {bad:.5f} of "
+        f"pixels over 3/255 (limit {GOLDEN_BAD_FRAC}), max diff {mx:.4f}")
+    check(bad <= GOLDEN_BAD_FRAC, "cube golden image mismatch")
+    e_ms = statistics.median(e_wall[1:])
+    r_ms = statistics.median(g_wall[1:])
+    say(f"{label}: eager median {e_ms:.3f} ms host clock, "
+        f"{statistics.median(e_ev[1:]):.3f} ms CUDA events; replay median "
+        f"{r_ms:.3f} ms host clock, {statistics.median(g_ev[1:]):.3f} ms "
+        f"CUDA events (frames after the first) [{_GPU}]")
+    return counts, e_ms, r_ms
+
+
+def gltf_frames(fn, scene, poses, cfg, dev):
+    """Chained frames through fn(scene, params, state): per frame host
+    copies of rgba and of every FrameState field, host and CUDA-event ms,
+    and the peak device memory (GiB) of the run."""
+    import torch
+
+    from funky_tpu_torch import frame
+
+    state = frame.init_frame_state(cfg, dev)
+    out = dict(frames=[], wall=[], ms=[])
+    torch.cuda.reset_peak_memory_stats(dev)
+    for p in poses:
+        (rgba, state), wall, ev = timed(lambda: fn(scene, p, state), dev)
+        out["wall"].append(wall)
+        out["ms"].append(ev)
+        out["frames"].append([rgba.cpu()] + [x.cpu() for x in state])
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+    return out
+
+
+def phase_compiled_shipped(dev, scene, params, cfg):
+    """compiled_gltf_frame on the shipped (committed, tuned) config: 8
+    chained frames == the eager frames bit for bit (rgba and every state
+    field), K1 and K3 at capture as the eager frame launches them; the
+    cond'd and default configs refused a capture by the config alone;
+    then eager and replay timed in turns. Returns (launch counts of the
+    graph run, capture launches)."""
+    import dataclasses
+    import functools
+
+    from funky_tpu_torch import frame
+
+    label = "compiled shipped frame"
+    names = ("rgba",) + frame.FrameState._fields
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    eager_fn = functools.partial(frame.render_gltf_frame, cfg=cfg)
+    reset_counts()
+    erun = gltf_frames(eager_fn, scene, poses, cfg, dev)
+    e_counts = read_counts()
+    fn = frame.compiled_gltf_frame(cfg)
+    check(fn.uses_graph(dev), f"{label}: a committed config is not recorded")
+    reset_counts()
+    grun = gltf_frames(fn, scene, poses, cfg, dev)
+    counts = read_counts()
+    g = fn.last
+    say(f"{label}: {len(poses)} frames: eager launches {e_counts}; graph "
+        f"run launches {counts} (warm-up + capture), at capture "
+        f"{g.launches}, {g.replays} replays")
+    per_frame = {k: v // len(poses) for k, v in e_counts.items()}
+    check(all(v % len(poses) == 0 for v in e_counts.values())
+          and g.launches == per_frame,
+          f"{label}: capture launches {g.launches} != the eager frame's "
+          f"{per_frame}")
+    check(g.launches["raster_table"] > 0 and g.launches["row_gather"] > 0,
+          f"{label}: K1 or K3 missing at capture")
+    for i, (fe, fg) in enumerate(zip(erun["frames"], grun["frames"])):
+        for name, a, b in zip(names, fe, fg):
+            check(bits_equal(a, b), f"{label}: frame {i} {name} differs "
+                  f"from the eager frame")
+    say(f"{label}: graph == eager, rgba and all {len(names) - 1} FrameState "
+        f"fields of all {len(poses)} frames bit for bit")
+    for name, flags in (("cond'd", dict(committed=False)),
+                        ("default", None)):
+        c = (dataclasses.replace(cfg, flags=dataclasses.replace(
+            cfg.flags, **flags)) if flags else default_config())
+        f = frame.compiled_gltf_frame(c)
+        check(not f.uses_graph(dev), f"{label}: {name} config recorded")
+        f(scene, poses[0], frame.init_frame_state(c, dev))
+        sync(dev)
+        check(not f.captures and f.last is None,
+              f"{label}: the {name} config captured a graph")
+        say(f"{label}: the {name} config runs eagerly (capture refused by "
+            f"the config alone)")
+    # eager and replay in turns in one process: eager, graph, eager, graph
+    runs = [("eager", erun), ("graph", grun),
+            ("eager", gltf_frames(eager_fn, scene, poses, cfg, dev)),
+            ("graph", gltf_frames(fn, scene, poses, cfg, dev))]
+    for name, run in runs:
+        say(f"{label} {WIDTH}x{HEIGHT} ({name}): host clock median "
+            f"{statistics.median(run['wall'][1:]):.3f} ms, CUDA events "
+            f"median {statistics.median(run['ms'][1:]):.3f} ms over "
+            f"{len(poses) - 1} frames after the first; per frame "
+            f"{[round(x, 3) for x in run['wall']]} ms; peak device memory "
+            f"{run['peak_gib']:.2f} GiB allocated, {run['reserved_gib']:.2f} "
+            f"GiB reserved (a graph's pool included) [{_GPU}]")
+    return counts, g.launches
+
+
+def phase_sdf(dev):
+    """compiled_sdf_frame(SdfConfig(960, 540)) over N_SDF times: finite,
+    graph == eager on the first, and the 160x96 golden at t = 1."""
+    import torch
+
+    from funky_tpu_torch.models.sdf import (SdfConfig, compiled_sdf_frame,
+                                            default_sdf_camera,
+                                            render_sdf_frame)
+
+    label = "sdf 960x540"
+    cam = default_sdf_camera(device=dev)
+    cfg = SdfConfig(width=960, height=540)
+    fn = compiled_sdf_frame(cfg)
+    walls, evs = [], []
+    for i in range(N_SDF):
+        img, wall, ev = timed(lambda: fn(1.0 + i * 0.02, *cam), dev)
+        walls.append(wall)
+        evs.append(ev)
+        check(img.shape == (540, 960, 4) and bool(torch.isfinite(img).all()),
+              f"{label}: frame {i} not finite or of shape {img.shape}")
+    eager, e_wall, _ = timed(lambda: render_sdf_frame(
+        1.0 + (N_SDF - 1) * 0.02, *cam, cfg), dev)
+    check(bits_equal(img, eager), f"{label}: graph frame != eager frame")
+    small = compiled_sdf_frame(SdfConfig(width=160, height=96))(1.0, *cam)
+    bad, mx = golden_bad(small, SDF_GOLDEN)
+    say(f"sdf 160x96 golden (t = 1, CUDA graph): {bad:.5f} of pixels over "
+        f"3/255 (limit {GOLDEN_BAD_FRAC}), max diff {mx:.4f}")
+    check(bad <= GOLDEN_BAD_FRAC, "sdf golden image mismatch")
+    ms = statistics.median(walls[1:])
+    say(f"{label}: {N_SDF} frames, replay median {ms:.3f} ms per frame host "
+        f"clock, {statistics.median(evs[1:]):.3f} ms CUDA events; eager "
+        f"frame {e_wall:.3f} ms; graph == eager bit for bit; launches at "
+        f"capture {fn.last.launches} [{_GPU}]")
+    return ms
+
+
+def phase_driver(dev):
+    """FrameDriver on the multimesh scene at 1920x1080 with the shipped
+    flags, autotuned, the debug panel on and the retune probe every
+    DRIVER_RETUNE_EVERY frames: N_DRIVER steps with camera keys, each equal
+    to eager render_gltf_frame with the driver's config and params;
+    readback, save_png, save_state / load_state and one more step. Fails
+    on any failed step or probe. Returns (launch counts, capture launches,
+    step ms, render_over ms)."""
+    import io
+
+    import torch
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.app.camera import Keys
+    from funky_tpu_torch.app.driver import FrameDriver
+    from funky_tpu_torch.frame import GltfConfig, GltfFrameFlags
+
+    label = "driver 1920x1080"
+    base = GltfConfig(width=WIDTH, height=HEIGHT, flags=GltfFrameFlags(
+        committed=True, synth_shadow_maps=True))
+    keys = [[Keys.W], [Keys.LEFT], [Keys.W, Keys.RIGHT], [], [Keys.S],
+            [Keys.UP], [Keys.D], [], [Keys.A, Keys.DOWN], [Keys.E], [Keys.Q],
+            [Keys.Z]]
+    out_dir = REPO / "local"
+    out_dir.mkdir(exist_ok=True)
+    log = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(log), \
+            tempfile.TemporaryDirectory() as td:
+        from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
+
+        glb = build_multimesh_glb(pathlib.Path(td) / "multi.glb",
+                                  two_textures=True)
+        t0 = time.perf_counter()
+        drv = FrameDriver(base, scene_path=glb, autotune=True,
+                          enable_ui=True,
+                          retune_check_every=DRIVER_RETUNE_EVERY,
+                          device=dev, gltf_scale=1.0)
+        sync(dev)
+        tune_s = time.perf_counter() - t0
+        check(drv.cfg.shadow_pen_capacity is not None
+              and drv.cfg.raster.capacity is not None,
+              f"{label}: the start-up autotune left the defaults")
+        steps, diffs = [], 0
+        for k in keys[:N_DRIVER]:
+            cfg0 = drv.cfg
+            before = frame.FrameState(*(x.clone() for x in drv.state))
+            img, wall, _ = timed(lambda: drv.step(k), dev)
+            steps.append(wall)
+            check(drv.consecutive_failures == 0 and not drv.last_error,
+                  f"{label}: step {drv.frame_count} failed: "
+                  f"{drv.last_error}")
+            want, _ = frame.render_gltf_frame(drv.device_scene,
+                                              drv.last_params, before, cfg0)
+            check(bits_equal(img, want), f"{label}: step {drv.frame_count} "
+                  f"differs from the eager frame")
+            diffs += 1
+        g = drv._frame_fn.last
+        img_back = drv.readback()
+        drv.save_png(out_dir / "driver_1080p_ui.png")
+        sync(dev)
+        t1 = time.perf_counter()
+        over = drv.ui.render_over(drv._last_image, drv.ui_data())
+        sync(dev)
+        ui_ms = (time.perf_counter() - t1) * 1e3
+        drv.save_state(out_dir / "driver_session.pkl")
+        drv.load_state(out_dir / "driver_session.pkl")
+        drv.step([Keys.W])
+        sync(dev)
+        check(drv.consecutive_failures == 0 and not drv.last_error,
+              f"{label}: the step after load_state failed: {drv.last_error}")
+    text = log.getvalue()
+    counts = read_counts()
+    for line in text.splitlines():
+        say(f"  driver stdout: {line}")
+    check("failed" not in text, f"{label}: a step or probe failed")
+    check(img_back.shape == (HEIGHT, WIDTH, 3)
+          and bool(np.isfinite(img_back).all()), f"{label}: readback")
+    check(over.shape == (HEIGHT, WIDTH, 4), f"{label}: render_over shape")
+    say(f"{label}: autotune {tune_s:.3f} s; {N_DRIVER + 1} steps, "
+        f"{drv.retune_count} re-tunes, {diffs} frames == eager "
+        f"render_gltf_frame bit for bit; launches {counts}; at the last "
+        f"capture {g.launches if g else None}; step median "
+        f"{statistics.median(steps[1:]):.3f} ms host clock (the first "
+        f"{steps[0]:.3f} ms records the graph); render_over {ui_ms:.3f} ms; "
+        f"wrote local/driver_1080p_ui.png [{_GPU}]")
+    check(g is not None, f"{label}: the shipped config recorded no graph")
+    return counts, g.launches, statistics.median(steps[1:]), ui_ms
+
+
 def main() -> None:
     global _GPU
     try:
@@ -1291,13 +1657,22 @@ def main() -> None:
     k3_per_frame = {"dense": dense_run["k3"], "default": default_run["k3"],
                     "shipped": k3_shipped, "large": k3_large}
     say(f"K3 launches per frame on the main paths: {k3_per_frame}")
+    cube_counts, _, _ = phase_cube(dev)
+    comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
+    phase_sdf(dev)
+    drv_counts, _, _, _ = phase_driver(dev)
+    app_counts = {k: cube_counts[k] + comp_counts[k] + drv_counts[k]
+                  for k in cube_counts}
+    say(f"launches on the app paths (cube, compiled shipped, driver; "
+        f"warm-ups and captures): {app_counts}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         dict(name="raster_table", route="cuda",
              source="funky_tpu_torch/csrc/raster.cu",
              replaces="funky_tpu/ops/raster_pallas.py:208",
-             launches=counts["raster_table"] + k1_shipped,
+             launches=(counts["raster_table"] + k1_shipped
+                       + app_counts["raster_table"]),
              max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None, bound_culled_ms=k1_culled),
@@ -1310,7 +1685,8 @@ def main() -> None:
         dict(name="row_gather", route="cuda",
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",
-             launches=sum(sum(v) for v in k3_per_frame.values()),
+             launches=(sum(sum(v) for v in k3_per_frame.values())
+                       + app_counts["row_gather"]),
              max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
              bound_ms=g_bound, bound_by="bytes", library_ms=g_lib,
              timed_on="PCF tap set: (16, 1080, 1920) int32 rows of 16 B from "

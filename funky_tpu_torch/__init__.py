@@ -11,8 +11,11 @@ Conventions of the port:
 - dataclasses / NamedTuples of tensors take the place of pytrees;
 - eager PyTorch, no `torch.compile`; the hand-written kernels are the two
   tile rasters (`csrc/raster.cu`: K1 table, K2 pre-gathered rows;
-  `ops/raster_cuda.py`) and the row-gather probe (`csrc/gather.cu`,
+  `ops/raster_cuda.py`) and the row gather (`csrc/gather.cu`,
   `ops/gather_cuda.py`), built by `ops/cuda_build.py`;
+- `jax.jit`'s counterpart is a CUDA graph: `frame.compiled_*_frame` and
+  `models/sdf.compiled_sdf_frame` record a frame without a host branch
+  once per config on the card and replay it (`frame.GraphFrame`);
 - `lax.cond` capacity fallbacks become host branches
   (`ops/compact.py::host_cond`, counted);
 - `jax.lax.optimization_barrier` has no counterpart and is dropped.

@@ -1,6 +1,9 @@
-"""The glTF frame (port of funky_tpu/frame.py::render_gltf_frame): shadow
+"""The frames (port of funky_tpu/frame.py): the rotating cube
+(`render_cube_frame`), the glTF frame (`render_gltf_frame`: shadow
 cascades -> main visibility pass -> deferred PCF/PCSS shading -> shadow
-TAA -> contact shadows.
+TAA -> contact shadows), and their cached entry points
+`compiled_cube_frame` / `compiled_gltf_frame`, which on the card record a
+frame without a host branch once as a CUDA graph and replay it.
 
 Frames are chained through `FrameState`, as in JAX. Configuration classes
 keep the JAX package's fields and defaults. `GltfConfig()` runs (the
@@ -31,6 +34,7 @@ with a nonzero window size and the main pass.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -48,8 +52,86 @@ from .passes import (contact, deferred, geometry, shading, shadow,
                      shadow_filter, shadow_lightspace, taa, uniforms)
 from .passes.shadow_classify import build_class_maps, light_ground_planes
 
+CUBE_CLEAR = (0.39, 0.58, 0.93)    # frame.py:28
 GLTF_CLEAR = (0.53, 0.81, 0.92)    # frame.py:29
 NEAR, FAR = 0.1, 100.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameConfig:
+    """The cube frame's static configuration (frame.py:33-44)."""
+    width: int = 1920
+    height: int = 1080
+    raster: RasterConfig = dataclasses.field(default_factory=RasterConfig)
+    clip_capacity: int = 32
+
+    @property
+    def aspect(self) -> float:
+        return self.width / self.height
+
+
+@dataclasses.dataclass(frozen=True)
+class CubeParams:
+    """Per-frame inputs of the cube demo (frame.py:68-77), f32 tensors on
+    one device; yaw and pitch follow cube.rs's convention."""
+    rotation: torch.Tensor     # () radians
+    position: torch.Tensor     # (3,)
+    camera_pos: torch.Tensor   # (3,)
+    yaw: torch.Tensor
+    pitch: torch.Tensor
+    fov: torch.Tensor
+    scale: torch.Tensor
+
+    def to(self, device) -> "CubeParams":
+        return CubeParams(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+
+def default_cube_params(rotation: float = 0.0, device="cuda") -> CubeParams:
+    """frame.py:87-100: the camera at (0, 0, 3) looks down -Z at the
+    origin (yaw = pi in cube.rs's convention), fov 45 degrees."""
+    return CubeParams(
+        rotation=m3.f32(rotation, "cpu"),
+        position=m3.f32([0.0, 0.0, 0.0], "cpu"),
+        camera_pos=m3.f32([0.0, 0.0, 3.0], "cpu"),
+        yaw=m3.f32(3.14159265, "cpu"),
+        pitch=m3.f32(0.0, "cpu"),
+        fov=m3.f32(0.7853981634, "cpu"),
+        scale=m3.f32(1.0, "cpu"),
+    ).to(device)
+
+
+def render_cube_frame(scene: DeviceScene, params: CubeParams,
+                      cfg: FrameConfig) -> torch.Tensor:
+    """The rotating-cube demo (frame.py:103-134): linear RGBA (H, W, 4).
+    Its one raster takes K1 on the card (a 12-triangle table)."""
+    dev = params.rotation.device
+    model = (m3.mat4_from_translation(params.position)
+             @ m3.mat4_from_rotation_y(params.rotation)
+             @ m3.mat4_from_rotation_x(params.rotation * 0.5)
+             @ m3.mat4_from_scale(params.scale))
+    front = torch.stack([
+        torch.sin(params.yaw) * torch.cos(params.pitch),
+        torch.sin(params.pitch),
+        torch.cos(params.yaw) * torch.cos(params.pitch),
+    ])
+    view = m3.look_at_rh(params.camera_pos, params.camera_pos + front,
+                         m3.f32([0.0, 1.0, 0.0], dev))
+    proj = m3.perspective_vk(params.fov, cfg.aspect, NEAR, FAR)
+    view_proj = proj @ view
+
+    world, clip, normals = geometry.transform_vertices(scene, model[None],
+                                                       view_proj)
+    blocks = geometry.build_shade_blocks(scene, world, clip, normals)
+    tri_clip, blocks, tri_flags, tri_valid = _main_raster_inputs(
+        scene, clip, blocks, cfg.clip_capacity)
+    tri_id, depth, setup = raster_corners(tri_clip, tri_valid, cfg.width,
+                                          cfg.height, cfg.raster)
+    gbuf = deferred.interpolate(tri_id, depth, setup.data, blocks,
+                                tri_flags)
+    return shading.shade_cube(gbuf, params.camera_pos,
+                              m3.f32([1.0, 1.0, 1.0], dev),
+                              m3.f32(CUBE_CLEAR, dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -587,3 +669,187 @@ def render_gltf_frame(scene: DeviceScene, params: GltfParams,
     new FrameState)."""
     rgba, new_state, _ = render_gltf_frame_ids(scene, params, state, cfg)
     return rgba, new_state
+
+
+# ---------------------------------------------------------------------------
+# Compiled frames (frame.py:1030-1054). JAX jit-caches one program per
+# static config. The port's counterpart is a CUDA graph: the frame is
+# recorded once per (config, scene) and replayed, so the host enqueues one
+# graph instead of thousands of small launches. A frame is recorded only
+# where it has no host branch: the config alone decides, before any run.
+# ---------------------------------------------------------------------------
+
+_CACHE: dict = {}
+
+
+def _launch_counts() -> dict:
+    from .ops import gather_cuda, raster_cuda
+
+    return {"raster_table": raster_cuda.LAUNCHES,
+            "raster_padded": raster_cuda.PADDED_LAUNCHES,
+            "row_gather": gather_cuda.LAUNCHES}
+
+
+def _copy_in(dst: torch.Tensor, src) -> None:
+    """One input into its static buffer: a host number is filled in on the
+    card (no copy from host memory), a tensor copied unless it already is
+    the buffer (the graph's own state, handed back)."""
+    if not isinstance(src, torch.Tensor):
+        dst.fill_(src)
+    elif src is not dst:
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"graph input {tuple(src.shape)} {src.dtype} "
+                             f"does not match the recorded "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(src)
+
+
+class GraphFrame:
+    """fn(*inputs) -> tuple of tensors, recorded as one CUDA graph on static
+    copies of the first call's inputs and replayed on each call.
+
+    Before the capture, fn runs once eagerly on a side stream, as torch's
+    graph documentation asks: that builds and loads the kernels and
+    uploads every host constant (math3d.kept_constants). Each call copies
+    its inputs into the static buffers, replays, and returns the graph's
+    own outputs, which the next replay overwrites. `donate` maps an output
+    index to an input index: the graph copies that output into that
+    input's buffer at its end, which is JAX's donation (frame.py:1053) made
+    literal. A failed capture or replay raises. `launches` counts the
+    kernel launches the capture recorded: the wrappers' counters do not
+    move on replay."""
+
+    def __init__(self, fn, inputs, donate=None):
+        dev = next(x.device for x in inputs if isinstance(x, torch.Tensor))
+        self.static = [x.detach().clone() if isinstance(x, torch.Tensor)
+                       else torch.full((), x, dtype=torch.float32,
+                                       device=dev) for x in inputs]
+        self.replays = 0
+        # True from the first input copy of a call until its replay is
+        # enqueued: a failure in between leaves the donated state half
+        # written (app/driver.py rebuilds it then).
+        self.replaying = False
+        self._constants: dict = {}
+        with m3.kept_constants(self._constants):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(*self.static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            before = _launch_counts()
+            with torch.cuda.graph(self.graph):
+                self.outputs = tuple(fn(*self.static))
+                for o, i in (donate or {}).items():
+                    self.static[i].copy_(self.outputs[o])
+            after = _launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def __call__(self, inputs) -> tuple:
+        self.replaying = True
+        for dst, src in zip(self.static, inputs):
+            _copy_in(dst, src)
+        self.graph.replay()
+        self.replaying = False
+        self.replays += 1
+        return self.outputs
+
+
+class CompiledFrame:
+    """A cached frame callable: eager on the CPU and for a config with a
+    host branch, one GraphFrame per (scene, device) otherwise. `captures`
+    holds them; `last` is the one the last call replayed (None after an
+    eager call)."""
+
+    def __init__(self, eager, graphable: bool):
+        self.eager = eager
+        self.graphable = graphable
+        self.captures: dict = {}
+        self.last = None
+
+    def uses_graph(self, device) -> bool:
+        return self.graphable and torch.device(device).type == "cuda"
+
+    def _graph(self, scene, dev, fn, inputs, donate=None) -> GraphFrame:
+        key = (id(scene), str(dev))
+        entry = self.captures.get(key)
+        if entry is None or entry[0] is not scene:
+            # the entry holds the scene, whose tensors the graph reads by
+            # address, so an id is never reused while its graph lives
+            entry = (scene, GraphFrame(fn, inputs, donate))
+            self.captures[key] = entry
+        self.last = entry[1]
+        return entry[1]
+
+
+class _CompiledCube(CompiledFrame):
+    def __init__(self, cfg: FrameConfig):
+        super().__init__(functools.partial(render_cube_frame, cfg=cfg), True)
+
+    def __call__(self, scene: DeviceScene, params: CubeParams):
+        dev = params.rotation.device
+        if not self.uses_graph(dev):
+            self.last = None
+            return self.eager(scene, params)
+        inputs = [getattr(params, f) for f in _CUBE_FIELDS]
+        g = self._graph(scene, dev, lambda *xs: (self.eager(
+            scene, CubeParams(*xs)),), inputs)
+        (rgba,) = g(inputs)
+        return rgba.clone()
+
+
+class _CompiledGltf(CompiledFrame):
+    def __init__(self, cfg: GltfConfig):
+        # A committed frame takes no host branch (host_cond) and reads no
+        # device value on the host: it can be recorded whole. The cond'd
+        # and default frames branch on the host 5-7 times per frame.
+        super().__init__(functools.partial(render_gltf_frame, cfg=cfg),
+                         cfg.flags.committed)
+
+    def __call__(self, scene: DeviceScene, params: GltfParams,
+                 state: FrameState):
+        dev = params.camera_pos.device
+        if not self.uses_graph(dev):
+            self.last = None
+            return self.eager(scene, params, state)
+        n = len(_PARAM_FIELDS)
+        inputs = [getattr(params, f) for f in _PARAM_FIELDS] + list(state)
+
+        def frame(*xs):
+            rgba, new = self.eager(scene, GltfParams(*xs[:n]),
+                                   FrameState(*xs[n:]))
+            return (rgba,) + tuple(new)
+
+        # The new state is written into the state's static buffers at the
+        # graph's end: the state is donated and updated in place, as JAX
+        # donates it (frame.py:1053). The FrameState returned is those
+        # buffers; the next call overwrites it. The rgba is cloned, so a
+        # frame the caller keeps does not change under the next replay.
+        g = self._graph(scene, dev, frame, inputs,
+                        donate={1 + k: n + k for k in range(len(state))})
+        outs = g(inputs)
+        return outs[0].clone(), FrameState(*g.static[n:])
+
+
+_CUBE_FIELDS = tuple(f.name for f in dataclasses.fields(CubeParams))
+_PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(GltfParams))
+
+
+def compiled_cube_frame(cfg: FrameConfig) -> CompiledFrame:
+    """Cached (scene, params) -> rgba (frame.py:1038-1043). On the card
+    the frame is a CUDA graph: it has no host branch."""
+    key = ("cube", cfg)
+    if key not in _CACHE:
+        _CACHE[key] = _CompiledCube(cfg)
+    return _CACHE[key]
+
+
+def compiled_gltf_frame(cfg: GltfConfig) -> CompiledFrame:
+    """Cached (scene, params, state) -> (rgba, new_state) (frame.py:
+    1046-1054). On the card a committed config replays a CUDA graph with
+    the state updated in place; any other config runs eagerly."""
+    key = ("gltf", cfg)
+    if key not in _CACHE:
+        _CACHE[key] = _CompiledGltf(cfg)
+    return _CACHE[key]

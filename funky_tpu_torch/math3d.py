@@ -9,18 +9,52 @@ f32 exactly where XLA rounds.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 F32 = torch.float32
 
+# The store of `kept_constants` while its block runs, else None.
+_KEPT = None
+
+
+@contextlib.contextmanager
+def kept_constants(store: dict):
+    """Inside the block, `const` returns the tensor `store` holds for the
+    same host value, dtype and device, and uploads a value only the first
+    time. frame.py's compiled frames run the eager warm-up and then the
+    CUDA graph capture inside one such block: the warm-up uploads every
+    constant the frame makes, the capture reads the same tensors (a copy
+    from pageable host memory cannot be captured), and the store keeps
+    them alive for the graph's replays. Nothing writes to a constant."""
+    global _KEPT
+    saved, _KEPT = _KEPT, store
+    try:
+        yield store
+    finally:
+        _KEPT = saved
+
+
+def const(x, dtype, device) -> torch.Tensor:
+    """A host value as a tensor of `dtype` on `device`, copied without
+    blocking: the host does not wait for the card's queue to drain."""
+    host = torch.tensor(x, dtype=dtype)
+    if _KEPT is None:
+        return host.to(device, non_blocking=True)
+    key = (str(torch.device(device)), dtype, tuple(host.shape),
+           host.numpy().tobytes())
+    if key not in _KEPT:
+        _KEPT[key] = host.to(device)
+    return _KEPT[key]
+
 
 def f32(x, device) -> torch.Tensor:
-    """x as a float32 tensor on `device` (a tensor input keeps its data).
-    A host value is copied without blocking: the host does not wait for
-    the card's queue to drain."""
+    """x as a float32 tensor on `device` (a tensor input keeps its data,
+    a host value goes through `const`)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=F32)
-    return torch.tensor(x, dtype=F32).to(device, non_blocking=True)
+    return const(x, F32, device)
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -84,6 +118,13 @@ def orthographic_rh(left, right, bottom, top, near, far) -> torch.Tensor:
     ])
 
 
+def quat_from_rotation_x(angle: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) quaternion (math3d.py:131-133)."""
+    h = angle * 0.5
+    z = torch.zeros_like(h)
+    return torch.stack([torch.sin(h), z, z, torch.cos(h)])
+
+
 def quat_from_rotation_y(angle: torch.Tensor) -> torch.Tensor:
     """(x, y, z, w) quaternion (math3d.py:136-138)."""
     h = angle * 0.5
@@ -115,6 +156,37 @@ def mat4_from_scale_rotation_translation(scale, rotation,
     m[:3, :3] = r
     m[:3, 3] = translation
     return m
+
+
+def mat4_from_translation(t: torch.Tensor) -> torch.Tensor:
+    """math3d.py:195-197."""
+    m = torch.eye(4, dtype=F32, device=t.device)
+    m[:3, 3] = t
+    return m
+
+
+def mat4_from_rotation_y(angle: torch.Tensor) -> torch.Tensor:
+    """math3d.py:200-203."""
+    return mat4_from_scale_rotation_translation(
+        torch.ones(3, dtype=F32, device=angle.device),
+        quat_from_rotation_y(angle),
+        torch.zeros(3, dtype=F32, device=angle.device))
+
+
+def mat4_from_rotation_x(angle: torch.Tensor) -> torch.Tensor:
+    """math3d.py:206-209."""
+    return mat4_from_scale_rotation_translation(
+        torch.ones(3, dtype=F32, device=angle.device),
+        quat_from_rotation_x(angle),
+        torch.zeros(3, dtype=F32, device=angle.device))
+
+
+def mat4_from_scale(s: torch.Tensor) -> torch.Tensor:
+    """math3d.py:212-216."""
+    if s.ndim == 0:
+        s = s.expand(3)
+    return torch.diag(torch.cat([s, torch.ones(1, dtype=F32,
+                                               device=s.device)]))
 
 
 def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Texture / shadow-map samplers as gathers (port of funky_tpu/ops/sampling.py).
 
 The samplers the glTF frame calls are ported, with the windowed variants
-of the committed and routed tap groups, and `dynamic_slice` /
+of the committed and routed tap groups, the overlay's
+`sample_bilinear_edge`, and `dynamic_slice` /
 `dynamic_update_slice`, JAX's slices at device-valued starts. Two semantic
 differences between the libraries are handled here for every sampler:
 
@@ -102,6 +103,46 @@ def _gather2d(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor):
     h, w = img.shape[0], img.shape[1]
     flat = img.reshape((h * w,) + tuple(img.shape[2:]))
     return take_rows(flat, iy * w + ix)
+
+
+def _bilinear_clamped_taps(shape_hw, uv):
+    """Bilinear tap setup (sampling.py:93-117): (iy0, ix0, iy1, ix1, fy,
+    fx, inside), the indices clamped into the image and `inside` flagging
+    each of the four taps as in range before the clamp."""
+    h, w = shape_hw
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = to_i32(x0f)
+    y0 = to_i32(y0f)
+    x1 = x0 + 1
+    y1 = y0 + 1
+
+    def inb(iy, ix):
+        return (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+
+    inside = (inb(y0, x0), inb(y0, x1), inb(y1, x0), inb(y1, x1))
+    return (y0.clamp(0, h - 1), x0.clamp(0, w - 1), y1.clamp(0, h - 1),
+            x1.clamp(0, w - 1), fy, fx, inside)
+
+
+def sample_bilinear_edge(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """LINEAR + CLAMP_TO_EDGE of an (H, W) or (H, W, C) image
+    (sampling.py:168-180)."""
+    cy0, cx0, cy1, cx1, fy, fx, _ = _bilinear_clamped_taps(img.shape[:2], uv)
+    if img.ndim == 3:
+        fx = fx[..., None]
+        fy = fy[..., None]
+    t00 = _gather2d(img, cy0, cx0)
+    t10 = _gather2d(img, cy0, cx1)
+    t01 = _gather2d(img, cy1, cx0)
+    t11 = _gather2d(img, cy1, cx1)
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
 
 
 def quad_pack(img: torch.Tensor) -> torch.Tensor:

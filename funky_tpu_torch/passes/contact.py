@@ -272,11 +272,8 @@ def fit_ground_plane(view_proj: torch.Tensor, width: int, height: int,
     frame passes reference_plane instead; this is the fallback when no
     plane is given."""
     dev = view_proj.device
-    base = torch.stack([camera_pos[0],
-                        torch.tensor(plane_y, dtype=torch.float32,
-                                     device=dev), camera_pos[2]])
-    offs = torch.tensor([[0.0, 0.0, -4.0], [3.0, 0.0, -9.0],
-                         [-3.0, 0.0, -9.0]], dtype=torch.float32, device=dev)
+    base = torch.stack([camera_pos[0], f32(plane_y, dev), camera_pos[2]])
+    offs = f32([[0.0, 0.0, -4.0], [3.0, 0.0, -9.0], [-3.0, 0.0, -9.0]], dev)
     pts = base[None] + offs
     ones = torch.ones((3, 1), dtype=torch.float32, device=dev)
     clip = torch.cat([pts, ones], dim=-1) @ view_proj.T

@@ -1,5 +1,6 @@
-"""Fragment shading (port of funky_tpu/passes/shading.py::shade_gltf, with
-dense or block-sparse texture sampling, and the cascade debug view).
+"""Fragment shading (port of funky_tpu/passes/shading.py): the cube demo's
+`shade_cube`, `shade_gltf` with dense or block-sparse texture sampling,
+and the cascade debug view.
 """
 
 from __future__ import annotations
@@ -20,6 +21,40 @@ _FILL_DIR = (-0.5, 0.3, -0.8)
 def _normalize(v):
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                            min=1e-12)
+
+
+def shade_cube(gbuf: GBuffer, camera_pos: torch.Tensor,
+               light_dir: torch.Tensor,
+               background: torch.Tensor) -> torch.Tensor:
+    """cube.frag lighting (shading.py:35-64): ambient, key and fill
+    diffuse, specular and a blue rim. Returns (H, W, 4) linear RGBA."""
+    normal = _normalize(gbuf.normal)
+    light = _normalize(light_dir)
+    view = _normalize(camera_pos)
+
+    n_dot_l = (normal * light).sum(dim=-1, keepdim=True)
+    diff = torch.clamp(n_dot_l, min=0.0)
+
+    fill_dir = _normalize(f32(_FILL_DIR, normal.device))
+    fill_diff = torch.clamp((normal * fill_dir).sum(dim=-1, keepdim=True),
+                            min=0.0) * 0.3
+
+    half_dir = _normalize(light + view)
+    spec = torch.pow(torch.clamp((normal * half_dir).sum(dim=-1,
+                                                        keepdim=True),
+                                 min=0.0), 64.0)
+
+    rim = 1.0 - torch.clamp((normal * view).sum(dim=-1, keepdim=True),
+                            min=0.0)
+    rim = torch.pow(rim, 2.0) * 0.5
+
+    color = gbuf.color
+    result = (0.20 * color + 0.65 * diff * color + fill_diff * color
+              + 0.4 * spec + rim * f32([0.8, 0.9, 1.0], normal.device))
+
+    rgb = torch.where(gbuf.valid[..., None], result, background)
+    alpha = torch.ones_like(rgb[..., :1])
+    return torch.cat([rgb, alpha], dim=-1)
 
 
 def shade_gltf(gbuf: GBuffer, texture: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..math3d import const
 from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
                            compact_indices_blocked, gather_rows, host_cond,
                            scatter_back)
@@ -208,8 +209,10 @@ def shadow_pcss(uni: FrameUniforms, shadow_maps: torch.Tensor,
 def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
                window=None):
     """Fixed-radius PCF (shadow_filter.py:248-283), `window` as in
-    _pcss_taps. The frame-uniform lax.cond becomes a host branch on the
-    radius (a read of the card, also in committed mode)."""
+    _pcss_taps. The frame-uniform lax.cond computes both kernels and
+    selects by the device-side radius, so the host never reads it and a
+    committed frame can be captured as a CUDA graph; each kernel's values
+    are the branch's own."""
     texel = uni.shadow_map_size[2]
     radius = torch.clamp(uni.shadow_bias[0], min=0.5)
 
@@ -220,17 +223,17 @@ def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
         return sample_shadow_compare_packed(shadow_maps, layer[None],
                                             uv[None] + off, ref[None])
 
-    if float(radius) <= 1.25:
-        offs = torch.tensor([[dx, dy] for dy in (-1, 0, 1)
-                             for dx in (-1, 0, 1)], dtype=torch.float32,
-                            device=uv.device) * texel
-        s = compare(offs.reshape((9,) + (1,) * ref.ndim + (2,)))
-        return (_sum_taps(s) / 9.0, _sum_taps(s * s) / 9.0,
-                torch.ones_like(ref))
+    offs = const([[dx, dy] for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
+                 torch.float32, uv.device) * texel
+    s3 = compare(offs.reshape((9,) + (1,) * ref.ndim + (2,)))
     dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
     s = compare(torch.stack([dx, dy], dim=-1) * (radius * texel))
-    return (_sum_taps(s) / PCF_SAMPLES, _sum_taps(s * s) / PCF_SAMPLES,
-            torch.full_like(ref, float(radius)))
+    small = radius <= 1.25
+    return (torch.where(small, _sum_taps(s3) / 9.0,
+                        _sum_taps(s) / PCF_SAMPLES),
+            torch.where(small, _sum_taps(s3 * s3) / 9.0,
+                        _sum_taps(s * s) / PCF_SAMPLES),
+            torch.where(small, 1.0, radius.expand_as(ref)))
 
 
 def shadow_pcf(uni: FrameUniforms, shadow_maps: torch.Tensor,
@@ -507,8 +510,7 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     caps_c = tuple(cascade_caps) if cascade_caps is not None \
         else (cap,) * n_casc
     caps_all = caps_c + caps_r + caps_rt
-    caps_t = torch.tensor(caps_all, dtype=torch.int32).to(dev,
-                                                           non_blocking=True)
+    caps_t = const(caps_all, torch.int32, dev)
     fits = (comp.count <= cap) & fits_blocks & (counts_c <= caps_t).all()
 
     occupancy = [(comp.count, cap)] + [(counts_c[g], caps_all[g])

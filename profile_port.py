@@ -3,6 +3,7 @@
 
     python3 profile_port.py [--config dense|default|shipped]
                             [--scene multimesh|large] [--trace trace.json]
+                            [--graph]
 
 Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
 2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
@@ -16,7 +17,11 @@ without (frame time), then one frame under torch.profiler (device time
 by kernel, device busy and idle share, the device time of the row-gather
 kernel K3 and of torch indexing `aten::index`, and the launch geometry of
 the frame's largest gather kernels). Writes the profiler's chrome trace
-to the path given, if any. Needs a CUDA card; imports no jax.
+to the path given, if any. With `--graph` (the shipped configuration,
+whose committed frame frame.compiled_gltf_frame records as a CUDA graph)
+it then times 8 chained replays and profiles one: the device's own kernel
+times with the host's launches out of the way, summed by kernel name from
+the trace. Needs a CUDA card; imports no jax.
 """
 
 from __future__ import annotations
@@ -131,7 +136,13 @@ def main() -> None:
     ap.add_argument("--scene", choices=("multimesh", "large"),
                     default="multimesh")
     ap.add_argument("--trace", help="write the profiler's chrome trace here")
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile the compiled frame's graph replay "
+                         "(--config shipped)")
     args = ap.parse_args()
+    if args.graph and args.config != "shipped":
+        fail("--graph needs --config shipped: only a committed frame is "
+             "recorded as a CUDA graph")
     if not torch.cuda.is_available():
         fail("no CUDA device: this profile needs an NVIDIA GPU")
     from funky_tpu_torch import frame
@@ -198,6 +209,47 @@ def main() -> None:
               f"{block}", flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    if args.graph:
+        replay_profile(scene, params, poses, cfg, dev, gpu)
+
+
+def replay_profile(scene, params, poses, cfg, dev, gpu) -> None:
+    """Host-clock ms of chained replays of the compiled committed frame,
+    then one replay under torch.profiler: its kernels by name from the
+    trace (a graph's kernels carry no aten op), longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from funky_tpu_torch import frame
+
+    fn = frame.compiled_gltf_frame(cfg)
+    state = frame.init_frame_state(cfg, dev)
+    ms = []
+    for p in poses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = fn(scene, p, state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if fn.last is None:
+        fail("the compiled frame recorded no graph")
+    print(f"graph replay {WIDTH}x{HEIGHT}: median {statistics.median(ms[1:]):.3f}"
+          f" ms host clock over {len(ms) - 1} replays after the capture; "
+          f"launches at capture {fn.last.launches} [{gpu}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(scene, frame.orbit_params(params, 7), state)
+        torch.cuda.synchronize()
+    kernels = trace_kernels(prof, words=("",))
+    busy = sum(k[1] for k in kernels)
+    by_name: dict = {}
+    for name, k_ms, _, _ in kernels:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + k_ms, n + 1)
+    print(f"profiled replay: {len(kernels)} kernels, device busy "
+          f"{busy:.3f} ms [{gpu}]", flush=True)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"replay kernel {t:8.3f} ms {t / busy:6.1%} x{n:4d}  "
+              f"{name[:110]}", flush=True)
 
 
 if __name__ == "__main__":
