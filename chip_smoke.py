@@ -78,6 +78,20 @@ failure raises and the script exits non-zero):
    frame launches them, the cond'd and default configs refused a capture
    by the config alone; then eager and replay in turns (eager, graph,
    eager, graph) with host-clock and CUDA-event medians and peak memory;
+10b. the perf modes of the shipped configuration, each autotuned on its
+   own over bench_poses(params, 24) (bench.py:203-212 re-tunes half-res
+   shadows so): half_res_shadows, shadow_eval_scale=4, and
+   __graft_entry__'s trio light_space_ground_shadows +
+   skip_backfacing_shadows + synth_shadow_maps. 8 chained committed frames
+   (2 parked, 6 orbit): no host sync, K1 once per occluder window + main
+   and == plain on every raster, K3 == the plain row gather, finite with
+   shadow on the ground; the same poses cond'd; committed == cond'd on the
+   tuned poses unless capacity_overflows of the tuned config names more
+   than the band-block budget; the frames through compiled_gltf_frame ==
+   the eager frames in rgba and every FrameState field, the capture's
+   launches the first eager frame's. The light-space mode also checks that
+   light-map fetches are counted, and times build_light_shadow_map per
+   cascade (device ms, kernel launches);
 11. the SDF frame: compiled_sdf_frame(SdfConfig(960, 540)) over 20 times
    (bench.py:221-251), finite, graph == eager, the 160x96 frame at t = 1
    against tests/goldens/sdf_t1_160x96.png;
@@ -684,15 +698,18 @@ def phase_default(dev, gltf, scene, params):
     return counts, srun, drun
 
 
-def autotune_shipped(dev, scene, params):
+def autotune_shipped(dev, scene, params, **flags):
     """bench.py's configuration before tuning (GltfConfig() with committed
-    mode and synthesized maps) and after: the raster capacities, then the
-    sparse ones, each step called directly so that a failure raises.
-    Returns (raster-tuned config, tuned config, occupancy, seconds)."""
+    mode and synthesized maps, and `flags`) and after: the raster
+    capacities, then the sparse ones, each step called directly so that a
+    failure raises. A perf mode is tuned on its own from the base, as
+    bench.py:203-212 re-tunes half-res shadows. Returns (raster-tuned
+    config, tuned config, occupancy, seconds)."""
     from funky_tpu_torch import frame
     from funky_tpu_torch.utils import autotune
 
-    base = default_config(committed=True, synth_shadow_maps=True)
+    base = default_config(**{"committed": True, "synth_shadow_maps": True,
+                             **flags})
     poses = frame.bench_poses(params, N_TUNE)
     sync(dev)
     t0 = time.perf_counter()
@@ -1485,6 +1502,188 @@ def phase_compiled_shipped(dev, scene, params, cfg):
     return counts, g.launches
 
 
+# The perf-mode flags on top of the shipped configuration: bench.py's
+# half-res secondary line (bench.py:203-216), the quarter rate, and
+# __graft_entry__'s light-space trio (__graft_entry__.py:165-167).
+PERF_MODES = {
+    "half_res": dict(half_res_shadows=True),
+    "quarter_res": dict(shadow_eval_scale=4),
+    "lightspace": dict(light_space_ground_shadows=True,
+                       skip_backfacing_shadows=True, synth_shadow_maps=True),
+}
+
+
+def time_light_maps(calls):
+    """Per recorded build_light_shadow_map call (one per cascade with a
+    window): (window size, device ms, kernel launches), the launches
+    counted from one call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from funky_tpu_torch.passes import shadow_lightspace
+
+    out = []
+    for args, kwargs in calls:
+        def fn():
+            return shadow_lightspace.build_light_shadow_map(*args, **kwargs)
+
+        ms = device_ms(fn, iters=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = len(trace_kernels(prof, words=("",)))
+        out.append((args[5], ms, n))
+    return out
+
+
+def record_light_maps(fn):
+    """Run fn() and return the (args, kwargs) of every
+    build_light_shadow_map call it makes."""
+    from funky_tpu_torch.passes import shadow_lightspace
+
+    calls = []
+    build = shadow_lightspace.build_light_shadow_map
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return build(*args, **kwargs)
+
+    shadow_lightspace.build_light_shadow_map = record
+    try:
+        fn()
+    finally:
+        shadow_lightspace.build_light_shadow_map = build
+    return calls
+
+
+def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
+    """One perf mode of the shipped configuration, `cfg` tuned on its own
+    (committed): 8 chained committed frames eager (no host sync, K1 ==
+    plain on every raster, K3 == the plain row gather, finite, shadow on
+    the ground), the same poses cond'd, committed == cond'd on the tuned
+    poses when nothing but the band-block budget overflows, and the frames
+    through compiled_gltf_frame == the eager ones bit for bit in rgba and
+    every FrameState field, with the capture's launches the eager frame's.
+    Prints frame, replay and light-map times. Returns (launch counts of the
+    eager committed run, K3 launches per frame)."""
+    import dataclasses
+    import functools
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils import autotune, diagnostics
+
+    label = f"{name} path (multimesh)"
+    scale = cfg.flags.effective_shadow_scale
+    base = default_config(**{"committed": True, "synth_shadow_maps": True,
+                             **PERF_MODES[name]})
+    tuned = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+             if getattr(cfg, f.name) != getattr(base, f.name)}
+    # The tuned config polled on the tuned poses: its own light windows,
+    # which JAX's rule may drop for want of fetches (ROADMAP queue 3).
+    tuned_poses = [params] + frame.bench_poses(params, N_TUNE)
+    over = autotune.capacity_overflows(cfg, diagnostics.measure_sparse_occupancy(
+        scene, tuned_poses[1:], cfg, frames=1))
+    say(f"{label}: shadow evaluated at 1/{scale} rate; autotune {tune_s:.3f}"
+        f" s; tuned config (fields changed from the base): {tuned}; "
+        f"capacity_overflows of the tuned config on the tuned poses {over} "
+        f"[{_GPU}]")
+    say(f"{label}: occupancy {occ}")
+    windows = cfg.effective_light_windows() or (0, 0, 0, 0)
+    n_win = sum(1 for s in windows if s)
+    if cfg.flags.light_space_ground_shadows:
+        fetch = occ["light_fetch_per_cascade"]
+        say(f"{label}: light windows {windows}, light_fetch_per_cascade "
+            f"{fetch}, light_fetch_caps {cfg.light_fetch_caps}")
+        check(sum(fetch) > 0, f"{label}: no entry fetches from a light map")
+
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    reset_counts()
+    box = {}
+    rasters = record_raster_calls(lambda: box.update(
+        run=run_frames(scene, poses, cfg, dev)))
+    crun = box["run"]
+    counts = read_counts()
+    say(f"{label}: {len(poses)} committed frames, launches {counts}, K1 per "
+        f"frame {crun['k1']}, host syncs per frame {crun['syncs']}")
+    check(all(s == 0 for s in crun["syncs"]),
+          f"{label}: a committed frame took a host branch")
+    check(all(k == n_win + 1 for k in crun["k1"])
+          and counts["raster_padded"] == 0,
+          f"{label}: expected {n_win + 1} K1 launches per frame")
+    err = check_rasters_bitwise(rasters, label)
+    say(f"{label}: K1 == plain raster bit for bit on all {len(rasters)} "
+        f"recorded rasters (max |depth| difference {err})")
+    with plain_gathers():
+        prun = run_frames(scene, poses, cfg, dev)
+    check_gathers(crun, prun, label)
+    check_image(crun, poses, cfg, dev, label)
+
+    conded = dataclasses.replace(cfg, flags=dataclasses.replace(
+        cfg.flags, committed=False))
+    drun = run_frames(scene, poses, conded, dev)
+    say_branches(f"{label}, cond'd")
+    say(f"{label}, frame poses: committed vs cond'd: "
+        f"{frames_diff(crun, drun) or 'all frames bit for bit'}")
+    diffs = frames_diff(run_frames(scene, tuned_poses, cfg, dev),
+                        run_frames(scene, tuned_poses, conded, dev))
+    say(f"{label}, tuned poses: committed vs cond'd: "
+        f"{diffs or 'all frames bit for bit'}")
+    if set(over) <= {"band_block_capacity"}:
+        check(not diffs, f"{label}: committed != cond'd on the tuned poses "
+              f"with no capacity overflow")
+
+    fn = frame.compiled_gltf_frame(cfg)
+    check(fn.uses_graph(dev), f"{label}: a committed config is not recorded")
+    erun = gltf_frames(functools.partial(frame.render_gltf_frame, cfg=cfg),
+                       scene, poses, cfg, dev)
+    grun = gltf_frames(fn, scene, poses, cfg, dev)
+    g = fn.last
+    names = ("rgba",) + frame.FrameState._fields
+    for i, (fe, fg) in enumerate(zip(erun["frames"], grun["frames"])):
+        for field, a, b in zip(names, fe, fg):
+            check(bits_equal(a, b), f"{label}: graph frame {i} {field} "
+                  f"differs from the eager frame")
+    # the graph is recorded from the first frame's inputs
+    first = {"raster_table": crun["k1"][0], "raster_padded": 0,
+             "row_gather": crun["k3"][0]}
+    check(g.launches == first, f"{label}: capture launches {g.launches} "
+          f"!= the first eager frame's {first}")
+    say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
+        f"graph == eager, rgba and all {len(names) - 1} FrameState fields "
+        f"of all {len(poses)} frames bit for bit")
+
+    for run_name, run in (("committed eager", crun), ("cond'd eager", drun)):
+        say(f"{name} frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, "
+            f"{run_name}): host clock median "
+            f"{statistics.median(run['wall'][1:]):.3f} ms, CUDA events "
+            f"median {statistics.median(run['ms'][1:]):.3f} ms over "
+            f"{len(poses) - 1} frames after the first; peak device memory "
+            f"{run['peak_gib']:.2f} GiB; host syncs per frame "
+            f"{run['syncs']} [{_GPU}]")
+    say(f"{name} frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, graph "
+        f"replay): host clock median {statistics.median(grun['wall'][1:]):.3f}"
+        f" ms, CUDA events median {statistics.median(grun['ms'][1:]):.3f} ms"
+        f"; per frame {[round(x, 3) for x in grun['wall']]} ms; peak device "
+        f"memory {grun['peak_gib']:.2f} GiB allocated, "
+        f"{grun['reserved_gib']:.2f} GiB reserved [{_GPU}]")
+    check(all(math.isfinite(x) for x in crun["ms"] + grun["ms"]),
+          f"{label}: timing")
+
+    if cfg.flags.light_space_ground_shadows:
+        state = frame.init_frame_state(cfg, dev)
+        _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
+        maps = time_light_maps(record_light_maps(
+            lambda: frame.render_gltf_frame(scene, poses[-1], state, cfg)))
+        total = sum(ms for _, ms, _ in maps)
+        for wc, ms, n in maps:
+            say(f"{label}: build_light_shadow_map on a {wc}^2 window: "
+                f"{ms:.4f} ms device time, {n} kernel launches [{_GPU}]")
+        say(f"{label}: light maps {total:.4f} ms device time per frame, "
+            f"{total / statistics.median(grun['ms'][1:]):.1%} of the graph "
+            f"replay's CUDA-event median [{_GPU}]")
+    return counts, crun["k3"]
+
+
 def phase_sdf(dev):
     """compiled_sdf_frame(SdfConfig(960, 540)) over N_SDF times: finite,
     graph == eager on the first, and the 160x96 golden at t = 1."""
@@ -1656,15 +1855,20 @@ def main() -> None:
     g_frames = phase_gather_frames(dev, scene, params, shipped_cfg)
     k3_per_frame = {"dense": dense_run["k3"], "default": default_run["k3"],
                     "shipped": k3_shipped, "large": k3_large}
-    say(f"K3 launches per frame on the main paths: {k3_per_frame}")
     cube_counts, _, _ = phase_cube(dev)
     comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
+    perf_counts = {}
+    for name, flags in PERF_MODES.items():
+        _, cfg, occ, tune_s = autotune_shipped(dev, scene, params, **flags)
+        perf_counts[name], k3_per_frame[name] = phase_perf_mode(
+            dev, scene, params, name, cfg, occ, tune_s)
     phase_sdf(dev)
     drv_counts, _, _, _ = phase_driver(dev)
     app_counts = {k: cube_counts[k] + comp_counts[k] + drv_counts[k]
                   for k in cube_counts}
     say(f"launches on the app paths (cube, compiled shipped, driver; "
         f"warm-ups and captures): {app_counts}")
+    say(f"K3 launches per frame on the main paths: {k3_per_frame}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1672,7 +1876,8 @@ def main() -> None:
              source="funky_tpu_torch/csrc/raster.cu",
              replaces="funky_tpu/ops/raster_pallas.py:208",
              launches=(counts["raster_table"] + k1_shipped
-                       + app_counts["raster_table"]),
+                       + app_counts["raster_table"]
+                       + sum(c["raster_table"] for c in perf_counts.values())),
              max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None, bound_culled_ms=k1_culled),

@@ -13,8 +13,10 @@ bench.py ships: `GltfFrameFlags(committed=True, synth_shadow_maps=True)`
 with the capacities of utils/autotune.py::autotune_config (synthesized
 cascade maps, the row-slab back half, per-cascade, radius-only and routed
 tap groups, tap and march windows, two-level compactions, the sparse TAA
-read). `check_supported` names the flags that select a path this port
-does not have yet.
+read). So does every other flag combination of the JAX package: the
+reduced-rate shadow evaluation (`shadow_eval_scale`, `half_res_shadows`),
+the light-space ground evaluation (`light_space_ground_shadows`) and the
+back-face skip (`skip_backfacing_shadows`).
 
 Each of the JAX package's capacity-overflow `lax.cond`s becomes a host
 branch on one device bool (ops/compact.py::host_cond, counted in
@@ -47,7 +49,8 @@ from .ops.clipping import expand_near_clipped
 from .ops.compact import (compact_valid_blocks, gather_blocks, host_cond,
                           scatter_blocks)
 from .ops.raster import RasterConfig, raster_corners
-from .ops.sampling import dynamic_slice, dynamic_update_slice, quad_pack
+from .ops.sampling import (dynamic_slice, dynamic_update_slice, quad_pack,
+                           resize_linear)
 from .passes import (contact, deferred, geometry, shading, shadow,
                      shadow_filter, shadow_lightspace, taa, uniforms)
 from .passes.shadow_classify import build_class_maps, light_ground_planes
@@ -160,7 +163,7 @@ class GltfFrameFlags:
 @dataclasses.dataclass(frozen=True)
 class GltfConfig:
     """Static frame configuration (frame.py:234-401); same fields and
-    defaults. `check_supported` names the knobs this port refuses."""
+    defaults."""
     width: int = 1920
     height: int = 1080
     shadow_map_size: int = uniforms.SHADOW_MAP_SIZE
@@ -230,23 +233,6 @@ class GltfConfig:
     @property
     def aspect(self) -> float:
         return self.width / self.height
-
-
-def check_supported(cfg: GltfConfig) -> None:
-    """Raise NotImplementedError naming every flag of `cfg` that selects a
-    path this port does not have yet. GltfConfig()'s defaults and the
-    shipped committed + synth configuration, with every knob the
-    autotuner sets, pass."""
-    f = cfg.flags
-    names = [name for name, on in (
-        ("flags.light_space_ground_shadows", f.light_space_ground_shadows),
-        ("flags.skip_backfacing_shadows", f.skip_backfacing_shadows),
-        ("flags.shadow_eval_scale > 1 (or half_res_shadows)",
-         f.effective_shadow_scale > 1),
-    ) if on]
-    if names:
-        raise NotImplementedError(
-            "funky_tpu_torch: not yet ported: " + ", ".join(names))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,36 +371,41 @@ def _background(dev, alpha: bool = False) -> torch.Tensor:
 
 def shade_slab(scene: DeviceScene, uni, state: FrameState, shadow_maps,
                tri_id, depth, setup_data, blocks, cfg: GltfConfig,
-               y0=0, class_maps=None, tri_flags=None, tap_routes=None):
+               y0=0, class_maps=None, tri_flags=None, light_maps=None,
+               tap_routes=None):
     """Per-pixel back half for the row slab [y0, y0 + h) (frame.py:509-553):
     the row-slab back half when cfg sets one, else the valid-block back
-    half when cfg's block budget applies to this shape, else the dense 2D
-    one. Identical outputs while the capacities hold. Returns (rgba
-    (h, W, 4), history slab (h, W, 2))."""
+    half when cfg's block budget applies to this shape and the shadow is
+    evaluated at full rate, else the dense 2D one. Identical outputs while
+    the capacities hold. Returns (rgba (h, W, 4), history slab (h, W, 2))."""
     if tri_flags is None:
         tri_flags = scene.tri_flags
     h, w = tri_id.shape
     args = (scene, uni, state, shadow_maps, tri_id, depth, setup_data,
             blocks, cfg, y0, class_maps, tri_flags)
+    maps = (light_maps, tap_routes)
     srows = cfg.effective_slab_rows(h)
     if srows is not None:
-        return _shade_slab_rows(*args, srows, tap_routes)
+        return _shade_slab_rows(*args, srows, *maps)
     bcap = cfg.effective_valid_blocks(h, w)
     if bcap is not None and cfg.flags.effective_shadow_scale == 1:
-        return _shade_slab_blocked(*args, bcap, tap_routes)
-    return _shade_slab_dense(*args, tap_routes)
+        return _shade_slab_blocked(*args, bcap, *maps)
+    return _shade_slab_dense(*args, *maps)
 
 
 def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
                 gbuf, frag, cfg: GltfConfig, class_maps, old_history,
-                y0=None, tap_routes=None):
+                y0=None, light_maps=None, tap_routes=None):
     """The per-pixel back half on any domain shape (frame.py:556-638 and
-    764-892 at shadow_eval_scale 1): shadow filter -> TAA -> contact ->
-    final shading. `frag` holds pixel centres (x + 0.5) in global
-    framebuffer coordinates, `old_history` matches gbuf's shape + (2,).
-    `y0` marks a 2D row slab starting at that global row (an int or a 0-d
-    device tensor), for which TAA takes JAX's row-slab form. Returns
-    (rgba, new_history)."""
+    764-892): shadow filter -> TAA -> contact -> final shading. `frag`
+    holds pixel centres (x + 0.5) in global framebuffer coordinates,
+    `old_history` matches gbuf's shape + (2,). `y0` marks a 2D row slab
+    starting at that global row (an int or a 0-d device tensor), for which
+    TAA takes JAX's row-slab form. With shadow_eval_scale > 1 (2D domains
+    only, frame.py:797-871) the shadow filter and the contact march run on
+    every scale-th row and column, with their global pixel centres, and
+    each result is upsampled back by `resize_linear`; the cascade ids, TAA
+    and shading stay at full rate. Returns (rgba, new_history)."""
     flags = cfg.flags
     dev = gbuf.valid.device
     normal = gbuf.normal / torch.clamp(
@@ -425,23 +416,40 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
     view_z = (gbuf.world @ uni.view[2, :3]) + uni.view[2, 3]
     view_depth = -view_z
 
-    if flags.enable_shadows and class_maps is not None:
-        sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
-            uni, shadow_maps, class_maps, gbuf.world, normal, n_dot_l,
-            view_depth, frag, flags.use_pcss, gbuf.valid,
-            cfg.shadow_pen_capacity, cfg.shadow_pen_cascade_caps,
-            cfg.shadow_pen_block_capacity, cfg.shadow_tap_windows,
-            flags.committed, cfg.shadow_lit_cascade_caps, tap_routes,
-            cfg.shadow_route_caps)
-    elif flags.enable_shadows:
-        sres, c0, c1, ct = shadow_filter.cascaded_shadow(
-            uni, shadow_maps, gbuf.world, normal, n_dot_l, view_depth,
-            frag, flags.use_pcss)
+    scale = flags.effective_shadow_scale
+    shape = gbuf.valid.shape
+
+    def at_rate(a):
+        return a[::scale, ::scale].contiguous() if scale > 1 else a
+
+    def up(a):
+        return resize_linear(a, *shape) if scale > 1 else a
+
+    if flags.enable_shadows:
+        args = (gbuf.world, normal, n_dot_l, view_depth, frag)
+        if class_maps is not None:
+            sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
+                uni, shadow_maps, class_maps,
+                *(at_rate(a) for a in args), flags.use_pcss,
+                at_rate(gbuf.valid), cfg.shadow_pen_capacity,
+                cfg.shadow_pen_cascade_caps, cfg.shadow_pen_block_capacity,
+                cfg.shadow_tap_windows, light_maps,
+                flags.skip_backfacing_shadows, flags.committed,
+                cfg.shadow_lit_cascade_caps, tap_routes,
+                cfg.shadow_route_caps)
+        else:
+            sres, c0, c1, ct = shadow_filter.cascaded_shadow(
+                uni, shadow_maps, *(at_rate(a) for a in args),
+                flags.use_pcss)
+        if scale > 1:
+            sres = shadow_filter.ShadowResult(*(up(f) for f in sres))
+            c0, c1, ct = shadow_filter.select_cascade_blend(
+                view_depth, uni.cascade_splits)
     else:
-        one = torch.ones(gbuf.valid.shape, dtype=torch.float32, device=dev)
+        one = torch.ones(shape, dtype=torch.float32, device=dev)
         sres = shadow_filter.ShadowResult(one, one, one,
                                           torch.zeros_like(one))
-        c0 = torch.zeros(gbuf.valid.shape, dtype=torch.int32, device=dev)
+        c0 = torch.zeros(shape, dtype=torch.int32, device=dev)
         c1 = c0
         ct = torch.zeros_like(one)
 
@@ -453,21 +461,27 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
         committed=flags.committed, **taa_domain)
 
     if flags.enable_contact_shadows:
+        # A back-facing pixel shows no contact shadow either: the perf
+        # mode skips its march (frame.py:601-604).
+        cvalid = (gbuf.valid & (n_dot_l > 0.0)
+                  if flags.skip_backfacing_shadows else gbuf.valid)
         if flags.sparse_contact:
             contact_term = contact.compute_contact_shadow_sparse(
-                gbuf.world, normal, uni, state.prev_depth,
+                at_rate(gbuf.world), at_rate(normal), uni, state.prev_depth,
                 capacity=cfg.contact_capacity,
                 march_capacity=cfg.contact_march_capacity,
-                valid=gbuf.valid, block_capacity=cfg.contact_block_capacity,
-                frag=frag,
+                valid=at_rate(cvalid),
+                block_capacity=cfg.contact_block_capacity,
+                frag=at_rate(frag),
                 plane=contact.reference_plane(
                     scene.positions, scene.tri_indices, uni.prev_view_proj,
                     cfg.width, cfg.height),
                 committed=flags.committed, march_window=cfg.contact_window)
         else:
             contact_term = contact.compute_contact_shadow(
-                gbuf.world, normal, uni, state.prev_depth, frag=frag)
-        shadow_term = torch.minimum(shadow_term, contact_term)
+                at_rate(gbuf.world), at_rate(normal), uni, state.prev_depth,
+                frag=at_rate(frag))
+        shadow_term = torch.minimum(shadow_term, up(contact_term))
 
     # History only updates where fragments shaded (frame.py:623-626).
     new_history = torch.where(gbuf.valid[..., None], new_history,
@@ -489,33 +503,38 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
 def _shade_slab_rows(scene: DeviceScene, uni, state: FrameState,
                      shadow_maps, tri_id, depth, setup_data, blocks,
                      cfg: GltfConfig, y0, class_maps, tri_flags,
-                     slab_h: int, tap_routes=None):
-    """The row-slab back half (frame.py:641-699 at shadow_eval_scale 1):
-    the dense back half on the (slab_h, W) slab at the first covered row,
-    rounded down to a multiple of 8; rows outside keep the clear colour
-    and the carried history. The slab start stays on the device. A covered
-    span taller than the slab takes the full-height dense path (one host
-    branch), or in committed mode leaves the rows past the slab unshaded,
-    as in JAX."""
+                     slab_h: int, light_maps=None, tap_routes=None):
+    """The row-slab back half (frame.py:641-699): the dense back half on
+    the (slab_h, W) slab at the first covered row, rounded down to a
+    multiple of 8; rows outside keep the clear colour and the carried
+    history. With shadow_eval_scale > 1 the slab keeps 8 rows of margin
+    around the covered band where it can, so that the upsample of covered
+    rows has full support and equals the full-height path there. The slab
+    start stays on the device. A covered span taller than the slab takes
+    the full-height dense path (one host branch), or in committed mode
+    leaves the rows past the slab unshaded, as in JAX."""
     h, w = tri_id.shape
     row_any = (tri_id >= 0).any(dim=1)
     any_valid = row_any.any()
     row_any = row_any.to(torch.uint8)
     y_lo = torch.argmax(row_any).to(torch.int32)
     y_hi = (h - torch.argmax(row_any.flip(0))).to(torch.int32)
-    y0d = torch.clamp(torch.where(any_valid, (y_lo // 8) * 8, 0), 0,
-                      h - slab_h)
-    span = torch.where(any_valid, y_hi - y0d, 0)
+    pad = 8 if cfg.flags.effective_shadow_scale > 1 else 0
+    y0d = torch.clamp(torch.where(
+        any_valid, (torch.clamp(y_lo - pad, min=0) // 8) * 8, 0), 0,
+        h - slab_h)
+    span = torch.where(any_valid, torch.clamp(y_hi + pad, max=h) - y0d, 0)
+    maps = (light_maps, tap_routes)
     if not (cfg.flags.committed or host_cond(
             span <= slab_h, "valid_slab_rows", [(span, slab_h)])):
         return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id,
                                  depth, setup_data, blocks, cfg, y0,
-                                 class_maps, tri_flags, tap_routes)
+                                 class_maps, tri_flags, *maps)
     rgba_s, hist_s = _shade_slab_dense(
         scene, uni, state, shadow_maps,
         dynamic_slice(tri_id, (y0d,), (slab_h,)),
         dynamic_slice(depth, (y0d,), (slab_h,)), setup_data, blocks, cfg,
-        y0 + y0d, class_maps, tri_flags, tap_routes)
+        y0 + y0d, class_maps, tri_flags, *maps)
     dev = tri_id.device
     rgba = dynamic_update_slice(_background(dev, alpha=True).expand(h, w, 4),
                                 rgba_s, (y0d,))
@@ -526,7 +545,7 @@ def _shade_slab_rows(scene: DeviceScene, uni, state: FrameState,
 def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
                         shadow_maps, tri_id, depth, setup_data, blocks,
                         cfg: GltfConfig, y0, class_maps, tri_flags,
-                        bcap: int, tap_routes=None):
+                        bcap: int, light_maps=None, tap_routes=None):
     """The valid-block back half (frame.py:702-761): compact the 8x8
     blocks with any coverage, run the whole back half on flat (bcap*64,)
     block-major arrays, scatter (rgba, history) back in one block write.
@@ -538,7 +557,8 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
             bc.fits, "valid_blocks", [(bc.comp_b.count, bcap)])):
         return _shade_slab_dense(scene, uni, state, shadow_maps, tri_id,
                                  depth, setup_data, blocks, cfg, y0,
-                                 class_maps, tri_flags, tap_routes)
+                                 class_maps, tri_flags, light_maps,
+                                 tap_routes)
     old_slab = dynamic_slice(state.shadow_history, (y0,), (h,))
     # One block-row gather moves the raster outputs and the carried
     # history; the int32 ids ride as bitcast f32 lanes.
@@ -558,6 +578,7 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
                                    tri_flags, pxf, pyf)
     rgba_e, hist_e = _shade_core(scene, uni, state, shadow_maps, gbuf,
                                  frag, cfg, class_maps, old_hist_e,
+                                 light_maps=light_maps,
                                  tap_routes=tap_routes)
 
     background = _background(tri_id.device, alpha=True)
@@ -570,11 +591,11 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
 def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
                       shadow_maps, tri_id, depth, setup_data, blocks,
                       cfg: GltfConfig, y0=0, class_maps=None,
-                      tri_flags=None, tap_routes=None):
+                      tri_flags=None, light_maps=None, tap_routes=None):
     """Dense 2D back half for the row slab [y0, y0 + h), y0 an int or a
-    0-d device tensor (frame.py:764-892 at shadow_eval_scale 1): the other
-    back halves' overflow branch and the parity reference. Returns (rgba
-    (h, W, 4), history slab (h, W, 2))."""
+    0-d device tensor (frame.py:764-892): the other back halves' overflow
+    branch, the reduced-rate shadow mode and the parity reference.
+    Returns (rgba (h, W, 4), history slab (h, W, 2))."""
     if tri_flags is None:
         tri_flags = scene.tri_flags
     gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
@@ -585,30 +606,43 @@ def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
     return _shade_core(scene, uni, state, shadow_maps, gbuf, frag, cfg,
                        class_maps,
                        dynamic_slice(state.shadow_history, (y0,), (h,)),
-                       y0, tap_routes)
+                       y0, light_maps, tap_routes)
 
 
-def _cascade_maps(scene: DeviceScene, uni, world_v, cfg: GltfConfig):
-    """The four raw cascade depth maps (frame.py:907-958): the full raster,
-    or with synth_shadow_maps the synthesized maps on the planned
-    footprint windows. An occluder outgrowing its window takes the full
+def _cascade_maps(scene: DeviceScene, uni, world_v, cfg: GltfConfig,
+                  origins):
+    """The four raw cascade depth maps (frame.py:929-958): the full raster,
+    or with synth_shadow_maps the synthesized maps on the footprint
+    windows at `origins`. An occluder outgrowing its window takes the full
     raster (one host branch); committed mode keeps the synthesized maps,
     whose window-fit certificate the occupancy poll reads instead."""
-    flags = cfg.flags
-    sizes = cfg.effective_light_windows()
-    if flags.synth_shadow_maps and sizes is not None and any(sizes):
-        origins, _ = shadow_lightspace.plan_windows(
-            uni, world_v, scene.vert_object, sizes, cfg.shadow_map_size,
-            cfg.max_softness, cfg.class_coarse)
+    if cfg.flags.synth_shadow_maps and origins is not None:
         maps, ok = shadow.synthesize_shadow_maps(
-            scene, world_v, uni, cfg.shadow_map_size, sizes, origins,
+            scene, world_v, uni, cfg.shadow_map_size,
+            cfg.effective_light_windows(), origins,
             RasterConfig(tile_h=128, tile_w=128,
                          backend=cfg.shadow_raster.backend))
-        if flags.committed or host_cond(ok, "synth_window_fit"):
+        if cfg.flags.committed or host_cond(ok, "synth_window_fit"):
             return maps
     return shadow.render_shadow_maps(
         world_v, scene.tri_indices, scene.num_triangles,
         uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
+
+
+def _light_maps(raw_maps, uni, cfg: GltfConfig, origins):
+    """(rows, origins, sizes, fetch caps) of the light-space ground
+    evaluation (frame.py:973-988): one build_light_shadow_map per cascade
+    with a window, from its raw depth."""
+    sizes = cfg.effective_light_windows()
+    _, n_off, gbias = shadow_lightspace.ground_constants(uni)
+    planes = shadow_lightspace.biased_ground_planes(
+        uni.light_view_proj, shadow_lightspace.GROUND_Y + n_off)
+    rows = tuple(
+        shadow_lightspace.build_light_shadow_map(
+            raw_maps[c], origins[c], planes[c], uni, cfg.flags.use_pcss,
+            sizes[c], cfg.max_softness, gbias, cfg.light_pcf_rungs)
+        if sizes[c] else None for c in range(len(sizes)))
+    return rows, origins, sizes, cfg.light_fetch_caps
 
 
 def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
@@ -616,7 +650,6 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
     """render_gltf_frame that also returns the main pass's visibility
     buffer: (rgba (H, W, 4), new FrameState, tri_id (H, W) int32). The
     main depth is the new state's prev_depth."""
-    check_supported(cfg)
     flags = cfg.flags
     uni = compute_frame_uniforms(params, state, cfg)
 
@@ -626,23 +659,35 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
 
     shadow_maps = None
     class_maps = None
+    light_maps = None
     tap_routes = None
     if flags.enable_shadows:
-        raw_maps = _cascade_maps(scene, uni, world_v, cfg)
+        # Footprint windows shared by the synthesized maps and the
+        # light-space ground evaluation, planned once (frame.py:920-927).
+        sizes = cfg.effective_light_windows()
+        origins = None
+        if sizes is not None and any(sizes):
+            origins, _ = shadow_lightspace.plan_windows(
+                uni, world_v, scene.vert_object, sizes, cfg.shadow_map_size,
+                cfg.max_softness, cfg.class_coarse)
+        raw_maps = _cascade_maps(scene, uni, world_v, cfg, origins)
         if flags.sparse_shadows:
             class_maps = build_class_maps(
                 raw_maps, cfg.class_coarse, cfg.max_softness,
                 light_ground_planes(uni.light_view_proj))
-            routes = cfg.shadow_route_windows
-            if routes is not None and any(routes) \
-                    and cfg.shadow_route_caps is not None:
-                # Routed tap groups on the footprint windows at the route
-                # sizes (frame.py:990-1003).
-                r_origins, _ = shadow_lightspace.plan_windows(
-                    uni, world_v, scene.vert_object, routes,
-                    cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
-                tap_routes = (r_origins, tuple(routes))
         shadow_maps = quad_pack(raw_maps)              # (4, S, S, 4)
+        if (flags.light_space_ground_shadows and class_maps is not None
+                and origins is not None):
+            light_maps = _light_maps(raw_maps, uni, cfg, origins)
+        routes = cfg.shadow_route_windows
+        if flags.sparse_shadows and routes is not None and any(routes) \
+                and cfg.shadow_route_caps is not None:
+            # Routed tap groups on the footprint windows at the route
+            # sizes (frame.py:990-1003).
+            r_origins, _ = shadow_lightspace.plan_windows(
+                uni, world_v, scene.vert_object, routes,
+                cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
+            tap_routes = (r_origins, tuple(routes))
 
     tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
         scene, clip, blocks, cfg.clip_capacity)
@@ -651,7 +696,7 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
 
     rgba, new_history = shade_slab(
         scene, uni, state, shadow_maps, tri_id, depth, setup.data, blocks_m,
-        cfg, 0, class_maps, tri_flags_m, tap_routes)
+        cfg, 0, class_maps, tri_flags_m, light_maps, tap_routes)
 
     new_state = FrameState(
         shadow_history=new_history,

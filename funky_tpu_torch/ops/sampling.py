@@ -2,8 +2,9 @@
 
 The samplers the glTF frame calls are ported, with the windowed variants
 of the committed and routed tap groups, the overlay's
-`sample_bilinear_edge`, and `dynamic_slice` /
-`dynamic_update_slice`, JAX's slices at device-valued starts. Two semantic
+`sample_bilinear_edge`, `dynamic_slice` /
+`dynamic_update_slice`, JAX's slices at device-valued starts, and
+`resize_linear`, the frame's `jax.image.resize` upsample. Two semantic
 differences between the libraries are handled here for every sampler:
 
 - A JAX gather clamps out-of-range indices; torch raises on the CPU and
@@ -19,6 +20,7 @@ differences between the libraries are handled here for every sampler:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _I32_MAX = 2147483647
@@ -400,3 +402,49 @@ def sample_nearest_edge(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     ix = to_i32(torch.floor(uv[..., 0] * w)).clamp(0, w - 1)
     iy = to_i32(torch.floor(uv[..., 1] * h)).clamp(0, h - 1)
     return _gather2d(img, iy, ix)
+
+
+def _linear_weights(m: int, n: int) -> np.ndarray:
+    """(m, n) f32 weights that resample m samples to n with the triangle
+    kernel, jax/_src/image/scale.py::compute_weight_mat for an upsampling
+    resize (scale n / m, no translation): sample positions (j + 0.5) / scale
+    - 0.5, each column normalised by its sum, columns whose sample lies
+    outside the input zeroed. The f32 arithmetic is XLA's run op by op."""
+    inv = np.float32(1.0 / (n / m))
+    f = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * inv \
+        - np.float32(0.0) - np.float32(0.5)
+    x = np.abs(f[None, :] - np.arange(m, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (f >= -0.5) & (f <= m - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+_WEIGHTS: dict = {}
+
+
+def _weights_on(m: int, n: int, device) -> torch.Tensor:
+    """_linear_weights(m, n) on `device`, uploaded once per shape (through
+    math3d.const, so a CUDA-graph capture reads the kept tensor)."""
+    from ..math3d import const
+
+    key = (m, n, str(torch.device(device)))
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = const(_linear_weights(m, n), torch.float32, device)
+    return _WEIGHTS[key]
+
+
+def resize_linear(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """jax.image.resize(a, (h, w), "linear") for a 2-D f32 image enlarged
+    to (h, w) in both dimensions (frame.py:794-795): the separable weight
+    matrices of `_linear_weights` contracted over the columns first, then
+    the rows, in full f32 products, as XLA's einsum orders them.
+    F.interpolate is not this function: it rounds its sample positions
+    apart (1 ulp on about a third of the pixels) and differs at shapes
+    that are not multiples."""
+    hs, ws = a.shape
+    return _weights_on(hs, h, a.device).T @ (a @ _weights_on(ws, w,
+                                                             a.device))

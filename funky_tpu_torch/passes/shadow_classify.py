@@ -98,8 +98,16 @@ def light_ground_planes(light_view_proj: torch.Tensor,
     gives inf/nan coefficients, which only stop the closed forms from
     firing."""
     dev = light_view_proj.device
-    pts = f32([[0.0, plane_y, 0.0], [7.0, plane_y, 1.0],
-               [3.0, plane_y, -6.0]], dev)
+    return plane_through(light_view_proj, f32(
+        [[0.0, plane_y, 0.0], [7.0, plane_y, 1.0], [3.0, plane_y, -6.0]],
+        dev))
+
+
+def plane_through(light_view_proj: torch.Tensor,
+                  pts: torch.Tensor) -> torch.Tensor:
+    """(L, 3) uv-space NDC-depth plane of each cascade through the three
+    world points `pts` (3, 3)."""
+    dev = light_view_proj.device
     hom = torch.cat([pts, torch.ones((3, 1), dtype=torch.float32,
                                      device=dev)], dim=-1)
     clip = torch.einsum("cij,nj->cni", light_view_proj, hom)   # (L, 3, 4)

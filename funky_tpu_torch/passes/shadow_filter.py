@@ -27,7 +27,8 @@ from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
 from ..ops.sampling import (dynamic_slice, sample_nearest_border_packed,
                             sample_nearest_border_window,
                             sample_shadow_compare_packed,
-                            sample_shadow_compare_window, to_i32)
+                            sample_shadow_compare_window, take_rows,
+                            to_i32)
 from .shadow_classify import classify
 from .uniforms import FrameUniforms
 
@@ -290,8 +291,8 @@ def pcf_frame_kernel(uni: FrameUniforms) -> torch.Tensor:
 # Sparse evaluation: classify -> compact -> exact taps on penumbra pairs
 # (shadow_filter.py:347-1037), with every knob the autotuner sets:
 # per-cascade pair caps, two-level compaction, radius-only groups, routed
-# window groups, committed-mode tap windows, and committed mode itself.
-# The light-space fetch groups wait for light_space_ground_shadows.
+# window groups, light-map fetch groups, committed-mode tap windows, and
+# committed mode itself.
 # ---------------------------------------------------------------------------
 
 
@@ -305,14 +306,16 @@ def _classified_select(cmaps, proj_all, bias, cascade, softness, use_pcss):
 
 def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
                          normal, n_dot_l, softness, use_pcss: bool, valid,
-                         committed: bool = False):
+                         committed: bool = False,
+                         skip_backfacing: bool = False):
     """Project once, classify both cascades and derive the pair masks
     that need exact taps (shadow_filter.py:381-471). c1 is classified only
     on the 8x8 blocks (64-runs on a flat domain) that touch a blend band;
     an overflow of that block budget takes the dense classification (one
     host branch), or in committed mode drops the excess blocks, whose
-    pixels then become pairs. Returns (uv0, r0, inb0, lit0, um0, uv1, r1,
-    inb1, lit1, um1, needs0, needs1)."""
+    pixels then become pairs. skip_backfacing drops the pairs of pixels
+    with n_dot_l <= 0 (shadow_filter.py:559-566, 919-922). Returns (uv0,
+    r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0, needs1)."""
     n = blend.numel()
     proj_all, bias = _project_all(uni, world, normal, n_dot_l)
     uv0, r0, inb0, lit0, um0 = _classified_select(
@@ -352,6 +355,10 @@ def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
     else:
         needs0 = valid & inb0 & ~lit0 & ~um0
         needs1 = valid & inb1 & blend & ~lit1 & ~um1
+    if skip_backfacing:
+        facing = n_dot_l > 0.0
+        needs0 = needs0 & facing
+        needs1 = needs1 & facing
     return (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0,
             needs1)
 
@@ -382,6 +389,41 @@ def _in_windows(cas, uv, origins, sizes, pad, s: int, use):
     return inw
 
 
+def _fetchable(world, normal, cas, uv, recv, needs_h, origins, sizes,
+               s: int, ok_soft):
+    """Needed entries that fetch from a light map: ground-plane receivers
+    whose texel lies inside their cascade's light-space window
+    (shadow_filter.py:595-606, 934-945)."""
+    from .shadow_lightspace import ground_eligible
+
+    el = ground_eligible(world, normal, recv) & ok_soft
+    tx = to_i32(torch.floor(uv[..., 0] * s))
+    ty = to_i32(torch.floor(uv[..., 1] * s))
+    inw = torch.zeros(needs_h.shape, dtype=torch.bool, device=needs_h.device)
+    for c in range(len(sizes)):
+        if sizes[c]:
+            oy, ox = origins[c]
+            inw = inw | ((cas == c)
+                         & (tx >= ox) & (tx < ox + sizes[c])
+                         & (ty >= oy) & (ty < oy + sizes[c]))
+    return needs_h & el & inw
+
+
+def _fetch_rows(rows, origin, wc: int, uv: torch.Tensor,
+                s: int) -> torch.Tensor:
+    """A fetch group's results: ONE row per entry of its cascade's
+    (wc * wc, 4) light map at the entry's texel, clamped into the window
+    (entries lie inside it by construction), as (v, m1, m2, kernel)
+    (shadow_filter.py:774-788)."""
+    oy, ox = origin
+    tx = to_i32(torch.floor(uv[:, 0] * s))
+    ty = to_i32(torch.floor(uv[:, 1] * s))
+    loc = (torch.clamp(ty - oy, 0, wc - 1) * wc
+           + torch.clamp(tx - ox, 0, wc - 1))
+    r4 = take_rows(rows, loc)
+    return torch.stack([r4[:, 0], r4[:, 0], r4[:, 1], r4[:, 2]], dim=-1)
+
+
 def _group_counts(needs, group_key, n_groups: int) -> torch.Tensor:
     """(n_groups,) int32: how many needed entries each group key holds."""
     key = torch.where(needs, group_key, n_groups).reshape(-1).long()
@@ -400,6 +442,8 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
                            cascade_caps: tuple | None = None,
                            block_capacity: int | None = None,
                            tap_windows: tuple | None = None,
+                           light_maps=None,
+                           skip_backfacing: bool = False,
                            committed: bool = False,
                            lit_cascade_caps: tuple | None = None,
                            route_windows=None,
@@ -412,7 +456,16 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     cascade (`cascade_caps`, default `capacity` each), the radius-only
     LIT-side entries (`lit_cascade_caps`, PCSS only), the routed entries
     inside a pre-planned footprint window (`route_windows` = (origins,
-    sizes), `route_caps`), which read their taps from that window.
+    sizes), `route_caps`), which read their taps from that window, and
+    the light-map fetches.
+
+    light_maps: (rows, origins, sizes, fetch_caps) of the light-space
+    ground evaluation (passes/shadow_lightspace.py): a needed ground-plane
+    entry inside its cascade's window reads its result as ONE row of
+    rows[c], a (sizes[c]**2, 4) map (the mode's documented deviation);
+    fetch_caps default to `capacity` per window. skip_backfacing: pixels
+    with n_dot_l <= 0 need no taps (their shadow multiplies 0; their TAA
+    history carries the lit placeholder, a documented deviation).
 
     capacity: total pairs (default max(n // 16, 256)). block_capacity:
     compact two-level over 8x8 blocks (64-runs on a flat domain).
@@ -440,7 +493,7 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     (uv0, r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0,
      needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
                                     normal, n_dot_l, softness, use_pcss,
-                                    valid, committed)
+                                    valid, committed, skip_backfacing)
 
     def dense_base(inb, umbra):
         m = torch.where(umbra & inb, 0.0, 1.0)
@@ -456,8 +509,25 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     pair_layer = torch.stack([c0, c1])
     pad = _tap_reach(softness)
 
+    # Light-map fetches: a per-entry value test; precedence fetch > route
+    # > radius-only (shadow_filter.py:589-614).
+    if light_maps is not None:
+        light_rows, light_origins, light_sizes, light_caps = light_maps
+        ok_soft = softness <= cmaps.max_softness
+        fetch = torch.stack([
+            _fetchable(world, normal, c0, uv0, r0, needs0, light_origins,
+                       light_sizes, s_full, ok_soft),
+            _fetchable(world, normal, c1, uv1, r1, needs1, light_origins,
+                       light_sizes, s_full, ok_soft)])
+        caps_f = (tuple(light_caps) if light_caps is not None
+                  else tuple(cap if light_sizes[c] else 0
+                             for c in range(n_casc)))
+    else:
+        fetch = torch.zeros_like(needs)
+        caps_f = ()
+
     rad_split = use_pcss and lit_cascade_caps is not None
-    rad = (torch.stack([needs0 & lit0, needs1 & lit1]) if rad_split
+    rad = (torch.stack([needs0 & lit0, needs1 & lit1]) & ~fetch if rad_split
            else torch.zeros_like(needs))
     caps_r = tuple(lit_cascade_caps) if rad_split else ()
     routable = (route_windows is not None and route_caps is not None
@@ -472,21 +542,25 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
         route = torch.stack([
             _in_windows(c0, uv0, r_origins, r_sizes, pad, s_full, use_route),
             _in_windows(c1, uv1, r_origins, r_sizes, pad, s_full,
-                        use_route)]) & needs
+                        use_route)]) & needs & ~fetch
         rad = rad & ~route
 
-    # Group keys: [full x n_casc][radius-only][route], each kind present
-    # only when configured (shadow_filter.py:665-687).
-    n_kinds, rad_k, route_k = 1, None, None
+    # Group keys: [full x n_casc][radius-only][route][fetch], each kind
+    # present only when configured (shadow_filter.py:665-687).
+    n_kinds, rad_k, route_k, fetch_k = 1, None, None, None
     if rad_split:
         rad_k, n_kinds = n_kinds, n_kinds + 1
     if routable:
         route_k, n_kinds = n_kinds, n_kinds + 1
+    if caps_f:
+        fetch_k, n_kinds = n_kinds, n_kinds + 1
     kind = torch.zeros(needs.shape, dtype=torch.int32, device=dev)
     if rad_split:
         kind = torch.where(rad, rad_k, kind)
     if routable:
         kind = torch.where(route, route_k, kind)
+    if caps_f:
+        kind = torch.where(fetch, fetch_k, kind)
     group_key = pair_layer + n_casc * kind
     n_groups = n_kinds * n_casc
 
@@ -509,7 +583,7 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
     offs = torch.cumsum(counts_c, 0) - counts_c
     caps_c = tuple(cascade_caps) if cascade_caps is not None \
         else (cap,) * n_casc
-    caps_all = caps_c + caps_r + caps_rt
+    caps_all = caps_c + caps_r + caps_rt + caps_f
     caps_t = const(caps_all, torch.int32, dev)
     fits = (comp.count <= cap) & fits_blocks & (counts_c <= caps_t).all()
 
@@ -542,6 +616,11 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
                               slot_valid=valid_c, count=counts_c[g])
             rows = gather_rows(payload, compc)
             uv_e, recv_e, phi_e = rows[:, :2], rows[:, 2], rows[:, 3]
+            if caps_f and g // n_casc == fetch_k:
+                out = scatter_back(out, compc, _fetch_rows(
+                    light_rows[c], light_origins[c], light_sizes[c], uv_e,
+                    s_full))
+                continue
             window = None
             if routable and g // n_casc == route_k:
                 wcr = int(r_sizes[c])
@@ -601,11 +680,13 @@ def _sum(mask) -> torch.Tensor:
 def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
                    view_depth, screen_pos, use_pcss: bool,
                    valid: torch.Tensor | None = None, light_windows=None,
-                   committed: bool = False, route_windows=None):
+                   skip_backfacing: bool = False, committed: bool = False,
+                   route_windows=None):
     """Diagnostic (shadow_filter.py:893-1037): the classification
     histogram and the pair counts the sparse path compacts, split the way
     the frame groups them, as a dict of device tensors. light_windows /
-    route_windows: (origins, sizes) of the light-space and route windows.
+    route_windows: (origins, sizes) of the light-space and route windows;
+    skip_backfacing and committed as the frame's flags.
 
     Besides JAX's keys, `light_fetch_lit_per_cascade` and
     `light_fetch_route_per_cascade` count the fetch entries that a frame
@@ -614,8 +695,6 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
     it; the port's derive_sparse_config folds them back. `band_bcap` is
     sized from this (dense) domain as in JAX, not from the frame's slab or
     block domain (a reproduced fault, ROADMAP queue 3)."""
-    from .shadow_lightspace import ground_eligible
-
     c0, c1, t = select_cascade_blend(view_depth, uni.cascade_splits)
     softness = uni.shadow_bias[0]
     if valid is None:
@@ -624,7 +703,7 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
     (uv0, r0, _, lit0, um0, uv1, r1, _, lit1, _, needs0,
      needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
                                     normal, n_dot_l, softness, use_pcss,
-                                    valid, committed)
+                                    valid, committed, skip_backfacing)
     needs = torch.stack([needs0, needs1])
     pair_layer = torch.stack([c0, c1])
     s_full = cmaps.size
@@ -633,23 +712,11 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
     if light_windows is not None:
         origins, sizes = light_windows
         ok_soft = softness <= cmaps.max_softness
-
-        def _fetchable(cas, uv, recv, needs_h):
-            el = ground_eligible(world, normal, recv) & ok_soft
-            tx = to_i32(torch.floor(uv[..., 0] * s_full))
-            ty = to_i32(torch.floor(uv[..., 1] * s_full))
-            inw = torch.zeros(needs_h.shape, dtype=torch.bool,
-                              device=needs_h.device)
-            for c in range(4):
-                if sizes[c]:
-                    oy, ox = origins[c]
-                    inw = inw | ((cas == c)
-                                 & (tx >= ox) & (tx < ox + sizes[c])
-                                 & (ty >= oy) & (ty < oy + sizes[c]))
-            return needs_h & el & inw
-
-        fetch = torch.stack([_fetchable(c0, uv0, r0, needs0),
-                             _fetchable(c1, uv1, r1, needs1)])
+        fetch = torch.stack([
+            _fetchable(world, normal, c0, uv0, r0, needs0, origins, sizes,
+                       s_full, ok_soft),
+            _fetchable(world, normal, c1, uv1, r1, needs1, origins, sizes,
+                       s_full, ok_soft)])
     taps = needs & ~fetch
 
     in_route = torch.zeros_like(needs)

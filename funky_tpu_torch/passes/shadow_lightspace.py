@@ -1,16 +1,28 @@
-"""Light-space footprint windows (port of the parts of
-funky_tpu/passes/shadow_lightspace.py that the synthesized cascade maps
-and the routed tap groups use): the occluders' uv bounding box, which is
-their shadow footprint on the ground under the orthographic light, and the
-per-cascade window origins placed on it.
+"""Dense light-space shadow evaluation for planar (ground) receivers (port
+of funky_tpu/passes/shadow_lightspace.py): the light-space footprint
+windows that the synthesized cascade maps, the routed tap groups and this
+mode share, and the mode itself (`light_space_ground_shadows`).
 
-The dense light-space ground evaluation itself (`build_light_shadow_map`,
-`biased_ground_planes`, flag `light_space_ground_shadows`) is not ported
-yet; `ground_eligible` is, because `shadow_filter.classify_stats` splits
-its counts with it.
+Under the orthographic light a ground pixel's PCSS/PCF result depends
+only on its light-space texel, so `build_light_shadow_map` evaluates it
+over a (wc, wc) window of each cascade as shifted-window reads, and the
+sparse filter's ground pixels fetch their (v, m2, kernel) row from it
+instead of running ~34 taps (passes/shadow_filter.py). The mode's
+documented deviations from the per-pixel filter are the JAX module's:
+the evaluation point snaps to the texel centre, the per-pixel rotation
+becomes `phases` per-frame rotations chosen by global texel parity, and
+PCSS's penumbra PCF runs at `rungs` log-spaced radii, interpolated per
+texel.
 
-Window origins stay device tensors: the frame slices with them by index
-arithmetic, never by reading them on the host.
+The port keeps the JAX arithmetic and its summation order. The 16 taps
+of a phase's blocker search or of one PCF rung are read for the four
+phases at once, as one row gather (`take_rows`, the row-gather kernel on
+the card) of the haloed window at device-valued shifts, and summed in
+the JAX order (`_sum_taps`). Every phase is evaluated over the whole
+window, then each texel keeps its own phase's result, as in JAX.
+
+Window origins and tap shifts stay device tensors: the frame slices with
+them by index arithmetic, never by reading them on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +31,11 @@ import math
 
 import torch
 
+from ..math3d import const
+from ..ops.sampling import dynamic_slice, quad_pack, take_rows, to_i32
+from .shadow_classify import plane_through
+from .shadow_filter import (BLOCKER_SAMPLES, PCF_SAMPLES, _sum_taps,
+                            shadow_frame_phi, vogel_disk_all)
 from .uniforms import FrameUniforms
 
 # World height of the planar receiver: the ground quad lies at y = 0 with an
@@ -29,6 +46,27 @@ GROUND_Y = 0.0
 def halo_texels(max_softness: float) -> int:
     """Tap reach in texels (shadow_lightspace.py:66-67)."""
     return math.ceil(4.0 * max_softness) + 2
+
+
+def ground_constants(uni: FrameUniforms):
+    """(n_dot_l, world-space normal offset, depth bias) of a y-up planar
+    receiver (shadow_lightspace.py:70-77), 0-d device tensors."""
+    ndl = torch.clamp(uni.light_dir[1], min=0.0)
+    normal_off = 0.02 * (1.0 - ndl)
+    bias = 0.0008 + 0.0025 * (1.0 - ndl)
+    return ndl, normal_off, bias
+
+
+def biased_ground_planes(light_view_proj: torch.Tensor,
+                         plane_y: torch.Tensor) -> torch.Tensor:
+    """(L, 3) uv-space NDC-depth planes of the world plane y = plane_y, a
+    0-d device tensor (shadow_lightspace.py:80-97): the fit of
+    shadow_classify.light_ground_planes, solved without a host read."""
+    xz = const([[0.0, 0.0], [7.0, 1.0], [3.0, -6.0]], torch.float32,
+               light_view_proj.device)
+    ys = plane_y.to(torch.float32).reshape(1).expand(3)
+    return plane_through(light_view_proj,
+                         torch.stack([xz[:, 0], ys, xz[:, 1]], dim=-1))
 
 
 def occluder_uv_bbox(world_v: torch.Tensor, vert_object: torch.Tensor,
@@ -69,8 +107,6 @@ def window_origin(lo_uv: torch.Tensor, hi_uv: torch.Tensor, size: int,
     """Clamped, 8-aligned window origin (oy, ox) as 0-d int32 tensors,
     centred on the footprint bbox + pad texels (shadow_lightspace.py:
     156-167)."""
-    from ..ops.sampling import to_i32
-
     lo_t = to_i32(torch.floor(lo_uv * size)) - pad
     hi_t = to_i32(torch.ceil(hi_uv * size)) + pad
     center = torch.div(lo_t + hi_t, 2, rounding_mode="floor")
@@ -90,6 +126,140 @@ def plan_windows(uni: FrameUniforms, world_v: torch.Tensor,
     origins = tuple(window_origin(lo[c], hi[c], map_size, sizes[c], pad)
                     if sizes[c] else None for c in range(len(sizes)))
     return origins, (lo, hi)
+
+
+def _shifted(halo: int, wc: int, wp: int, sy: torch.Tensor,
+             sx: torch.Tensor) -> torch.Tensor:
+    """Flat indices sy.shape + (wc, wc) into a haloed (wp, wp) window of
+    the (wc, wc) views at integer shifts (sy, sx), each start clamped as
+    lax.dynamic_slice clamps it (shadow_lightspace.py:170-173)."""
+    ar = torch.arange(wc, dtype=torch.int32, device=sy.device)
+    y = torch.clamp(halo + sy, 0, wp - wc)[..., None, None] + ar[:, None]
+    x = torch.clamp(halo + sx, 0, wp - wc)[..., None, None] + ar[None, :]
+    return y * wp + x
+
+
+def _compare_taps(qflat, halo: int, wc: int, wp: int, receiver, dx, dy,
+                  radius, count: int):
+    """Mean and mean square of `count` compare-bilinear taps at the
+    spatially constant offsets (dx, dy) * radius, (count, P) for P phases
+    (shadow_lightspace.py:176-207). qflat: the quad-packed haloed window
+    as (wp * wp, 4) rows; every tap of every phase is one row gather.
+    Returns two (P, wc, wc) tensors."""
+    ox = dx * radius
+    oy = dy * radius
+    x0 = torch.floor(ox)
+    y0 = torch.floor(oy)
+    fx = (ox - x0)[..., None, None]
+    fy = (oy - y0)[..., None, None]
+    t = (receiver[..., None] <= take_rows(
+        qflat, _shifted(halo, wc, wp, to_i32(y0), to_i32(x0)))).to(
+            torch.float32)                        # (count, P, wc, wc, 4)
+    top = t[..., 0] * (1 - fx) + t[..., 1] * fx
+    bot = t[..., 2] * (1 - fx) + t[..., 3] * fx
+    tap = top * (1 - fy) + bot * fy
+    return _sum_taps(tap) / count, _sum_taps(tap * tap) / count
+
+
+def build_light_shadow_map(raw_map: torch.Tensor, origin,
+                           plane: torch.Tensor, uni: FrameUniforms,
+                           use_pcss: bool, wc: int, max_softness: float,
+                           bias: torch.Tensor, rungs: int = 6,
+                           phases: int = 4) -> torch.Tensor:
+    """Dense PCSS/PCF over the (wc, wc) light-space window at `origin`
+    (oy, ox) of one cascade's raw (S, S) depth, for a planar receiver at
+    `plane` (the biased ground's NDC-depth plane)
+    (shadow_lightspace.py:210-331). Returns (wc * wc, 4) contiguous rows
+    [v, m2, kernel radius, 1], the lit and no-blocker overrides applied;
+    the sparse filter's fetch groups read them with one row gather."""
+    s = raw_map.shape[0]
+    dev = raw_map.device
+    halo = halo_texels(max_softness)
+    wp = wc + 2 * halo
+    padded = torch.nn.functional.pad(raw_map, (halo, halo, halo, halo),
+                                     value=1.0)
+    window = dynamic_slice(padded, (origin[0], origin[1]), (wp, wp))
+    wflat = window.reshape(wp * wp)
+    # One quad-packed copy serves every compare tap: one row per tap.
+    qflat = quad_pack(window).reshape(wp * wp, 4)
+
+    # The receiver: the biased plane's depth at the texel centres.
+    ar = torch.arange(wc, dtype=torch.float32, device=dev)
+    tx = (origin[1].to(torch.float32) + ar + 0.5) / s
+    ty = (origin[0].to(torch.float32) + ar + 0.5) / s
+    receiver = (plane[0] * tx[None, :] + plane[1] * ty[:, None]
+                + plane[2]) - bias
+
+    softness = uni.shadow_bias[0]
+    # One Vogel rotation per phase: IGN at the phase's screen point.
+    offs = const([[float(p % 2), float(p // 2)] for p in range(phases)],
+                  torch.float32, dev)
+    phi = shadow_frame_phi(offs, uni.debug_flags[3], uni.debug_flags[2])
+
+    if not use_pcss:
+        # Fixed-radius PCF: the 3x3 kernel (radius <= 1.25) or 16 Vogel
+        # taps. JAX's lax.cond becomes both kernels, selected on the card.
+        radius = torch.clamp(softness, min=0.5)
+        s3 = []
+        for oy in (-1, 0, 1):
+            for ox in (-1, 0, 1):
+                d = window[halo + oy:halo + oy + wc, halo + ox:halo + ox + wc]
+                s3.append((receiver <= d).to(torch.float32))
+        s3 = torch.stack(s3)
+        dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
+        m1, m2 = _compare_taps(qflat, halo, wc, wp, receiver, dx, dy, radius,
+                               PCF_SAMPLES)
+        small = radius <= 1.25
+        m1 = torch.where(small, _sum_taps(s3) / 9.0, m1)
+        m2 = torch.where(small, _sum_taps(s3 * s3) / 9.0, m2)
+        kern = torch.where(small, 1.0, radius).expand_as(m1)
+        one = torch.ones_like(m1)
+        out = torch.stack([m1, m2, kern, one], dim=-1)
+    else:
+        light_size = softness * 2.0
+        # Blocker search: nearest taps are integer shifts
+        # (floor(t + 0.5 + d) = t + floor(0.5 + d)).
+        dx, dy = vogel_disk_all(BLOCKER_SAMPLES, phi)
+        sx = to_i32(torch.floor(0.5 + dx * light_size))
+        sy = to_i32(torch.floor(0.5 + dy * light_size))
+        d = take_rows(wflat, _shifted(halo, wc, wp, sy, sx))  # (16, P, ...)
+        hit = d < receiver
+        b_sum = _sum_taps(torch.where(hit, d, 0.0))
+        b_cnt = _sum_taps(hit.to(torch.float32))
+        has_blockers = b_cnt > 0.0
+        blocker_depth = b_sum / torch.clamp(b_cnt, min=1.0)
+
+        ratio = (receiver - blocker_depth) / torch.clamp(blocker_depth,
+                                                         min=1e-8)
+        penumbra = torch.minimum(torch.clamp(ratio * light_size, min=0.5),
+                                 light_size * 2.0)
+
+        # PCF at `rungs` log-spaced radii, log-linearly interpolated.
+        dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
+        span = torch.log(torch.clamp(light_size * 4.0, min=1.0 + 1e-6))
+        m1 = torch.zeros_like(penumbra)
+        m2 = torch.zeros_like(penumbra)
+        pos = (rungs - 1) * torch.log(penumbra / 0.5) / span
+        for j in range(rungs):
+            r_j = 0.5 * torch.exp(span * (j / (rungs - 1)))
+            w_j = torch.clamp(1.0 - torch.abs(pos - j), 0.0, 1.0)
+            m1_j, m2_j = _compare_taps(qflat, halo, wc, wp, receiver, dx, dy,
+                                       r_j, PCF_SAMPLES)
+            m1 = m1 + w_j * m1_j
+            m2 = m2 + w_j * m2_j
+        one = torch.ones_like(m1)
+        out = torch.stack([torch.where(has_blockers, m1, one),
+                           torch.where(has_blockers, m2, one),
+                           torch.where(has_blockers, penumbra, 0.0), one],
+                          dim=-1)                     # (P, wc, wc, 4)
+
+    # Each texel keeps the phase of its global texel parity (a 2x2
+    # checkerboard), stable as the window moves.
+    ai = torch.arange(wc, device=dev)
+    grid = (((origin[0] + ai) % 2)[:, None] * 2
+            + ((origin[1] + ai) % 2)[None, :]) % phases
+    pick = grid.to(torch.int64)[None, :, :, None].expand(1, wc, wc, 4)
+    return torch.gather(out, 0, pick)[0].reshape(wc * wc, 4)
 
 
 def ground_eligible(world: torch.Tensor, normal: torch.Tensor,

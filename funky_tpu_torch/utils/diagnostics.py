@@ -91,7 +91,10 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     dict of device tensors (diagnostics.py:72-247). `state` should carry a
     real prev_depth (render a frame first). light_sizes / route_sizes:
     static per-cascade footprint and route window sizes to split the pair
-    counts against (route_sizes defaults to cfg.shadow_route_windows)."""
+    counts against (route_sizes defaults to cfg.shadow_route_windows).
+    The shadow and contact counts are taken on the subsampled grid with
+    shadow_eval_scale > 1 and honour skip_backfacing_shadows, as the
+    frame evaluates them (diagnostics.py:87, 128-147)."""
     from ..passes import contact, shadow_filter
     from ..passes.shadow import synth_windows_fit
     from ..passes.shadow_lightspace import plan_windows
@@ -122,9 +125,16 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
                      if route_sizes is not None and any(route_sizes)
                      else None)
 
+    scale = cfg.flags.effective_shadow_scale
+
+    def sub(a):
+        return a[::scale, ::scale].contiguous() if scale > 1 else a
+
+    skip = cfg.flags.skip_backfacing_shadows
     stats = shadow_filter.classify_stats(
-        uni, cmaps, g.world, normal, n_dot_l, view_depth, frag,
-        cfg.flags.use_pcss, g.valid, light_windows=light_windows,
+        uni, cmaps, sub(g.world), sub(normal), sub(n_dot_l),
+        sub(view_depth), sub(frag), cfg.flags.use_pcss, sub(g.valid),
+        light_windows=light_windows, skip_backfacing=skip,
         committed=cfg.flags.committed, route_windows=route_windows)
     # The synth window-fit certificate of the windows the frame rasters:
     # a tuned config's own (JAX measures the re-derived ones, which hides
@@ -140,8 +150,9 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
                                 synth[1], synth[0])
         stats["synth_window_overflow"] = 1 - fit.to(torch.int32)
 
+    cvalid = g.valid & (n_dot_l > 0.0) if skip else g.valid
     stats.update(contact.contact_occupancy(
-        g.world, normal, uni, state.prev_depth, valid=g.valid,
+        sub(g.world), sub(normal), uni, state.prev_depth, valid=sub(cvalid),
         plane=contact.reference_plane(scene.positions, scene.tri_indices,
                                       uni.prev_view_proj, cfg.width,
                                       cfg.height)))
@@ -175,9 +186,9 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     stats["pair_blocks"] = _blocks_of(stats.pop("_needs"))
     stats["contact_blocks"] = _blocks_of(stats.pop("_stage2"))
 
-    c0, _, t = shadow_filter.select_cascade_blend(view_depth,
+    c0, _, t = shadow_filter.select_cascade_blend(sub(view_depth),
                                                   uni.cascade_splits)
-    stats["blend_band"] = (g.valid & (t > 0.0)).sum(dtype=torch.int32)
+    stats["blend_band"] = (sub(g.valid) & (t > 0.0)).sum(dtype=torch.int32)
     stats["clip_crossing"] = clip_crossing
     stats["texture_blocks"] = _blocks_of(g.valid & ((g.flags & 1) != 0))
     stats["valid_blocks"] = _blocks_of(g.valid)
@@ -188,17 +199,18 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
         - torch.argmax(row_any.to(torch.uint8)), 0)
 
     # Per-screen-tile shadow-cell spans (64x128 tiles).
-    uv, _, _, inb = shadow_filter._light_project(uni, c0, g.world, normal,
-                                                 n_dot_l)
+    uv, _, _, inb = shadow_filter._light_project(
+        uni, c0, sub(g.world), sub(normal), sub(n_dot_l))
     sc = cfg.shadow_map_size // cfg.class_coarse
     cc = to_i32(uv * sc).clamp(0, sc - 1)
     th, tw = 64, 128
+    h2, w2 = inb.shape
 
     def tiled(a):
-        return a[:h // th * th, :w // tw * tw].reshape(
-            h // th, th, w // tw, tw).permute(0, 2, 1, 3)
+        return a[:h2 // th * th, :w2 // tw * tw].reshape(
+            h2 // th, th, w2 // tw, tw).permute(0, 2, 1, 3)
 
-    tm = tiled(inb & g.valid)
+    tm = tiled(inb & sub(g.valid))
     spans = []
     for axis in (0, 1):
         ta = tiled(cc[..., axis])

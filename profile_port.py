@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
 """Where the time of the port's glTF frame goes, on one NVIDIA GPU.
 
-    python3 profile_port.py [--config dense|default|shipped]
+    python3 profile_port.py [--config dense|default|shipped|half_res|
+                                      lightspace]
                             [--scene multimesh|large] [--trace trace.json]
                             [--graph]
 
 Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
 2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
 default), GltfConfig() (`default`: sparse shadows and contact,
-valid-block back half, block-sparse texture sampling) or bench.py's
+valid-block back half, block-sparse texture sampling), bench.py's
 shipped configuration (`shipped`: committed mode with synthesized
-cascade maps, autotuned over bench_poses first), on the multimesh or the
-large scene. 8 chained frames (2 parked, 6 orbit poses) with a
+cascade maps, autotuned over bench_poses first), or the shipped
+configuration with a perf mode on, autotuned on its own (`half_res`:
+half-rate shadow evaluation, whose upsample `resize_linear` is a stage;
+`lightspace`: the light-space ground evaluation with the back-face skip,
+whose light maps `build_light_shadow_map`, fetch split and fetch groups
+are stages), on the multimesh or the large scene. 8 chained frames (2 parked, 6 orbit poses) with a
 synchronize around every stage (per-stage host-clock medians), 8 more
 without (frame time), then one frame under torch.profiler (device time
 by kernel, device busy and idle share, the device time of the row-gather
 kernel K3 and of torch indexing `aten::index`, and the launch geometry of
 the frame's largest gather kernels). Writes the profiler's chrome trace
-to the path given, if any. With `--graph` (the shipped configuration,
-whose committed frame frame.compiled_gltf_frame records as a CUDA graph)
+to the path given, if any. With `--graph` (a committed configuration,
+whose frame frame.compiled_gltf_frame records as a CUDA graph)
 it then times 8 chained replays and profiles one: the device's own kernel
 times with the host's launches out of the way, summed by kernel name from
 the trace. Needs a CUDA card; imports no jax.
@@ -32,7 +37,7 @@ import time
 
 import torch
 
-from chip_smoke import (HEIGHT, SHADOW, WIDTH, autotune_shipped,
+from chip_smoke import (HEIGHT, PERF_MODES, SHADOW, WIDTH, autotune_shipped,
                         default_config, dense_config, fail, gpu_line,
                         load_scene, poses_for, scene_params, trace_kernels)
 
@@ -76,6 +81,18 @@ STAGES = {
         ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
     ),
 }
+# The perf modes run the shipped stages and their own: build_light_shadow_map
+# is a stage of its own; resize_linear runs inside the shadow filter and
+# contact stages, the fetch split and groups inside the shadow filter, and
+# those stages' times include them.
+STAGES["half_res"] = STAGES["shipped"] + (
+    ("frame", "resize_linear", "resize_linear (upsample)"),
+)
+STAGES["lightspace"] = STAGES["shipped"] + (
+    ("shadow_lightspace", "build_light_shadow_map", "light maps"),
+    ("shadow_filter", "_fetchable", "fetch split"),
+    ("shadow_filter", "_fetch_rows", "fetch groups"),
+)
 
 
 def chain(scene, poses, cfg, dev):
@@ -140,9 +157,10 @@ def main() -> None:
                     help="also profile the compiled frame's graph replay "
                          "(--config shipped)")
     args = ap.parse_args()
-    if args.graph and args.config != "shipped":
-        fail("--graph needs --config shipped: only a committed frame is "
-             "recorded as a CUDA graph")
+    if args.graph and args.config in ("dense", "default"):
+        fail("--graph needs a committed configuration (shipped, half_res, "
+             "lightspace): only a committed frame is recorded as a CUDA "
+             "graph")
     if not torch.cuda.is_available():
         fail("no CUDA device: this profile needs an NVIDIA GPU")
     from funky_tpu_torch import frame
@@ -159,7 +177,8 @@ def main() -> None:
     elif args.config == "default":
         cfg = default_config()
     else:
-        _, cfg, _, tune_s = autotune_shipped(dev, scene, params)
+        _, cfg, _, tune_s = autotune_shipped(
+            dev, scene, params, **PERF_MODES.get(args.config, {}))
         print(f"autotune {tune_s:.3f} s: {cfg}", flush=True)
     poses = poses_for(params, 2, 6)
     print(f"{args.config} configuration, {args.scene} scene", flush=True)

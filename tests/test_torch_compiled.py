@@ -246,3 +246,27 @@ def test_card_sdf_graph_equals_eager(dev):
     for t in (1.0, 1.02, torch.tensor(1.5, device=dev)):
         assert_bits_equal(fn(t, *cam), sdf.render_sdf_frame(t, *cam, cfg))
     assert fn.last.replays == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(half_res_shadows=True), dict(shadow_eval_scale=4),
+    dict(light_space_ground_shadows=True, skip_backfacing_shadows=True)],
+    ids=["half_res", "quarter_res", "lightspace"])
+def test_card_perf_mode_graph_equals_eager(dev, flags):
+    """The committed config with each perf mode on is recorded as a graph
+    (no host read on its path) and its chained frames equal the eager
+    frames in rgba and every FrameState field."""
+    scene, params = multimesh(dev)
+    cfg = dataclasses.replace(committed_config(), flags=dataclasses.replace(
+        committed_config().flags, **flags))
+    fn = frame.compiled_gltf_frame(cfg)
+    assert fn.uses_graph(dev)
+    got = chained(fn, scene, poses(params, 3), cfg, dev)
+    want = chained(lambda s, p, st: frame.render_gltf_frame(s, p, st, cfg),
+                   scene, poses(params, 3), cfg, dev)
+    assert fn.last is not None and fn.last.replays == 3
+    for (ra, sa), (rb, sb) in zip(got, want):
+        assert_bits_equal(ra, rb, "rgba")
+        for name, a, b in zip(frame.FrameState._fields, sa, sb):
+            assert_bits_equal(a, b, name)

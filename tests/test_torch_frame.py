@@ -236,19 +236,11 @@ def test_port_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-# The knobs this port honours since the default exact-sparse frame and
-# the shipped committed + synth configuration were ported: their cases
-# now check that check_supported accepts them. The light-space ground
-# evaluation, the back-face skip and the reduced-rate shadow evaluation
-# are still refused.
-PORTED_KNOBS = ("sparse_shadows", "sparse_contact", "valid_block_capacity",
-                "texture_block_capacity", "synth_shadow_maps", "committed",
-                "valid_slab_rows", "taa_need_capacity", "shadow_tap_windows",
-                "shadow_route_windows", "shadow_route_caps",
-                "shadow_lit_cascade_caps", "shadow_pen_cascade_caps",
-                "shadow_pen_block_capacity", "contact_block_capacity")
-
-
+# Every knob of GltfConfig and GltfFrameFlags: the port refused the last
+# four flag cases until the reduced-rate shadow evaluation, the light-space
+# ground evaluation and the back-face skip were ported, and now renders
+# them all (tests/test_torch_shadow_scale.py and test_torch_lightspace.py
+# hold those against JAX).
 @pytest.mark.parametrize("override", [
     dict(flags=dict(sparse_shadows=True)),
     dict(flags=dict(sparse_contact=True)),
@@ -272,24 +264,21 @@ PORTED_KNOBS = ("sparse_shadows", "sparse_contact", "valid_block_capacity",
 ], ids=lambda o: ",".join(
     f"{k}" if k != "flags" else ",".join(o["flags"]) for k in o))
 def test_unsupported_knobs_raise(override):
-    """check_supported names every knob the port refuses, and accepts the
-    ones it has ported."""
+    """No knob is refused any more: the dense slice configuration with each
+    knob set renders a finite frame of the right shape on the CPU."""
     import dataclasses
 
     override = dict(override)
-    _, cfg = slice_configs()
-    flag_kw = override.pop("flags", {})
-    flags = dataclasses.replace(cfg.flags, **flag_kw)
+    _, cfg = slice_configs(width=128, height=64, shadow=64)
+    flags = dataclasses.replace(cfg.flags, **override.pop("flags", {}))
     cfg = dataclasses.replace(cfg, flags=flags, **override)
-    (name,) = list(flag_kw) + list(override)
-    if name in PORTED_KNOBS:
-        tf.check_supported(cfg)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*" + name):
-            tf.check_supported(cfg)
-    _, ok = slice_configs()
-    tf.check_supported(ok)
+    scene = port_scene(multimesh_jax_scene())
+    params = port_params(multimesh_params())
+    rgba, state = tf.render_gltf_frame(scene, params,
+                                       tf.init_frame_state(cfg, "cpu"), cfg)
+    assert rgba.shape == (64, 128, 4) and np.isfinite(t2n(rgba)).all()
+    assert int(state.frame_index) == 1
+    assert not hasattr(tf, "check_supported")
 
 
 def test_entry_points_default_to_the_card():

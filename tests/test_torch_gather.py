@@ -135,19 +135,42 @@ def _shipped_config(scene, params):
     return cfg
 
 
-@pytest.mark.parametrize("path", ["dense", "default", "shipped"])
+def _perf_config(**flags):
+    """GltfConfig() at 480x272 with 1024^2 maps, pair and contact
+    capacities that hold every entry (so the sparse paths run, not their
+    dense fallbacks), small light windows and `flags`."""
+    return tf.GltfConfig(
+        width=480, height=272, shadow_map_size=1024,
+        raster=RasterConfig(tile_h=32, tile_w=128),
+        shadow_raster=RasterConfig(tile_h=128, tile_w=256),
+        shadow_pen_capacity=2 * 480 * 272, contact_capacity=480 * 272,
+        contact_march_capacity=480 * 272,
+        light_window_sizes=(256, 256, 128, 128), light_pcf_rungs=2,
+        flags=tf.GltfFrameFlags(**flags))
+
+
+@pytest.mark.parametrize("path", ["dense", "default", "shipped", "half_res",
+                                  "lightspace"])
 def test_frame_gathers_pass_check_args(path, monkeypatch):
     """Every take_rows call of two chained frames (parked, orbit pose 1)
     on the multimesh scene passes check_args: dense at 256x144, GltfConfig()
-    at 256x144 with its 2048^2 maps, and the tuned shipped configuration.
-    The calls include the row types the kernel must take: 16-byte quads,
-    the deferred pass's 184-byte rows, int32 payloads on the sparse paths
-    and the two-level compaction's bool mask on the shipped one."""
+    at 256x144 with its 2048^2 maps, the tuned shipped configuration, and
+    at 480x272 the half-res frame and the light-space one (with the
+    back-face skip and synthesized maps), whose light maps add the window
+    reads of build_light_shadow_map (4-byte and 16-byte rows) and the
+    fetch groups' one row per entry of a (wc^2, 4) map. The calls include
+    the row types the kernel must take: 16-byte quads, the deferred pass's
+    184-byte rows, int32 payloads on the sparse paths and the two-level
+    compaction's bool mask on the shipped one."""
     scene = port_scene(multimesh_jax_scene())
     params = port_params(multimesh_params())
     cfg = {"dense": _dense_config,
            "default": lambda: tf.GltfConfig(width=256, height=144),
-           "shipped": lambda: _shipped_config(scene, params)}[path]()
+           "shipped": lambda: _shipped_config(scene, params),
+           "half_res": lambda: _perf_config(half_res_shadows=True),
+           "lightspace": lambda: _perf_config(
+               light_space_ground_shadows=True,
+               skip_backfacing_shadows=True, synth_shadow_maps=True)}[path]()
     calls = []
     plain = sampling.take_rows_plain
 
@@ -166,4 +189,9 @@ def test_frame_gathers_pass_check_args(path, monkeypatch):
         want.add((torch.int32, ()))
     if path == "shipped":
         want.add((torch.bool, ()))
+    if path == "lightspace":
+        want.add((torch.float32, ()))
+        # the fetch groups: one row of a (256^2, 4) light map per entry
+        assert any(shape == (4,) and rows == 256 * 256
+                   for _, shape, (rows, _) in calls), calls
     assert len(calls) >= 20 and want <= kinds, kinds

@@ -158,3 +158,43 @@ def test_frame_gathers_through_the_kernel(dev, sparse, monkeypatch):
     for a, b in zip(kernel, plain):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+def test_light_map_fetch_bit_equal_to_plain(dev, monkeypatch):
+    """A light-space frame on the multimesh scene (480x272, 1024^2 maps,
+    light maps on (256, 256, 128, 128) windows, capacities that hold every
+    pair, so the fetch groups run): each K3 call of the frame equals the
+    plain twin bit for bit, the fetch groups' reads of a (256^2, 4) light
+    map among them, and the frame equals the one with the plain twin in
+    K3's place."""
+    with tempfile.TemporaryDirectory() as td:
+        gltf = GltfScene.load(build_multimesh_glb(
+            pathlib.Path(td) / "m.glb", two_textures=True))
+    scene = build_device_scene(gltf, device=dev)
+    params = frame.default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
+                                       gltf_scale=1.0, device=dev)
+    cfg = frame.GltfConfig(
+        width=480, height=272, shadow_map_size=1024,
+        shadow_pen_capacity=2 * 480 * 272, light_window_sizes=(
+            256, 256, 128, 128),
+        flags=frame.GltfFrameFlags(light_space_ground_shadows=True,
+                                   synth_shadow_maps=True))
+    state = frame.init_frame_state(cfg, dev)
+    calls = []
+    kernel = gather_cuda.row_gather
+
+    def record(table, idx):
+        out = kernel(table, idx)
+        calls.append((tuple(table.shape), bits(out),
+                      bits(sampling.take_rows_plain(table, idx))))
+        return out
+
+    monkeypatch.setattr(gather_cuda, "row_gather", record)
+    rgba, _ = frame.render_gltf_frame(scene, params, state, cfg)
+    torch.cuda.synchronize()
+    assert any(shape == (256 * 256, 4) for shape, _, _ in calls)
+    for shape, got, want in calls:
+        np.testing.assert_array_equal(got, want, err_msg=str(shape))
+    monkeypatch.setattr(gather_cuda, "row_gather", sampling.take_rows_plain)
+    plain, _ = frame.render_gltf_frame(scene, params, state, cfg)
+    np.testing.assert_array_equal(bits(rgba), bits(plain))

@@ -500,22 +500,34 @@ def test_tiny_capacities_take_every_dense_branch():
 
 
 def test_check_supported_accepts_defaults():
-    """GltfConfig() and the shipped configuration with every knob the
-    autotuner sets pass; the light-space ground evaluation is refused."""
-    tf.check_supported(tf.GltfConfig())
+    """The shipped configuration, with every knob the autotuner sets, now
+    also runs with the light-space ground evaluation, which the port
+    refused before: one frame of it at 256x144 with GltfConfig()'s 2048^2
+    maps builds a light map for each window and renders finite pixels."""
+    from funky_tpu_torch.passes import shadow_lightspace as tlsm
+
     shipped = dataclasses.replace(
-        tf.GltfConfig(), flags=tf.GltfFrameFlags(committed=True,
-                                                 synth_shadow_maps=True),
-        shadow_tap_windows=(384, 0, 0, 0), valid_slab_rows=512,
+        tf.GltfConfig(width=W, height=H), flags=tf.GltfFrameFlags(
+            committed=True, synth_shadow_maps=True,
+            light_space_ground_shadows=True),
+        shadow_tap_windows=(384, 0, 0, 0), valid_slab_rows=64,
         taa_need_capacity=4096, shadow_route_windows=(256, 256, 0, 0),
         shadow_route_caps=(1024, 1024, 0, 0),
         shadow_lit_cascade_caps=(1024, 1024, 0, 0),
         shadow_pen_cascade_caps=(1024, 1024, 1024, 1024),
         shadow_pen_block_capacity=256, contact_block_capacity=256,
-        contact_window=256, light_window_sizes=(384, 256, 256, 0))
-    tf.check_supported(shipped)
-    with pytest.raises(NotImplementedError,
-                       match="light_space_ground_shadows"):
-        tf.check_supported(dataclasses.replace(
-            shipped, flags=dataclasses.replace(
-                shipped.flags, light_space_ground_shadows=True)))
+        contact_window=256, light_window_sizes=(256, 256, 128, 0),
+        light_pcf_rungs=2)
+    scene = port_scene(multimesh_jax_scene())
+    built = []
+    build = tlsm.build_light_shadow_map
+    tlsm.build_light_shadow_map = (
+        lambda *a, **k: built.append(a[5]) or build(*a, **k))
+    try:
+        rgba, _ = tf.render_gltf_frame(scene, port_params(multimesh_params()),
+                                       tf.init_frame_state(shipped, "cpu"),
+                                       shipped)
+    finally:
+        tlsm.build_light_shadow_map = build
+    assert built == [256, 256, 128]
+    assert rgba.shape == (H, W, 4) and np.isfinite(t2n(rgba)).all()

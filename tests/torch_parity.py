@@ -72,6 +72,21 @@ def multimesh_jax_scene():
     return jbuild_scene(multimesh_gltf())
 
 
+@functools.lru_cache(maxsize=None)
+def faceted_gltf():
+    """tests/torch_scenes.py::build_faceted_glb (the multimesh cubes with
+    per-face normals), loaded by the JAX package's loader."""
+    from .torch_scenes import build_faceted_glb
+
+    with tempfile.TemporaryDirectory() as td:
+        return JGltfScene.load(build_faceted_glb(pathlib.Path(td) / "f.glb"))
+
+
+@functools.lru_cache(maxsize=None)
+def faceted_jax_scene():
+    return jbuild_scene(faceted_gltf())
+
+
 def slice_configs(width=256, height=144, shadow=256, tile_h=16, tile_w=128):
     """(JAX config, port config) of the dense slice at a small size."""
     jtile = JRasterConfig(tile_h=tile_h, tile_w=tile_w, backend="jnp")

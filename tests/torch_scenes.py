@@ -238,3 +238,77 @@ def build_large_glb(path, quads: int = 192, size: float = 40.0,
     glb.write(struct.pack("<II", len(binv), 0x004E4942) + binv)
     path.write_bytes(glb.getvalue())
     return path
+
+
+def build_faceted_glb(path):
+    """Write a GLB with the multimesh scene's two unit cubes at x = -1.5
+    and 1.5 (resting on the ground), each with per-face normals (24
+    vertices): from the default view the right cube's -x face is in sight
+    and turned away from the light (n_dot_l <= 0), which the multimesh
+    scene's cubes, without normals, never are. Returns `path`."""
+    import json
+    import struct
+
+    verts, norms, idx = [], [], []
+    for cx in (-1.5, 1.5):
+        for a in range(3):
+            for s in (1.0, -1.0):
+                n = np.eye(3)[a] * s
+                u, v = np.eye(3)[(a + 1) % 3], np.eye(3)[(a + 2) % 3]
+                if s < 0:
+                    u, v = v, u
+                base = len(verts) % 24
+                for du, dv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                    verts.append(np.array([cx, 0.5, 0.0]) + 0.5 * n
+                                 + 0.5 * du * u + 0.5 * dv * v)
+                    norms.append(n)
+                idx += [base + k for k in (0, 1, 2, 2, 3, 0)]
+    verts = np.asarray(verts, np.float32).reshape(2, 24, 3)
+    norms = np.asarray(norms, np.float32).reshape(2, 24, 3)
+    idx = np.asarray(idx, np.uint16).reshape(2, 36)
+
+    blobs, accessors = [], []
+
+    def add(arr, atype, ctype, bounds=False):
+        acc = {"bufferView": len(blobs), "componentType": ctype,
+               "count": len(arr), "type": atype}
+        if bounds:
+            acc["min"] = arr.min(0).tolist()
+            acc["max"] = arr.max(0).tolist()
+        data = arr.tobytes()
+        blobs.append(data + b"\0" * ((-len(data)) % 4))
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    meshes = [{"primitives": [{
+        "attributes": {"POSITION": add(verts[k], "VEC3", 5126, True),
+                       "NORMAL": add(norms[k], "VEC3", 5126)},
+        "indices": add(idx[k], "SCALAR", 5123), "material": k}]}
+        for k in range(2)]
+    offsets = np.cumsum([0] + [len(b) for b in blobs])
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [{"mesh": 0}, {"mesh": 1}],
+        "meshes": meshes,
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.8, 0.1, 0.1, 1],
+                                      "metallicFactor": 0.9,
+                                      "roughnessFactor": 0.2}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.1, 0.1, 0.8, 1],
+                                      "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.9}}],
+        "bufferViews": [{"buffer": 0, "byteOffset": int(o),
+                         "byteLength": len(b)}
+                        for o, b in zip(offsets, blobs)],
+        "accessors": accessors,
+        "buffers": [{"byteLength": int(offsets[-1])}],
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    binv = b"".join(blobs)
+    path.write_bytes(
+        struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(binv))
+        + struct.pack("<II", len(js), 0x4E4F534A) + js
+        + struct.pack("<II", len(binv), 0x004E4942) + binv)
+    return path
