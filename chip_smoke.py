@@ -101,7 +101,23 @@ failure raises and the script exits non-zero):
    the driver's config and params bit for bit, readback, save_png to
    local/, save_state / load_state and one more step; fails if a step or
    a probe failed (the driver swallows both by design). Times per step and
-   of the panel's render_over.
+   of the panel's render_over;
+13. the row-sharded frame (funky_tpu_torch/parallel) at the JAX package's
+   sharded scale, 1920x1088 with 4 x 2048^2 cascades, 8x128 main and
+   128x128 shadow tiles, for GltfConfig()'s flags (3 frames: 1 parked, 2
+   orbit) and __graft_entry__'s trio (2 frames): sharded_gltf_frame on a
+   one-rank NCCL group, and the stages of 4 slabs composed in one process
+   (272 main rows, 512 cascade rows; tests/torch_sharded_worker.py::
+   compose_frame), each == render_gltf_frame in rgba, history and depth
+   bit for bit. 4 gathers per frame on the raster path, 3 with
+   synthesized maps; K1 5 times per slab per raster-path frame (once per
+   occluder window plus once per slab with synthesized maps); K3 on every
+   frame. Prints eager frame times, the device ms (torch.profiler) of the
+   replicated front and of each slab's stages, and each gather's bytes.
+
+The scene loads print which route decoded their textures (the native
+library of utils/native.py, built from native/ on first use, or the
+numpy and PIL decoders).
 
 Launch counters do not move on a graph replay: the app phases count
 launches at capture (GraphFrame.launches) and in the warm-up and capture
@@ -414,17 +430,49 @@ def phase_gather_cases(dev) -> None:
             f"bit-equal")
 
 
+@contextlib.contextmanager
+def decode_routes():
+    """Counts the images the port's decoders offer the native library
+    (utils/native.py) while the block runs: decoded there, or declined
+    and left to the next rung (PIL, then numpy, for PNG; numpy, then PIL,
+    for JPEG)."""
+    from funky_tpu_torch.utils import native
+
+    counts = collections.Counter()
+    saved = native.decode_png, native.decode_jpeg
+
+    def counting(fn, fmt):
+        def run(data):
+            out = fn(data)
+            route = "native" if out is not None else "declined"
+            counts[f"{fmt} {route}"] += 1
+            return out
+        return run
+
+    native.decode_png = counting(saved[0], "png")
+    native.decode_jpeg = counting(saved[1], "jpeg")
+    try:
+        yield counts
+    finally:
+        native.decode_png, native.decode_jpeg = saved
+
+
 def load_scene(dev, large: bool):
     from funky_tpu_torch.models.gltf import GltfScene
     from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
     from funky_tpu_torch.models.scene import build_device_scene
+    from funky_tpu_torch.utils import native
     from tests.torch_scenes import build_large_glb
 
-    with tempfile.TemporaryDirectory() as td:
+    with tempfile.TemporaryDirectory() as td, decode_routes() as routes:
         path = pathlib.Path(td) / "scene.glb"
         gltf = GltfScene.load(build_large_glb(path) if large
                               else build_multimesh_glb(path,
                                                        two_textures=True))
+    lib = (f"built at {native._SO.relative_to(REPO)}" if native.available()
+           else "unavailable")
+    say(f"{'large' if large else 'multimesh'} scene textures: "
+        f"{dict(routes)}; native library {lib}")
     return gltf, build_device_scene(gltf, device=dev)
 
 
@@ -1810,6 +1858,236 @@ def phase_driver(dev):
     return counts, g.launches, statistics.median(steps[1:]), ui_ms
 
 
+# The row-sharded frame at the JAX package's full sharded scale
+# (experiments/multichip_scale.py:79-85): 1088 rows split into tile-aligned
+# slabs (1080 does not), 4 x 2048^2 cascades, 8x128 main and 128x128
+# shadow tiles.
+SHARD_HEIGHT = 1088
+SHARD_SLABS = 4            # 272 main rows (34 tiles of 8), 512 cascade rows
+
+
+def sharded_config(**flags):
+    from funky_tpu_torch.frame import GltfConfig, GltfFrameFlags
+    from funky_tpu_torch.ops.raster import RasterConfig
+
+    return GltfConfig(
+        width=WIDTH, height=SHARD_HEIGHT, shadow_map_size=SHADOW,
+        raster=RasterConfig(tile_h=8, tile_w=128, capacity=1664),
+        shadow_raster=RasterConfig(tile_h=128, tile_w=128, capacity=4224),
+        flags=GltfFrameFlags(**flags))
+
+
+def shard_chain(fn, scene, poses, cfg, dev):
+    """Chained frames of fn(scene, params, state): per frame (rgba,
+    history, depth) on the card, host ms up to the frame's synchronize,
+    K1 and K3 launches, the `synth_window_fit` fallbacks taken, and each
+    gather's (shape, dtype, bytes in)."""
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
+    from tests.torch_sharded_worker import counted_gathers
+
+    state = frame.init_frame_state(cfg, dev)
+    out = dict(frames=[], wall=[], k1=[], k3=[], fallback=[], gathers=[])
+    for p in poses:
+        k1, k3 = raster_cuda.LAUNCHES, gather_cuda.LAUNCHES
+        fb = compact.BRANCHES[("synth_window_fit", False)]
+        sync(dev)
+        t0 = time.perf_counter()
+        with counted_gathers() as calls:
+            rgba, state = fn(scene, p, state)
+        sync(dev)
+        out["wall"].append((time.perf_counter() - t0) * 1e3)
+        out["k1"].append(raster_cuda.LAUNCHES - k1)
+        out["k3"].append(gather_cuda.LAUNCHES - k3)
+        out["fallback"].append(
+            compact.BRANCHES[("synth_window_fit", False)] - fb)
+        out["gathers"].append(calls)
+        out["frames"].append((rgba, state.shadow_history, state.prev_depth))
+    return out, state
+
+
+def device_busy_ms(fn) -> float:
+    """Summed device time of the kernels and copies one call of fn()
+    launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def slab_stage_ms(scene, params, state, cfg):
+    """Device ms of the 4-slab composition's stages on one frame
+    (tests/torch_sharded_worker.py::compose_frame, after one untimed run):
+    the replicated front (uniforms, vertex stage, windows, the synthesized
+    or joined cascades, class maps, quad_pack, light maps) and each rank's
+    slab stages (its cascade slab, its main raster and back half)."""
+    from tests.torch_sharded_worker import compose_frame
+
+    ms = collections.defaultdict(float)
+
+    def stage(key, fn):
+        out = []
+        ms[key] += device_busy_ms(lambda: out.append(fn()))
+        return out[0]
+
+    compose_frame(scene, params, state, cfg, SHARD_SLABS)
+    compose_frame(scene, params, state, cfg, SHARD_SLABS, stage)
+    return ms["front"], [ms[r] for r in range(SHARD_SLABS)]
+
+
+def phase_sharded(dev, scene, params):
+    """The row-sharded frame (funky_tpu_torch/parallel) at 1920x1088 with
+    4 x 2048^2 cascades, for GltfConfig()'s flags (3 chained frames: 1
+    parked, 2 orbit) and __graft_entry__'s trio (2 frames): (a) through
+    sharded_gltf_frame on a one-rank NCCL group, (b) as the stages of 4
+    slabs composed in one process (tests/torch_sharded_worker.py::
+    compose_frame); each == render_gltf_frame in rgba, history and depth
+    bit for bit, every raster of both == the plain raster at its own
+    y_offset and height, and both again with the plain row gather == the
+    K3 frames. Gathers per frame: 4 on the raster path, 3 with
+    synthesized maps; K1 5 times per slab per raster-path frame; K3 on
+    every frame. Prints eager frame times, the device ms of the front and
+    of each slab's stages, and the bytes each gather moves. Returns (K1
+    launches, K3 launches per frame) of the sharded runs."""
+    import datetime
+    import functools
+
+    import torch.distributed as dist
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.parallel import make_mesh, sharded_gltf_frame
+    from tests.torch_sharded_worker import CASES, compose_frame, poses
+
+    n = SHARD_SLABS
+    k1_total, k3_runs = 0, {}
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{td}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(1, device=dev.type)
+            for name, (flags, n_frames) in CASES.items():
+                cfg = sharded_config(**flags)
+                label = f"sharded {name} {WIDTH}x{SHARD_HEIGHT}"
+                pose_list = poses(params, n_frames)
+                windows = sum(1 for s in cfg.effective_light_windows() or ()
+                              if s)
+                ref, _ = shard_chain(functools.partial(
+                    frame.render_gltf_frame, cfg=cfg), scene, pose_list,
+                    cfg, dev)
+                sharded = sharded_gltf_frame(mesh, cfg)
+
+                def composed(s, p, st, cfg=cfg):
+                    return compose_frame(s, p, st, cfg, n)
+
+                box = {}
+                reset_counts()
+                one_rasters = record_raster_calls(lambda: box.update(
+                    one=shard_chain(sharded, scene, pose_list, cfg, dev)))
+                one = box["one"][0]
+                one["counts"] = read_counts()
+                reset_counts()
+                four_rasters = record_raster_calls(lambda: box.update(
+                    four=shard_chain(composed, scene, pose_list, cfg, dev)))
+                four, state = box["four"]
+                four["counts"] = read_counts()
+                # the script's references, after the counts are read: every
+                # raster of both runs (each slab at its own y_offset and
+                # height) against the plain raster, and both chains again
+                # with the plain row gather
+                for run_name, run, rasters in (
+                        ("one-rank NCCL", one, one_rasters),
+                        (f"{n} slabs", four, four_rasters)):
+                    check(len(rasters) == sum(run["k1"]),
+                          f"{label} {run_name}: {len(rasters)} rasters "
+                          f"recorded, K1 launched {sum(run['k1'])} times")
+                    check_rasters_bitwise(rasters, f"{label} {run_name}")
+                with plain_gathers():
+                    one_plain, _ = shard_chain(sharded, scene, pose_list, cfg,
+                                               dev)
+                    four_plain, _ = shard_chain(composed, scene, pose_list,
+                                                cfg, dev)
+                for run_name, run, plain in (
+                        ("one-rank NCCL", one, one_plain),
+                        (f"{n} slabs", four, four_plain)):
+                    check(all(k == 0 for k in plain["k3"]),
+                          f"{label} {run_name}: the plain-gather run launched "
+                          f"K3: {plain['k3']}")
+                    for i, (a, b) in enumerate(zip(run["frames"],
+                                                   plain["frames"])):
+                        for field, x, y in zip(("rgba", "history", "depth"),
+                                               a, b):
+                            check(bits_equal(x, y), f"{label} {run_name}: "
+                                  f"frame {i} {field}: K3 vs plain row "
+                                  f"gather differ")
+                say(f"{label}: every raster of both runs == the plain raster "
+                    f"at its own y_offset and height ({len(one_rasters)} + "
+                    f"{len(four_rasters)} rasters); both runs with the plain "
+                    f"row gather == the K3 runs, rgba, history and depth bit "
+                    f"for bit")
+                for run_name, run in (("one-rank NCCL", one),
+                                      (f"{n} slabs", four)):
+                    for i, (a, b) in enumerate(zip(run["frames"],
+                                                   ref["frames"])):
+                        for field, x, y in zip(("rgba", "history", "depth"),
+                                               a, b):
+                            check(bits_equal(x, y), f"{label} {run_name}: "
+                                  f"frame {i} {field} differs from "
+                                  f"render_gltf_frame")
+                    check(all(k > 0 for k in run["k3"])
+                          and run["counts"]["row_gather"] == sum(run["k3"])
+                          and run["counts"]["raster_padded"] == 0,
+                          f"{label} {run_name}: K3 per frame {run['k3']}, "
+                          f"launches {run['counts']}")
+                synth = windows > 0 and flags.get("synth_shadow_maps")
+                gathers = 3 if synth else 4
+                check(all(len(g) == gathers for g in one["gathers"]),
+                      f"{label}: gathers per frame "
+                      f"{[len(g) for g in one['gathers']]}, expected "
+                      f"{gathers}")
+                for run_name, run, slabs in (("one-rank NCCL", one, 1),
+                                             (f"{n} slabs", four, n)):
+                    want = [(windows + 4 * fb + slabs) if synth
+                            else 5 * slabs for fb in run["fallback"]]
+                    check(run["k1"] == want, f"{label} {run_name}: K1 "
+                          f"launches per frame {run['k1']}, expected {want}")
+                k1_total += (one["counts"]["raster_table"]
+                             + four["counts"]["raster_table"])
+                k3_runs[f"sharded_{name}_nccl"] = one["k3"]
+                k3_runs[f"sharded_{name}_{n}slabs"] = four["k3"]
+                say(f"{label}: one-rank NCCL frame and {n}-slab composition "
+                    f"== render_gltf_frame, rgba, history and depth of all "
+                    f"{len(pose_list)} frames bit for bit; gathers per frame "
+                    f"{gathers}; K1 per frame {one['k1']} (one rank), "
+                    f"{four['k1']} ({n} slabs, synth fallbacks "
+                    f"{four['fallback']}); K3 per frame {one['k3']} / "
+                    f"{four['k3']}")
+                say(f"{label}: eager host ms per frame: sharded one-rank "
+                    f"{[round(x, 3) for x in one['wall']]}, render_gltf_frame "
+                    f"{[round(x, 3) for x in ref['wall']]}, {n} slabs "
+                    f"{[round(x, 3) for x in four['wall']]} [{_GPU}]")
+                for shape, dtype, nbytes in one["gathers"][-1]:
+                    say(f"{label}: gather of {shape} {dtype}: {nbytes} B "
+                        f"per frame out of one rank; at n = {n} each rank "
+                        f"sends its {nbytes // n} B slab and receives "
+                        f"{nbytes // n * (n - 1)} B [{_GPU}]")
+                front_ms, rank_ms = slab_stage_ms(scene, pose_list[-1],
+                                                  state, cfg)
+                say(f"{label}: device ms at n = {n}: replicated front "
+                    f"{front_ms:.4f} (computed whole on every rank), each "
+                    f"slab's stages {[round(x, 4) for x in rank_ms]} "
+                    f"[{_GPU}]")
+        finally:
+            dist.destroy_process_group()
+    return k1_total, k3_runs
+
+
 def main() -> None:
     global _GPU
     try:
@@ -1864,6 +2142,8 @@ def main() -> None:
             dev, scene, params, name, cfg, occ, tune_s)
     phase_sdf(dev)
     drv_counts, _, _, _ = phase_driver(dev)
+    k1_shard, k3_shard = phase_sharded(dev, scene, params)
+    k3_per_frame.update(k3_shard)
     app_counts = {k: cube_counts[k] + comp_counts[k] + drv_counts[k]
                   for k in cube_counts}
     say(f"launches on the app paths (cube, compiled shipped, driver; "
@@ -1877,7 +2157,8 @@ def main() -> None:
              replaces="funky_tpu/ops/raster_pallas.py:208",
              launches=(counts["raster_table"] + k1_shipped
                        + app_counts["raster_table"]
-                       + sum(c["raster_table"] for c in perf_counts.values())),
+                       + sum(c["raster_table"] for c in perf_counts.values())
+                       + k1_shard),
              max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None, bound_culled_ms=k1_culled),

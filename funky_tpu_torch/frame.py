@@ -413,7 +413,8 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
         min=1e-12)
     n_dot_l = torch.clamp((normal * uni.light_dir).sum(dim=-1), min=0.0)
 
-    view_z = (gbuf.world @ uni.view[2, :3]) + uni.view[2, 3]
+    view_z = m3.apply_rows(gbuf.world, uni.view[2:3, :3])[..., 0] \
+        + uni.view[2, 3]
     view_depth = -view_z
 
     scale = flags.effective_shadow_scale

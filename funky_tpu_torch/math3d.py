@@ -189,6 +189,21 @@ def mat4_from_scale(s: torch.Tensor) -> torch.Tensor:
                                                device=s.device)]))
 
 
+def apply_rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x @ m.T for (..., K) rows and an (R, K) matrix -> (..., R), or a
+    (C, R, K) stack -> (C, ..., R): the K products summed in order k = 0,
+    1, ... as separate elementwise ops. Per-pixel products take this
+    rather than a matmul, so each output element rounds the same whatever
+    the number of rows: cuBLAS picks its kernel, and with it the order of
+    summation, by the problem's size, and on an H100 a pixel of a row slab
+    then differed from the same pixel of the full frame by an ulp."""
+    mk = m.reshape(m.shape[:-2] + (1,) * (x.dim() - 1) + m.shape[-2:])
+    out = x[..., 0:1] * mk[..., 0]
+    for k in range(1, m.shape[-1]):
+        out = out + x[..., k:k + 1] * mk[..., k]
+    return out
+
+
 def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """4x4 applied to (..., 3) points with w = 1 (math3d.py:219-222)."""
     return p @ m[:3, :3].T + m[:3, 3]

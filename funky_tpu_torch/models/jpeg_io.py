@@ -1,5 +1,5 @@
 """Pure-Python/numpy JPEG decoder (numpy copy of funky_tpu/models/jpeg_io.py;
-the decode ladder here is this decoder, then PIL: no native route).
+the decode ladder is the native library, this decoder, then PIL).
 
 The reference decodes whatever image format a glTF references through the
 Rust `image` crate (gltf_loader.rs:100 `image::open`, :116
@@ -432,12 +432,18 @@ def decode_jpeg_pure(data: bytes) -> np.ndarray:
 def decode_jpeg(data: bytes) -> np.ndarray:
     """Decode JPEG bytes to (H, W, 4) uint8 RGBA.
 
-    The JAX package prefers native/fr_jpeg.cpp, then PIL. This copy has no
-    native route; the numpy decoder above takes its place because it decodes
-    bit-identically to it, while PIL's libjpeg differs by up to 91 levels on
-    tests/assets/quad_tex_420p.jpg (4:2:0 chroma). PIL stays the fallback
-    for streams the numpy decoder does not support.
+    Prefers native/fr_jpeg.cpp (utils/native.py), as the JAX package does
+    (jpeg_io.py:438-445), then the numpy decoder above, which decodes
+    bit-identically to it, then PIL for streams neither supports. The JAX
+    package puts PIL second; here it is last because PIL's libjpeg differs
+    from the native decoder by up to 91 levels on
+    tests/assets/quad_tex_420p.jpg (4:2:0 chroma).
     """
+    from ..utils import native  # noqa: PLC0415
+
+    out = native.decode_jpeg(data)
+    if out is not None:
+        return out
     try:
         return decode_jpeg_pure(data)
     except ValueError as err:

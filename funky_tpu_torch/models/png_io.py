@@ -1,8 +1,9 @@
 """PNG decode/encode (numpy copy of funky_tpu/models/png_io.py).
 
-Decode prefers PIL, then falls back to a pure-Python implementation
-(stdlib zlib + numpy unfiltering). Unlike the JAX package this copy has no
-native-decoder route: it must import where jax is not installed.
+Decode prefers the native library (utils/native.py: native/fr_native.cpp
+through ctypes, built on first use), then PIL, then a pure-Python
+implementation (stdlib zlib + numpy unfiltering), as the JAX package does
+(png_io.py:26-45).
 
 The reference decodes textures with the `image` crate into RGBA8
 (gltf_loader.rs:96-127) and uploads them as R8G8B8A8_SRGB
@@ -24,6 +25,11 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 def decode_png(data: bytes) -> np.ndarray:
     """Decode a PNG byte string to an (H, W, 4) uint8 RGBA array."""
+    from ..utils import native  # noqa: PLC0415
+
+    out = native.decode_png(data)
+    if out is not None:
+        return out
     try:
         import io  # noqa: PLC0415
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..math3d import f32
+from ..math3d import apply_rows, f32
 from ..ops.binning import triangle_setup_corners
 from ..ops.clipping import expand_near_clipped
 from ..ops.compact import (Compacted, compact_indices,
@@ -70,7 +70,7 @@ def _ray_setup(world, normal, uni: FrameUniforms):
                       device=world.device)
 
     def to_cs(p):
-        clip = torch.einsum("ij,...j->...i", vp, torch.cat([p, ones], dim=-1))
+        clip = apply_rows(torch.cat([p, ones], dim=-1), vp)
         return clip[..., :3] / torch.where(
             torch.abs(clip[..., 3:4]) > 1e-12, clip[..., 3:4], 1e-12)
 

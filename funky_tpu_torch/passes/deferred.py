@@ -52,7 +52,12 @@ def interpolate_at(tri_id: torch.Tensor, depth: torch.Tensor,
     denom = pw.sum(dim=-1, keepdim=True)
     weights = pw / torch.where(torch.abs(denom) > 1e-20, denom, 1.0)
 
-    attrs = torch.einsum("...k,...kc->...c", weights, blocks[..., :11])
+    # the three corners' attributes summed in order, per pixel (not a
+    # batched matmul, whose kernel and rounding depend on the pixel count:
+    # math3d.apply_rows)
+    attrs = (weights[..., 0:1] * blocks[..., 0, :11]
+             + weights[..., 1:2] * blocks[..., 1, :11]) \
+        + weights[..., 2:3] * blocks[..., 2, :11]
 
     return GBuffer(
         valid=valid,

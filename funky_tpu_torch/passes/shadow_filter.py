@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..math3d import const
+from ..math3d import apply_rows, const
 from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
                            compact_indices_blocked, gather_rows, host_cond,
                            scatter_back)
@@ -115,7 +115,7 @@ def _project_all(uni: FrameUniforms, world, normal, n_dot_l):
     ones = torch.ones(biased.shape[:-1] + (1,), dtype=torch.float32,
                       device=biased.device)
     hom = torch.cat([biased, ones], dim=-1)
-    clip_all = torch.einsum("cij,...j->c...i", uni.light_view_proj, hom)
+    clip_all = apply_rows(hom, uni.light_view_proj)        # (C, ..., 4)
     proj_all = clip_all[..., :3] / clip_all[..., 3:4]
     bias = 0.0008 + 0.0025 * (1.0 - n_dot_l)
     return proj_all, bias

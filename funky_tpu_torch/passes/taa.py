@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..math3d import apply_rows
 from ..ops.compact import compact_indices, gather_rows, host_cond, scatter_back
 from ..ops.sampling import dynamic_slice, sample_nearest_edge, to_i32
 from .deferred import pixel_centers
@@ -63,7 +64,7 @@ def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
     ones = torch.ones(world.shape[:-1] + (1,), dtype=torch.float32,
                       device=world.device)
     hom = torch.cat([world, ones], dim=-1)
-    cur_clip = torch.einsum("ij,...j->...i", uni.view_proj, hom)
+    cur_clip = apply_rows(hom, uni.view_proj)
     cur_ndc_depth = torch.where(cur_clip[..., 3] != 0.0,
                                 cur_clip[..., 2] / cur_clip[..., 3], 1.0)
     cur_ndc_depth = cur_ndc_depth.clamp(0.0, 1.0)
@@ -74,7 +75,7 @@ def apply_shadow_taa(cur: ShadowResult, world: torch.Tensor,
     current_uv = torch.stack(
         [(frag_x + 0.5) / fw, (frag_y + 0.5) / fh], dim=-1)
 
-    prev_clip = torch.einsum("ij,...j->...i", uni.prev_view_proj, hom)
+    prev_clip = apply_rows(hom, uni.prev_view_proj)
     w_ok = prev_clip[..., 3] > 0.0
     prev_ndc = prev_clip[..., :3] / torch.where(w_ok[..., None],
                                                 prev_clip[..., 3:4], 1.0)

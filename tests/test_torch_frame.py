@@ -207,6 +207,8 @@ from funky_tpu_torch.models.gltf import GltfScene
 from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
 from funky_tpu_torch.models.scene import build_device_scene
 from funky_tpu_torch.ops.raster import RasterConfig
+from funky_tpu_torch.parallel import make_mesh, sharded_gltf_frame
+from funky_tpu_torch.utils import native
 with tempfile.TemporaryDirectory() as td:
     gltf = GltfScene.load(build_multimesh_glb(pathlib.Path(td) / "m.glb",
                                               two_textures=True))
@@ -288,10 +290,12 @@ def test_entry_points_default_to_the_card():
 
     from funky_tpu_torch import convert
     from funky_tpu_torch.models import scene
+    from funky_tpu_torch.parallel import make_mesh
 
     for fn in (scene.build_device_scene, scene.build_cube_scene,
                tf.default_gltf_params, tf.init_frame_state,
                convert.scene_from_numpy, convert.params_from_numpy,
-               convert.state_from_numpy, convert.uniforms_from_numpy):
+               convert.state_from_numpy, convert.uniforms_from_numpy,
+               make_mesh):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
