@@ -35,9 +35,11 @@ failure raises and the script exits non-zero):
    on every frame, and the same frames with the plain row gather equal;
 5b. the shipped path: bench.py's configuration, committed mode with
    synthesized cascade maps (GltfFrameFlags(committed=True,
-   synth_shadow_maps=True)), autotuned over bench_poses(params, 24) by
-   utils/autotune.py's tune_raster_capacities and tune_sparse_capacities
-   (called directly, so a failure fails the run). Prints the tuned config,
+   synth_shadow_maps=True)), autotuned over frame.tuning_poses(params,
+   24) (bench_poses(params, 24), then bench.py's motion run of 24 poses)
+   by utils/autotune.py's tune_raster_capacities and
+   tune_sparse_capacities (called directly, so a failure fails the run;
+   the tune over bench_poses alone is timed too). Prints the tuned config,
    the occupancy and each cascade's light-fetch entries with the tap caps
    JAX's rule and the port's give. 8 chained committed frames (2 parked,
    6 orbit): no host sync, K1 launched once per nonzero occluder window
@@ -45,9 +47,14 @@ failure raises and the script exits non-zero):
    every recorded raster, the sync count torch's sync debug mode reports
    for one frame; K3 on every frame, and the same committed frames with the
    plain row gather equal bit for bit; then the same poses with
-   committed=False: equal bit for bit when capacity_overflows names
-   nothing on those poses but the band-block budget, whose committed drop
-   is conservative;
+   committed=False: equal bit for bit; then (check_tuned_and_chained)
+   the tuned poses as the autotune renders them, and the chained
+   trajectory: 2 parked frames and orbit poses 0..47, twice the tuned
+   motion run. Each frame is polled before it is rendered
+   (diagnostics.probe_occupancy against the state the frame carries,
+   the pairs of the band blocks a committed frame drops counted):
+   capacity_overflows names nothing but the band-block budget, and
+   committed == cond'd bit for bit on every frame;
 6. the large scene (tests/torch_scenes.build_large_glb: 73,754
    triangles, past the table limit): 3 chained GltfConfig() frames, K2
    launches 5 times per frame and K1 never, K3 on every frame; one frame
@@ -79,19 +86,20 @@ failure raises and the script exits non-zero):
    by the config alone; then eager and replay in turns (eager, graph,
    eager, graph) with host-clock and CUDA-event medians and peak memory;
 10b. the perf modes of the shipped configuration, each autotuned on its
-   own over bench_poses(params, 24) (bench.py:203-212 re-tunes half-res
+   own over tuning_poses(params, 24) (bench.py:203-212 re-tunes half-res
    shadows so): half_res_shadows, shadow_eval_scale=4, and
    __graft_entry__'s trio light_space_ground_shadows +
    skip_backfacing_shadows + synth_shadow_maps. 8 chained committed frames
    (2 parked, 6 orbit): no host sync, K1 once per occluder window + main
    and == plain on every raster, K3 == the plain row gather, finite with
-   shadow on the ground; the same poses cond'd; committed == cond'd on the
-   tuned poses unless capacity_overflows of the tuned config names more
-   than the band-block budget; the frames through compiled_gltf_frame ==
-   the eager frames in rgba and every FrameState field, the capture's
-   launches the first eager frame's. The light-space mode also checks that
-   light-map fetches are counted, and times build_light_shadow_map per
-   cascade (device ms, kernel launches);
+   shadow on the ground; the same poses cond'd, == committed bit for
+   bit; the tuned poses and the chained trajectory as in 5b; the frames
+   through compiled_gltf_frame == the eager frames in rgba and every
+   FrameState field, the capture's launches the first eager frame's. The
+   light-space mode also checks that light-map fetches are counted, times
+   the replay with every footprint window against the replay with the
+   windows JAX's rule keeps, in turns, and times build_light_shadow_map
+   per cascade (device ms, kernel launches);
 11. the SDF frame: compiled_sdf_frame(SdfConfig(960, 540)) over 20 times
    (bench.py:221-251), finite, graph == eager, the 160x96 frame at t = 1
    against tests/goldens/sdf_t1_160x96.png;
@@ -114,6 +122,15 @@ failure raises and the script exits non-zero):
    occluder window plus once per slab with synthesized maps); K3 on every
    frame. Prints eager frame times, the device ms (torch.profiler) of the
    replicated front and of each slab's stages, and each gather's bytes.
+   Then the committed frame (the shipped flags and the trio) on the
+   one-rank NCCL group as a CUDA graph (sharded_graph): 8 chained frames
+   (2 parked, 6 orbit) == the eager sharded frames == render_gltf_frame
+   in rgba and every FrameState field, 3 gathers at capture and none on
+   a replay, K1 and K3 at capture as the eager frame launches them,
+   every raster of the eager frames == the plain raster, and the eager
+   frames with the plain row gather == the K3 frames in rgba and every
+   FrameState field; eager and replay in turns and the device busy of
+   one replay.
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -148,7 +165,8 @@ GOLDEN_TOL, GOLDEN_BAD_FRAC = 3.0 / 255.0, 2e-3
 WIDTH, HEIGHT, SHADOW = 1920, 1080, 2048
 N_DENSE = 4                # dense path: 2 parked + 2 orbit poses
 N_PARKED, N_ORBIT = 2, 6   # default and shipped paths
-N_TUNE = 24                # bench.py's chain: autotune over bench_poses(, 24)
+N_TUNE = 24                # bench.py's run: autotune over tuning_poses(, 24)
+N_CHAIN = 48               # the chained check: orbit 0..47 after 2 parked
 N_LARGE = 3                # large scene: parked + 2 orbit poses
 RASTERS_PER_FRAME = 5      # 4 cascades + the main pass
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, FP32 non-tensor.
@@ -746,25 +764,113 @@ def phase_default(dev, gltf, scene, params):
     return counts, srun, drun
 
 
-def autotune_shipped(dev, scene, params, **flags):
+def autotune_shipped(dev, scene, poses, **flags):
     """bench.py's configuration before tuning (GltfConfig() with committed
     mode and synthesized maps, and `flags`) and after: the raster
-    capacities, then the sparse ones, each step called directly so that a
-    failure raises. A perf mode is tuned on its own from the base, as
-    bench.py:203-212 re-tunes half-res shadows. Returns (raster-tuned
-    config, tuned config, occupancy, seconds)."""
-    from funky_tpu_torch import frame
+    capacities, then the sparse ones over `poses` (frame.tuning_poses:
+    bench_poses(params, N_TUNE) and bench.py's motion run), each step
+    called directly so that a failure raises. A perf mode is tuned on its
+    own from the base, as bench.py:203-212 re-tunes half-res shadows.
+    Returns (raster-tuned config, tuned config, occupancy, seconds)."""
     from funky_tpu_torch.utils import autotune
 
     base = default_config(**{"committed": True, "synth_shadow_maps": True,
                              **flags})
-    poses = frame.bench_poses(params, N_TUNE)
     sync(dev)
     t0 = time.perf_counter()
     raster_cfg = autotune.tune_raster_capacities(scene, poses, base)
     cfg, occ = autotune.tune_sparse_capacities(scene, poses, raster_cfg)
     sync(dev)
     return raster_cfg, cfg, occ, time.perf_counter() - t0
+
+
+def conded_config(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, flags=dataclasses.replace(
+        cfg.flags, committed=False))
+
+
+def chained_trajectory(params):
+    """N_PARKED parked frames, then bench.py's motion run over N_CHAIN
+    poses: orbit_params(params, i) for i < N_CHAIN, twice the motion run
+    the autotune reads, so half its poses are ones it never saw."""
+    from funky_tpu_torch import frame
+
+    return [params] * N_PARKED + frame.motion_poses(params, N_CHAIN)
+
+
+def check_trajectory(dev, scene, traj, cfg, label) -> None:
+    """The tuned committed config and the same config cond'd over the
+    chained poses `traj`: before each frame the occupancy poll against the
+    state the committed frame carries (diagnostics.probe_occupancy, which
+    counts the pairs of the band blocks a committed frame drops), whose
+    capacity_overflows must name nothing but band_block_capacity, and
+    after it committed == cond'd in tri_id, depth, rgba and history, bit
+    for bit, with no condition."""
+    import torch
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils import autotune, diagnostics
+
+    conded = conded_config(cfg)
+    sc = frame.init_frame_state(cfg, dev)
+    sd = frame.init_frame_state(cfg, dev)
+    polls, bad_over, bad_eq = [], [], []
+    t0 = time.perf_counter()
+    for i, p in enumerate(traj):
+        occ = diagnostics.probe_occupancy(scene, p, sc, cfg)
+        over = autotune.capacity_overflows(cfg, occ)
+        polls.append(occ)
+        if set(over) - {"band_block_capacity"}:
+            bad_over.append((i, over))
+        rgba_c, sc, tri_c = frame.render_gltf_frame_ids(scene, p, sc, cfg)
+        rgba_d, sd, tri_d = frame.render_gltf_frame_ids(scene, p, sd, conded)
+        for name, a, b in (("tri_id", tri_c, tri_d),
+                           ("depth", sc.prev_depth, sd.prev_depth),
+                           ("rgba", rgba_c, rgba_d),
+                           ("history", sc.shadow_history, sd.shadow_history)):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                bad_eq.append((i, name))
+    sync(dev)
+    band = sum(1 for o in polls if o["band_blocks"] > o["band_bcap"])
+
+    def peak(key):
+        return max(max(np.atleast_1d(o[key])) for o in polls)
+
+    def use(key, cap):
+        return f"{peak(key)} (cap {cap})"
+
+    say(f"{label} ({len(traj)} frames, {time.perf_counter() - t0:.1f} s): "
+        f"capacity_overflows beyond band_block_capacity on "
+        f"{len(bad_over)} frames {bad_over[:6]}; the band budget exceeded "
+        f"on {band}; committed vs cond'd "
+        f"{bad_eq[:8] or 'all frames bit for bit'}; peaks: pairs "
+        f"{use('pairs', cfg.shadow_pen_capacity)}, full-group pairs per "
+        f"cascade {tuple(max(o['pairs_per_cascade'][c] for o in polls) for c in range(4))}"
+        f" (caps {cfg.shadow_pen_cascade_caps}), taa_need "
+        f"{use('taa_need', cfg.taa_need_capacity)}, contact_stage2 "
+        f"{use('contact_stage2', cfg.contact_capacity)}, contact_march "
+        f"{use('contact_march', cfg.contact_march_capacity)}, light fetches "
+        f"{tuple(max(o['light_fetch_per_cascade'][c] for o in polls) for c in range(4))}"
+        f" (caps {cfg.light_fetch_caps}), synth window overflows "
+        f"{sum(o.get('synth_window_overflow', 0) for o in polls)}")
+    check(not bad_over, f"{label}: capacity overflows {bad_over[:6]}")
+    check(not bad_eq, f"{label}: committed != cond'd {bad_eq[:8]}")
+
+
+def check_tuned_and_chained(dev, scene, params, cfg, label) -> None:
+    """check_trajectory over the tuned poses as the autotune renders them
+    (the first pose twice, then each pose once), then over
+    chained_trajectory."""
+    from funky_tpu_torch import frame
+
+    check_trajectory(dev, scene,
+                     [params] + frame.tuning_poses(params, N_TUNE), cfg,
+                     f"{label}, tuned poses")
+    check_trajectory(dev, scene, chained_trajectory(params), cfg,
+                     f"{label}, chained trajectory ({N_PARKED} parked + "
+                     f"orbit 0..{N_CHAIN - 1})")
 
 
 def check_rasters_bitwise(calls, label) -> float:
@@ -822,15 +928,20 @@ def phase_shipped(dev, gltf, scene, params):
     import dataclasses
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.utils import autotune, diagnostics
+    from funky_tpu_torch.utils import autotune
 
     label = "shipped path (multimesh)"
-    raster_cfg, cfg, occ, tune_s = autotune_shipped(dev, scene, params)
+    *_, pose_tune_s = autotune_shipped(dev, scene,
+                                       frame.bench_poses(params, N_TUNE))
+    raster_cfg, cfg, occ, tune_s = autotune_shipped(
+        dev, scene, frame.tuning_poses(params, N_TUNE))
     base = default_config(committed=True, synth_shadow_maps=True)
     tuned = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
              if getattr(cfg, f.name) != getattr(base, f.name)}
-    say(f"{label}: autotune over bench_poses(params, {N_TUNE}) took "
-        f"{tune_s:.3f} s [{_GPU}]")
+    say(f"{label}: autotune over bench_poses(params, {N_TUNE}) alone took "
+        f"{pose_tune_s:.3f} s, over tuning_poses(params, {N_TUNE}) (those "
+        f"and bench.py's motion run of {N_TUNE} poses) {tune_s:.3f} s "
+        f"[{_GPU}]")
     say(f"{label}: tuned config (fields changed from the base): {tuned}")
     say(f"{label}: occupancy {occ}")
     # derive_sparse_config folds the light-fetch entries into the tap caps
@@ -884,26 +995,16 @@ def phase_shipped(dev, gltf, scene, params):
     for line, n in collections.Counter(reported).items():
         say(f"  {n} x {line}")
 
-    conded = dataclasses.replace(cfg, flags=dataclasses.replace(
-        cfg.flags, committed=False))
-    # The tuned poses as the autotuner renders them: the first pose twice,
-    # then each other pose once.
-    tuned_poses = [params] + frame.bench_poses(params, N_TUNE)
-    for name, ps, poll in (
-            ("tuned poses", tuned_poses, occ),
-            ("frame poses", poses, diagnostics.measure_sparse_occupancy(
-                scene, poses, cfg, frames=1))):
-        crun_p = crun if ps is poses else run_frames(scene, ps, cfg, dev)
-        reset_counts()
-        drun = run_frames(scene, ps, conded, dev)
-        say_branches(f"{label}, cond'd, {name}")
-        over = autotune.capacity_overflows(cfg, poll)
-        diffs = frames_diff(crun_p, drun)
-        say(f"{label}, {name}: capacity_overflows {over}; committed vs "
-            f"cond'd: {diffs or 'all frames bit for bit'}")
-        if set(over) <= {"band_block_capacity"}:
-            check(not diffs, f"{label}, {name}: committed != cond'd with no "
-                  f"capacity overflow")
+    reset_counts()
+    drun = run_frames(scene, poses, conded_config(cfg), dev)
+    say_branches(f"{label}, cond'd, frame poses")
+    diffs = frames_diff(crun, drun)
+    say(f"{label}, frame poses: committed vs cond'd: "
+        f"{diffs or 'all frames bit for bit'}")
+    check(not diffs, f"{label}, frame poses: committed != cond'd")
+    # the tuned and the chained poses, each frame polled (the chained
+    # trajectory starts with the frame poses)
+    check_tuned_and_chained(dev, scene, params, cfg, label)
     for name, run in (("committed", crun), ("cond'd", drun)):
         ev, wall = run["ms"], run["wall"]
         say(f"shipped frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh, "
@@ -1609,16 +1710,16 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     (committed): 8 chained committed frames eager (no host sync, K1 ==
     plain on every raster, K3 == the plain row gather, finite, shadow on
     the ground), the same poses cond'd, committed == cond'd on the tuned
-    poses when nothing but the band-block budget overflows, and the frames
-    through compiled_gltf_frame == the eager ones bit for bit in rgba and
-    every FrameState field, with the capture's launches the eager frame's.
+    and chained poses with each frame polled (check_tuned_and_chained),
+    and the frames through compiled_gltf_frame == the eager ones bit for
+    bit in rgba and every FrameState field, with the capture's launches
+    the eager frame's.
     Prints frame, replay and light-map times. Returns (launch counts of the
     eager committed run, K3 launches per frame)."""
     import dataclasses
     import functools
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.utils import autotune, diagnostics
 
     label = f"{name} path (multimesh)"
     scale = cfg.flags.effective_shadow_scale
@@ -1626,14 +1727,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
                              **PERF_MODES[name]})
     tuned = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
              if getattr(cfg, f.name) != getattr(base, f.name)}
-    # The tuned config polled on the tuned poses: its own light windows,
-    # which JAX's rule may drop for want of fetches (ROADMAP queue 3).
-    tuned_poses = [params] + frame.bench_poses(params, N_TUNE)
-    over = autotune.capacity_overflows(cfg, diagnostics.measure_sparse_occupancy(
-        scene, tuned_poses[1:], cfg, frames=1))
     say(f"{label}: shadow evaluated at 1/{scale} rate; autotune {tune_s:.3f}"
-        f" s; tuned config (fields changed from the base): {tuned}; "
-        f"capacity_overflows of the tuned config on the tuned poses {over} "
+        f" s; tuned config (fields changed from the base): {tuned} "
         f"[{_GPU}]")
     say(f"{label}: occupancy {occ}")
     windows = cfg.effective_light_windows() or (0, 0, 0, 0)
@@ -1666,19 +1761,14 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     check_gathers(crun, prun, label)
     check_image(crun, poses, cfg, dev, label)
 
-    conded = dataclasses.replace(cfg, flags=dataclasses.replace(
-        cfg.flags, committed=False))
+    conded = conded_config(cfg)
     drun = run_frames(scene, poses, conded, dev)
     say_branches(f"{label}, cond'd")
+    diffs = frames_diff(crun, drun)
     say(f"{label}, frame poses: committed vs cond'd: "
-        f"{frames_diff(crun, drun) or 'all frames bit for bit'}")
-    diffs = frames_diff(run_frames(scene, tuned_poses, cfg, dev),
-                        run_frames(scene, tuned_poses, conded, dev))
-    say(f"{label}, tuned poses: committed vs cond'd: "
         f"{diffs or 'all frames bit for bit'}")
-    if set(over) <= {"band_block_capacity"}:
-        check(not diffs, f"{label}: committed != cond'd on the tuned poses "
-              f"with no capacity overflow")
+    check(not diffs, f"{label}: committed != cond'd on the frame poses")
+    check_tuned_and_chained(dev, scene, params, cfg, label)
 
     fn = frame.compiled_gltf_frame(cfg)
     check(fn.uses_graph(dev), f"{label}: a committed config is not recorded")
@@ -1718,6 +1808,28 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
           f"{label}: timing")
 
     if cfg.flags.light_space_ground_shadows:
+        # The replay with only the windows JAX's rule keeps (a window with
+        # under 128 fetches dropped, and its light map with it), in turns
+        # with the tuned config's: the device time the kept windows' light
+        # maps add.
+        fetch = occ["light_fetch_per_cascade"]
+        jax_rule = dataclasses.replace(
+            cfg, light_window_sizes=tuple(
+                s if f >= 128 else 0
+                for s, f in zip(cfg.light_window_sizes, fetch)),
+            light_fetch_caps=tuple(
+                c if f >= 128 else 0
+                for c, f in zip(cfg.light_fetch_caps, fetch)))
+        jfn = frame.compiled_gltf_frame(jax_rule)
+        for run_name, f, c in (("JAX's windows", jfn, jax_rule),
+                               ("tuned windows", fn, cfg),
+                               ("JAX's windows", jfn, jax_rule),
+                               ("tuned windows", fn, cfg)):
+            r = gltf_frames(f, scene, poses, c, dev)
+            say(f"{name} frame replay with {run_name} "
+                f"{c.effective_light_windows()}: host clock median "
+                f"{statistics.median(r['wall'][1:]):.3f} ms, CUDA events "
+                f"median {statistics.median(r['ms'][1:]):.3f} ms [{_GPU}]")
         state = frame.init_frame_state(cfg, dev)
         _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
         maps = time_light_maps(record_light_maps(
@@ -1940,6 +2052,109 @@ def slab_stage_ms(scene, params, state, cfg):
     return ms["front"], [ms[r] for r in range(SHARD_SLABS)]
 
 
+def sharded_graph(dev, scene, params, mesh, name, flags):
+    """The committed sharded frame on `mesh` (one NCCL rank) as a CUDA
+    graph, for `flags` plus committed mode at the sharded scale: N_PARKED
+    + N_ORBIT chained frames through the graph == the eager sharded frames
+    == render_gltf_frame in rgba and every FrameState field, bit for bit;
+    the gathers of the first call (the warm-up's and the capture's, none
+    on a replay) and K1 and K3 at capture as the eager frame launches
+    them; every raster of the eager frames == the plain raster, and the
+    eager frames with the plain row gather == the K3 frames; eager and
+    replay timed in turns, and the device busy of one replay. Returns
+    (launch counts of the eager and graph runs, K3 launches per eager
+    frame)."""
+    import functools
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.parallel import sharded_gltf_frame
+    from tests.torch_sharded_worker import counted_gathers
+
+    cfg = sharded_config(committed=True, **flags)
+    label = f"sharded committed {name} {WIDTH}x{SHARD_HEIGHT}"
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    names = ("rgba",) + frame.FrameState._fields
+    fn = sharded_gltf_frame(mesh, cfg)
+    check(fn.uses_graph(dev), f"{label}: the committed config is not "
+          f"recorded on the NCCL group")
+    reset_counts()
+    box = {}
+    rasters = record_raster_calls(lambda: box.update(
+        run=gltf_frames(fn.eager, scene, poses, cfg, dev)))
+    erun = box["run"]
+    e_counts = read_counts()
+    reset_counts()
+    with counted_gathers() as calls:
+        grun = gltf_frames(fn, scene, poses, cfg, dev)
+    g_counts = read_counts()
+    g = fn.last
+    # the script's references, after the counts are read: every raster of
+    # the eager frames against the plain raster, and the eager frames
+    # again with the plain row gather (the graph equals the eager frames,
+    # so its kernels are held to both too)
+    check(len(rasters) == e_counts["raster_table"],
+          f"{label}: {len(rasters)} rasters recorded, K1 launched "
+          f"{e_counts['raster_table']} times")
+    check_rasters_bitwise(rasters, label)
+    reset_counts()
+    with plain_gathers():
+        prun = gltf_frames(fn.eager, scene, poses, cfg, dev)
+    check(read_counts()["row_gather"] == 0,
+          f"{label}: the plain-gather run launched K3")
+    ref = gltf_frames(functools.partial(frame.render_gltf_frame, cfg=cfg),
+                      scene, poses, cfg, dev)
+    for i, (fe, fp) in enumerate(zip(erun["frames"], prun["frames"])):
+        for field, a, b in zip(names, fe, fp):
+            check(bits_equal(a, b), f"{label}: frame {i} {field}: K3 vs "
+                  f"plain row gather differ")
+    for i, (fe, fg, fr) in enumerate(zip(erun["frames"], grun["frames"],
+                                         ref["frames"])):
+        for field, a, b, c in zip(names, fe, fg, fr):
+            check(bits_equal(a, b), f"{label}: frame {i} {field}: the graph "
+                  f"differs from the eager sharded frame")
+            check(bits_equal(a, c), f"{label}: frame {i} {field}: the eager "
+                  f"sharded frame differs from render_gltf_frame")
+    per_frame = {k: v // len(poses) for k, v in e_counts.items()}
+    check(all(v % len(poses) == 0 for v in e_counts.values())
+          and g.launches == per_frame and per_frame["raster_table"] > 0
+          and per_frame["row_gather"] > 0,
+          f"{label}: capture launches {g.launches}, eager per frame "
+          f"{e_counts} over {len(poses)} frames")
+    check(g_counts == {k: 2 * v for k, v in g.launches.items()},
+          f"{label}: the graph run launched {g_counts}, expected the "
+          f"warm-up's and the capture's {g.launches} each")
+    check(len(calls) == 2 * 3 and g.replays == len(poses),
+          f"{label}: {len(calls)} gathers in the graph run (expected 3 at "
+          f"the warm-up and 3 at the capture), {g.replays} replays")
+    say(f"{label}: every raster of the eager frames == the plain raster "
+        f"({len(rasters)} rasters); the eager frames with the plain row "
+        f"gather == the K3 frames, rgba and every FrameState field")
+    say(f"{label}: {len(poses)} chained frames through the CUDA graph == "
+        f"the eager sharded frames == render_gltf_frame, rgba and all "
+        f"{len(names) - 1} FrameState fields bit for bit; 3 gathers per "
+        f"frame recorded at capture ({[c[0] for c in calls[3:]]}), none on "
+        f"{g.replays} replays; launches at capture {g.launches} == the "
+        f"eager frame's")
+    runs = [("eager", erun), ("graph", grun),
+            ("eager", gltf_frames(fn.eager, scene, poses, cfg, dev)),
+            ("graph", gltf_frames(fn, scene, poses, cfg, dev))]
+    for run_name, run in runs:
+        say(f"{label} ({run_name}): host clock median "
+            f"{statistics.median(run['wall'][1:]):.3f} ms, CUDA events "
+            f"median {statistics.median(run['ms'][1:]):.3f} ms over "
+            f"{len(poses) - 1} frames after the first; per frame "
+            f"{[round(x, 3) for x in run['wall']]} ms; peak device memory "
+            f"{run['peak_gib']:.2f} GiB allocated, {run['reserved_gib']:.2f} "
+            f"GiB reserved [{_GPU}]")
+    state = frame.init_frame_state(cfg, dev)
+    _, state = fn(scene, poses[0], state)
+    busy = device_busy_ms(lambda: fn(scene, poses[-1], state))
+    say(f"{label}: one replay keeps the device busy {busy:.3f} ms (torch."
+        f"profiler, kernels and copies) [{_GPU}]")
+    counts = {k: e_counts[k] + g_counts[k] for k in e_counts}
+    return counts, [per_frame["row_gather"]] * len(poses)
+
+
 def phase_sharded(dev, scene, params):
     """The row-sharded frame (funky_tpu_torch/parallel) at 1920x1088 with
     4 x 2048^2 cascades, for GltfConfig()'s flags (3 chained frames: 1
@@ -1961,7 +2176,7 @@ def phase_sharded(dev, scene, params):
 
     from funky_tpu_torch import frame
     from funky_tpu_torch.parallel import make_mesh, sharded_gltf_frame
-    from tests.torch_sharded_worker import CASES, compose_frame, poses
+    from tests.torch_sharded_worker import CASES, TRIO, compose_frame, poses
 
     n = SHARD_SLABS
     k1_total, k3_runs = 0, {}
@@ -1972,7 +2187,8 @@ def phase_sharded(dev, scene, params):
             timeout=datetime.timedelta(seconds=120))
         try:
             mesh = make_mesh(1, device=dev.type)
-            for name, (flags, n_frames) in CASES.items():
+            for name in ("default", "trio"):
+                flags, n_frames = CASES[name]
                 cfg = sharded_config(**flags)
                 label = f"sharded {name} {WIDTH}x{SHARD_HEIGHT}"
                 pose_list = poses(params, n_frames)
@@ -2083,6 +2299,14 @@ def phase_sharded(dev, scene, params):
                     f"{front_ms:.4f} (computed whole on every rank), each "
                     f"slab's stages {[round(x, 4) for x in rank_ms]} "
                     f"[{_GPU}]")
+            for name, flags in (("shipped", {"synth_shadow_maps": True}),
+                                ("trio", TRIO)):
+                counts, k3 = sharded_graph(dev, scene, params, mesh, name,
+                                           flags)
+                k1_total += counts["raster_table"]
+                k3_runs[f"sharded_committed_{name}"] = k3
+                k3_runs[f"sharded_committed_{name}_graph"] = [
+                    counts["row_gather"] - sum(k3)]
         finally:
             dist.destroy_process_group()
     return k1_total, k3_runs
@@ -2135,9 +2359,12 @@ def main() -> None:
                     "shipped": k3_shipped, "large": k3_large}
     cube_counts, _, _ = phase_cube(dev)
     comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
+    from funky_tpu_torch import frame
+
     perf_counts = {}
     for name, flags in PERF_MODES.items():
-        _, cfg, occ, tune_s = autotune_shipped(dev, scene, params, **flags)
+        _, cfg, occ, tune_s = autotune_shipped(
+            dev, scene, frame.tuning_poses(params, N_TUNE), **flags)
         perf_counts[name], k3_per_frame[name] = phase_perf_mode(
             dev, scene, params, name, cfg, occ, tune_s)
     phase_sdf(dev)

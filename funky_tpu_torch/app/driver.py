@@ -94,10 +94,13 @@ class FrameDriver:
             self.device_scene = build_device_scene(gltf, device=self.device)
 
         if autotune:
+            from ..frame import tuning_poses
             from ..utils.autotune import autotune_config
 
-            self.cfg = cfg = autotune_config(self.device_scene,
-                                             self._params(), cfg)
+            # the start-up view, then bench.py's orbit poses and motion
+            # run (an orbit from the default camera, frame.orbit_params)
+            self.cfg = cfg = autotune_config(
+                self.device_scene, tuning_poses(self._params()), cfg)
 
         self._frame_fn = compiled_gltf_frame(cfg)
         self.state: FrameState = init_frame_state(cfg, self.device)
@@ -199,25 +202,28 @@ class FrameDriver:
         current view's occupancy and re-derive the sparse capacities after
         `retune_after` consecutive overflowing or slack checks.
 
-        The probe is the reference's: utils/diagnostics.sparse_occupancy on
-        this view with the config's own light windows. It measures no
-        candidate windows, so the re-derived config keeps the config's
-        light_window_sizes, which leaves a synth_window_fit overflow in
-        place (autotune.py:276), and it adopts no route, which also turns
-        off the radius-only split (autotune.py:112). Both are the
-        reference's behaviour, kept on purpose (tests/test_torch_app.py)."""
+        The probe (utils/diagnostics.probe_occupancy) reads this view
+        against the state the frame carries, split against the config's
+        own windows, and also measures the view's candidate windows: a
+        retune after a synth_window_fit overflow widens the outgrown
+        window, and a retune keeps an adopted route, and with it the
+        radius-only split, while the view still supports them. The
+        reference's probe measures no window, so it re-derives the same
+        windows and drops the routes (autotune.py:276, :112). An
+        overflow of the blend band's block budget alone does not count:
+        the budget is the frame's domain's, no config field a re-derive
+        could change, and the pixels of the band blocks a committed frame
+        drops take the exact taps, counted in the probe's pair counts, so
+        that a pair cap they overflow is named as that cap."""
         from ..utils.autotune import (capacity_overflows, capacity_slack,
                                       derive_sparse_config)
-        from ..utils.diagnostics import sparse_occupancy
+        from ..utils.diagnostics import probe_occupancy
 
         try:
-            stats = sparse_occupancy(self.device_scene, params, self.state,
-                                     self.cfg,
-                                     self.cfg.effective_light_windows())
-            occ = {k: (int(v) if np.asarray(v.cpu()).size == 1
-                       else tuple(int(x) for x in np.asarray(v.cpu()).ravel()))
-                   for k, v in stats.items()}
-            over = capacity_overflows(self.cfg, occ)
+            occ = probe_occupancy(self.device_scene, params, self.state,
+                                  self.cfg)
+            over = [name for name in capacity_overflows(self.cfg, occ)
+                    if name != "band_block_capacity"]
             slack = [] if over else capacity_slack(self.cfg, occ)
             self.last_occupancy = occ
         except Exception as e:  # diagnostics must never kill the loop

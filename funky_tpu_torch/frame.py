@@ -304,6 +304,20 @@ def bench_poses(params: GltfParams, n: int) -> list:
             orbit_params(params, 2 * n // 3), orbit_params(params, n - 1)]
 
 
+def motion_poses(params: GltfParams, n: int) -> list:
+    """bench.py's motion run (bench.py:159-168): orbit_params(params, i)
+    for i < n, chained in order."""
+    return [orbit_params(params, i) for i in range(n)]
+
+
+def tuning_poses(params: GltfParams, n: int = 24) -> list:
+    """The poses the port's autotune reads: bench_poses, then the motion
+    run of n poses in order, so that utils/diagnostics.
+    measure_sparse_occupancy reads each motion pose against its
+    predecessor's state, the regime of a chained motion frame."""
+    return bench_poses(params, n) + motion_poses(params, n)
+
+
 class FrameState(NamedTuple):
     """Carried temporal state (frame.py:450-458)."""
     shadow_history: torch.Tensor  # (H, W, 2): shadow, ndcDepth
@@ -384,13 +398,33 @@ def shade_slab(scene: DeviceScene, uni, state: FrameState, shadow_maps,
     args = (scene, uni, state, shadow_maps, tri_id, depth, setup_data,
             blocks, cfg, y0, class_maps, tri_flags)
     maps = (light_maps, tap_routes)
+    kind, size, _ = back_half(cfg, h, w)
+    if kind == "rows":
+        return _shade_slab_rows(*args, size, *maps)
+    if kind == "blocks":
+        return _shade_slab_blocked(*args, size, *maps)
+    return _shade_slab_dense(*args, *maps)
+
+
+def back_half(cfg: GltfConfig, h: int, w: int) -> tuple:
+    """(kind, size, n) of the back half shade_slab runs on an (h, w) slab:
+    "rows" with the slab's row count, "blocks" with the block budget (a
+    flat domain, on which TAA has no aligned fast path), or "dense"
+    (size None); n is the element count of the domain the shadow filter
+    classifies on, at the shadow rate. utils/diagnostics.py polls with
+    the same domain."""
+    scale = cfg.flags.effective_shadow_scale
+
+    def at_rate(rows: int, cols: int) -> int:
+        return -(-rows // scale) * -(-cols // scale)
+
     srows = cfg.effective_slab_rows(h)
     if srows is not None:
-        return _shade_slab_rows(*args, srows, *maps)
+        return "rows", srows, at_rate(srows, w)
     bcap = cfg.effective_valid_blocks(h, w)
-    if bcap is not None and cfg.flags.effective_shadow_scale == 1:
-        return _shade_slab_blocked(*args, bcap, *maps)
-    return _shade_slab_dense(*args, *maps)
+    if bcap is not None and scale == 1:
+        return "blocks", bcap, bcap * 64
+    return "dense", None, at_rate(h, w)
 
 
 def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
@@ -501,6 +535,26 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
     return rgba, new_history
 
 
+def slab_start(covered: torch.Tensor, cfg: GltfConfig, slab_h: int):
+    """(y0, span) of the row slab on an (h, w) coverage mask, as 0-d
+    device tensors: the first covered row rounded down to a multiple of 8
+    (less 8 rows of margin with shadow_eval_scale > 1), clamped so that
+    the slab fits, and the covered span from there. utils/diagnostics.py
+    polls on the same slab."""
+    h = covered.shape[0]
+    row_any = covered.any(dim=1)
+    any_valid = row_any.any()
+    row_any = row_any.to(torch.uint8)
+    y_lo = torch.argmax(row_any).to(torch.int32)
+    y_hi = (h - torch.argmax(row_any.flip(0))).to(torch.int32)
+    pad = 8 if cfg.flags.effective_shadow_scale > 1 else 0
+    y0d = torch.clamp(torch.where(
+        any_valid, (torch.clamp(y_lo - pad, min=0) // 8) * 8, 0), 0,
+        h - slab_h)
+    span = torch.where(any_valid, torch.clamp(y_hi + pad, max=h) - y0d, 0)
+    return y0d, span
+
+
 def _shade_slab_rows(scene: DeviceScene, uni, state: FrameState,
                      shadow_maps, tri_id, depth, setup_data, blocks,
                      cfg: GltfConfig, y0, class_maps, tri_flags,
@@ -515,16 +569,7 @@ def _shade_slab_rows(scene: DeviceScene, uni, state: FrameState,
     the full-height dense path (one host branch), or in committed mode
     leaves the rows past the slab unshaded, as in JAX."""
     h, w = tri_id.shape
-    row_any = (tri_id >= 0).any(dim=1)
-    any_valid = row_any.any()
-    row_any = row_any.to(torch.uint8)
-    y_lo = torch.argmax(row_any).to(torch.int32)
-    y_hi = (h - torch.argmax(row_any.flip(0))).to(torch.int32)
-    pad = 8 if cfg.flags.effective_shadow_scale > 1 else 0
-    y0d = torch.clamp(torch.where(
-        any_valid, (torch.clamp(y_lo - pad, min=0) // 8) * 8, 0), 0,
-        h - slab_h)
-    span = torch.where(any_valid, torch.clamp(y_hi + pad, max=h) - y0d, 0)
+    y0d, span = slab_start(tri_id >= 0, cfg, slab_h)
     maps = (light_maps, tap_routes)
     if not (cfg.flags.committed or host_cond(
             span <= slab_h, "valid_slab_rows", [(span, slab_h)])):
@@ -846,12 +891,9 @@ class _CompiledCube(CompiledFrame):
 
 
 class _CompiledGltf(CompiledFrame):
-    def __init__(self, cfg: GltfConfig):
-        # A committed frame takes no host branch (host_cond) and reads no
-        # device value on the host: it can be recorded whole. The cond'd
-        # and default frames branch on the host 5-7 times per frame.
-        super().__init__(functools.partial(render_gltf_frame, cfg=cfg),
-                         cfg.flags.committed)
+    """eager(scene, params, state) -> (rgba, new_state) as a CompiledFrame:
+    render_gltf_frame here, the rank's frame of a row-sharded mesh in
+    parallel/sharded_frame.py."""
 
     def __call__(self, scene: DeviceScene, params: GltfParams,
                  state: FrameState):
@@ -897,5 +939,9 @@ def compiled_gltf_frame(cfg: GltfConfig) -> CompiledFrame:
     the state updated in place; any other config runs eagerly."""
     key = ("gltf", cfg)
     if key not in _CACHE:
-        _CACHE[key] = _CompiledGltf(cfg)
+        # A committed frame takes no host branch (host_cond) and reads no
+        # device value on the host: it can be recorded whole. The cond'd
+        # and default frames branch on the host 5-7 times per frame.
+        _CACHE[key] = _CompiledGltf(
+            functools.partial(render_gltf_frame, cfg=cfg), cfg.flags.committed)
     return _CACHE[key]

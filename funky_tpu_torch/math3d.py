@@ -62,6 +62,16 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """math3d.py:40-41."""
+    return torch.linalg.cross(a, b)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (math3d.py:44-45)."""
+    return (a * b).sum(dim=-1)
+
+
 def look_at_rh(eye, center, up) -> torch.Tensor:
     """glam `Mat4::look_at_rh` (math3d.py:48-65)."""
     f = normalize(center - eye)
@@ -118,6 +128,11 @@ def orthographic_rh(left, right, bottom, top, near, far) -> torch.Tensor:
     ])
 
 
+def quat_identity(device="cuda") -> torch.Tensor:
+    """(0, 0, 0, 1) (math3d.py:127-128)."""
+    return const([0.0, 0.0, 0.0, 1.0], F32, device)
+
+
 def quat_from_rotation_x(angle: torch.Tensor) -> torch.Tensor:
     """(x, y, z, w) quaternion (math3d.py:131-133)."""
     h = angle * 0.5
@@ -130,6 +145,34 @@ def quat_from_rotation_y(angle: torch.Tensor) -> torch.Tensor:
     h = angle * 0.5
     z = torch.zeros_like(h)
     return torch.stack([z, torch.sin(h), z, torch.cos(h)])
+
+
+def quat_from_rotation_z(angle: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) quaternion (math3d.py:141-143)."""
+    h = angle * 0.5
+    z = torch.zeros_like(h)
+    return torch.stack([z, z, torch.sin(h), torch.cos(h)])
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a * b, rotation b applied first (math3d.py:146-155,
+    glam `Quat::mul`)."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], dim=-1)
+
+
+def quat_from_euler_yxz(y: torch.Tensor, x: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
+    """glam `Quat::from_euler(EulerRot::YXZ, y, x, z)`: intrinsic Y, then
+    X, then Z (math3d.py:158-165)."""
+    return quat_mul(quat_mul(quat_from_rotation_y(y), quat_from_rotation_x(x)),
+                    quat_from_rotation_z(z))
 
 
 def mat3_from_quat(q: torch.Tensor) -> torch.Tensor:
@@ -215,6 +258,11 @@ def transform_homogeneous(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.cat([p, ones], dim=-1) @ m.T
 
 
+def transform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A direction rotated by the upper-left 3x3 (math3d.py:232-236)."""
+    return v @ m[:3, :3].T
+
+
 def rigid_inverse(view: torch.Tensor) -> torch.Tensor:
     """[R^T | -R^T t] (math3d.py:239-247)."""
     r = view[:3, :3]
@@ -249,6 +297,61 @@ def perspective_inverse(proj: torch.Tensor) -> torch.Tensor:
 def view_proj_inverse(view, proj) -> torch.Tensor:
     """math3d.py:280-283."""
     return rigid_inverse(view) @ perspective_inverse(proj)
+
+
+def mat4_inverse(m: torch.Tensor) -> torch.Tensor:
+    """Analytic 4x4 inverse by cofactor expansion, glam's adjugate
+    construction (math3d.py:286-347): an LU inverse in f32 collapses the
+    tiny w of inverse-projected far-plane corners to 0."""
+    (a, b, c, d), (e, f, g, h), (i, j, k, l), (mm, n, o, p) = (
+        tuple(m[r, col] for col in range(4)) for r in range(4))
+    kp_lo = k * p - l * o
+    jp_ln = j * p - l * n
+    jo_kn = j * o - k * n
+    ip_lm = i * p - l * mm
+    io_km = i * o - k * mm
+    in_jm = i * n - j * mm
+    gp_ho = g * p - h * o
+    fp_hn = f * p - h * n
+    fo_gn = f * o - g * n
+    ep_hm = e * p - h * mm
+    eo_gm = e * o - g * mm
+    en_fm = e * n - f * mm
+    gl_hk = g * l - h * k
+    fl_hj = f * l - h * j
+    fk_gj = f * k - g * j
+    el_hi = e * l - h * i
+    ek_gi = e * k - g * i
+    ej_fi = e * j - f * i
+
+    c00 = f * kp_lo - g * jp_ln + h * jo_kn
+    c01 = -(e * kp_lo - g * ip_lm + h * io_km)
+    c02 = e * jp_ln - f * ip_lm + h * in_jm
+    c03 = -(e * jo_kn - f * io_km + g * in_jm)
+    inv_det = 1.0 / (a * c00 + b * c01 + c * c02 + d * c03)
+
+    c10 = -(b * kp_lo - c * jp_ln + d * jo_kn)
+    c11 = a * kp_lo - c * ip_lm + d * io_km
+    c12 = -(a * jp_ln - b * ip_lm + d * in_jm)
+    c13 = a * jo_kn - b * io_km + c * in_jm
+
+    c20 = b * gp_ho - c * fp_hn + d * fo_gn
+    c21 = -(a * gp_ho - c * ep_hm + d * eo_gm)
+    c22 = a * fp_hn - b * ep_hm + d * en_fm
+    c23 = -(a * fo_gn - b * eo_gm + c * en_fm)
+
+    c30 = -(b * gl_hk - c * fl_hj + d * fk_gj)
+    c31 = a * gl_hk - c * el_hi + d * ek_gi
+    c32 = -(a * fl_hj - b * el_hi + d * ej_fi)
+    c33 = a * fk_gj - b * ek_gi + c * ej_fi
+
+    adj = torch.stack([
+        torch.stack([c00, c10, c20, c30]),
+        torch.stack([c01, c11, c21, c31]),
+        torch.stack([c02, c12, c22, c32]),
+        torch.stack([c03, c13, c23, c33]),
+    ])
+    return adj * inv_det
 
 
 def camera_front(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:

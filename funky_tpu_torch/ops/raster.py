@@ -97,16 +97,28 @@ def raster_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor | None,
                                           sh, cfg.tile_h, cfg.tile_w,
                                           y_offset)
         return tri_id, depth, setup
-    bin_data = gather_bin_data(setup, bins)
-    if kernel:
+    tri_id, depth = rasterize(gather_bin_data(setup, bins), bins, counts,
+                              width, sh, cfg, y_offset)
+    return tri_id, depth, setup
+
+
+def rasterize(bin_data: torch.Tensor, bins: torch.Tensor,
+              counts: torch.Tensor, width: int, height: int,
+              cfg: RasterConfig, y_offset: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rasterize binned triangles from pre-gathered rows (raster.py:62-88):
+    bin_data (n_tiles, C, 16) from binning.gather_bin_data, bins (n_tiles,
+    C) ids with -1 padding, counts (n_tiles,) real entries, for the
+    `height`-row slab at global row y_offset of a `width`-wide frame.
+    Returns tri_id (H, W) int32 (-1 empty) and depth (H, W) f32 (1.0
+    empty). K2 where use_kernel picks the kernel, else the plain twin."""
+    if use_kernel(cfg, bin_data.device):
         from .raster_cuda import raster_padded_cuda
 
-        tri_id, depth = raster_padded_cuda(bin_data, counts, width, sh,
-                                           cfg.tile_h, cfg.tile_w, y_offset)
-    else:
-        tri_id, depth = _rasterize_torch(bin_data, bins, counts, y_offset,
-                                         width, sh, cfg)
-    return tri_id, depth, setup
+        return raster_padded_cuda(bin_data, counts, width, height,
+                                  cfg.tile_h, cfg.tile_w, y_offset)
+    return _rasterize_torch(bin_data, bins, counts, y_offset, width, height,
+                            cfg)
 
 
 def _rasterize_torch(bin_data: torch.Tensor, bins: torch.Tensor,

@@ -147,6 +147,100 @@ def sample_bilinear_edge(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return top * (1 - fy) + bot * fy
 
 
+def _bilinear(t00, t10, t01, t11, fy, fx):
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def sample_bilinear_repeat(tex: torch.Tensor, uv: torch.Tensor
+                           ) -> torch.Tensor:
+    """LINEAR + REPEAT of an (H, W, C) texture (sampling.py:71-90)."""
+    h, w = tex.shape[0], tex.shape[1]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    # jnp.mod of int32 takes the divisor's sign, as torch.remainder does
+    ix0 = torch.remainder(to_i32(x0), w)
+    iy0 = torch.remainder(to_i32(y0), h)
+    ix1 = torch.remainder(ix0 + 1, w)
+    iy1 = torch.remainder(iy0 + 1, h)
+    return _bilinear(_gather2d(tex, iy0, ix0), _gather2d(tex, iy0, ix1),
+                     _gather2d(tex, iy1, ix0), _gather2d(tex, iy1, ix1),
+                     fy, fx)
+
+
+def _compare_taps(read, shape_hw, uv, ref_depth):
+    """Hardware 2x2 PCF: each clamped tap read(iy, ix) compared LESS_OR_EQUAL
+    with ref_depth, a tap outside the map against the white border."""
+    cy0, cx0, cy1, cx1, fy, fx, inside = _bilinear_clamped_taps(shape_hw, uv)
+
+    def tap(iy, ix, inb):
+        d = torch.where(inb, read(iy, ix), 1.0)
+        return (ref_depth <= d).to(torch.float32)
+
+    return _bilinear(tap(cy0, cx0, inside[0]), tap(cy0, cx1, inside[1]),
+                     tap(cy1, cx0, inside[2]), tap(cy1, cx1, inside[3]),
+                     fy, fx)
+
+
+def _border_taps(read, shape_hw, uv, border):
+    """LINEAR + CLAMP_TO_BORDER from tap reads read(iy, ix)."""
+    cy0, cx0, cy1, cx1, fy, fx, inside = _bilinear_clamped_taps(shape_hw, uv)
+
+    def tap(iy, ix, inb):
+        return torch.where(inb, read(iy, ix), border)
+
+    return _bilinear(tap(cy0, cx0, inside[0]), tap(cy0, cx1, inside[1]),
+                     tap(cy1, cx0, inside[2]), tap(cy1, cx1, inside[3]),
+                     fy, fx)
+
+
+def sample_shadow_compare(shadow_map: torch.Tensor, uv: torch.Tensor,
+                          ref_depth: torch.Tensor) -> torch.Tensor:
+    """sampler2DArrayShadow tap of one (S, S) cascade: hardware 2x2 PCF,
+    compare LESS_OR_EQUAL, border white (sampling.py:120-147). Returns
+    (...,) visibility in [0, 1]."""
+    return _compare_taps(lambda iy, ix: _gather2d(shadow_map, iy, ix),
+                         shadow_map.shape, uv, ref_depth)
+
+
+def sample_bilinear_border(img: torch.Tensor, uv: torch.Tensor,
+                           border: float = 1.0) -> torch.Tensor:
+    """LINEAR + CLAMP_TO_BORDER of an (H, W) image (sampling.py:150-165)."""
+    return _border_taps(lambda iy, ix: _gather2d(img, iy, ix),
+                        img.shape[:2], uv, border)
+
+
+def _gather_layered(maps: torch.Tensor, layer: torch.Tensor,
+                    iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+    """maps (L, H, W) read at a per-element layer (sampling.py:519-524)."""
+    _, h, w = maps.shape
+    return take_rows(maps.reshape(-1), (layer * h + iy) * w + ix)
+
+
+def sample_shadow_compare_array(maps: torch.Tensor, layer: torch.Tensor,
+                                uv: torch.Tensor,
+                                ref_depth: torch.Tensor) -> torch.Tensor:
+    """sampler2DArrayShadow over (L, S, S) maps with a per-element layer
+    (sampling.py:527-549)."""
+    return _compare_taps(
+        lambda iy, ix: _gather_layered(maps, layer, iy, ix),
+        maps.shape[1:], uv, ref_depth)
+
+
+def sample_bilinear_border_array(maps: torch.Tensor, layer: torch.Tensor,
+                                 uv: torch.Tensor,
+                                 border: float = 1.0) -> torch.Tensor:
+    """sampler2DArray raw depth, LINEAR + border (sampling.py:552-568)."""
+    return _border_taps(
+        lambda iy, ix: _gather_layered(maps, layer, iy, ix),
+        maps.shape[1:], uv, border)
+
+
 def quad_pack(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W) -> (..., H, W, 4) edge-clamped 2x2 neighbourhoods
     [d(y,x), d(y,x+1), d(y+1,x), d(y+1,x+1)] (sampling.py:192-199)."""
@@ -258,6 +352,20 @@ def sample_shadow_compare_packed(packed_maps: torch.Tensor,
     top = t00 * (1 - fx) + t10 * fx
     bot = t01 * (1 - fx) + t11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def sample_bilinear_border_packed(packed_maps: torch.Tensor,
+                                  layer: torch.Tensor, uv: torch.Tensor,
+                                  border: float = 1.0) -> torch.Tensor:
+    """Raw-depth LINEAR + CLAMP_TO_BORDER tap from quad-packed cascades
+    (L, S, S, 4): one gathered row per tap (sampling.py:312-329)."""
+    l, s = packed_maps.shape[0], packed_maps.shape[1]
+    cy, cx, fy, fx, inside, x_ok, y_ok = _quad_tap_setup((s, s), uv)
+    quad = take_rows(packed_maps.reshape(l * s * s, 4),
+                     (layer * s + cy) * s + cx)
+    corners = _quad_corners(quad, x_ok, y_ok)
+    return _bilinear(*(torch.where(inb, c, border)
+                       for c, inb in zip(corners, inside)), fy, fx)
 
 
 def sample_nearest_border_packed(packed_maps: torch.Tensor,

@@ -14,10 +14,17 @@ Every collective is `_gather_rows`, an all-gather along dim 0 over the
 mesh's group: 4 per frame on the raster path, 3 with synthesized maps
 (which are replicated math). The frame is the stage functions below with
 the gathers between them, and each rank calls it SPMD-style. A host
-branch that gates a collective (`synth_window_fit`) reads replicated
-values, so every rank takes it the same way; the capacity branches inside
-a rank's `shade_slab` gate no collective. JAX jits the sharded frame
-(:177-182); here it runs eagerly.
+branch that gates a collective (`synth_window_fit`, cond'd configs only)
+reads replicated values, so every rank takes it the same way; the
+capacity branches inside a rank's `shade_slab` gate no collective.
+
+JAX returns the sharded frame jitted (:177-182). Here, on the card with
+an NCCL group and a committed config (no host branch, no host read), the
+rank's whole frame, all-gathers included, is recorded as one CUDA graph
+per scene at its first call and replayed (frame.py's GraphFrame), the
+state donated and updated in place; every rank captures and replays in
+lockstep, since each replay issues the collectives. Every other case
+runs the stages eagerly.
 """
 
 from __future__ import annotations
@@ -28,8 +35,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..frame import (FrameState, GltfConfig, _light_maps, _main_raster_inputs,
-                     compute_frame_uniforms, shade_slab)
+from ..frame import (FrameState, GltfConfig, _CompiledGltf, _light_maps,
+                     _main_raster_inputs, compute_frame_uniforms, shade_slab)
 from ..models.scene import DeviceScene
 from ..ops.compact import host_cond
 from ..ops.raster import RasterConfig, raster_corners, raster_scene
@@ -87,15 +94,19 @@ def synthesizes(cfg: GltfConfig, front: Front) -> bool:
 def synth_cascades(scene: DeviceScene, front: Front,
                    cfg: GltfConfig) -> torch.Tensor:
     """The synthesized maps, or the replicated full raster when an occluder
-    outgrows its window (:93-100). This is JAX's lax.cond, taken in
-    committed mode too (unlike frame.py::_cascade_maps): `ok` is computed
-    from replicated inputs, so every rank branches alike."""
+    outgrows its window (:93-100): JAX's lax.cond, a host branch on `ok`,
+    which is computed from replicated inputs, so every rank branches
+    alike. Committed mode keeps the synthesized maps, as the single-device
+    frame does (frame.py::_cascade_maps, JAX's frame.py:943-953): the
+    occupancy poll's `synth_window_fit` reports an occluder that outgrows
+    its window. Where the window fit holds, the committed and cond'd
+    frames are equal (ROADMAP, deliberate divergences)."""
     maps, ok = shadow.synthesize_shadow_maps(
         scene, front.world_v, front.uni, cfg.shadow_map_size,
         cfg.effective_light_windows(), front.origins,
         RasterConfig(tile_h=128, tile_w=128,
                      backend=cfg.shadow_raster.backend))
-    if host_cond(ok, "synth_window_fit"):
+    if cfg.flags.committed or host_cond(ok, "synth_window_fit"):
         return maps
     return shadow.render_shadow_maps(
         front.world_v, scene.tri_indices, scene.num_triangles,
@@ -187,11 +198,25 @@ def sharded_gltf_frame(mesh: DeviceMesh, cfg: GltfConfig):
     rows mesh (sharded_frame.py:35-182). Every rank calls it with the same
     replicated inputs and gets the same replicated outputs. Requires
     cfg.height and cfg.shadow_map_size to split into tile-aligned slabs
-    (ValueError otherwise)."""
+    (ValueError otherwise).
+
+    The config decides, before any run, how fn runs (module docstring): on
+    the card with a committed config it is a CUDA graph, replayed, and
+    the FrameState returned is the graph's own buffers (the next call
+    overwrites them); a capture or a replay that fails raises. A graph
+    captures NCCL collectives only, so a committed config on a "cuda"
+    mesh over another backend raises ValueError. Otherwise the stages run
+    eagerly."""
     n = mesh.size()
     group = mesh.get_group(ROWS_AXIS)
     rank = mesh.get_local_rank(ROWS_AXIS)
     slab_h, sm_slab = slab_rows(cfg, n)
+    nccl = dist.get_backend(group) == "nccl"
+    if cfg.flags.committed and mesh.device_type == "cuda" and not nccl:
+        raise ValueError(
+            f"a committed sharded frame on the card is recorded as a CUDA "
+            f"graph, which needs an NCCL group, not "
+            f"{dist.get_backend(group)}")
 
     def frame(scene: DeviceScene, params, state: FrameState):
         front = replicated_front(scene, params, state, cfg)
@@ -210,4 +235,4 @@ def sharded_gltf_frame(mesh: DeviceMesh, cfg: GltfConfig):
         depth = _gather_rows(depth, group)
         return rgba, next_state(front, state, history, depth)
 
-    return frame
+    return _CompiledGltf(frame, cfg.flags.committed and nccl)

@@ -67,6 +67,16 @@ def _sum_taps(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def vogel_disk(i: int, count: int, phi: torch.Tensor):
+    """Tap i of a Vogel disk rotated by per-pixel phi (shadow_filter.py:
+    55-60, gltf.frag:107-112): (dx, dy) shaped like phi."""
+    fi = const(float(i), torch.float32, phi.device)
+    r = torch.sqrt(fi + 0.5) / torch.sqrt(const(float(count), torch.float32,
+                                                phi.device))
+    theta = fi * GOLDEN_ANGLE + phi
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
 def vogel_disk_all(count: int, phi: torch.Tensor):
     """All `count` Vogel taps: (dx, dy) shaped (count, *phi.shape)
     (shadow_filter.py:63-73)."""
@@ -304,18 +314,26 @@ def _classified_select(cmaps, proj_all, bias, cascade, softness, use_pcss):
     return uv, receiver, inb, lit, umbra
 
 
+def band_budget(n: int) -> int:
+    """The blend band's block budget on a domain of n elements
+    (shadow_filter.py:417)."""
+    return max((n // 64) // 8, 128)
+
+
 def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
                          normal, n_dot_l, softness, use_pcss: bool, valid,
                          committed: bool = False,
-                         skip_backfacing: bool = False):
+                         skip_backfacing: bool = False,
+                         band_bcap: int | None = None):
     """Project once, classify both cascades and derive the pair masks
     that need exact taps (shadow_filter.py:381-471). c1 is classified only
     on the 8x8 blocks (64-runs on a flat domain) that touch a blend band;
-    an overflow of that block budget takes the dense classification (one
-    host branch), or in committed mode drops the excess blocks, whose
-    pixels then become pairs. skip_backfacing drops the pairs of pixels
-    with n_dot_l <= 0 (shadow_filter.py:559-566, 919-922). Returns (uv0,
-    r0, inb0, lit0, um0, uv1, r1, inb1, lit1, um1, needs0, needs1)."""
+    an overflow of that block budget (band_bcap, by default the domain's)
+    takes the dense classification (one host branch), or in committed mode
+    drops the excess blocks, whose pixels then become pairs.
+    skip_backfacing drops the pairs of pixels with n_dot_l <= 0
+    (shadow_filter.py:559-566, 919-922). Returns (uv0, r0, inb0, lit0,
+    um0, uv1, r1, inb1, lit1, um1, needs0, needs1)."""
     n = blend.numel()
     proj_all, bias = _project_all(uni, world, normal, n_dot_l)
     uv0, r0, inb0, lit0, um0 = _classified_select(
@@ -325,7 +343,8 @@ def _pair_classification(uni: FrameUniforms, cmaps, c0, c1, blend, world,
     r1 = recv1 - bias
     band_mask = blend & valid
 
-    band_bcap = max((n // 64) // 8, 128)
+    if band_bcap is None:
+        band_bcap = band_budget(n)
     comp_band = compact_blocks_any(band_mask, band_bcap)
     if comp_band is not None and (committed or host_cond(
             comp_band.count <= band_bcap, "shadow_band",
@@ -681,7 +700,7 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
                    view_depth, screen_pos, use_pcss: bool,
                    valid: torch.Tensor | None = None, light_windows=None,
                    skip_backfacing: bool = False, committed: bool = False,
-                   route_windows=None):
+                   route_windows=None, domain: int | None = None):
     """Diagnostic (shadow_filter.py:893-1037): the classification
     histogram and the pair counts the sparse path compacts, split the way
     the frame groups them, as a dict of device tensors. light_windows /
@@ -692,18 +711,24 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
     `light_fetch_route_per_cascade` count the fetch entries that a frame
     without light maps sends to its radius-only and routed groups, and
     `need_extent_per_cascade` is the tap extent with the fetch entries in
-    it; the port's derive_sparse_config folds them back. `band_bcap` is
-    sized from this (dense) domain as in JAX, not from the frame's slab or
-    block domain (a reproduced fault, ROADMAP queue 3)."""
+    it; the port's derive_sparse_config folds them back. `domain`: the
+    element count of the domain the frame classifies on (its row slab or
+    block budget, frame.py::back_half): the band is classified with that
+    domain's budget, as the frame classifies it, so that in committed mode
+    the pixels of the blocks past it count as the pairs they become, and
+    `band_bcap` reports it, where JAX classifies with and reports this
+    call's dense domain's (ROADMAP, deliberate divergences)."""
     c0, c1, t = select_cascade_blend(view_depth, uni.cascade_splits)
     softness = uni.shadow_bias[0]
     if valid is None:
         valid = torch.ones(c0.shape, dtype=torch.bool, device=c0.device)
     blend = t > 0.0
+    band_bcap = band_budget(blend.numel() if domain is None else domain)
     (uv0, r0, _, lit0, um0, uv1, r1, _, lit1, _, needs0,
      needs1) = _pair_classification(uni, cmaps, c0, c1, blend, world,
                                     normal, n_dot_l, softness, use_pcss,
-                                    valid, committed, skip_backfacing)
+                                    valid, committed, skip_backfacing,
+                                    band_bcap)
     needs = torch.stack([needs0, needs1])
     pair_layer = torch.stack([c0, c1])
     s_full = cmaps.size
@@ -756,7 +781,6 @@ def classify_stats(uni: FrameUniforms, cmaps, world, normal, n_dot_l,
     bm = torch.nn.functional.pad(band_mask, (0, -ww % 8, 0, -hh % 8))
     band_blocks = bm.reshape(bm.shape[0] // 8, 8, bm.shape[1] // 8,
                              8).any(dim=3).any(dim=1).sum(dtype=torch.int32)
-    band_bcap = max((band_mask.numel() // 64) // 8, 128)
 
     def per_cascade(mask):
         return torch.stack([_sum(mask & (pair_layer == c))

@@ -14,7 +14,8 @@ The history read, and how the port takes it:
   still takes its aligned fast path where every pixel reads its own
   texel; the port selects the slab's own history rows there on the
   device, with no branch. On the flat domain there is no fast path, so a
-  parked view truncates (ROADMAP queue 3: reproduced on purpose).
+  parked view needs the whole need set: utils/diagnostics.py counts it
+  there, so the tuned capacity holds it and the poll names an overflow.
 """
 
 from __future__ import annotations

@@ -6,23 +6,32 @@ leaving the defaults; `tune_raster_capacities` and
 `tune_sparse_capacities` raise, so a caller that must not hide a failure
 calls them directly.
 
-Two deliberate divergences from JAX (ROADMAP queue 3), both for a frame
-without light_space_ground_shadows, which builds no light maps:
-- the entries the diagnostics count as light-map fetches are tap
-  entries there: derive_sparse_config adds them to the per-cascade tap
-  caps (`shadow_pen_cascade_caps`), or to the radius-only and route caps
-  for the ones those groups take, and sizes the tap windows from the
-  extent that holds them. JAX leaves them out and undersizes the
-  synth-only frame's caps. capacity_overflows counts each full tap group
-  as the frame fills it: with those entries, and with the route
-  candidates of a cascade whose route was not adopted, which JAX's poll
-  also leaves out;
-- `light_window_sizes` keeps every measured footprint window. JAX drops
-  the window of a cascade with fewer than 128 fetch entries, which only
-  a light map reads; the synthesized maps use the same sizes, so a
-  cascade whose occluders land on its map then loses them (the committed
-  frame) or takes the full raster (the cond'd one). `light_fetch_caps`
-  stay as JAX derives them: nothing reads them without light maps.
+Deliberate divergences from JAX (ROADMAP). Given the same GltfConfig the
+port's frame equals JAX's; only the derived capacities and windows and
+the poll differ:
+- for a frame without light_space_ground_shadows, which builds no light
+  maps, the entries the diagnostics count as light-map fetches are tap
+  entries: derive_sparse_config adds them to the per-cascade tap caps
+  (`shadow_pen_cascade_caps`), or to the radius-only and route caps for
+  the ones those groups take, and sizes the tap windows from the extent
+  that holds them. JAX leaves them out and undersizes the synth-only
+  frame's caps. capacity_overflows counts each full tap group as the
+  frame fills it: with those entries, and with the route candidates of a
+  cascade whose route was not adopted, which JAX's poll also leaves out;
+- `light_window_sizes` keeps every measured footprint window, with light
+  maps too, and `light_fetch_caps` gives each window a cap. JAX drops the
+  window of a cascade with fewer than 128 fetch entries, which only a
+  light map reads; the synthesized maps use the same sizes, so a cascade
+  whose occluders land on its map then loses them (the committed frame)
+  or takes the full raster (the cond'd one);
+- the occupancy itself is read in the regimes the frame runs in
+  (utils/diagnostics.py): every pose parked and after its predecessor
+  (chained motion over frame.tuning_poses), on the back half the derived
+  config runs: tune_sparse_capacities sizes that back half from the
+  poses' coverage first (diagnostics.measure_coverage), so that the band
+  budget, the pairs of the band blocks a committed frame drops past it,
+  and the TAA need are that back half's. JAX reads them on the back half
+  of the config it is given.
 """
 
 from __future__ import annotations
@@ -82,10 +91,14 @@ def tune_raster_capacities(scene, params, cfg):
 
 def tune_sparse_capacities(scene, params, cfg, frames: int = 2):
     """Measured occupancy -> tightened sparse capacities
-    (autotune.py:80-88). Returns (cfg, occupancy dict)."""
-    from .diagnostics import measure_sparse_occupancy
+    (autotune.py:80-88), the counts read on the back half the derived
+    config runs (module docstring). Returns (cfg, occupancy dict)."""
+    from .diagnostics import measure_coverage, measure_sparse_occupancy
 
-    occ = measure_sparse_occupancy(scene, params, cfg, frames=frames)
+    on_back_half = dataclasses.replace(
+        cfg, **_back_half(cfg, measure_coverage(scene, params, cfg)))
+    occ = measure_sparse_occupancy(scene, params, on_back_half,
+                                   frames=frames)
     return derive_sparse_config(cfg, occ), occ
 
 
@@ -108,9 +121,6 @@ def derive_sparse_config(cfg, occ):
     """Occupancy counts -> tightened sparse capacities
     (autotune.py:91-231), with the fetch-entry fold described in the
     module docstring."""
-
-    def blocks128(count, headroom=1.3):
-        return max(_round_up(count * headroom, 128), 128)
 
     def cap1k(count, headroom=1.3):
         return max(_round_up(count * headroom, 1024), 1024)
@@ -144,33 +154,17 @@ def derive_sparse_config(cfg, occ):
                         and need < cfg.shadow_map_size // 2 else 0)
         tap_windows = tuple(wins) if any(wins) else None
 
-    span_rows = _round_up(min(occ["valid_row_span"] * 1.1 + 8,
-                              cfg.height), 8)
-    slab_px = span_rows * cfg.width
-    block_px = blocks128(occ["valid_blocks"], 1.2) * 64
-    use_slab = span_rows < cfg.height and slab_px <= 2 * block_px
-
-    # Light-space ground windows: a window with too few fetches is dropped
-    # and its fetch entries return to the cascade's tap pool. Without
-    # light maps nothing fetches, and the synthesized maps keep every
-    # measured window (module docstring).
+    # Footprint windows: every measured window is kept, with or without
+    # light maps, since the synthesized maps raster their occluders in the
+    # same windows (module docstring); JAX drops a light-space window with
+    # under 128 fetches.
     light_sizes = cfg.light_window_sizes
     light_caps = cfg.light_fetch_caps
-    extra_taps = fetch
     if "light_window_sizes" in occ:
         fetches = occ.get("light_fetch_per_cascade", _ZERO4)
-        sizes = list(occ["light_window_sizes"])
-        extra = [0, 0, 0, 0]
-        for c in range(4):
-            if sizes[c] and fetches[c] < 128:
-                extra[c] = fetches[c]
-                sizes[c] = 0
         light_sizes = tuple(occ["light_window_sizes"])
-        if cfg.flags.light_space_ground_shadows:
-            light_sizes = tuple(sizes)
-            extra_taps = tuple(extra)
         light_caps = tuple(cap1k(f, 1.25) if s else 0
-                           for f, s in zip(fetches, sizes))
+                           for f, s in zip(fetches, light_sizes))
 
     # Radius-only groups: split only when enough entries qualify and
     # every cascade with route candidates adopted its route.
@@ -183,7 +177,7 @@ def derive_sparse_config(cfg, occ):
         cfg,
         shadow_pen_capacity=cap1k(occ["pairs"], 1.25),
         shadow_pen_cascade_caps=tuple(
-            cap1k(_full_group_count(occ, c, extra_taps, fetch_lit,
+            cap1k(_full_group_count(occ, c, fetch, fetch_lit,
                                     fetch_route, lit_split, route_w[c]),
                   1.15) for c in range(4)),
         shadow_lit_cascade_caps=(tuple(
@@ -209,21 +203,37 @@ def derive_sparse_config(cfg, occ):
             if occ.get("taa_need")
             and cap1k(occ["taa_need"], 1.3) <= occ["pixels"] // 2
             else None),
-        texture_block_capacity=blocks128(occ["texture_blocks"]),
-        shadow_pen_block_capacity=blocks128(occ["pair_blocks"]),
-        contact_block_capacity=blocks128(occ["contact_blocks"]),
-        valid_slab_rows=span_rows if use_slab else 0,
-        valid_block_capacity=(0 if use_slab else
-                              blocks128(occ["valid_blocks"], 1.2)))
+        texture_block_capacity=_blocks128(occ["texture_blocks"]),
+        shadow_pen_block_capacity=_blocks128(occ["pair_blocks"]),
+        contact_block_capacity=_blocks128(occ["contact_blocks"]),
+        **_back_half(cfg, occ))
 
 
-def _full_group_count(occ, c, extra_taps, fetch_lit, fetch_route,
+def _blocks128(count, headroom=1.3) -> int:
+    return max(_round_up(count * headroom, 128), 128)
+
+
+def _back_half(cfg, occ) -> dict:
+    """The back half's fields from the coverage counts: a row slab of the
+    covered span with 10% and 8 rows of headroom where it holds at most
+    twice the covered blocks' pixels, else the valid-block budget
+    (autotune.py:143-147, 229-231)."""
+    span_rows = _round_up(min(occ["valid_row_span"] * 1.1 + 8,
+                              cfg.height), 8)
+    block_cap = _blocks128(occ["valid_blocks"], 1.2)
+    use_slab = span_rows < cfg.height and span_rows * cfg.width <= (
+        2 * block_cap * 64)
+    return dict(valid_slab_rows=span_rows if use_slab else 0,
+                valid_block_capacity=0 if use_slab else block_cap)
+
+
+def _full_group_count(occ, c, fetch, fetch_lit, fetch_route,
                       lit_split: bool, routed) -> int:
     """Entries of cascade c's full tap group in a frame: the measured full
     entries and the folded fetch entries, plus the radius-only ones
     without a lit split and the route candidates without an adopted
     route, less the fetch entries those groups take."""
-    n = occ["pairs_per_cascade"][c] + extra_taps[c]
+    n = occ["pairs_per_cascade"][c] + fetch[c]
     if lit_split:
         n -= fetch_lit[c]
     else:
@@ -337,8 +347,9 @@ def capacity_slack(cfg, occ) -> list:
 
 def autotune_config(scene, params, cfg, frames: int = 2, verbose=False):
     """Raster bins, then the sparse and block capacities measured with the
-    bin-tuned config (autotune.py:347-375). As in JAX, a failure of either
-    step leaves its capacities at their defaults."""
+    bin-tuned config (autotune.py:347-375) over the poses `params`
+    (frame.tuning_poses reads chained motion too). As in JAX, a failure of
+    either step leaves its capacities at their defaults."""
     try:
         cfg = tune_raster_capacities(scene, params, cfg)
         if verbose:

@@ -7,10 +7,26 @@ Each function re-runs the front half of the frame with the same code the
 frame runs (the full cascade raster, as in JAX, also for a synthesized-map
 configuration). `sparse_occupancy` returns device tensors;
 `measure_sparse_occupancy` renders frames, reads the counts on the host
-and max-combines them over poses. One divergence from JAX (ROADMAP queue
-3): `synth_window_overflow` is the certificate of a tuned config's own
-window sizes, the ones its frames raster, where JAX re-derives the sizes
-from the poses measured.
+and max-combines them over poses; `measure_coverage` reads only the main
+pass's coverage, which sizes the back half; `probe_occupancy` is the
+running frame's poll. Divergences from JAX, each so that the counts are
+the ones the frame meets (ROADMAP, deliberate divergences):
+- `synth_window_overflow` is the certificate of a tuned config's own
+  window sizes, the ones its frames raster, where JAX re-derives the
+  sizes from the poses measured;
+- the blend band is classified on the domain the frame classifies on, its
+  row slab or block budget (frame.py::back_half), with that domain's
+  budget: `band_bcap` is the frame's, and the pixels of the band blocks
+  a committed frame drops past it are counted as the pairs they become.
+  JAX classifies on the full frame with the full frame's budget;
+- `taa_need` is counted on the valid-block back half even where every
+  pixel reads its own texel (that back half has no aligned fast path);
+- measure_sparse_occupancy reads every pose against its own state (the
+  view parked there) and against its predecessor's (chained motion, when
+  the poses are a motion run: frame.tuning_poses). JAX reads only the
+  TAA need, and only across its poses' jumps;
+- probe_occupancy carries the view's candidate window sizes, so that a
+  retune can widen a footprint window and keep an adopted route.
 """
 
 from __future__ import annotations
@@ -23,30 +39,41 @@ import torch
 from ..ops.sampling import to_i32
 
 
+def _main_pass(scene, uni, cfg):
+    """The vertex stage and the main raster (frame.py's main pass).
+    Returns (world_v, clip, blocks, tri_flags, tri_id, depth, setup)."""
+    from ..frame import _main_raster_inputs
+    from ..ops.raster import raster_corners
+    from ..passes import geometry
+
+    world_v, clip, normals_v = geometry.transform_vertices(
+        scene, uni.models, uni.view_proj)
+    blocks = geometry.build_shade_blocks(scene, world_v, clip, normals_v)
+    tri_clip, blocks, tri_flags, tri_valid = _main_raster_inputs(
+        scene, clip, blocks, cfg.clip_capacity)
+    tri_id, depth, setup = raster_corners(
+        tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
+    return world_v, clip, blocks, tri_flags, tri_id, depth, setup
+
+
 def _frame_intermediates(scene, params, state, cfg):
     """The front half of render_gltf_frame up to the shade inputs
     (diagnostics.py:15-53). Returns (uni, cmaps, gbuf, normal, n_dot_l,
     view_depth, clip_crossing, world_v)."""
-    from ..frame import NEAR, _main_raster_inputs, compute_frame_uniforms
-    from ..ops.raster import raster_corners
-    from ..passes import deferred, geometry, shadow
+    from ..frame import NEAR, compute_frame_uniforms
+    from ..passes import deferred, shadow
     from ..passes.shadow_classify import (build_class_maps,
                                           light_ground_planes)
 
     uni = compute_frame_uniforms(params, state, cfg)
-    world_v, clip, normals_v = geometry.transform_vertices(
-        scene, uni.models, uni.view_proj)
-    blocks = geometry.build_shade_blocks(scene, world_v, clip, normals_v)
+    (world_v, clip, blocks, tri_flags, tri_id, depth,
+     setup) = _main_pass(scene, uni, cfg)
     raw = shadow.render_shadow_maps(
         world_v, scene.tri_indices, scene.num_triangles,
         uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
     cmaps = build_class_maps(raw, cfg.class_coarse, cfg.max_softness,
                              light_ground_planes(uni.light_view_proj))
     tri_clip_raw = clip[scene.tri_indices.long()]
-    tri_clip, blocks, tri_flags, tri_valid = _main_raster_inputs(
-        scene, clip, blocks, cfg.clip_capacity)
-    tri_id, depth, setup = raster_corners(
-        tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
     g = deferred.interpolate(tri_id, depth, setup.data, blocks, tri_flags)
     # near-plane clip pressure against GltfConfig.clip_capacity
     inside = tri_clip_raw[..., 3] > NEAR * 0.1
@@ -94,7 +121,13 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     counts against (route_sizes defaults to cfg.shadow_route_windows).
     The shadow and contact counts are taken on the subsampled grid with
     shadow_eval_scale > 1 and honour skip_backfacing_shadows, as the
-    frame evaluates them (diagnostics.py:87, 128-147)."""
+    frame evaluates them (diagnostics.py:87, 128-147). The shadow
+    classification runs on the domain the frame classifies on: its row
+    slab (frame.py::slab_start), or the whole frame with the block
+    budget's band budget (the flat block domain holds the covered 8x8
+    blocks in the same order)."""
+    from ..frame import back_half, slab_start
+    from ..ops.sampling import dynamic_slice
     from ..passes import contact, shadow_filter
     from ..passes.shadow import synth_windows_fit
     from ..passes.shadow_lightspace import plan_windows
@@ -102,6 +135,7 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     (uni, cmaps, g, normal, n_dot_l, view_depth, clip_crossing,
      world_v) = _frame_intermediates(scene, params, state, cfg)
     h, w = g.depth.shape
+    kind, size, domain = back_half(cfg, h, w)
     dev = g.depth.device
     frag_x, frag_y = (
         (torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -130,12 +164,20 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     def sub(a):
         return a[::scale, ::scale].contiguous() if scale > 1 else a
 
+    cls = sub
+    if kind == "rows":
+        y0, _ = slab_start(g.valid, cfg, size)
+
+        def cls(a):
+            return sub(dynamic_slice(a, (y0,), (size,)))
+
     skip = cfg.flags.skip_backfacing_shadows
     stats = shadow_filter.classify_stats(
-        uni, cmaps, sub(g.world), sub(normal), sub(n_dot_l),
-        sub(view_depth), sub(frag), cfg.flags.use_pcss, sub(g.valid),
+        uni, cmaps, cls(g.world), cls(normal), cls(n_dot_l),
+        cls(view_depth), cls(frag), cfg.flags.use_pcss, cls(g.valid),
         light_windows=light_windows, skip_backfacing=skip,
-        committed=cfg.flags.committed, route_windows=route_windows)
+        committed=cfg.flags.committed, route_windows=route_windows,
+        domain=domain)
     # The synth window-fit certificate of the windows the frame rasters:
     # a tuned config's own (JAX measures the re-derived ones, which hides
     # an occluder outgrowing the live windows), else the measured ones.
@@ -158,8 +200,10 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
                                       cfg.height)))
 
     # TAA history-read need: in-bounds pixels with reprojection motion
-    # <= 0.02, zero when every such pixel reads its own texel (the frame's
-    # aligned fast path on a row slab).
+    # <= 0.02. On a row-form back half it is zero when every such pixel
+    # reads its own texel (the frame's aligned fast path); the valid-block
+    # back half has none, so there the need is always counted (JAX zeroes
+    # it on any domain).
     ones = torch.ones(g.world.shape[:-1] + (1,), dtype=torch.float32,
                       device=dev)
     hom = torch.cat([g.world, ones], dim=-1)
@@ -179,7 +223,7 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     ix = to_i32(torch.floor(prev_uv[..., 0] * w)).clamp(0, w - 1)
     iy = to_i32(torch.floor(prev_uv[..., 1] * h)).clamp(0, h - 1)
     aligned = (ix == to_i32(frag_x - 0.5)) & (iy == to_i32(frag_y - 0.5))
-    all_aligned = (aligned | ~need).all()
+    all_aligned = (aligned | ~need).all() & (kind != "blocks")
     stats["taa_need"] = torch.where(all_aligned, 0,
                                     need.sum(dtype=torch.int32))
 
@@ -191,12 +235,7 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     stats["blend_band"] = (sub(g.valid) & (t > 0.0)).sum(dtype=torch.int32)
     stats["clip_crossing"] = clip_crossing
     stats["texture_blocks"] = _blocks_of(g.valid & ((g.flags & 1) != 0))
-    stats["valid_blocks"] = _blocks_of(g.valid)
-    row_any = g.valid.any(dim=1)
-    stats["valid_row_span"] = torch.where(
-        row_any.any(),
-        h - torch.argmax(row_any.flip(0).to(torch.uint8))
-        - torch.argmax(row_any.to(torch.uint8)), 0)
+    stats.update(_coverage(g.valid))
 
     # Per-screen-tile shadow-cell spans (64x128 tiles).
     uv, _, _, inb = shadow_filter._light_project(
@@ -224,9 +263,80 @@ def sparse_occupancy(scene, params, state, cfg, light_sizes=None,
     return stats
 
 
+def _coverage(valid) -> dict:
+    """The main pass's covered 8x8 blocks and covered row span, which size
+    the back half (autotune.py::derive_sparse_config)."""
+    row_any = valid.any(dim=1)
+    h = valid.shape[0]
+    return {"valid_blocks": _blocks_of(valid),
+            "valid_row_span": torch.where(
+                row_any.any(),
+                h - torch.argmax(row_any.flip(0).to(torch.uint8))
+                - torch.argmax(row_any.to(torch.uint8)), 0)}
+
+
+def measure_coverage(scene, params, cfg) -> dict:
+    """valid_blocks and valid_row_span of the main pass at each pose,
+    max-combined as Python ints: the coverage does not depend on the
+    carried state, so this needs the main raster alone. The autotune
+    sizes the back half from it before it reads the sparse counts on that
+    back half."""
+    from ..frame import compute_frame_uniforms, init_frame_state
+
+    poses = params if isinstance(params, (list, tuple)) else [params]
+    st0 = init_frame_state(cfg, poses[0].camera_pos.device)
+
+    def covered(p):
+        uni = compute_frame_uniforms(p, st0, cfg)
+        tri_id = _main_pass(scene, uni, cfg)[4]
+        return {k: _host(v) for k, v in _coverage(tri_id >= 0).items()}
+
+    return _max_combine(covered(p) for p in poses)
+
+
 def _host(v):
     a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
     return int(a) if a.size == 1 else tuple(int(x) for x in a.ravel())
+
+
+def candidate_windows(scene, poses, state, cfg) -> tuple:
+    """(light_sizes, route_sizes) for the poses' largest footprint extents
+    (diagnostics.py:272-298): the footprint window sizes
+    (window_size_for_extent; None without footprint windows), and the
+    route-window candidates, footprint plus tap reach and at most 384
+    texels (None when no cascade has one), or the config's own route
+    windows when it has them (the live config is polled)."""
+    from ..passes.shadow_lightspace import window_pad, window_size_for_extent
+
+    ext = np.max([np.asarray(footprint_extents(scene, p, state, cfg).cpu())
+                  for p in poses], axis=0)
+    light_sizes = None
+    if cfg.effective_light_windows() is not None:
+        pad = window_pad(cfg.max_softness, cfg.class_coarse)
+        light_sizes = tuple(window_size_for_extent(int(e), pad)
+                            for e in ext)
+    if cfg.shadow_route_windows is not None:
+        return light_sizes, cfg.shadow_route_windows
+    pad_route = math.ceil(4.0 * cfg.max_softness) + 2 + 8
+    cand = []
+    for e in ext:
+        need = -(-(int(e) + 2 * pad_route) // 64) * 64
+        cand.append(need if 0 < int(e) and need <= 384
+                    and need < cfg.shadow_map_size else 0)
+    return light_sizes, (tuple(cand) if any(cand) else None)
+
+
+def _max_combine(readings) -> dict:
+    out = {}
+    for cur in readings:
+        for k, v in cur.items():
+            if k not in out:
+                out[k] = v
+            elif isinstance(v, tuple):
+                out[k] = tuple(max(a, b) for a, b in zip(out[k], v))
+            else:
+                out[k] = max(out[k], v)
+    return out
 
 
 def measure_sparse_occupancy(scene, params, cfg, frames: int = 2) -> dict:
@@ -235,57 +345,57 @@ def measure_sparse_occupancy(scene, params, cfg, frames: int = 2) -> dict:
     Python ints (diagnostics.py:250-328). `params` may be a list of poses.
     With footprint windows on, their sizes come first from the footprint
     extents, so the measured split matches the windows the derived config
-    uses; route-window candidates come from the same extents."""
+    uses; route-window candidates come from the same extents.
+
+    Each pose is read against its own state (the view parked there: on
+    the valid-block back half its TAA need is the whole need set) and,
+    after the first, against the state its predecessor left, whose TAA
+    need JAX reads too: for poses of a motion run (frame.tuning_poses)
+    that is the chained motion frame, whose TAA need and contact counts
+    follow the carried state, and between bench_poses a jump."""
     from ..frame import init_frame_state, render_gltf_frame
-    from ..passes.shadow_lightspace import window_pad, window_size_for_extent
 
     poses = params if isinstance(params, (list, tuple)) else [params]
     dev = poses[0].camera_pos.device
     state = init_frame_state(cfg, dev)
     for _ in range(frames):
         _, state = render_gltf_frame(scene, poses[0], state, cfg)
+    light_sizes, route_sizes = candidate_windows(scene, poses, state, cfg)
 
-    ext = np.max([np.asarray(footprint_extents(scene, p, state, cfg).cpu())
-                  for p in poses], axis=0)
+    def occupancy(p, st):
+        return {k: _host(v) for k, v in sparse_occupancy(
+            scene, p, st, cfg, light_sizes, route_sizes).items()}
 
-    light_sizes = None
-    if cfg.effective_light_windows() is not None:
-        pad = window_pad(cfg.max_softness, cfg.class_coarse)
-        light_sizes = tuple(window_size_for_extent(int(e), pad)
-                            for e in ext)
-
-    pad_route = math.ceil(4.0 * cfg.max_softness) + 2 + 8
-    cand = []
-    for e in ext:
-        need = -(-(int(e) + 2 * pad_route) // 64) * 64
-        cand.append(need if 0 < int(e) and need <= 384
-                    and need < cfg.shadow_map_size else 0)
-    route_sizes = tuple(cand) if any(cand) else None
-    if cfg.shadow_route_windows is not None:
-        route_sizes = cfg.shadow_route_windows   # poll the live config
-
-    out = {}
+    readings = []
     for i, p in enumerate(poses):
-        taa_need_mis = 0
         if i:
-            # The mismatched regime first: pose p against the previous
-            # pose's state, where the TAA read actually runs.
-            pre = sparse_occupancy(scene, p, state, cfg, light_sizes,
-                                   route_sizes)
-            taa_need_mis = _host(pre["taa_need"])
+            readings.append(occupancy(p, state))
             _, state = render_gltf_frame(scene, p, state, cfg)
-        cur = {k: _host(v) for k, v in sparse_occupancy(
-            scene, p, state, cfg, light_sizes, route_sizes).items()}
-        cur["taa_need"] = taa_need_mis
-        for k, v in cur.items():
-            if k not in out:
-                out[k] = v
-            elif isinstance(v, tuple):
-                out[k] = tuple(max(a, b) for a, b in zip(out[k], v))
-            else:
-                out[k] = max(out[k], v)
+        readings.append(occupancy(p, state))
+    out = _max_combine(readings)
     if light_sizes is not None:
         out["light_window_sizes"] = light_sizes
     if route_sizes is not None:
         out["route_window_sizes"] = route_sizes
     return out
+
+
+def probe_occupancy(scene, params, state, cfg) -> dict:
+    """One poll of a running frame, as Python ints (app/driver.py's
+    runtime retune): this view against the state the frame carries, split
+    against the config's own footprint windows, so capacity_overflows
+    reads what the frame does. It also carries this view's candidate
+    windows (candidate_windows), so that derive_sparse_config can re-size
+    them: `light_window_sizes`, each at least the config's window (a
+    retune widens a window an occluder outgrew and narrows none), and
+    `route_window_sizes`, the config's adopted routes or the candidates."""
+    light, route = candidate_windows(scene, [params], state, cfg)
+    live = cfg.effective_light_windows()
+    occ = {k: _host(v) for k, v in sparse_occupancy(
+        scene, params, state, cfg, live, route).items()}
+    if light is not None:
+        occ["light_window_sizes"] = tuple(max(a, b)
+                                          for a, b in zip(light, live))
+    if route is not None:
+        occ["route_window_sizes"] = route
+    return occ

@@ -4,14 +4,15 @@
     python3 profile_port.py [--config dense|default|shipped|half_res|
                                       lightspace]
                             [--scene multimesh|large] [--trace trace.json]
-                            [--graph]
+                            [--graph] [--occupancy]
+                            [--override FIELD=VALUE ...]
 
 Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
 2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
 default), GltfConfig() (`default`: sparse shadows and contact,
 valid-block back half, block-sparse texture sampling), bench.py's
 shipped configuration (`shipped`: committed mode with synthesized
-cascade maps, autotuned over bench_poses first), or the shipped
+cascade maps, autotuned over frame.tuning_poses first), or the shipped
 configuration with a perf mode on, autotuned on its own (`half_res`:
 half-rate shadow evaluation, whose upsample `resize_linear` is a stage;
 `lightspace`: the light-space ground evaluation with the back-face skip,
@@ -26,20 +27,32 @@ to the path given, if any. With `--graph` (a committed configuration,
 whose frame frame.compiled_gltf_frame records as a CUDA graph)
 it then times 8 chained replays and profiles one: the device's own kernel
 times with the host's launches out of the way, summed by kernel name from
-the trace. Needs a CUDA card; imports no jax.
+the trace. `--override` replaces fields of the tuned configuration (each
+value a Python literal, e.g. `taa_need_capacity=4096`), to time one
+capacity's share of the frame. With `--occupancy` (a committed
+configuration) it instead walks chip_smoke.py's chained trajectory (2
+parked frames, then orbit poses 0..47) with the configuration tuned over
+bench_poses alone, and prints each frame's poll (utils/diagnostics.
+probe_occupancy) against its predecessor's state and against its own,
+the overflows of those caps, and the caps the autotune gives over
+frame.tuning_poses, which adds bench.py's motion run: which counts follow
+the pose and which the carried state. Needs a CUDA card; imports no jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import dataclasses
 import statistics
 import time
 
 import torch
 
 from chip_smoke import (HEIGHT, PERF_MODES, SHADOW, WIDTH, autotune_shipped,
-                        default_config, dense_config, fail, gpu_line,
-                        load_scene, poses_for, scene_params, trace_kernels)
+                        chained_trajectory, default_config, dense_config,
+                        fail, gpu_line, load_scene, poses_for, scene_params,
+                        trace_kernels)
 
 # (module, attribute, label) of each stage render_gltf_frame calls: the
 # common stages, then each configuration's own. No stage calls another.
@@ -156,11 +169,17 @@ def main() -> None:
     ap.add_argument("--graph", action="store_true",
                     help="also profile the compiled frame's graph replay "
                          "(--config shipped)")
+    ap.add_argument("--occupancy", action="store_true",
+                    help="walk the chained trajectory's occupancy instead "
+                         "(--config shipped, half_res or lightspace)")
+    ap.add_argument("--override", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="replace a field of the tuned configuration")
     args = ap.parse_args()
-    if args.graph and args.config in ("dense", "default"):
-        fail("--graph needs a committed configuration (shipped, half_res, "
-             "lightspace): only a committed frame is recorded as a CUDA "
-             "graph")
+    if (args.graph or args.occupancy) and args.config in ("dense",
+                                                          "default"):
+        fail("--graph and --occupancy need a committed configuration "
+             "(shipped, half_res, lightspace)")
     if not torch.cuda.is_available():
         fail("no CUDA device: this profile needs an NVIDIA GPU")
     from funky_tpu_torch import frame
@@ -172,14 +191,22 @@ def main() -> None:
     dev = torch.device("cuda:0")
     gltf, scene = load_scene(dev, large=args.scene == "large")
     params = scene_params(gltf, dev)
+    if args.occupancy:
+        occupancy_walk(scene, params, dev, args.config, gpu)
+        return
     if args.config == "dense":
         cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
     elif args.config == "default":
         cfg = default_config()
     else:
         _, cfg, _, tune_s = autotune_shipped(
-            dev, scene, params, **PERF_MODES.get(args.config, {}))
+            dev, scene, frame.tuning_poses(params, 24),
+            **PERF_MODES.get(args.config, {}))
         print(f"autotune {tune_s:.3f} s: {cfg}", flush=True)
+    for item in args.override:
+        field, value = item.split("=", 1)
+        cfg = dataclasses.replace(cfg, **{field: ast.literal_eval(value)})
+        print(f"override {field} = {getattr(cfg, field)}", flush=True)
     poses = poses_for(params, 2, 6)
     print(f"{args.config} configuration, {args.scene} scene", flush=True)
 
@@ -230,6 +257,43 @@ def main() -> None:
         prof.export_chrome_trace(args.trace)
     if args.graph:
         replay_profile(scene, params, poses, cfg, dev, gpu)
+
+
+def occupancy_walk(scene, params, dev, config, gpu) -> None:
+    """Each chained frame's poll against its predecessor's state and
+    against its own, with the caps of the tune over bench_poses alone
+    (module docstring)."""
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils.autotune import capacity_overflows
+    from funky_tpu_torch.utils.diagnostics import probe_occupancy
+
+    def caps(cfg):
+        return (f"contact {cfg.contact_capacity} / march "
+                f"{cfg.contact_march_capacity}, taa_need "
+                f"{cfg.taa_need_capacity}, light fetches "
+                f"{cfg.light_fetch_caps}, cascade taps "
+                f"{cfg.shadow_pen_cascade_caps}, windows "
+                f"{cfg.light_window_sizes}")
+
+    tuned = {}
+    for name, poses in (("bench_poses", frame.bench_poses(params, 24)),
+                        ("tuning_poses", frame.tuning_poses(params, 24))):
+        _, tuned[name], _, tune_s = autotune_shipped(
+            dev, scene, poses, **PERF_MODES.get(config, {}))
+        print(f"{config}, tuned over {name} in {tune_s:.3f} s: "
+              f"{caps(tuned[name])} [{gpu}]", flush=True)
+    cfg = tuned["bench_poses"]
+    keys = ("light_fetch_per_cascade", "contact_stage2", "contact_march",
+            "taa_need")
+    state = frame.init_frame_state(cfg, dev)
+    for i, p in enumerate(chained_trajectory(params)):
+        chained = probe_occupancy(scene, p, state, cfg)
+        _, state = frame.render_gltf_frame(scene, p, state, cfg)
+        own = probe_occupancy(scene, p, state, cfg)
+        print(f"frame {i}: " + "; ".join(
+            f"{k} {chained[k]} chained / {own[k]} own" for k in keys)
+            + f"; over the bench_poses caps "
+            f"{capacity_overflows(cfg, chained)}", flush=True)
 
 
 def replay_profile(scene, params, poses, cfg, dev, gpu) -> None:

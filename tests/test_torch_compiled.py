@@ -6,9 +6,11 @@ compiled_sdf_frame), the counterpart of the JAX package's jit cache
 On the CPU every callable is the eager function: its frames equal
 render_* bit for bit, and no graph is recorded. On the card (marker
 `cuda`, skipped without one) a committed glTF config, the cube and the SDF
-frame are recorded once as CUDA graphs and replayed; their frames equal
-the eager frames bit for bit (the same kernels on the same inputs), and a
-cond'd config runs eagerly. The module imports no jax, so the card half
+frame are recorded once as CUDA graphs and replayed, and so is the
+committed row-sharded frame on a one-rank NCCL group
+(parallel/sharded_frame.py); their frames equal the eager frames bit for
+bit (the same kernels on the same inputs), and a cond'd config runs
+eagerly. The module imports no jax, so the card half
 runs where jax is absent:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_compiled.py
@@ -270,3 +272,43 @@ def test_card_perf_mode_graph_equals_eager(dev, flags):
         assert_bits_equal(ra, rb, "rgba")
         for name, a, b in zip(frame.FrameState._fields, sa, sb):
             assert_bits_equal(a, b, name)
+
+
+@pytest.mark.cuda
+def test_card_sharded_committed_graph(dev, tmp_path):
+    """The committed sharded frame on a one-rank NCCL group is recorded as
+    one CUDA graph, all-gathers included (3 per frame with synthesized
+    maps, issued by the warm-up and the capture, none by a replay), and its
+    chained frames equal the eager sharded frames and render_gltf_frame in
+    rgba and every FrameState field; K1 and K3 are counted at capture."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from funky_tpu_torch.parallel import make_mesh, sharded_gltf_frame
+    from tests.torch_sharded_worker import counted_gathers
+
+    scene, params = multimesh(dev)
+    cfg = committed_config()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        fn = sharded_gltf_frame(make_mesh(1, device="cuda"), cfg)
+        assert fn.uses_graph(dev)
+        with counted_gathers() as calls:
+            got = chained(fn, scene, poses(params, 4), cfg, dev)
+        eager = chained(fn.eager, scene, poses(params, 4), cfg, dev)
+    finally:
+        dist.destroy_process_group()
+    want = chained(lambda s, p, st: frame.render_gltf_frame(s, p, st, cfg),
+                   scene, poses(params, 4), cfg, dev)
+    for (ra, sa), (rb, sb), (rc, sc) in zip(got, eager, want):
+        for name, a, b, c in zip(("rgba",) + frame.FrameState._fields,
+                                 (ra,) + tuple(sa), (rb,) + tuple(sb),
+                                 (rc,) + tuple(sc)):
+            assert_bits_equal(a, b, name)
+            assert_bits_equal(a, c, name)
+    assert len(calls) == 6 and fn.last.replays == 4
+    assert fn.last.launches["raster_table"] > 0
+    assert fn.last.launches["row_gather"] > 0

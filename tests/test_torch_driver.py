@@ -19,10 +19,12 @@ Tolerances and why:
 - save/load, failure recovery and the retune: the port's own frames, bit
   for bit.
 
-Two faults of the reference's runtime retune (ROADMAP queue 3) are kept
-on purpose and reproduced here: a synth_window_fit overflow re-derives
-the same light windows (funky_tpu/utils/autotune.py:276), and a retune
-drops the adopted routes and the radius-only split (autotune.py:112).
+Two faults of the reference's runtime retune are repaired in the port,
+whose probe measures the view's candidate windows
+(utils/diagnostics.py::probe_occupancy), and tested here: a
+synth_window_fit overflow re-derived the same light windows
+(funky_tpu/utils/autotune.py:276), and a retune dropped the adopted
+routes and the radius-only split (autotune.py:112).
 """
 
 import dataclasses
@@ -255,42 +257,89 @@ def test_driver_retune_tightens(glb):
     assert drv._slack_strikes == 0
 
 
+def test_band_budget_overflow_alone_does_not_retune(glb, monkeypatch):
+    """A probe whose only overflow is the blend band's block budget (the
+    frame's domain's, which no re-derive changes; a committed frame's drop
+    of the excess blocks is exact) strikes nothing, check after check."""
+    from funky_tpu_torch.utils import autotune, diagnostics
+
+    probe = diagnostics.probe_occupancy
+
+    def band_over(*args, **kwargs):
+        occ = probe(*args, **kwargs)
+        occ["band_blocks"] = occ["band_bcap"] + 1
+        return occ
+
+    monkeypatch.setattr(diagnostics, "probe_occupancy", band_over)
+    drv = retuning(glb, port_cfg())
+    for _ in range(2 * drv.retune_after):
+        drv.step()
+        assert autotune.capacity_overflows(
+            drv.cfg, drv.last_occupancy) == ["band_block_capacity"]
+        assert drv._overflow_strikes == 0
+    assert drv.retune_count == 0
+
+
 def test_retune_keeps_overflowing_synth_windows(glb):
-    """Reference fault (funky_tpu/utils/autotune.py:276), kept: the probe
-    reports synth_window_fit when an occluder outgrows its light window,
-    but it measures no window sizes, so derive_sparse_config keeps the
-    config's windows. The retune gives the same windows, the next probes
-    overflow again, and the driver retunes every retune_after checks."""
+    """Reference fault (funky_tpu/utils/autotune.py:276), repaired: the
+    probe reports synth_window_fit when an occluder outgrows its light
+    window, and it also measures the view's candidate windows, so the
+    retune widens the windows and the overflow stops within retune_after
+    checks (the reference re-derives the same windows and retunes every
+    retune_after checks)."""
     cfg = port_cfg(flags=tf.GltfFrameFlags(committed=True,
                                            synth_shadow_maps=True),
                    light_window_sizes=(16, 16, 16, 16))
     drv = retuning(glb, cfg)
-    for _ in range(4):
+    for _ in range(drv.retune_after):
         drv.step()
         assert drv.last_occupancy["synth_window_overflow"] > 0
-    assert "light_window_sizes" not in drv.last_occupancy
-    assert drv.retune_count == 2
-    assert drv.cfg.light_window_sizes == (16, 16, 16, 16)
+    assert drv.retune_count == 1
+    wide = drv.cfg.light_window_sizes
+    assert wide == drv.last_occupancy["light_window_sizes"]
+    assert all(w > 16 for w in wide)
+    for _ in range(2 * drv.retune_after):
+        drv.step()
+        assert drv.last_occupancy["synth_window_overflow"] == 0
+        assert "synth_window_fit" not in drv.last_error
+    assert drv.retune_count == 1 and drv.cfg.light_window_sizes == wide
 
 
-def test_retune_drops_routes_and_lit_split(glb):
-    """Reference fault (autotune.py:112), kept: a config with an adopted
-    route and a radius-only split retunes (here on slack) to neither. The
-    probe measures no route window sizes, so derive_sparse_config adopts
-    no route, and the route candidates it counts then turn the split off
-    (routes_consistent)."""
+def test_retune_drops_routes_and_lit_split(glb, monkeypatch):
+    """Reference fault (autotune.py:112), repaired: a config with an
+    adopted route and a radius-only split keeps both through a slack
+    retune while the view supports them. The probe carries the config's
+    route windows (`route_window_sizes`), so derive_sparse_config adopts
+    the route again, and the routes stay consistent for the split. At
+    this size the view has fewer route and radius-only entries than the
+    rule's thresholds (4,096 and 16,384, JAX's), so the probe's counts are
+    scaled up to a view that has them."""
+    from funky_tpu_torch.utils import diagnostics
+
+    probe = diagnostics.sparse_occupancy
+
+    def busy_view(*args, **kwargs):
+        stats = probe(*args, **kwargs)
+        for key in ("pairs_route_per_cascade", "pairs_lit_per_cascade"):
+            stats[key] = stats[key].clone()
+            stats[key][0] += 20000
+        return stats
+
+    monkeypatch.setattr(diagnostics, "sparse_occupancy", busy_view)
     cfg = port_cfg(shadow_route_windows=(64, 0, 0, 0),
-                   shadow_route_caps=(4096, 0, 0, 0),
-                   shadow_lit_cascade_caps=(1024, 1024, 1024, 1024),
+                   shadow_route_caps=(32768, 0, 0, 0),
+                   shadow_lit_cascade_caps=(32768, 1024, 1024, 1024),
                    shadow_pen_capacity=1024 * 64)
     drv = retuning(glb, cfg)
     drv.step()
+    assert drv._slack_strikes == 1 and drv._overflow_strikes == 0
     drv.step()
     assert drv.retune_count == 1
-    assert "route_window_sizes" not in drv.last_occupancy
-    assert drv.cfg.shadow_route_windows is None
-    assert drv.cfg.shadow_route_caps is None
-    assert drv.cfg.shadow_lit_cascade_caps is None
+    assert drv.cfg.shadow_pen_capacity < 1024 * 64
+    assert drv.last_occupancy["route_window_sizes"] == (64, 0, 0, 0)
+    assert drv.cfg.shadow_route_windows == (64, 0, 0, 0)
+    assert drv.cfg.shadow_route_caps[0] >= 20000
+    assert drv.cfg.shadow_lit_cascade_caps is not None
     assert np.isfinite(drv.step().numpy()).all()
 
 

@@ -11,6 +11,10 @@ Gates and why:
   slab, and each of their branches is exact.
 - the one-process composition of the stages at n = 4 == the 4-rank gloo
   frame bit for bit, so chip_smoke.py may hold the card's frames to it.
+- the committed sharded frame (bench.py's shipped flags, capacities that
+  hold): no host branch and no host read, so the card can record it as a
+  CUDA graph; == the cond'd sharded frame bit for bit where the window
+  fit holds.
 - the port's 4-rank frame against JAX's 4-device sharded_gltf_frame on
   the conftest's virtual CPU devices: tests/test_torch_frame.py::
   test_slice_matches_jax's gates, depth within DEPTH_TOL and rgba and
@@ -56,7 +60,8 @@ from .torch_parity import (multimesh_jax_scene, multimesh_params,
                            slice_configs, t2n)
 
 FIELDS = ("rgba", "history", "depth")
-GATHERS = {"default": 4, "trio": 3}   # raster path / synthesized maps
+GATHERS = {"default": 4, "trio": 3,   # raster path / synthesized maps
+           "committed": 3}
 WORLDS = (2, 4)
 
 
@@ -110,6 +115,33 @@ def test_gathers_per_frame(gloo, world, case):
     for out in gloo[world]:
         assert [f["gathers"] for f in out[case]] == (
             [GATHERS[case]] * len(out[case]))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_committed_frame_reads_nothing_on_the_host(gloo, world):
+    """The committed sharded frame (bench.py's shipped flags) takes no host
+    branch, not even the synthesized maps' window fit, and reads no device
+    value on the host (tests/torch_host_reads.py): on the card it can be
+    recorded as one CUDA graph. The cond'd frame of the same config
+    branches on the host."""
+    for out in gloo[world]:
+        for f in out["committed"]:
+            assert f["syncs"] == 0 and f["reads"] == [], (f["syncs"],
+                                                          f["reads"])
+        assert all(f["syncs"] > 0 for f in out["committed_conded"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_committed_equals_conded(gloo, single, world):
+    """Where the window fit holds (the cond'd frames took no full-raster
+    fallback), the committed sharded frames equal the cond'd sharded
+    frames and render_gltf_frame bit for bit, on every rank."""
+    for rank, out in enumerate(gloo[world]):
+        assert all(f["fallbacks"] == 0 for f in out["committed_conded"])
+        assert_frames_equal(out["committed"], out["committed_conded"],
+                            (world, rank))
+        assert_frames_equal(out["committed"], single["committed"],
+                            (world, rank))
 
 
 @pytest.mark.parametrize("world", WORLDS)

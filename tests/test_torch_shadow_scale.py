@@ -358,9 +358,12 @@ def test_sparse_occupancy_at_scale_2_matches_jax(half_res_occupancy):
 
 def test_derive_with_light_maps_matches_jax(half_res_occupancy):
     """Given one occupancy dict (a half-res frame's, with light-map fetch
-    counts), derive_sparse_config of a light-space config equals JAX's
-    field for field: the port's fetch fold applies only without light
-    maps, and a window with under 128 fetches is dropped as in JAX."""
+    counts), derive_sparse_config of a light-space config equals JAX's in
+    every field but the footprint windows: the port's fetch fold applies
+    only without light maps, and a window with under 128 fetches is kept
+    with a fetch cap of its own (the synthesized maps raster their
+    occluders in it), where JAX drops it and returns its fetches to the
+    cascade's tap cap."""
     occ = {k: (tuple(v) if isinstance(v, list) else v)
            for k, v in half_res_occupancy[0].items()}
     occ["light_window_sizes"] = (512, 512, 256, 0)
@@ -369,6 +372,19 @@ def test_derive_with_light_maps_matches_jax(half_res_occupancy):
                       synth_shadow_maps=True, committed=True)
     want = port_config(ja.derive_sparse_config(jcfg, occ))
     got = ta.derive_sparse_config(port_config(jcfg), occ)
-    assert got == want
-    assert got.light_window_sizes == (512, 512, 0, 0)
-    assert got.light_fetch_caps == (25600, 11264, 0, 0)
+    assert want.light_window_sizes == (512, 512, 0, 0)
+    assert want.light_fetch_caps == (25600, 11264, 0, 0)
+    assert got.light_window_sizes == (512, 512, 256, 0)
+    assert got.light_fetch_caps == (25600, 11264, 1024, 0)
+    # JAX's cascade 2 taps its 100 fetches; the port's light map serves
+    # them
+    pairs2 = occ["pairs_per_cascade"][2] + occ["pairs_lit_per_cascade"][2] \
+        + occ["pairs_route_per_cascade"][2]
+    assert got.shadow_pen_cascade_caps[2] == ta._round_up(
+        max(pairs2 * 1.15, 1024), 1024)
+    assert want.shadow_pen_cascade_caps[2] == ta._round_up(
+        max((pairs2 + 100) * 1.15, 1024), 1024)
+    assert dataclasses.replace(
+        got, light_window_sizes=want.light_window_sizes,
+        light_fetch_caps=want.light_fetch_caps,
+        shadow_pen_cascade_caps=want.shadow_pen_cascade_caps) == want

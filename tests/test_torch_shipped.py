@@ -16,10 +16,13 @@ Tolerances and why:
 - window origins, the synth window-fit certificate, raster capacities,
   occupancy counts and the derived config: equal, but for the counts a
   float compare can flip and the contact certificate's counts (see
-  FLIP_COUNTS and JIT_CONTACT_COUNTS). Given JAX's occupancy, the port's
-  derived config differs in two fields, both fixes of a synth-only frame
-  (utils/autotune.py, ROADMAP queue 3): shadow_pen_cascade_caps, by the
-  fetch fold, and light_window_sizes, which keeps every measured window.
+  FLIP_COUNTS and JIT_CONTACT_COUNTS); the occupancy on the dense back
+  half, whose domain is JAX's poll's, and as tuned, on the row slab, but
+  for the slab's band budget. Given JAX's occupancy, the port's
+  derived config differs in three fields, fixes of a synth-only frame
+  (utils/autotune.py, ROADMAP's deliberate divergences):
+  shadow_pen_cascade_caps, by the fetch fold, and light_window_sizes with
+  light_fetch_caps, which keep every measured window.
 - the synthesized maps within 1e-5 of JAX's (measured max 6.0e-8): XLA
   contracts the window raster's plane evaluation into FMAs, and
   jnp.linalg.inv and torch's inverse of the 2x2 uv fit may round apart.
@@ -33,15 +36,14 @@ Tolerances and why:
   give the closed forms' values.
 """
 
+import contextlib
 import dataclasses
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 import bench
 import funky_tpu.frame as jf
@@ -60,7 +62,6 @@ from funky_tpu.utils import diagnostics as jd
 import funky_tpu_torch.frame as tf
 from funky_tpu_torch import convert
 from funky_tpu_torch.ops import compact as tcompact
-from funky_tpu_torch.ops import raster as traster
 from funky_tpu_torch.ops.sampling import quad_pack
 from funky_tpu_torch.passes.deferred import pixel_centers
 from funky_tpu_torch.passes import contact as tcontact
@@ -74,6 +75,7 @@ from funky_tpu_torch.utils import diagnostics as td
 
 from .test_torch_frame import (DEPTH_TOL, GOLDEN_BAD_FRAC, GOLDEN_TOL,
                                MAX_ZFIGHT_FRAC, _jax_main_raster)
+from .torch_host_reads import host_reads
 from .torch_parity import (multimesh_jax_scene, multimesh_params,
                            port_params, port_scene, port_uniforms, t2n)
 
@@ -141,49 +143,6 @@ def port_run(jax_run):
     return dict(scene=scene, raster_cfg=raster_cfg, occ=occ, cfg=cfg)
 
 
-class HostReads(TorchFunctionMode):
-    """Records every torch call that copies a tensor's value to the host:
-    on a card each of them waits for the device (a host synchronisation).
-    Boolean-mask indexing and nonzero need the count of True elements, so
-    they wait too, and so does indexing with a Python list, whose indices
-    are copied to the card, or with a 0-d integer tensor, which is read
-    like a Python int. The plain raster, which stands in for the
-    raster kernel on the CPU only, reads its longest bin and is not
-    recorded."""
-
-    READS = {"__bool__", "__int__", "__float__", "__index__", "item",
-             "tolist", "numpy", "cpu", "nonzero", "argwhere",
-             "masked_select", "unique", "unique_consecutive"}
-
-    def __init__(self):
-        super().__init__()
-        self.reads = []
-        self.paused = False
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        name = getattr(func, "__name__", "")
-        if self.paused:
-            pass
-        elif name in self.READS:
-            self.reads.append(name)
-        elif name == "where" and len(args) == 1:
-            self.reads.append("where(mask)")
-        elif name in ("__getitem__", "__setitem__"):
-            index = args[1] if isinstance(args[1], tuple) else (args[1],)
-            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                   for i in index):
-                self.reads.append(name + "[mask]")
-            # a list index is copied to the card and waited for; a 0-d
-            # integer tensor index is read on the host like an int
-            if any(isinstance(i, list) for i in index):
-                self.reads.append(name + "[list]")
-            if any(isinstance(i, torch.Tensor) and i.ndim == 0
-                   and not i.dtype.is_floating_point
-                   and i.dtype != torch.bool for i in index):
-                self.reads.append(name + "[0-d]")
-        return func(*args, **(kwargs or {}))
-
-
 def run_port(scene, cfg, poses, guard=False):
     """Chained port frames: (rgba, depth, history, tri_id, host syncs,
     host reads: the value reads HostReads saw in the frame, with
@@ -193,27 +152,12 @@ def run_port(scene, cfg, poses, guard=False):
     for pose in poses:
         tcompact.reset_host_syncs()
         p = port_params(pose)
-        reads = HostReads()
-        if guard:
-            plain = traster._rasterize_torch
-
-            def unrecorded(*args, **kwargs):
-                reads.paused = True
-                try:
-                    return plain(*args, **kwargs)
-                finally:
-                    reads.paused = False
-
-            with reads, mock.patch.object(traster, "_rasterize_torch",
-                                          unrecorded):
-                rgba, state, tri_id = tf.render_gltf_frame_ids(scene, p,
-                                                               state, cfg)
-        else:
+        with host_reads() if guard else contextlib.nullcontext() as reads:
             rgba, state, tri_id = tf.render_gltf_frame_ids(scene, p, state,
                                                            cfg)
         out.append((t2n(rgba), t2n(state.prev_depth),
                     t2n(state.shadow_history), t2n(tri_id),
-                    tcompact.HOST_SYNCS, reads.reads))
+                    tcompact.HOST_SYNCS, reads.reads if guard else []))
     return out
 
 
@@ -339,21 +283,38 @@ JIT_CONTACT_COUNTS = ("contact_stage2", "contact_march", "contact_blocks")
 
 
 def test_occupancy_matches_jax(jax_run, port_run):
-    """Every count of JAX's occupancy dict but the contact stage counts:
-    equal, or for FLIP_COUNTS within 1% (+ 4)."""
+    """The port's occupancy equals JAX's in every count but the contact
+    stage counts: equal, or for FLIP_COUNTS within 1% (+ 4). Both on the
+    dense back half, whose domain is JAX's poll's (the full frame, with
+    its aligned TAA fast path), and as tuned: on the row slab the derived
+    config runs (utils/autotune.py), where the only count that differs is
+    the deliberate divergence of the band budget, the slab's. The pairs
+    of the band blocks past it would count as pairs, but at this size the
+    classification closes none of them (lit0 = 1, umbra0 = 2)."""
     jocc, tocc = jax_run["occ"], port_run["occ"]
-    assert set(jocc) <= set(tocc)
-    for key, want in jocc.items():
-        got = tocc[key]
-        if key in JIT_CONTACT_COUNTS:
-            continue
-        if key not in FLIP_COUNTS:
-            assert got == want, key
-            continue
-        for g, w in zip(np.atleast_1d(got), np.atleast_1d(want)):
-            assert abs(int(g) - int(w)) <= 0.01 * int(w) + 4, (key, got,
-                                                                want)
-    assert tocc["contact_stage2"] > 0 and tocc["contact_march"] > 0
+    scene = port_run["scene"]
+    poses = [port_params(p) for p in tune_poses(jax_run["params"])]
+    dense = td.measure_sparse_occupancy(scene, poses, dataclasses.replace(
+        port_run["raster_cfg"], valid_block_capacity=0))
+    for occ, skip in ((dense, ()), (tocc, ("band_bcap",))):
+        assert set(jocc) <= set(occ)
+        for key, want in jocc.items():
+            got = occ[key]
+            if key in JIT_CONTACT_COUNTS or key in skip:
+                continue
+            if key not in FLIP_COUNTS:
+                assert got == want, key
+                continue
+            for g, w in zip(np.atleast_1d(got), np.atleast_1d(want)):
+                assert abs(int(g) - int(w)) <= 0.01 * int(w) + 4, (
+                    key, got, want)
+    assert dense["contact_stage2"] > 0 and dense["contact_march"] > 0
+    assert all(tocc[k] == dense[k] for k in JIT_CONTACT_COUNTS)
+    # the tuned occupancy: the slab's band budget
+    rows = port_run["cfg"].valid_slab_rows
+    assert tocc["band_bcap"] == max(rows * W // 64 // 8, 128) < jocc[
+        "band_bcap"] == dense["band_bcap"]
+    assert tocc["band_blocks"] == dense["band_blocks"] > tocc["band_bcap"]
 
 
 def expected_cascade_caps(occ):
@@ -371,7 +332,8 @@ def test_derive_matches_jax_but_the_cascade_caps(jax_run):
     """derive_sparse_config on JAX's occupancy dict returns JAX's config
     in every field except shadow_pen_cascade_caps, which adds the synth
     frame's fetch entries (the fold JAX's caps lack), and
-    light_window_sizes, which keeps the measured window JAX drops."""
+    light_window_sizes with its light_fetch_caps, which keep the measured
+    window JAX drops and give it a cap."""
     occ = jax_run["occ"]
     got = ta.derive_sparse_config(port_config(jax_run["raster_cfg"]), occ)
     want = port_config(jax_run["cfg"])
@@ -379,9 +341,13 @@ def test_derive_matches_jax_but_the_cascade_caps(jax_run):
     assert got.shadow_pen_cascade_caps != want.shadow_pen_cascade_caps
     assert got.light_window_sizes == occ["light_window_sizes"]
     assert got.light_window_sizes != want.light_window_sizes
+    assert all(c for c, s in zip(got.light_fetch_caps,
+                                 got.light_window_sizes) if s)
+    assert got.light_fetch_caps != want.light_fetch_caps
     assert dataclasses.replace(
         got, shadow_pen_cascade_caps=want.shadow_pen_cascade_caps,
-        light_window_sizes=want.light_window_sizes) == want
+        light_window_sizes=want.light_window_sizes,
+        light_fetch_caps=want.light_fetch_caps) == want
     assert want.valid_slab_rows and want.shadow_tap_windows is not None
     assert want.shadow_pen_block_capacity and want.contact_block_capacity
     assert sum(occ["light_fetch_per_cascade"]) > 0
@@ -531,29 +497,33 @@ def test_forced_overflow_is_detected(jax_run, port_run):
 
 
 # ---------------------------------------------------------------------------
-# The reference faults reproduced on purpose (ROADMAP queue 3)
+# Reference faults the port's poll repairs (ROADMAP, deliberate
+# divergences); JAX's poll still shows each
 # ---------------------------------------------------------------------------
 
 def test_band_bcap_sized_from_the_dense_domain(jax_run, port_run):
-    """shadow_filter.py:1015: classify_stats sizes band_bcap from the
-    poll's full-frame domain (480x272: 255 blocks), as JAX does, though
-    the tuned frame classifies on its row slab, whose budget is tighter
-    (184 x 480: 172 blocks)."""
-    occ = port_run["occ"]
-    slab = port_run["cfg"].valid_slab_rows
-    assert occ["band_bcap"] == jax_run["occ"]["band_bcap"] == (
-        max(W * H // 64 // 8, 128))
-    assert slab == 184
-    assert max(slab * W // 64 // 8, 128) < occ["band_bcap"]
+    """shadow_filter.py:1015: JAX sizes band_bcap from the poll's
+    full-frame domain (480x272: 255 blocks), though the tuned frame
+    classifies on its row slab (184 x 480: 172 blocks). The port's poll
+    reports the slab's budget, so capacity_overflows compares the band's
+    blocks with the budget the frame has."""
+    cfg = port_run["cfg"]
+    assert cfg.valid_slab_rows == 184
+    occ = td.measure_sparse_occupancy(
+        port_run["scene"], port_params(jax_run["params"]), cfg, frames=1)
+    assert jax_run["occ"]["band_bcap"] == max(W * H // 64 // 8, 128) == 255
+    assert occ["band_bcap"] == max(184 * W // 64 // 8, 128) == 172
+    assert occ["band_blocks"] > occ["band_bcap"]
+    assert "band_block_capacity" in ta.capacity_overflows(cfg, occ)
 
 
 def test_committed_taa_truncation_is_undetected(jax_run, port_run):
     """taa.py:154: on the valid-block back half a committed sparse TAA
     read has no aligned fast path, so on a parked view its need set is
     nearly the whole covered domain and a small taa_need_capacity drops
-    history rows, while the poll reports taa_need 0 and capacity_overflows
-    names nothing about it. The port reproduces the truncation: the
-    history differs from the same frames without the capacity."""
+    history rows: the history differs from the same frames without the
+    capacity. JAX's poll reports taa_need 0 there; the port's reports the
+    need, and capacity_overflows names taa_need_capacity at cap 1024."""
     params = jax_run["params"]
     cfg = dataclasses.replace(port_run["cfg"], valid_slab_rows=0,
                               valid_block_capacity=None)
@@ -565,8 +535,20 @@ def test_committed_taa_truncation_is_undetected(jax_run, port_run):
     assert all(f[4] == 0 for f in trunc)
     occ = td.measure_sparse_occupancy(port_run["scene"],
                                       port_params(params), capped, frames=1)
-    assert occ["taa_need"] == 0
-    assert "taa_need_capacity" not in ta.capacity_overflows(capped, occ)
+    assert occ["taa_need"] > 0.9 * occ["pixels"] > 1024
+    assert "taa_need_capacity" in ta.capacity_overflows(capped, occ)
+    # JAX's poll on the same pose and state: every needed pixel reads its
+    # own texel, so it reports 0 whatever the back half
+    state = tf.init_frame_state(capped, "cpu")
+    _, state = tf.render_gltf_frame(port_run["scene"], port_params(params),
+                                    state, capped)
+    jcfg = dataclasses.replace(jax_run["cfg"], valid_slab_rows=0,
+                               valid_block_capacity=None,
+                               taa_need_capacity=1024)
+    jocc = jax.jit(jd.sparse_occupancy, static_argnums=(3,))(
+        jax_run["scene"], params,
+        jf.FrameState(*(jnp.asarray(t2n(x)) for x in state)), jcfg)
+    assert int(jocc["taa_need"]) == 0
 
 
 # ---------------------------------------------------------------------------

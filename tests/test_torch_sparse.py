@@ -298,6 +298,41 @@ def test_sparse_filter_matches_jax(ref):
                          np.asarray(getattr(jres, name))[v], 5e-4) <= 0.002
 
 
+def test_classify_stats_counts_dropped_band_blocks_as_pairs(ref):
+    """classify_stats on a domain with a smaller band budget than its own
+    (the frame's row slab or block budget): committed, the band blocks
+    past the budget are dropped as the committed frame drops them, and
+    every covered, in-map pixel of the blend band they hold counts as a
+    pair; cond'd, the frame classifies an overflowing band densely, and
+    the counts are the full budget's. Bit for bit (mask equality). The
+    frame's inputs are stacked twice, so that the band outgrows the least
+    budget (128 blocks)."""
+    uni, _, cmaps, *pixel = sparse_inputs(ref)
+    world, normal, ndl, vdepth, frag, valid = (
+        torch.cat([a, a]) for a in pixel + [T(ref["gbuf"].valid)])
+    args = (uni, cmaps, world, normal, ndl, vdepth, frag, True, valid)
+    full = tsf.classify_stats(*args, committed=True)
+    assert int(full["band_bcap"]) == tsf.band_budget(2 * H * W)
+    small = tsf.classify_stats(*args, committed=True, domain=1)
+    conded = tsf.classify_stats(*args, committed=False, domain=1)
+    assert int(small["band_bcap"]) == int(conded["band_bcap"]) == 128
+    assert int(small["band_blocks"]) > 128
+    assert torch.equal(conded["_needs"], full["_needs"])
+    added = small["_needs"] & ~full["_needs"]
+    assert not (full["_needs"] & ~small["_needs"]).any()
+    assert int(small["pairs"]) > int(full["pairs"])
+    # the added pairs lie in the band's blocks past the first 128
+    c0, c1, t = tsf.select_cascade_blend(vdepth, uni.cascade_splits)
+    band = (t > 0.0) & valid
+    blocks = band.reshape(2 * H // 8, 8, W // 8, 8).any(dim=3).any(dim=1)
+    order = torch.cumsum(blocks.flatten().to(torch.int32), 0).reshape(
+        blocks.shape)
+    past = (blocks & (order > 128)).repeat_interleave(8, 0) \
+        .repeat_interleave(8, 1)
+    assert not (added.any(dim=0) & ~past).any()
+    assert added.any(dim=0).any()
+
+
 def test_sparse_filter_radius_only_groups(ref):
     """The radius-only split (lit_cascade_caps, PCSS): LIT-side pair
     entries run only the blocker search. Committed with tap windows on

@@ -7,6 +7,7 @@ stages for n ranks. Imports no jax. Not a test module itself.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import pathlib
 import tempfile
@@ -19,26 +20,46 @@ from funky_tpu_torch import frame
 from funky_tpu_torch.models.gltf import GltfScene
 from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
 from funky_tpu_torch.models.scene import build_device_scene
+from funky_tpu_torch.ops import compact
 from funky_tpu_torch.ops.raster import RasterConfig
 from funky_tpu_torch.parallel import make_mesh, sharded_gltf_frame
 from funky_tpu_torch.parallel import sharded_frame as sf
+
+from .torch_host_reads import host_reads
 
 # __graft_entry__'s perf trio (the light-space ground evaluation, the
 # back-face skip and the synthesized maps).
 TRIO = dict(light_space_ground_shadows=True, skip_backfacing_shadows=True,
             synth_shadow_maps=True)
+# bench.py's shipped flags (bench.py:129-130)
+SHIPPED = dict(committed=True, synth_shadow_maps=True)
 # case -> (flags, chained frames: one parked pose, then bench.py's orbit)
-CASES = {"default": ({}, 3), "trio": (TRIO, 2)}
+CASES = {"default": ({}, 3), "trio": (TRIO, 2), "committed": (SHIPPED, 3)}
 TIMEOUT_S = 120
 
 
 def small_config(**flags) -> frame.GltfConfig:
     """tests/test_parallel.py:24-30's size: 256x128, 128^2 maps, 8x128
-    tiles of capacity 256, GltfConfig()'s other defaults."""
+    tiles of capacity 256, GltfConfig()'s other defaults. A committed
+    config also gets capacities that hold every entry at this size (and
+    the dense back half and textures, which have no budget): where a
+    cond'd frame takes the exact dense path, a committed one truncates."""
     tile = RasterConfig(tile_h=8, tile_w=128, capacity=256)
-    return frame.GltfConfig(width=256, height=128, shadow_map_size=128,
-                            raster=tile, shadow_raster=tile,
-                            flags=frame.GltfFrameFlags(**flags))
+    cfg = frame.GltfConfig(width=256, height=128, shadow_map_size=128,
+                           raster=tile, shadow_raster=tile,
+                           flags=frame.GltfFrameFlags(**flags))
+    if not cfg.flags.committed:
+        return cfg
+    n = cfg.width * cfg.height
+    return dataclasses.replace(cfg, shadow_pen_capacity=2 * n,
+                               contact_capacity=n, contact_march_capacity=n,
+                               valid_block_capacity=0,
+                               texture_block_capacity=0)
+
+
+def conded(cfg: frame.GltfConfig) -> frame.GltfConfig:
+    return dataclasses.replace(cfg, flags=dataclasses.replace(
+        cfg.flags, committed=False))
 
 
 def multimesh(device):
@@ -102,21 +123,30 @@ def counted_gathers():
 
 def run_chain(fn, scene, pose_list, cfg, device) -> list:
     """Chained frames of fn(scene, params, state): per frame (rgba, history,
-    depth) on the CPU and the number of gathers it made."""
+    depth) on the CPU, the number of gathers it made, its host branches
+    (`syncs`) with the synthesized maps' full-raster fallbacks among them,
+    and the device values it read on the host (tests/torch_host_reads.py;
+    the plain raster's own reads aside)."""
     state = frame.init_frame_state(cfg, device)
     out = []
     for p in pose_list:
-        with counted_gathers() as calls:
+        compact.reset_host_syncs()
+        with counted_gathers() as calls, host_reads() as reads:
             rgba, state = fn(scene, p, state)
         out.append(dict(rgba=rgba.cpu(), history=state.shadow_history.cpu(),
                         depth=state.prev_depth.cpu(), gathers=len(calls),
-                        frame_index=int(state.frame_index)))
+                        frame_index=int(state.frame_index),
+                        syncs=compact.HOST_SYNCS,
+                        fallbacks=compact.BRANCHES[("synth_window_fit",
+                                                    False)],
+                        reads=list(reads.reads)))
     return out
 
 
 def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
-    """One gloo rank: every case of CASES through sharded_gltf_frame,
-    saved to out_dir/rank<r>.pt."""
+    """One gloo rank: every case of CASES through sharded_gltf_frame, and
+    a committed case's config cond'd (`<case>_conded`), saved to
+    out_dir/rank<r>.pt."""
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method=f"file://{init_file}", rank=rank,
@@ -129,6 +159,10 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
             cfg = small_config(**flags)
             out[name] = run_chain(sharded_gltf_frame(mesh, cfg), scene,
                                   poses(params, n), cfg, "cpu")
+            if cfg.flags.committed:
+                out[name + "_conded"] = run_chain(
+                    sharded_gltf_frame(mesh, conded(cfg)), scene,
+                    poses(params, n), cfg, "cpu")
         torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
