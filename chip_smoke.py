@@ -130,7 +130,29 @@ failure raises and the script exits non-zero):
    every raster of the eager frames == the plain raster, and the eager
    frames with the plain row gather == the K3 frames in rgba and every
    FrameState field; eager and replay in turns and the device busy of
-   one replay.
+   one replay;
+14. bench_torch.py, the port of bench.py: its run_primary and
+   run_secondaries on the multimesh scene at 1920x1080 with n = 24 and
+   r = 1 (the autotune over tuning_poses, the parked and motion runs
+   through compiled_gltf_frame, half-res shadows tuned on their own, the
+   SDF chain and the cube): one JSON line with bench.py's keys, the
+   tuned shipped and half-res configs == those phases 5b and 10b held
+   against the plain raster and row gather, one capture of the shipped
+   graph replayed by both runs,
+   the last motion frame == the same chain through eager
+   render_gltf_frame bit for bit, a drained run's host time >= its CUDA
+   events; then `python3 bench_torch.py` in a subprocess with
+   BENCH_REPEATS=1 (the ground plane alone): exit 0, one JSON line;
+15. funky_tpu_torch/entry.py, the port of __graft_entry__.py: entry()'s
+   fn for 3 chained poses (the ground plane alone at 1080p), every raster
+   == the plain raster, the chain with the plain row gather == the K3
+   chain, and compiled_gltf_frame of its config == the chain, in rgba and
+   every FrameState field bit for bit; dryrun_multichip(1) on a one-rank
+   NCCL group in a spawned process: the toy frame and 2 perf-mode frames
+   finite, 4 gathers and 3 per perf-mode frame, K1 and K3 in the rank;
+   then both runs again in process on a one-rank NCCL group at the same
+   shapes: == the rank's frames, every raster == plain, the plain row
+   gather == K3.
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -138,7 +160,9 @@ numpy and PIL decoders).
 
 Launch counters do not move on a graph replay: the app phases count
 launches at capture (GraphFrame.launches) and in the warm-up and capture
-runs, which the kernels line adds to the main paths' counts.
+runs, which the kernels line adds to the main paths' counts, with the
+bench and entry phases' (their autotunes, eager frames and captures, and
+the dry run's rank, which counts its own).
 
 Before the last line stdout carries the card's nvidia-smi line and a JSON
 object describing the kernels; the last is {"ok": true, "device": {...}}.
@@ -150,6 +174,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -2312,6 +2337,254 @@ def phase_sharded(dev, scene, params):
     return k1_total, k3_runs
 
 
+# bench.py:180-190's keys of the primary line
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "median_of", "min",
+              "max", "motion_fps"}
+
+
+def check_bench_output(label: str, stdout: str, stderr: str) -> None:
+    """Echo a bench run's output; it must be one JSON line with bench.py's
+    keys."""
+    for name, text in (("stdout", stdout), ("stderr", stderr)):
+        for line in text.splitlines():
+            say(f"{label} {name}: {line}")
+    lines = stdout.splitlines()
+    check(len(lines) == 1 and set(json.loads(lines[0])) == BENCH_KEYS,
+          f"{label}: stdout is not one line with bench.py's keys: {lines}")
+
+
+def phase_bench(dev, scene, params, shipped_cfg, half_cfg):
+    """bench_torch.py (the port of bench.py): run_primary and
+    run_secondaries on the multimesh scene at full width, n = N_TUNE,
+    r = 1; then `python3 bench_torch.py` in a subprocess with
+    BENCH_REPEATS=1 (the ground plane alone: the Duck is not in the
+    repository; phase_entry holds its config's kernels against their
+    plain versions). Checks: one JSON line on stdout with bench.py's
+    keys; the tuned shipped and half-res configs == `shipped_cfg` and
+    `half_cfg`, the configs the shipped and half-res phases held against
+    the plain raster and the plain row gather (a failed tuning step
+    raises out of entry.tune); the motion run replayed the graph its
+    parked run recorded (one capture, 2 (n + 1) replays); the last motion
+    frame == the same pose chain through eager render_gltf_frame bit for
+    bit; a chained run drained by bench_torch.drain takes no less host
+    time than its CUDA-event time. Returns the launch counts of the
+    in-process run."""
+    import io
+
+    import torch
+
+    import bench_torch
+    from funky_tpu_torch import entry, frame
+
+    label = "bench"
+    # every compiled frame records its graph afresh, as in a new process
+    frame._CACHE.clear()
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        primary = bench_torch.run_primary(scene, params,
+                                          entry.shipped_config(), N_TUNE, 1,
+                                          dev, "multimesh")
+        second = bench_torch.run_secondaries(scene, params,
+                                             entry.shipped_config(), N_TUNE,
+                                             1, dev)
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    check_bench_output(label, out.getvalue(), err.getvalue())
+    check(counts["raster_table"] > 0 and counts["row_gather"] > 0,
+          f"{label}: launches {counts}")
+    check(primary.cfg == shipped_cfg, f"{label}: the tuned shipped config "
+          f"differs from the shipped phase's")
+    check(second["half_cfg"] == half_cfg, f"{label}: the tuned half-res "
+          f"config differs from the half_res phase's")
+    cfg = primary.cfg
+    fn = frame.compiled_gltf_frame(cfg)
+    g = fn.last
+    replays = getattr(g, "replays", None)
+    check(len(fn.captures) == 1 and replays == 2 * (N_TUNE + 1),
+          f"{label}: {len(fn.captures)} captures, {replays} replays of the "
+          f"shipped graph (expected 1 and {2 * (N_TUNE + 1)})")
+    motion = frame.motion_poses(params, N_TUNE)
+    state = frame.init_frame_state(cfg, dev)
+    for p in motion[:1] + motion:
+        rgba, state = frame.render_gltf_frame(scene, p, state, cfg)
+    check(bits_equal(primary.last, rgba), f"{label}: the last motion frame "
+          f"differs from eager render_gltf_frame on the same chain")
+    state = frame.init_frame_state(cfg, dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync(dev)
+    t1 = time.perf_counter()
+    start.record()
+    for p in motion:
+        _, state = fn(scene, p, state)
+    end.record()
+    bench_torch.drain(dev)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    event_ms = start.elapsed_time(end)
+    check(host_ms >= event_ms, f"{label}: the drain returned before the "
+          f"replays ended: host {host_ms:.3f} ms < events {event_ms:.3f} ms")
+    say(f"{label}: in process {seconds:.1f} s, launches {counts}; tuned "
+        f"shipped and half-res configs == the shipped and half_res phases'; "
+        f"the motion run replayed the parked run's graph ({replays} replays, "
+        f"1 capture); last motion frame == eager render_gltf_frame bit for "
+        f"bit; {N_TUNE} chained replays drained: host {host_ms:.3f} ms >= "
+        f"CUDA events {event_ms:.3f} ms; half-res {second['half_res']:.2f}, "
+        f"sdf {second['sdf']:.1f}, cube {second['cube']:.1f} fps [{_GPU}]")
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
+                         env={**os.environ, "BENCH_REPEATS": "1"},
+                         capture_output=True, text=True, timeout=600)
+    check_bench_output("bench_torch.py", run.stdout, run.stderr)
+    check(run.returncode == 0, f"bench_torch.py exited {run.returncode}")
+    say(f"bench_torch.py: exit 0, one JSON line, "
+        f"{time.perf_counter() - t0:.1f} s [{_GPU}]")
+    return counts
+
+
+def check_fields_equal(a, b, label, what) -> None:
+    """Two chains, per frame rgba and every FrameState field, equal bit
+    for bit."""
+    from funky_tpu_torch import frame
+
+    names = ("rgba",) + frame.FrameState._fields
+    for i, (fa, fb) in enumerate(zip(a, b)):
+        for name, x, y in zip(names, fa, fb):
+            check(bits_equal(x, y), f"{label}: frame {i} {name}: {what}")
+
+
+def dryrun_references(dev, out, label) -> int:
+    """The dry run's toy frame and perf-mode frames again in this process,
+    on a one-rank group (NCCL on the card) at the same shapes: each ==
+    the spawned rank's rgba bit for bit, every raster == the plain raster,
+    and the same chain with the plain row gather == the K3 chain in rgba
+    and every FrameState field. These are the script's references: their
+    launches do not count. Returns the rasters checked."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from funky_tpu_torch import entry
+    from funky_tpu_torch.ops import gather_cuda
+    from funky_tpu_torch.parallel import make_mesh
+
+    checked = 0
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{td}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(1, device=dev.type)
+            scene, params, _ = entry.flagship_scene(dev.type)
+            for name, cfg, n_frames, want in (
+                    ("toy", entry.dryrun_config(1), 1, out["frame"]),
+                    ("perf-mode", entry.dryrun_config(1, entry.PERF_FLAGS), 2,
+                     out["perf_frame"])):
+                box = {}
+                calls = record_raster_calls(lambda: box.update(
+                    run=entry._sharded_frames(mesh, cfg, scene, params,
+                                              n_frames, dev.type)))
+                rgba, state, _ = box["run"]
+                check(bits_equal(rgba.cpu(), want), f"{label}: the {name} "
+                      f"frame in process differs from the dry run's rank")
+                check(len(calls) > 0, f"{label}: {name}: no raster recorded")
+                check_rasters_bitwise(calls, f"{label} {name}")
+                k3 = gather_cuda.LAUNCHES
+                with plain_gathers():
+                    prgba, pstate, _ = entry._sharded_frames(
+                        mesh, cfg, scene, params, n_frames, dev.type)
+                check(gather_cuda.LAUNCHES == k3,
+                      f"{label}: {name}: the plain-gather run launched K3")
+                check_fields_equal([(rgba,) + tuple(state)],
+                                   [(prgba,) + tuple(pstate)], f"{label} "
+                                   f"{name}", "K3 vs plain row gather differ")
+                checked += len(calls)
+        finally:
+            dist.destroy_process_group()
+    return checked
+
+
+def phase_entry(dev):
+    """funky_tpu_torch/entry.py (the port of __graft_entry__.py): entry()'s
+    fn for 3 chained poses, every raster of it == the plain raster, the
+    chain again with the plain row gather == the K3 chain, and
+    compiled_gltf_frame of its config == the eager chain, in rgba and
+    every FrameState field bit for bit; then dryrun_multichip(1), a
+    one-rank NCCL group in a spawned process (the toy frame and 2
+    perf-mode frames, checked in the rank), 4 gathers on the raster path
+    and 3 per perf-mode frame, and dryrun_references at the same shapes.
+    Returns the launch counts of entry(), the eager and the compiled
+    chains and the dry run's rank (counted there)."""
+    import torch
+
+    from funky_tpu_torch import entry, frame
+    from funky_tpu_torch.ops import gather_cuda
+
+    label = "entry"
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, (scene, params, state) = entry.entry()
+    tune_s = time.perf_counter() - t0
+    tuned = read_counts()
+    cfg = fn.keywords["cfg"]
+    check(all(bits_equal(a, b) for a, b in
+              zip(state, frame.init_frame_state(cfg, dev))),
+          f"{label}: entry's state is not a fresh FrameState")
+    poses = [params] + [frame.orbit_params(params, i) for i in (1, 2)]
+    box = {}
+    calls = record_raster_calls(lambda: box.update(
+        eager=gltf_frames(fn, scene, poses, cfg, dev)["frames"]))
+    eager = box["eager"]
+    counts = read_counts()
+    # the script's references, after the counts are read
+    rasters = (counts["raster_table"] + counts["raster_padded"]
+               - tuned["raster_table"] - tuned["raster_padded"])
+    check(len(calls) == rasters and rasters >= len(poses),
+          f"{label}: {len(calls)} rasters recorded, {rasters} launched by "
+          f"{len(poses)} frames")
+    err = check_rasters_bitwise(calls, label)
+    k3 = gather_cuda.LAUNCHES
+    with plain_gathers():
+        plain = gltf_frames(fn, scene, poses, cfg, dev)["frames"]
+    check(gather_cuda.LAUNCHES == k3, f"{label}: the plain-gather run "
+          f"launched K3")
+    check_fields_equal(eager, plain, label, "K3 vs plain row gather differ")
+    reset_counts()
+    compiled = frame.compiled_gltf_frame(cfg)
+    check(compiled.uses_graph(dev), f"{label}: the config is not recorded")
+    graph = gltf_frames(compiled, scene, poses, cfg, dev)["frames"]
+    counts = {k: counts[k] + v for k, v in read_counts().items()}
+    check_fields_equal(eager, graph, label,
+                       "entry's fn differs from compiled_gltf_frame")
+    check(all(bool(torch.isfinite(f[0]).all()) for f in eager),
+          f"{label}: non-finite")
+    say(f"{label}: entry() on the "
+        f"{'glTF Duck' if entry.find_scene() else 'ground plane only'} "
+        f"scene, tuned in {tune_s:.1f} s: {len(poses)} chained frames of fn; "
+        f"K1 == plain raster bit for bit on all {len(calls)} rasters "
+        f"(max |depth| {err}); with the plain row gather == the K3 chain; "
+        f"compiled_gltf_frame == fn, rgba and every FrameState field bit "
+        f"for bit; launches {counts}, at capture "
+        f"{getattr(compiled.last, 'launches', None)}")
+    out = entry.dryrun_multichip(1)
+    check(out["gathers"] == 4 and out["perf_gathers"] == 3,
+          f"{label}: dry run gathers {out['gathers']}, "
+          f"{out['perf_gathers']} per perf-mode frame")
+    check(out["backend"] == "nccl", f"{label}: dry run over {out['backend']}")
+    check(out["launches"]["raster_table"] > 0
+          and out["launches"]["row_gather"] > 0,
+          f"{label}: the dry run's rank launched {out['launches']}")
+    n_ref = dryrun_references(dev, out, label)
+    say(f"{label}: dryrun_multichip(1) over NCCL in {out['seconds']:.1f} s, "
+        f"rank launches {out['launches']}; again in process on a one-rank "
+        f"NCCL group: == the rank's frames bit for bit, K1 == plain raster "
+        f"on all {n_ref} rasters, the plain row gather == K3 [{_GPU}]")
+    return {k: counts[k] + out["launches"].get(k, 0) for k in counts}, err
+
+
 def main() -> None:
     global _GPU
     try:
@@ -2361,16 +2634,25 @@ def main() -> None:
     comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
     from funky_tpu_torch import frame
 
-    perf_counts = {}
+    perf_counts, perf_cfgs = {}, {}
     for name, flags in PERF_MODES.items():
         _, cfg, occ, tune_s = autotune_shipped(
             dev, scene, frame.tuning_poses(params, N_TUNE), **flags)
+        perf_cfgs[name] = cfg
         perf_counts[name], k3_per_frame[name] = phase_perf_mode(
             dev, scene, params, name, cfg, occ, tune_s)
     phase_sdf(dev)
     drv_counts, _, _, _ = phase_driver(dev)
     k1_shard, k3_shard = phase_sharded(dev, scene, params)
     k3_per_frame.update(k3_shard)
+    bench_counts = phase_bench(dev, scene, params, shipped_cfg,
+                               perf_cfgs["half_res"])
+    entry_counts, err_entry = phase_entry(dev)
+    err_k1 = max(err_k1, err_entry)
+    shell_counts = {k: bench_counts[k] + entry_counts[k]
+                    for k in bench_counts}
+    say(f"launches on the bench and entry paths (autotunes, eager frames, "
+        f"warm-ups and captures, the dry run's rank): {shell_counts}")
     app_counts = {k: cube_counts[k] + comp_counts[k] + drv_counts[k]
                   for k in cube_counts}
     say(f"launches on the app paths (cube, compiled shipped, driver; "
@@ -2385,7 +2667,7 @@ def main() -> None:
              launches=(counts["raster_table"] + k1_shipped
                        + app_counts["raster_table"]
                        + sum(c["raster_table"] for c in perf_counts.values())
-                       + k1_shard),
+                       + k1_shard + shell_counts["raster_table"]),
              max_abs_err=err_k1, ms=k1_ms,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None, bound_culled_ms=k1_culled),
@@ -2399,7 +2681,8 @@ def main() -> None:
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",
              launches=(sum(sum(v) for v in k3_per_frame.values())
-                       + app_counts["row_gather"]),
+                       + app_counts["row_gather"]
+                       + shell_counts["row_gather"]),
              max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
              bound_ms=g_bound, bound_by="bytes", library_ms=g_lib,
              timed_on="PCF tap set: (16, 1080, 1920) int32 rows of 16 B from "

@@ -183,9 +183,17 @@ def join_cascade_slabs(slabs: torch.Tensor, n: int) -> torch.Tensor:
             .reshape(-1, n * rows, size))
 
 
+# Calls of _gather_rows in this process: the all-gathers the frames
+# enqueued (entry.py's dry run prints them per frame). A CUDA graph's
+# replay issues its recorded gathers without a call.
+GATHERS = 0
+
+
 def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """All-gather along dim 0 over `group`, rank-major (JAX's tiled
     all_gather on axis 0): the frame's only collective."""
+    global GATHERS
+    GATHERS += 1
     x = x.contiguous()
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
                       + tuple(x.shape[1:]))
