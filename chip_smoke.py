@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 torch. It imports nothing of jax or of the JAX package. Phases (any
 failure raises and the script exits non-zero):
 
-1. build both kernel sources (csrc/raster.cu: K1 and K2; csrc/gather.cu:
-   K3) with one nvcc each, started together, and print the ptxas lines;
+1. build the four kernel sources (csrc/raster.cu: K1 and K2;
+   csrc/gather.cu: K3; csrc/overlay.cu: K4; csrc/lightmap.cu: K5) with one
+   nvcc each, started together, and print the ptxas lines;
 1b. K3, the frame's row gather, vs its plain twin (take_rows_plain) bit
    for bit on unit cases: f32 rows of 1, 2, 4, 7, 8, 16 and 46, 1-D f32,
    int32, bool and f16 tables, f64 rows, tables 4 and 2 bytes past a
@@ -98,8 +99,10 @@ failure raises and the script exits non-zero):
    FrameState field, the capture's launches the first eager frame's. The
    light-space mode also checks that light-map fetches are counted, times
    the replay with every footprint window against the replay with the
-   windows JAX's rule keeps, in turns, and times build_light_shadow_map
-   per cascade (device ms, kernel launches);
+   windows JAX's rule keeps, in turns; K5 launches once per window in
+   every frame (the capture counts it too), every light map of a frame
+   == the plain twin (build_light_shadow_map_plain) bit for bit, and each
+   is timed against the twin (device ms, launches) beside its bound;
 11. the SDF frame: compiled_sdf_frame(SdfConfig(960, 540)) over 20 times
    (bench.py:221-251), finite, graph == eager, the 160x96 frame at t = 1
    against tests/goldens/sdf_t1_160x96.png;
@@ -109,7 +112,12 @@ failure raises and the script exits non-zero):
    the driver's config and params bit for bit, readback, save_png to
    local/, save_state / load_state and one more step; fails if a step or
    a probe failed (the driver swallows both by design). Times per step and
-   of the panel's render_over;
+   of the panel's render_over; the panel goes through K4 once per
+   readback, save_png and render_over; K4 == the plain twin
+   (rasterize_overlay_plain) bit for bit on the driver's panel and on one
+   with every checkbox toggled and the error line shown; render_over at
+   1080p timed by parts (tessellation, table, kernel, composite), K4 by
+   device time, the twin on the host clock;
 13. the row-sharded frame (funky_tpu_torch/parallel) at the JAX package's
    sharded scale, 1920x1088 with 4 x 2048^2 cascades, 8x128 main and
    128x128 shadow tiles, for GltfConfig()'s flags (3 frames: 1 parked, 2
@@ -172,6 +180,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -331,26 +340,30 @@ def plain_gathers():
 
 
 def reset_counts() -> None:
-    from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
+    from funky_tpu_torch.ops import (compact, gather_cuda, lightmap_cuda,
+                                     overlay_cuda, raster_cuda)
 
     raster_cuda.reset_launches()
     gather_cuda.reset_launches()
+    lightmap_cuda.reset_launches()
+    overlay_cuda.reset_launches()
     compact.reset_host_syncs()
 
 
 def read_counts() -> dict:
-    from funky_tpu_torch.ops import gather_cuda, raster_cuda
+    """The frame kernels' launch counts, keyed as a captured graph counts
+    them (frame.GraphFrame.launches). K4 is read on its own (the driver
+    phase): no frame launches it."""
+    from funky_tpu_torch import frame
 
-    return {"raster_table": raster_cuda.LAUNCHES,
-            "raster_padded": raster_cuda.PADDED_LAUNCHES,
-            "row_gather": gather_cuda.LAUNCHES}
+    return frame._launch_counts()
 
 
 def phase_build() -> None:
     from funky_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["raster", "gather"])
+    libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap"])
     say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
         f" [{_GPU}]")
@@ -598,21 +611,23 @@ def poses_for(params, n_parked, n_orbit):
 def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
-    ms up to the frame's synchronize, host syncs, K1 and K3 launches per
+    ms up to the frame's synchronize, host syncs, K1, K3 and K5 launches per
     frame, and the peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import compact, gather_cuda, raster_cuda
+    from funky_tpu_torch.ops import (compact, gather_cuda, lightmap_cuda,
+                                     raster_cuda)
 
     state = frame.init_frame_state(cfg, dev)
-    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[])
+    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
         syncs0 = compact.HOST_SYNCS
         k1_0 = raster_cuda.LAUNCHES
         k3_0 = gather_cuda.LAUNCHES
+        k5_0 = lightmap_cuda.LAUNCHES
         sync(dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -630,6 +645,7 @@ def run_frames(scene, poses, cfg, dev):
         out["syncs"].append(compact.HOST_SYNCS - syncs0)
         out["k1"].append(raster_cuda.LAUNCHES - k1_0)
         out["k3"].append(gather_cuda.LAUNCHES - k3_0)
+        out["k5"].append(lightmap_cuda.LAUNCHES - k5_0)
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1687,40 +1703,123 @@ PERF_MODES = {
 }
 
 
-def time_light_maps(calls):
+def light_map_work(args, kwargs, rows):
+    """(bytes, FP32 operations) one light map needs on these inputs: the
+    haloed window of the raw map read once, the parameters, the (wc^2, 4)
+    rows written; per texel the receiver (7) and, by the kernel's own
+    path: 16 blocker taps (4 each) and, where a tap hit, the penumbra
+    (12), the rung weights (4 each) and 16 compare taps (18 each, + 6 to
+    fold) for each rung whose weight this texel's penumbra makes nonzero;
+    or the 3x3 kernel (3 per tap + 2) or 16 Vogel taps (18 each + 2) of
+    fixed-radius PCF."""
+    import torch
+
+    from funky_tpu_torch.ops import lightmap_cuda
+    from funky_tpu_torch.passes import shadow_lightspace
+
+    a = inspect.signature(shadow_lightspace.build_light_shadow_map_plain
+                          ).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    wc, use_pcss, rungs = a["wc"], a["use_pcss"], a["rungs"]
+    wp = wc + 2 * shadow_lightspace.halo_texels(a["max_softness"])
+    params = sum(lightmap_cuda.param_sizes(use_pcss, rungs, a["phases"]))
+    nbytes = 4 * wp * wp + 4 * params + 16 * wc * wc
+    texels = wc * wc
+    taps = shadow_lightspace.light_map_taps(a["uni"], use_pcss, rungs,
+                                            a["phases"], rows.device)
+    if not use_pcss:
+        per = 9 * 3 + 2 if bool(taps.small) else 16 * 18 + 2
+        return nbytes, texels * (7 + per)
+    pen = rows[:, 2]
+    hit = pen > 0
+    pos = (rungs - 1) * torch.log(pen[hit] / 0.5) / taps.span
+    live = sum(int((torch.clamp(1.0 - torch.abs(pos - j), 0.0, 1.0) > 0)
+                   .sum()) for j in range(rungs))
+    ops = (texels * (7 + 16 * 4) + int(hit.sum()) * (12 + 4 * rungs)
+           + live * (16 * 18 + 6))
+    return nbytes, ops
+
+
+def time_light_maps(calls, reps: int = 3):
     """Per recorded build_light_shadow_map call (one per cascade with a
-    window): (window size, device ms, kernel launches), the launches
-    counted from one call under torch.profiler."""
+    window): its window size; for K5's path (build_light_shadow_map on the
+    frame's tap geometry: the parameters' torch ops, then the kernel) and
+    for the plain twin the device ms behind a sleep (device_ms; where
+    enqueueing takes longer than the sleep, the host's gaps count too),
+    the kernels launched and their summed device time (torch.profiler,
+    `reps` calls); K5's own device time; and the bound (light_map_work
+    over the card's peaks). Returns (those rows, the launches and device
+    ms of building the tap geometry, once per frame)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from funky_tpu_torch.passes import shadow_lightspace
 
-    out = []
-    for args, kwargs in calls:
-        def fn():
-            return shadow_lightspace.build_light_shadow_map(*args, **kwargs)
-
-        ms = device_ms(fn, iters=3)
+    def profiled(fn):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(reps):
+                rows = fn()
             torch.cuda.synchronize()
-        n = len(trace_kernels(prof, words=("",)))
-        out.append((args[5], ms, n))
-    return out
+        return rows, trace_kernels(prof, words=("",))
+
+    out = []
+    for args, kwargs, _ in calls:
+        row = {"wc": args[5]}
+        for name, fn in (
+                ("kernel", lambda: shadow_lightspace.build_light_shadow_map(
+                    *args, **kwargs)),
+                ("plain", lambda: shadow_lightspace
+                 .build_light_shadow_map_plain(*args, **kwargs))):
+            row[f"{name}_ms"] = device_ms(fn, iters=3)
+            rows, ks = profiled(fn)
+            row[f"{name}_launches"] = len(ks) // reps
+            row[f"{name}_busy_ms"] = sum(k[1] for k in ks) / reps
+            if name == "kernel":
+                row["k5_ms"] = sum(k[1] for k in ks
+                                   if "light_map" in k[0]) / reps
+                nbytes, ops = light_map_work(args, kwargs, rows)
+        row["bound_ms"] = max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BPS > ops / FP32_OPS \
+            else "operations"
+        out.append(row)
+    args, kwargs, _ = calls[0]
+    a = inspect.signature(shadow_lightspace.build_light_shadow_map_plain
+                          ).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    _, ks = profiled(lambda: shadow_lightspace.light_map_taps(
+        a["uni"], a["use_pcss"], a["rungs"], a["phases"], args[0].device))
+    return out, (len(ks) // reps, sum(k[1] for k in ks) / reps)
+
+
+def _copied(x):
+    """x with every tensor in it (in tuples and named tuples too) copied."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_copied(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
 
 
 def record_light_maps(fn):
-    """Run fn() and return the (args, kwargs) of every
-    build_light_shadow_map call it makes."""
+    """Run fn() and return every build_light_shadow_map call it makes as
+    (args, kwargs, rows): copies of its arguments taken at the call (a
+    chained or sharded frame overwrites its buffers) and the rows it
+    returned."""
     from funky_tpu_torch.passes import shadow_lightspace
 
     calls = []
     build = shadow_lightspace.build_light_shadow_map
 
     def record(*args, **kwargs):
-        calls.append((args, kwargs))
-        return build(*args, **kwargs)
+        copies = (_copied(args), {k: _copied(v) for k, v in kwargs.items()})
+        rows = build(*args, **kwargs)
+        calls.append(copies + (rows,))
+        return rows
 
     shadow_lightspace.build_light_shadow_map = record
     try:
@@ -1728,6 +1827,25 @@ def record_light_maps(fn):
     finally:
         shadow_lightspace.build_light_shadow_map = build
     return calls
+
+
+def check_light_maps(calls, launched, label) -> float:
+    """Every recorded light map (one per K5 launch of the run, `launched`)
+    against the plain twin's rows on the same inputs, bit for bit. Returns
+    the largest absolute difference."""
+    from funky_tpu_torch.passes import shadow_lightspace
+
+    check(len(calls) == launched, f"{label}: {len(calls)} light maps "
+          f"recorded, K5 launched {launched} times")
+    err = 0.0
+    for i, (args, kwargs, rows) in enumerate(calls):
+        want = shadow_lightspace.build_light_shadow_map_plain(*args, **kwargs)
+        check(bits_equal(rows, want), f"{label}: light map {i} ({args[5]}^2 "
+              f"window) differs from the plain twin")
+        err = max(err, float((rows - want).abs().max()))
+    say(f"{label}: K5 == plain bit for bit on all {len(calls)} light maps "
+        f"of the run (windows {sorted({a[5] for a, _, _ in calls})})")
+    return err
 
 
 def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
@@ -1738,9 +1856,12 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     and chained poses with each frame polled (check_tuned_and_chained),
     and the frames through compiled_gltf_frame == the eager ones bit for
     bit in rgba and every FrameState field, with the capture's launches
-    the eager frame's.
+    the eager frame's. The light-space mode also launches K5 once per
+    window in every frame, and every light map of a frame equals the plain
+    twin's bit for bit.
     Prints frame, replay and light-map times. Returns (launch counts of the
-    eager committed run, K3 launches per frame)."""
+    eager committed run, K3 launches per frame, the light maps' K5 numbers
+    or None)."""
     import dataclasses
     import functools
 
@@ -1768,7 +1889,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     reset_counts()
     box = {}
     rasters = record_raster_calls(lambda: box.update(
-        run=run_frames(scene, poses, cfg, dev)))
+        maps=record_light_maps(lambda: box.update(
+            run=run_frames(scene, poses, cfg, dev)))))
     crun = box["run"]
     counts = read_counts()
     say(f"{label}: {len(poses)} committed frames, launches {counts}, K1 per "
@@ -1781,6 +1903,13 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     err = check_rasters_bitwise(rasters, label)
     say(f"{label}: K1 == plain raster bit for bit on all {len(rasters)} "
         f"recorded rasters (max |depth| difference {err})")
+    if cfg.flags.light_space_ground_shadows:
+        check(all(k == n_win for k in crun["k5"]),
+              f"{label}: expected {n_win} K5 launches per frame, got "
+              f"{crun['k5']}")
+        say(f"{label}: K5 launches per frame {crun['k5']}, K3 launches per "
+            f"frame {crun['k3']}")
+        k5_err = check_light_maps(box["maps"], counts["light_map"], label)
     with plain_gathers():
         prun = run_frames(scene, poses, cfg, dev)
     check_gathers(crun, prun, label)
@@ -1808,7 +1937,7 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
                   f"differs from the eager frame")
     # the graph is recorded from the first frame's inputs
     first = {"raster_table": crun["k1"][0], "raster_padded": 0,
-             "row_gather": crun["k3"][0]}
+             "row_gather": crun["k3"][0], "light_map": crun["k5"][0]}
     check(g.launches == first, f"{label}: capture launches {g.launches} "
           f"!= the first eager frame's {first}")
     say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
@@ -1857,16 +1986,33 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
                 f"median {statistics.median(r['ms'][1:]):.3f} ms [{_GPU}]")
         state = frame.init_frame_state(cfg, dev)
         _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
-        maps = time_light_maps(record_light_maps(
-            lambda: frame.render_gltf_frame(scene, poses[-1], state, cfg)))
-        total = sum(ms for _, ms, _ in maps)
-        for wc, ms, n in maps:
-            say(f"{label}: build_light_shadow_map on a {wc}^2 window: "
-                f"{ms:.4f} ms device time, {n} kernel launches [{_GPU}]")
-        say(f"{label}: light maps {total:.4f} ms device time per frame, "
-            f"{total / statistics.median(grun['ms'][1:]):.1%} of the graph "
-            f"replay's CUDA-event median [{_GPU}]")
-    return counts, crun["k3"]
+        calls = record_light_maps(
+            lambda: frame.render_gltf_frame(scene, poses[-1], state, cfg))
+        maps, (taps_launches, taps_ms) = time_light_maps(calls)
+        for m in maps:
+            say(f"{label}: light map on a {m['wc']}^2 window: K5 alone "
+                f"{m['k5_ms']:.4f} ms; with its parameters "
+                f"{m['kernel_launches']} launches, {m['kernel_busy_ms']:.4f}"
+                f" ms busy, {m['kernel_ms']:.4f} ms behind a sleep; plain "
+                f"twin {m['plain_launches']} launches, "
+                f"{m['plain_busy_ms']:.4f} ms busy, {m['plain_ms']:.4f} ms "
+                f"behind a sleep; bound "
+                f"{m['bound_ms']:.5f} ms ({m['bound_by']}) [{_GPU}]")
+        k5 = {k: sum(m[k] for m in maps)
+              for k in ("kernel_ms", "plain_ms", "bound_ms", "k5_ms",
+                        "kernel_busy_ms", "plain_busy_ms")}
+        k5.update(err=k5_err, maps=maps, taps_ms=taps_ms,
+                  frame_busy_ms=k5["kernel_busy_ms"] + taps_ms,
+                  bound_by=max(maps, key=lambda m: m["bound_ms"])["bound_by"])
+        say(f"{label}: light maps per frame: K5 alone {k5['k5_ms']:.4f} ms;"
+            f" the tap geometry, built once, {taps_launches} launches, "
+            f"{taps_ms:.4f} ms busy; with it and each window's parameters "
+            f"{k5['frame_busy_ms']:.4f} ms busy "
+            f"({k5['frame_busy_ms'] / statistics.median(grun['ms'][1:]):.1%}"
+            f" of the graph replay's CUDA-event median), plain twin "
+            f"{k5['plain_busy_ms']:.4f} ms busy [{_GPU}]")
+        return counts, crun["k3"], k5
+    return counts, crun["k3"], None
 
 
 def phase_sdf(dev):
@@ -1911,8 +2057,10 @@ def phase_driver(dev):
     DRIVER_RETUNE_EVERY frames: N_DRIVER steps with camera keys, each equal
     to eager render_gltf_frame with the driver's config and params;
     readback, save_png, save_state / load_state and one more step. Fails
-    on any failed step or probe. Returns (launch counts, capture launches,
-    step ms, render_over ms)."""
+    on any failed step or probe; the panel goes through K4 once per
+    readback, save_png and render_over (phase_overlay then holds K4 to its
+    plain twin and times the panel). Returns (launch counts, capture
+    launches, step ms, render_over ms, K4's numbers)."""
     import io
 
     import torch
@@ -1921,6 +2069,8 @@ def phase_driver(dev):
     from funky_tpu_torch.app.camera import Keys
     from funky_tpu_torch.app.driver import FrameDriver
     from funky_tpu_torch.frame import GltfConfig, GltfFrameFlags
+
+    from funky_tpu_torch.ops import overlay_cuda
 
     label = "driver 1920x1080"
     base = GltfConfig(width=WIDTH, height=HEIGHT, flags=GltfFrameFlags(
@@ -1978,6 +2128,7 @@ def phase_driver(dev):
               f"{label}: the step after load_state failed: {drv.last_error}")
     text = log.getvalue()
     counts = read_counts()
+    k4 = overlay_cuda.LAUNCHES
     for line in text.splitlines():
         say(f"  driver stdout: {line}")
     check("failed" not in text, f"{label}: a step or probe failed")
@@ -1990,9 +2141,127 @@ def phase_driver(dev):
         f"capture {g.launches if g else None}; step median "
         f"{statistics.median(steps[1:]):.3f} ms host clock (the first "
         f"{steps[0]:.3f} ms records the graph); render_over {ui_ms:.3f} ms; "
+        f"K4 launches {k4} (readback, save_png, render_over); "
         f"wrote local/driver_1080p_ui.png [{_GPU}]")
     check(g is not None, f"{label}: the shipped config recorded no graph")
-    return counts, g.launches, statistics.median(steps[1:]), ui_ms
+    check(k4 == 3, f"{label}: the panel launched K4 {k4} times, expected 3")
+    k4_info = phase_overlay(dev, drv.ui_data())
+    k4_info["launches"] = k4
+    return (counts, g.launches, statistics.median(steps[1:]), ui_ms,
+            k4_info)
+
+
+def overlay_work(table: np.ndarray, panel_hw, atlas_bytes: int):
+    """(bytes, FP32 operations) one panel raster needs on this table: the
+    table and the atlas read once, the (H, W, 4) panel written; 17
+    operations (barycentrics and the cover test) per pixel of each
+    triangle's crop box and 93 more (uv, colour, the bilinear sample, the
+    blend) per pixel a triangle covers, counted here in numpy with the
+    kernel's expressions."""
+    from funky_tpu_torch.passes import overlay
+
+    ph, pw = panel_hw
+    px = np.arange(pw, dtype=np.float32)[None, :] + np.float32(0.5)
+    py = np.arange(ph, dtype=np.float32)[:, None] + np.float32(0.5)
+    boxed = covered = 0
+    for row in table:
+        inv, dx21, dy21, dx02, dy02, x1, y1, x2, y2 = \
+            row[:overlay.TABLE_SCALARS]
+        cx0, cx1, cy0, cy1 = (int(v) for v in
+                              row[overlay.TABLE_CROP:overlay.TABLE_CROP + 4])
+        cpx, cpy = px[:, cx0:cx1], py[cy0:cy1]
+        b0 = (dx21 * (cpy - y1) - dy21 * (cpx - x1)) * inv
+        b1 = (dx02 * (cpy - y2) - dy02 * (cpx - x2)) * inv
+        b2 = np.float32(1.0) - b0 - b1
+        boxed += (cx1 - cx0) * (cy1 - cy0)
+        covered += int(((b0 >= 0) & (b1 >= 0) & (b2 >= 0)).sum())
+    return table.nbytes + atlas_bytes + 16 * ph * pw, 17 * boxed + 93 * covered
+
+
+def phase_overlay(dev, data) -> dict:
+    """K4 against its plain twin (rasterize_overlay_plain) bit for bit on
+    the panel of `data` (the driver's UiData) and on one with every
+    checkbox toggled and the error line shown; then render_over at 1080p
+    timed by parts on the host clock (tessellation, table, kernel,
+    composite), K4 by device time, the plain twin on the host clock, and
+    the bound. Returns the kernel's numbers for the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from funky_tpu_torch.app import ui
+    from funky_tpu_torch.ops import overlay_cuda
+    from funky_tpu_torch.passes import overlay
+
+    label = "overlay K4"
+    hw = (ui.PANEL_H, ui.PANEL_W)
+    atlas = torch.from_numpy(ui.build_font_atlas()[0]).to(dev)
+    toggled = dataclasses.replace(
+        data, debug_cascades=not data.debug_cascades,
+        use_pcss=not data.use_pcss, use_shadow_taa=not data.use_shadow_taa,
+        last_error="frame 7: a failure shown on the panel")
+    err = 0.0
+    for name, d in (("driver", data), ("toggled", toggled)):
+        arrays = ui.build_panel(d).arrays()
+        table = torch.from_numpy(overlay.overlay_table(
+            *arrays[:4], int(arrays[4]), hw)).to(dev)
+        got = overlay_cuda.overlay_raster(table, atlas, hw)
+        want = overlay.rasterize_overlay_plain(table, atlas, hw)
+        check(bits_equal(got, want), f"{label}: the {name} panel differs "
+              f"from the plain twin's")
+        check(float((got[..., 3] > 0.5).float().mean()) > 0.5,
+              f"{label}: the {name} panel is not drawn")
+        err = max(err, float((got - want).abs().max()))
+        say(f"{label}: the {name} panel ({table.shape[0]} triangles of "
+            f"{int(arrays[4])}) == plain twin bit for bit")
+
+    # render_over at 1080p by parts, host clock (medians of 20)
+    image = torch.rand((HEIGHT, WIDTH, 4), generator=torch.Generator(
+        ).manual_seed(0)).to(dev)
+    panel = ui.DebugPanel(WIDTH, HEIGHT, device=dev)
+    parts = collections.defaultdict(list)
+    for _ in range(20):
+        sync(dev)
+        t0 = time.perf_counter()
+        arrays = ui.build_panel(data).arrays()
+        t1 = time.perf_counter()
+        table_np = overlay.overlay_table(*arrays[:4], int(arrays[4]), hw)
+        table = torch.from_numpy(table_np).to(dev)
+        t2 = time.perf_counter()
+        ov = overlay_cuda.overlay_raster(table, atlas, hw)
+        sync(dev)
+        t3 = time.perf_counter()
+        overlay.composite_overlay(image, ov, ui.PANEL_X, ui.PANEL_Y)
+        sync(dev)
+        t4 = time.perf_counter()
+        panel.render_over(image, data)
+        sync(dev)
+        t5 = time.perf_counter()
+        for k, v in (("tessellation", t1 - t0), ("table", t2 - t1),
+                     ("kernel", t3 - t2), ("composite", t4 - t3),
+                     ("render_over", t5 - t4)):
+            parts[k].append(v * 1e3)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    ms = device_ms(lambda: overlay_cuda.overlay_raster(table, atlas, hw))
+    plain = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        overlay.rasterize_overlay_plain(table, atlas, hw)
+        sync(dev)
+        plain.append((time.perf_counter() - t0) * 1e3)
+    nbytes, ops = overlay_work(table_np, hw, atlas.numel() * 4)
+    bound = max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3
+    by = "bytes" if nbytes / HBM_BPS > ops / FP32_OPS else "operations"
+    say(f"{label}: render_over {WIDTH}x{HEIGHT} {med['render_over']:.3f} ms "
+        f"host clock (median of 20): tessellation {med['tessellation']:.3f}"
+        f", table {med['table']:.3f}, kernel {med['kernel']:.3f}, composite"
+        f" {med['composite']:.3f} ms; K4 {ms:.4f} ms device time, plain twin"
+        f" {statistics.median(plain):.3f} ms host clock (its own launches), "
+        f"bound {bound:.5f} ms ({by}: {nbytes} B, {ops} FP32 operations) "
+        f"[{_GPU}]")
+    return dict(err=err, ms=ms, plain_ms=statistics.median(plain),
+                bound_ms=bound, bound_by=by, parts=med)
 
 
 # The row-sharded frame at the JAX package's full sharded scale
@@ -2084,8 +2353,9 @@ def sharded_graph(dev, scene, params, mesh, name, flags):
     == render_gltf_frame in rgba and every FrameState field, bit for bit;
     the gathers of the first call (the warm-up's and the capture's, none
     on a replay) and K1 and K3 at capture as the eager frame launches
-    them; every raster of the eager frames == the plain raster, and the
-    eager frames with the plain row gather == the K3 frames; eager and
+    them; every raster of the eager frames == the plain raster, every
+    light map of them == the plain twin, and the eager frames with the
+    plain row gather == the K3 frames; eager and
     replay timed in turns, and the device busy of one replay. Returns
     (launch counts of the eager and graph runs, K3 launches per eager
     frame)."""
@@ -2105,7 +2375,8 @@ def sharded_graph(dev, scene, params, mesh, name, flags):
     reset_counts()
     box = {}
     rasters = record_raster_calls(lambda: box.update(
-        run=gltf_frames(fn.eager, scene, poses, cfg, dev)))
+        maps=record_light_maps(lambda: box.update(
+            run=gltf_frames(fn.eager, scene, poses, cfg, dev)))))
     erun = box["run"]
     e_counts = read_counts()
     reset_counts()
@@ -2114,13 +2385,17 @@ def sharded_graph(dev, scene, params, mesh, name, flags):
     g_counts = read_counts()
     g = fn.last
     # the script's references, after the counts are read: every raster of
-    # the eager frames against the plain raster, and the eager frames
-    # again with the plain row gather (the graph equals the eager frames,
-    # so its kernels are held to both too)
+    # the eager frames against the plain raster, every light map against
+    # the plain twin, and the eager frames again with the plain row gather
+    # (the graph equals the eager frames, so its kernels are held to all
+    # three too)
     check(len(rasters) == e_counts["raster_table"],
           f"{label}: {len(rasters)} rasters recorded, K1 launched "
           f"{e_counts['raster_table']} times")
     check_rasters_bitwise(rasters, label)
+    if flags.get("light_space_ground_shadows"):
+        check(e_counts["light_map"] > 0, f"{label}: no light map launched")
+        check_light_maps(box["maps"], e_counts["light_map"], label)
     reset_counts()
     with plain_gathers():
         prun = gltf_frames(fn.eager, scene, poses, cfg, dev)
@@ -2193,7 +2468,7 @@ def phase_sharded(dev, scene, params):
     synthesized maps; K1 5 times per slab per raster-path frame; K3 on
     every frame. Prints eager frame times, the device ms of the front and
     of each slab's stages, and the bytes each gather moves. Returns (K1
-    launches, K3 launches per frame) of the sharded runs."""
+    launches, K3 launches per frame, K5 launches) of the sharded runs."""
     import datetime
     import functools
 
@@ -2204,7 +2479,7 @@ def phase_sharded(dev, scene, params):
     from tests.torch_sharded_worker import CASES, TRIO, compose_frame, poses
 
     n = SHARD_SLABS
-    k1_total, k3_runs = 0, {}
+    k1_total, k3_runs, k5_total = 0, {}, 0
     with tempfile.TemporaryDirectory() as td:
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo",
@@ -2230,25 +2505,39 @@ def phase_sharded(dev, scene, params):
                 box = {}
                 reset_counts()
                 one_rasters = record_raster_calls(lambda: box.update(
-                    one=shard_chain(sharded, scene, pose_list, cfg, dev)))
+                    one_maps=record_light_maps(lambda: box.update(
+                        one=shard_chain(sharded, scene, pose_list, cfg,
+                                        dev)))))
                 one = box["one"][0]
                 one["counts"] = read_counts()
                 reset_counts()
                 four_rasters = record_raster_calls(lambda: box.update(
-                    four=shard_chain(composed, scene, pose_list, cfg, dev)))
+                    four_maps=record_light_maps(lambda: box.update(
+                        four=shard_chain(composed, scene, pose_list, cfg,
+                                         dev)))))
                 four, state = box["four"]
                 four["counts"] = read_counts()
                 # the script's references, after the counts are read: every
                 # raster of both runs (each slab at its own y_offset and
-                # height) against the plain raster, and both chains again
-                # with the plain row gather
-                for run_name, run, rasters in (
-                        ("one-rank NCCL", one, one_rasters),
-                        (f"{n} slabs", four, four_rasters)):
+                # height) against the plain raster, every light map against
+                # the plain twin, and both chains again with the plain row
+                # gather
+                for run_name, run, rasters, maps in (
+                        ("one-rank NCCL", one, one_rasters, box["one_maps"]),
+                        (f"{n} slabs", four, four_rasters,
+                         box["four_maps"])):
                     check(len(rasters) == sum(run["k1"]),
                           f"{label} {run_name}: {len(rasters)} rasters "
                           f"recorded, K1 launched {sum(run['k1'])} times")
                     check_rasters_bitwise(rasters, f"{label} {run_name}")
+                    lit = bool(windows and flags.get(
+                        "light_space_ground_shadows"))
+                    check(bool(maps) == lit, f"{label} {run_name}: "
+                          f"{len(maps)} light maps over {len(pose_list)} "
+                          f"frames, {windows} windows")
+                    if maps:
+                        check_light_maps(maps, run["counts"]["light_map"],
+                                         f"{label} {run_name}")
                 with plain_gathers():
                     one_plain, _ = shard_chain(sharded, scene, pose_list, cfg,
                                                dev)
@@ -2300,6 +2589,8 @@ def phase_sharded(dev, scene, params):
                           f"launches per frame {run['k1']}, expected {want}")
                 k1_total += (one["counts"]["raster_table"]
                              + four["counts"]["raster_table"])
+                k5_total += (one["counts"]["light_map"]
+                             + four["counts"]["light_map"])
                 k3_runs[f"sharded_{name}_nccl"] = one["k3"]
                 k3_runs[f"sharded_{name}_{n}slabs"] = four["k3"]
                 say(f"{label}: one-rank NCCL frame and {n}-slab composition "
@@ -2329,12 +2620,13 @@ def phase_sharded(dev, scene, params):
                 counts, k3 = sharded_graph(dev, scene, params, mesh, name,
                                            flags)
                 k1_total += counts["raster_table"]
+                k5_total += counts["light_map"]
                 k3_runs[f"sharded_committed_{name}"] = k3
                 k3_runs[f"sharded_committed_{name}_graph"] = [
                     counts["row_gather"] - sum(k3)]
         finally:
             dist.destroy_process_group()
-    return k1_total, k3_runs
+    return k1_total, k3_runs, k5_total
 
 
 # bench.py:180-190's keys of the primary line
@@ -2459,6 +2751,7 @@ def dryrun_references(dev, out, label) -> int:
     """The dry run's toy frame and perf-mode frames again in this process,
     on a one-rank group (NCCL on the card) at the same shapes: each ==
     the spawned rank's rgba bit for bit, every raster == the plain raster,
+    every light map == the plain twin (as many as the rank launched K5),
     and the same chain with the plain row gather == the K3 chain in rgba
     and every FrameState field. These are the script's references: their
     launches do not count. Returns the rasters checked."""
@@ -2470,7 +2763,7 @@ def dryrun_references(dev, out, label) -> int:
     from funky_tpu_torch.ops import gather_cuda
     from funky_tpu_torch.parallel import make_mesh
 
-    checked = 0
+    checked, maps = 0, []
     with tempfile.TemporaryDirectory() as td:
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo",
@@ -2485,13 +2778,15 @@ def dryrun_references(dev, out, label) -> int:
                      out["perf_frame"])):
                 box = {}
                 calls = record_raster_calls(lambda: box.update(
-                    run=entry._sharded_frames(mesh, cfg, scene, params,
-                                              n_frames, dev.type)))
+                    maps=record_light_maps(lambda: box.update(
+                        run=entry._sharded_frames(mesh, cfg, scene, params,
+                                                  n_frames, dev.type)))))
                 rgba, state, _ = box["run"]
                 check(bits_equal(rgba.cpu(), want), f"{label}: the {name} "
                       f"frame in process differs from the dry run's rank")
                 check(len(calls) > 0, f"{label}: {name}: no raster recorded")
                 check_rasters_bitwise(calls, f"{label} {name}")
+                maps += box["maps"]
                 k3 = gather_cuda.LAUNCHES
                 with plain_gathers():
                     prgba, pstate, _ = entry._sharded_frames(
@@ -2502,6 +2797,11 @@ def dryrun_references(dev, out, label) -> int:
                                    [(prgba,) + tuple(pstate)], f"{label} "
                                    f"{name}", "K3 vs plain row gather differ")
                 checked += len(calls)
+            # the rank ran the same frames, so its K5 launches are these
+            check(len(maps) > 0, f"{label}: the perf-mode frames built no "
+                  f"light map")
+            check_light_maps(maps, out["launches"]["light_map"],
+                             f"{label} perf-mode")
         finally:
             dist.destroy_process_group()
     return checked
@@ -2634,16 +2934,17 @@ def main() -> None:
     comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
     from funky_tpu_torch import frame
 
-    perf_counts, perf_cfgs = {}, {}
+    perf_counts, perf_cfgs, k5_info = {}, {}, None
     for name, flags in PERF_MODES.items():
         _, cfg, occ, tune_s = autotune_shipped(
             dev, scene, frame.tuning_poses(params, N_TUNE), **flags)
         perf_cfgs[name] = cfg
-        perf_counts[name], k3_per_frame[name] = phase_perf_mode(
+        perf_counts[name], k3_per_frame[name], k5 = phase_perf_mode(
             dev, scene, params, name, cfg, occ, tune_s)
+        k5_info = k5 or k5_info
     phase_sdf(dev)
-    drv_counts, _, _, _ = phase_driver(dev)
-    k1_shard, k3_shard = phase_sharded(dev, scene, params)
+    drv_counts, _, _, _, k4_info = phase_driver(dev)
+    k1_shard, k3_shard, k5_shard = phase_sharded(dev, scene, params)
     k3_per_frame.update(k3_shard)
     bench_counts = phase_bench(dev, scene, params, shipped_cfg,
                                perf_cfgs["half_res"])
@@ -2691,6 +2992,33 @@ def main() -> None:
              frame_ms={k: v[0] for k, v in g_frames.items()},
              frame_plain_ms={k: v[1] for k, v in g_frames.items()},
              frame_bound_ms={k: v[2] for k, v in g_frames.items()}),
+        dict(name="overlay_raster", route="cuda",
+             source="funky_tpu_torch/csrc/overlay.cu",
+             replaces="funky_tpu/passes/overlay.py:26",
+             launches=k4_info["launches"], max_abs_err=k4_info["err"],
+             ms=k4_info["ms"], plain_ms=k4_info["plain_ms"],
+             bound_ms=k4_info["bound_ms"], bound_by=k4_info["bound_by"],
+             library_ms=None,
+             timed_on="the driver's debug panel, 256x384 (plain: host "
+                      "clock, its launches included)",
+             render_over_ms=k4_info["parts"]),
+        dict(name="light_map", route="cuda",
+             source="funky_tpu_torch/csrc/lightmap.cu",
+             replaces="funky_tpu/passes/shadow_lightspace.py:210",
+             launches=(sum(c["light_map"] for c in perf_counts.values())
+                       + app_counts["light_map"] + k5_shard
+                       + shell_counts["light_map"]),
+             max_abs_err=k5_info["err"], ms=k5_info["k5_ms"],
+             plain_ms=k5_info["plain_ms"], bound_ms=k5_info["bound_ms"],
+             bound_by=k5_info["bound_by"], library_ms=None,
+             timed_on="the light-space frame's maps, windows "
+                      f"{[m['wc'] for m in k5_info['maps']]}, summed (ms: "
+                      "K5's own device time; plain_ms behind a sleep)",
+             call_busy_ms=k5_info["frame_busy_ms"],
+             taps_busy_ms=k5_info["taps_ms"],
+             plain_busy_ms=k5_info["plain_busy_ms"],
+             per_window=[[m["wc"], m["k5_ms"], m["kernel_busy_ms"],
+                          m["plain_busy_ms"]] for m in k5_info["maps"]]),
     ]
     say(_GPU)
     say(json.dumps({"kernels": kernels}))

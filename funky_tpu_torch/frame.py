@@ -683,10 +683,15 @@ def _light_maps(raw_maps, uni, cfg: GltfConfig, origins):
     _, n_off, gbias = shadow_lightspace.ground_constants(uni)
     planes = shadow_lightspace.biased_ground_planes(
         uni.light_view_proj, shadow_lightspace.GROUND_Y + n_off)
+    # the tap geometry depends on the frame, not the window: built once
+    taps = shadow_lightspace.light_map_taps(
+        uni, cfg.flags.use_pcss, cfg.light_pcf_rungs,
+        shadow_lightspace.PHASES, gbias.device) if any(sizes) else None
     rows = tuple(
         shadow_lightspace.build_light_shadow_map(
             raw_maps[c], origins[c], planes[c], uni, cfg.flags.use_pcss,
-            sizes[c], cfg.max_softness, gbias, cfg.light_pcf_rungs)
+            sizes[c], cfg.max_softness, gbias, cfg.light_pcf_rungs,
+            taps=taps)
         if sizes[c] else None for c in range(len(sizes)))
     return rows, origins, sizes, cfg.light_fetch_caps
 
@@ -774,11 +779,12 @@ _CACHE: dict = {}
 
 
 def _launch_counts() -> dict:
-    from .ops import gather_cuda, raster_cuda
+    from .ops import gather_cuda, lightmap_cuda, raster_cuda
 
     return {"raster_table": raster_cuda.LAUNCHES,
             "raster_padded": raster_cuda.PADDED_LAUNCHES,
-            "row_gather": gather_cuda.LAUNCHES}
+            "row_gather": gather_cuda.LAUNCHES,
+            "light_map": lightmap_cuda.LAUNCHES}
 
 
 def _copy_in(dst: torch.Tensor, src) -> None:

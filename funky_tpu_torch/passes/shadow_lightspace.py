@@ -14,12 +14,17 @@ becomes `phases` per-frame rotations chosen by global texel parity, and
 PCSS's penumbra PCF runs at `rungs` log-spaced radii, interpolated per
 texel.
 
-The port keeps the JAX arithmetic and its summation order. The 16 taps
-of a phase's blocker search or of one PCF rung are read for the four
-phases at once, as one row gather (`take_rows`, the row-gather kernel on
-the card) of the haloed window at device-valued shifts, and summed in
-the JAX order (`_sum_taps`). Every phase is evaluated over the whole
-window, then each texel keeps its own phase's result, as in JAX.
+The port keeps the JAX arithmetic and its summation order. On the card
+each map is one launch of the light-map kernel K5 (ops/lightmap_cuda.py,
+csrc/lightmap.cu): one thread per texel walks its own phase's taps in
+registers, reading the tap geometry that `kernel_params` packs. The
+plain twin `build_light_shadow_map_plain` reads the 16 taps of a phase's
+blocker search or of one PCF rung for the four phases at once, as one
+row gather (`take_rows`) of the haloed window at device-valued shifts,
+sums them in the JAX order (`_sum_taps`), and keeps each texel's own
+phase at the end, as JAX does. Both read the tap
+geometry of `light_map_taps`, which the frame builds once for all its
+windows.
 
 Window origins and tap shifts stay device tensors: the frame slices with
 them by index arithmetic, never by reading them on the host.
@@ -28,10 +33,12 @@ them by index arithmetic, never by reading them on the host.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..math3d import const
+from ..math3d import const, f32 as to_f32
+from ..ops import lightmap_cuda
 from ..ops.sampling import dynamic_slice, quad_pack, take_rows, to_i32
 from .shadow_classify import plane_through
 from .shadow_filter import (BLOCKER_SAMPLES, PCF_SAMPLES, _sum_taps,
@@ -41,6 +48,10 @@ from .uniforms import FrameUniforms
 # World height of the planar receiver: the ground quad lies at y = 0 with an
 # identity model matrix (shadow_lightspace.py:58-60).
 GROUND_Y = 0.0
+
+# Per-frame rotations of the light maps' taps, chosen by global texel
+# parity (shadow_lightspace.py:213).
+PHASES = 4
 
 
 def halo_texels(max_softness: float) -> int:
@@ -139,21 +150,76 @@ def _shifted(halo: int, wc: int, wp: int, sy: torch.Tensor,
     return y * wp + x
 
 
-def _compare_taps(qflat, halo: int, wc: int, wp: int, receiver, dx, dy,
-                  radius, count: int):
-    """Mean and mean square of `count` compare-bilinear taps at the
-    spatially constant offsets (dx, dy) * radius, (count, P) for P phases
-    (shadow_lightspace.py:176-207). qflat: the quad-packed haloed window
-    as (wp * wp, 4) rows; every tap of every phase is one row gather.
-    Returns two (P, wc, wc) tensors."""
-    ox = dx * radius
-    oy = dy * radius
+class LightMapTaps(NamedTuple):
+    """The per-frame tap geometry of a light map, device tensors for P
+    phases (light_map_taps). `light_size`, `span` and `shifts` are PCSS's,
+    `radius` and `small` fixed-radius PCF's (None otherwise). `radii` (R,)
+    are the PCF radii (PCSS's `rungs` log-spaced r_j, or the one radius);
+    `corners` (y0, x0) int32 and `fracs` (fy, fx) f32, each (R, 16, P),
+    the 16 PCF taps' integer texel offsets and bilinear weights at each
+    radius; `shifts` (sy, sx) int32 (16, P), the nearest blocker taps."""
+    phi: torch.Tensor
+    radii: torch.Tensor
+    corners: tuple
+    fracs: tuple
+    light_size: Optional[torch.Tensor] = None
+    span: Optional[torch.Tensor] = None
+    shifts: Optional[tuple] = None
+    radius: Optional[torch.Tensor] = None
+    small: Optional[torch.Tensor] = None
+
+
+def light_map_taps(uni: FrameUniforms, use_pcss: bool, rungs: int,
+                   phases: int, dev) -> LightMapTaps:
+    """One Vogel rotation per phase (IGN at the phase's screen point) and
+    the taps it puts at each radius (shadow_lightspace.py:262-322): the
+    values both the plain light map and the kernel's parameters read. No
+    value is read on the host."""
+    softness = uni.shadow_bias[0]
+    offs = const([[float(p % 2), float(p // 2)] for p in range(phases)],
+                 torch.float32, dev)
+    phi = shadow_frame_phi(offs, uni.debug_flags[3], uni.debug_flags[2])
+    extra = {}
+    if not use_pcss:
+        # Fixed-radius PCF: the 3x3 kernel (radius <= 1.25) or 16 Vogel
+        # taps at the radius.
+        radius = torch.clamp(softness, min=0.5)
+        radii = radius.reshape(1)
+        extra = dict(radius=radius, small=radius <= 1.25)
+    else:
+        light_size = softness * 2.0
+        # Blocker search: nearest taps are integer shifts
+        # (floor(t + 0.5 + d) = t + floor(0.5 + d)).
+        dx, dy = vogel_disk_all(BLOCKER_SAMPLES, phi)
+        shifts = (to_i32(torch.floor(0.5 + dy * light_size)),
+                  to_i32(torch.floor(0.5 + dx * light_size)))
+        # PCF at `rungs` log-spaced radii.
+        span = torch.log(torch.clamp(light_size * 4.0, min=1.0 + 1e-6))
+        radii = torch.stack([0.5 * torch.exp(span * (j / (rungs - 1)))
+                             for j in range(rungs)])
+        extra = dict(light_size=light_size, span=span, shifts=shifts)
+    dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
+    ox = dx[None] * radii[:, None, None]
+    oy = dy[None] * radii[:, None, None]
     x0 = torch.floor(ox)
     y0 = torch.floor(oy)
-    fx = (ox - x0)[..., None, None]
-    fy = (oy - y0)[..., None, None]
+    return LightMapTaps(phi=phi, radii=radii,
+                        corners=(to_i32(y0), to_i32(x0)),
+                        fracs=(oy - y0, ox - x0), **extra)
+
+
+def _compare_taps(qflat, halo: int, wc: int, wp: int, receiver,
+                  taps: LightMapTaps, r: int, count: int):
+    """Mean and mean square of `count` compare-bilinear taps at the
+    spatially constant offsets of radius r of `taps`, (count, P) for P
+    phases (shadow_lightspace.py:176-207). qflat: the quad-packed haloed
+    window as (wp * wp, 4) rows; every tap of every phase is one row
+    gather. Returns two (P, wc, wc) tensors."""
+    y0, x0 = taps.corners[0][r], taps.corners[1][r]
+    fy = taps.fracs[0][r][..., None, None]
+    fx = taps.fracs[1][r][..., None, None]
     t = (receiver[..., None] <= take_rows(
-        qflat, _shifted(halo, wc, wp, to_i32(y0), to_i32(x0)))).to(
+        qflat, _shifted(halo, wc, wp, y0, x0))).to(
             torch.float32)                        # (count, P, wc, wc, 4)
     top = t[..., 0] * (1 - fx) + t[..., 1] * fx
     bot = t[..., 2] * (1 - fx) + t[..., 3] * fx
@@ -161,17 +227,73 @@ def _compare_taps(qflat, halo: int, wc: int, wp: int, receiver, dx, dy,
     return _sum_taps(tap) / count, _sum_taps(tap * tap) / count
 
 
+def kernel_params(origin, plane: torch.Tensor, bias: torch.Tensor,
+                  taps: LightMapTaps, use_pcss: bool, dev
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The light-map kernel's (ints, floats) parameters as device tensors,
+    in the layout of ops/lightmap_cuda.py::param_sizes. `finite` flags
+    each radius and phase whose 16 bilinear weights are finite (the
+    kernel skips a zero-weight rung only then)."""
+    i32, f32 = torch.int32, torch.float32
+    org = torch.stack([o.to(device=dev, dtype=i32).reshape(())
+                       if isinstance(o, torch.Tensor)
+                       else const(int(o), i32, dev) for o in origin])
+    ints = [org] + [t.reshape(-1) for t in
+                    ((taps.shifts if use_pcss else ()) + taps.corners)]
+    a, b = ((taps.light_size, taps.span) if use_pcss
+            else (taps.radius, taps.small.to(f32)))
+    fy, fx = taps.fracs
+    finite = (torch.isfinite(fy) & torch.isfinite(fx)).all(dim=1)
+    floats = [to_f32(plane, dev).reshape(3), to_f32(bias, dev).reshape(1),
+              a.reshape(1), b.reshape(1), fy.reshape(-1), fx.reshape(-1),
+              finite.to(f32).reshape(-1)]
+    return (torch.cat(ints).to(i32).contiguous(),
+            torch.cat(floats).to(f32).contiguous())
+
+
 def build_light_shadow_map(raw_map: torch.Tensor, origin,
                            plane: torch.Tensor, uni: FrameUniforms,
                            use_pcss: bool, wc: int, max_softness: float,
                            bias: torch.Tensor, rungs: int = 6,
-                           phases: int = 4) -> torch.Tensor:
+                           phases: int = PHASES,
+                           taps: Optional[LightMapTaps] = None
+                           ) -> torch.Tensor:
     """Dense PCSS/PCF over the (wc, wc) light-space window at `origin`
     (oy, ox) of one cascade's raw (S, S) depth, for a planar receiver at
     `plane` (the biased ground's NDC-depth plane)
     (shadow_lightspace.py:210-331). Returns (wc * wc, 4) contiguous rows
     [v, m2, kernel radius, 1], the lit and no-blocker overrides applied;
-    the sparse filter's fetch groups read them with one row gather."""
+    the sparse filter's fetch groups read them with one row gather.
+    `taps` is light_map_taps(uni, use_pcss, rungs, phases), built here
+    when not given.
+
+    A CPU map goes to the plain twin, build_light_shadow_map_plain; any
+    other to the light-map kernel K5 (ops/lightmap_cuda.py::light_map,
+    csrc/lightmap.cu), one thread per texel evaluating its own phase,
+    which launches or raises."""
+    dev = raw_map.device
+    if taps is None:
+        taps = light_map_taps(uni, use_pcss, rungs, phases, dev)
+    if dev.type == "cpu":
+        return build_light_shadow_map_plain(raw_map, origin, plane, uni,
+                                            use_pcss, wc, max_softness, bias,
+                                            rungs, phases, taps)
+    ints, floats = kernel_params(origin, plane, bias, taps, use_pcss, dev)
+    return lightmap_cuda.light_map(raw_map, ints, floats, wc,
+                                   halo_texels(max_softness), phases, rungs,
+                                   use_pcss)
+
+
+def build_light_shadow_map_plain(raw_map: torch.Tensor, origin,
+                                 plane: torch.Tensor, uni: FrameUniforms,
+                                 use_pcss: bool, wc: int,
+                                 max_softness: float, bias: torch.Tensor,
+                                 rungs: int = 6, phases: int = PHASES,
+                                 taps: Optional[LightMapTaps] = None
+                                 ) -> torch.Tensor:
+    """build_light_shadow_map as torch ops: every phase over the whole
+    window, then each texel keeps its own phase's result, as in JAX (the
+    CPU path and the kernel's test oracle)."""
     s = raw_map.shape[0]
     dev = raw_map.device
     halo = halo_texels(max_softness)
@@ -190,40 +312,28 @@ def build_light_shadow_map(raw_map: torch.Tensor, origin,
     receiver = (plane[0] * tx[None, :] + plane[1] * ty[:, None]
                 + plane[2]) - bias
 
-    softness = uni.shadow_bias[0]
-    # One Vogel rotation per phase: IGN at the phase's screen point.
-    offs = const([[float(p % 2), float(p // 2)] for p in range(phases)],
-                  torch.float32, dev)
-    phi = shadow_frame_phi(offs, uni.debug_flags[3], uni.debug_flags[2])
-
+    if taps is None:
+        taps = light_map_taps(uni, use_pcss, rungs, phases, dev)
     if not use_pcss:
-        # Fixed-radius PCF: the 3x3 kernel (radius <= 1.25) or 16 Vogel
-        # taps. JAX's lax.cond becomes both kernels, selected on the card.
-        radius = torch.clamp(softness, min=0.5)
+        # JAX's lax.cond becomes both kernels, selected on the card.
         s3 = []
         for oy in (-1, 0, 1):
             for ox in (-1, 0, 1):
                 d = window[halo + oy:halo + oy + wc, halo + ox:halo + ox + wc]
                 s3.append((receiver <= d).to(torch.float32))
         s3 = torch.stack(s3)
-        dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
-        m1, m2 = _compare_taps(qflat, halo, wc, wp, receiver, dx, dy, radius,
+        m1, m2 = _compare_taps(qflat, halo, wc, wp, receiver, taps, 0,
                                PCF_SAMPLES)
-        small = radius <= 1.25
+        small = taps.small
         m1 = torch.where(small, _sum_taps(s3) / 9.0, m1)
         m2 = torch.where(small, _sum_taps(s3 * s3) / 9.0, m2)
-        kern = torch.where(small, 1.0, radius).expand_as(m1)
+        kern = torch.where(small, 1.0, taps.radius).expand_as(m1)
         one = torch.ones_like(m1)
         out = torch.stack([m1, m2, kern, one], dim=-1)
     else:
-        light_size = softness * 2.0
-        # Blocker search: nearest taps are integer shifts
-        # (floor(t + 0.5 + d) = t + floor(0.5 + d)).
-        dx, dy = vogel_disk_all(BLOCKER_SAMPLES, phi)
-        sx = to_i32(torch.floor(0.5 + dx * light_size))
-        sy = to_i32(torch.floor(0.5 + dy * light_size))
-        d = take_rows(wflat, _shifted(halo, wc, wp, sy, sx))  # (16, P, ...)
-        hit = d < receiver
+        light_size = taps.light_size
+        d = take_rows(wflat, _shifted(halo, wc, wp, *taps.shifts))
+        hit = d < receiver                                    # (16, P, ...)
         b_sum = _sum_taps(torch.where(hit, d, 0.0))
         b_cnt = _sum_taps(hit.to(torch.float32))
         has_blockers = b_cnt > 0.0
@@ -235,16 +345,13 @@ def build_light_shadow_map(raw_map: torch.Tensor, origin,
                                  light_size * 2.0)
 
         # PCF at `rungs` log-spaced radii, log-linearly interpolated.
-        dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
-        span = torch.log(torch.clamp(light_size * 4.0, min=1.0 + 1e-6))
         m1 = torch.zeros_like(penumbra)
         m2 = torch.zeros_like(penumbra)
-        pos = (rungs - 1) * torch.log(penumbra / 0.5) / span
+        pos = (rungs - 1) * torch.log(penumbra / 0.5) / taps.span
         for j in range(rungs):
-            r_j = 0.5 * torch.exp(span * (j / (rungs - 1)))
             w_j = torch.clamp(1.0 - torch.abs(pos - j), 0.0, 1.0)
-            m1_j, m2_j = _compare_taps(qflat, halo, wc, wp, receiver, dx, dy,
-                                       r_j, PCF_SAMPLES)
+            m1_j, m2_j = _compare_taps(qflat, halo, wc, wp, receiver, taps, j,
+                                       PCF_SAMPLES)
             m1 = m1 + w_j * m1_j
             m2 = m2 + w_j * m2_j
         one = torch.ones_like(m1)

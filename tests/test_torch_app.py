@@ -401,6 +401,7 @@ import funky_tpu_torch.app.driver, funky_tpu_torch.app.viewer
 import funky_tpu_torch.ecs, funky_tpu_torch.models.sdf
 import funky_tpu_torch.utils.sanitize, funky_tpu_torch.utils.profiling
 import funky_tpu_torch.passes.overlay
+import funky_tpu_torch.ops.overlay_cuda, funky_tpu_torch.ops.lightmap_cuda
 assert "jax" not in sys.modules and "funky_tpu" not in sys.modules, [
     m for m in sys.modules if m.startswith(("jax", "funky_tpu."))]
 print("ok")
@@ -434,8 +435,9 @@ def test_app_entry_points_default_to_the_card():
 @pytest.mark.parametrize("path", ["cube", "overlay"])
 def test_app_gathers_pass_check_args(path, monkeypatch):
     """Every take_rows call of the cube frame and of the debug panel's
-    render_over passes the row-gather kernel's check_args (K3 takes them
-    on the card; tests/test_torch_gather.py does the same for the glTF
+    plain raster passes the row-gather kernel's check_args (K3 takes them
+    on the card, where the panel's plain twin is the overlay kernel's
+    reference; tests/test_torch_gather.py does the same for the glTF
     frames)."""
     import funky_tpu_torch.frame as tf
     from funky_tpu_torch.models.scene import build_cube_scene

@@ -312,3 +312,88 @@ def build_faceted_glb(path):
         + struct.pack("<II", len(js), 0x4E4F534A) + js
         + struct.pack("<II", len(binv), 0x004E4942) + binv)
     return path
+
+
+# Debug-panel triangle sets for the overlay kernel K4 (passes/overlay.py):
+# name -> what the set holds. Each is (verts, uvs, colors, tris, n) as
+# app/ui.py's Tessellator.arrays() returns them (padded with -1 rows).
+OVERLAY_CASES = {
+    "tiny": "triangles under 16 px^2 of |area| (the full-panel crop)",
+    "slivers": "long thin and degenerate (zero-area) triangles",
+    "edges": "triangles across and beyond the panel's edges, uv off the "
+             "atlas",
+}
+
+
+def overlay_case(name: str, panel_hw=(256, 384), n_tris: int = 96,
+                 seed: int = 0):
+    """Seeded UI triangles of OVERLAY_CASES[name] over a panel of
+    panel_hw, with premultiplied colours and atlas uvs, padded to
+    n_tris + 8 slots of which n_tris are real (a padded row among them)."""
+    ph, pw = panel_hw
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform((0, 0), (pw, ph), (n_tris, 1, 2))
+    if name == "tiny":
+        verts = centre + rng.uniform(-2.5, 2.5, (n_tris, 3, 2))
+    elif name == "slivers":
+        d = rng.normal(size=(n_tris, 1, 2))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        along = rng.uniform(-80, 80, (n_tris, 3, 1))
+        across = rng.uniform(-0.3, 0.3, (n_tris, 3, 1))
+        verts = centre + along * d + across * d[..., ::-1] * (1, -1)
+        verts[::7, 2] = verts[::7, 0]          # zero area: dropped
+    elif name == "edges":
+        verts = rng.uniform((-40, -40), (pw + 40, ph + 40), (n_tris, 3, 2))
+    else:
+        raise KeyError(name)
+    verts = verts.reshape(-1, 2).astype(np.float32)
+    uvs = rng.uniform(-0.1, 1.1 if name == "edges" else 1.0,
+                      (len(verts), 2)).astype(np.float32)
+    alpha = rng.uniform(0.2, 1.0, (len(verts), 1))
+    colors = np.concatenate([rng.uniform(0, 1, (len(verts), 3)) * alpha,
+                             alpha], axis=-1).astype(np.float32)
+    tris = np.full((n_tris + 8, 3), -1, np.int32)
+    tris[:n_tris] = np.arange(3 * n_tris, dtype=np.int32).reshape(-1, 3)
+    tris[n_tris // 2] = -1                     # a padded row among the real
+    return verts, uvs, colors, tris, n_tris
+
+
+def light_map_case(size: int = 1024, seed: int = 0):
+    """(plane (3,), raw (size, size)) f32 for the light-map kernel K5: the
+    sloped receiver plane of tests/test_lightspace.py and its raw depth,
+    with a ramp blocker (its height, and so the PCSS penumbra, spans a
+    range) and seeded rectangular blockers of random heights across the
+    map, some cut by its border."""
+    rng = np.random.default_rng(seed)
+    plane = np.array([0.0004, -0.0006, 0.55], np.float32)
+    t = ((np.arange(size, dtype=np.float32) + np.float32(0.5))
+         / np.float32(size))
+    raw = plane[0] * t[None, :] + plane[1] * t[:, None] + plane[2]
+    y0, x0 = size * 5 // 16, size * 3 // 8
+    raw[y0:y0 + size // 4, x0:x0 + size // 3] -= np.linspace(
+        0.02, 0.3, size // 3, dtype=np.float32)[None, :]
+    for _ in range(24):
+        h, w = rng.integers(4, size // 6, 2)
+        y, x = rng.integers(-h // 2, size - h // 2, 2)
+        raw[max(y, 0):y + h, max(x, 0):x + w] -= np.float32(
+            rng.uniform(0.01, 0.4))
+    return plane, raw.astype(np.float32)
+
+
+def light_uniform_fields(softness: float, size: int = 1024, taa: float = 1.0,
+                         frame: float = 3.0) -> dict:
+    """The FrameUniforms fields (numpy f32) a light map reads, as
+    tests/test_lightspace.py::_mk_uni builds them: shadow_bias[0] the
+    softness, debug_flags (debug, pcss, taa, frame index); the rest
+    zeros."""
+    z = np.zeros((4, 4), np.float32)
+    f = lambda *v: np.array(v, np.float32)   # noqa: E731
+    return dict(view=z, proj=z, view_proj=z,
+                camera_pos=np.zeros(3, np.float32),
+                light_dir=f(0.39, 0.86, 0.32),
+                light_view_proj=np.zeros((4, 4, 4), np.float32),
+                cascade_splits=np.zeros(4, np.float32),
+                shadow_map_size=f(size, size, 1.0 / size, 1.0 / size),
+                debug_flags=f(0.0, 1.0, taa, frame),
+                shadow_bias=f(softness, 0, 0, 0),
+                prev_view_proj=z, models=np.zeros((2, 4, 4), np.float32))
