@@ -7,14 +7,22 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 torch. It imports nothing of jax or of the JAX package. Phases (any
 failure raises and the script exits non-zero):
 
-1. build the four kernel sources (csrc/raster.cu: K1 and K2;
-   csrc/gather.cu: K3; csrc/overlay.cu: K4; csrc/lightmap.cu: K5) with one
-   nvcc each, started together, and print the ptxas lines;
+1. build the six kernel sources (csrc/raster.cu: K1 and K2;
+   csrc/gather.cu: K3; csrc/overlay.cu: K4; csrc/lightmap.cu: K5;
+   csrc/pair_taps.cu: K6; csrc/group_counts.cu: K7) with one nvcc each,
+   started together, and print the ptxas lines;
 1b. K3, the frame's row gather, vs its plain twin (take_rows_plain) bit
    for bit on unit cases: f32 rows of 1, 2, 4, 7, 8, 16 and 46, 1-D f32,
    int32, bool and f16 tables, f64 rows, tables 4 and 2 bytes past a
    16-byte boundary, negative and out-of-range indices, an empty index, a
    1-row table;
+1c. K6 (the shadow filter's tap sets) and K7 (its per-group pair
+   histogram) vs their plain twins bit for bit on synthetic entries
+   (phase_filter_cases): PCSS, radius-only, fixed-radius PCF with 16
+   Vogel taps and with the 3x3 kernel on the packed 2048^2 maps with
+   edge entries (NaN, infinite and far-off uv, texel boundaries) and
+   through a window at an origin past S - Wc; K7 at the 1080p pair shape,
+   a ragged length and an unaligned view;
 2. K1 and K2 vs their plain torch twin on numpy-seeded random triangles
    (degenerate and w-culled ones included) at small and at the main
    path's shapes: full capacity, an overflowing tight capacity, a row
@@ -65,11 +73,12 @@ failure raises and the script exits non-zero):
    counted by its plain twin (ops/raster.py::subtile_keep) for a
    culled-work bound;
 7. K3 at the dense shadow filter's tap shape: a (4*2048*2048, 4) f32
-   table and 16 x 1080 x 1920 indices (uniform, one recorded PCF tap set),
-   and a table that fits in L2; bit-equal to the plain gather, timed
-   beside torch's `table[idx]` and the plain twin; then every K3 call of
-   one dense and one shipped frame, recorded and replayed: the summed
-   device time per frame against its byte bound;
+   table and 16 x 1080 x 1920 indices (uniform, one PCF tap set recorded
+   from the dense frame's plain tap twins, which gather through K3 as the
+   frame did before K6), and a table that fits in L2; bit-equal to the
+   plain gather, timed beside torch's `table[idx]` and the plain twin;
+   then every K3 call of one dense and one shipped frame, recorded and
+   replayed: the summed device time per frame against its byte bound;
 8. timings with CUDA events and the median frame times. Kernel times are
    device times (launches queued behind a sleep kernel, `device_ms`),
    printed beside the time through the wrapper with its host enqueue
@@ -161,6 +170,18 @@ failure raises and the script exits non-zero):
    then both runs again in process on a one-rank NCCL group at the same
    shapes: == the rank's frames, every raster == plain, the plain row
    gather == K3.
+
+Every path that reaches the shadow filter (dense, default, shipped,
+large, the perf modes, the sharded runs and the committed sharded eager
+frames, entry's chain and the dry run's frames in process) launches K6 on
+every frame and K7 once per sparse frame, and its frames are rendered
+again with every K6 and K7 call recorded (verify_filter: the inputs held
+by reference, unchanged since the call) and held against the plain twins
+(passes/shadow_filter.py::_pcss_taps_plain, _pcf_taps_plain,
+_group_counts_plain) bit for bit, as many calls as that run launched.
+K6 is timed per dense and per shipped frame, K7 per shipped frame beside
+torch.bincount of the same keys (and the syncs torch's debug mode
+reports for it).
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -304,11 +325,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, sleep_cycles: int = 10_000_000) -> float:
     """Mean device milliseconds of fn() over `iters` runs. The runs are
-    enqueued behind a ~5 ms sleep kernel, so the events bracket the
-    kernels alone and not the host's cost of enqueueing them (cuda_ms
-    includes that wherever a run is shorter than its enqueue). fn must not
+    enqueued behind a sleep kernel (~5 ms at the default `sleep_cycles`),
+    so the events bracket the kernels alone and not the host's cost of
+    enqueueing them (cuda_ms includes that wherever a run is shorter than
+    its enqueue), as long as the enqueue fits in the sleep. fn must not
     synchronise."""
     import torch
 
@@ -316,7 +338,7 @@ def device_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -339,14 +361,33 @@ def plain_gathers():
         gather_cuda.row_gather = kernel
 
 
+@contextlib.contextmanager
+def plain_filter_taps():
+    """The shadow filter's tap sets run their plain twins on the card (0
+    K6 launches) inside the block: the script's own reference, never the
+    port's path."""
+    from funky_tpu_torch.passes import shadow_filter
+
+    saved = shadow_filter._pcss_taps, shadow_filter._pcf_taps
+    shadow_filter._pcss_taps = shadow_filter._pcss_taps_plain
+    shadow_filter._pcf_taps = shadow_filter._pcf_taps_plain
+    try:
+        yield
+    finally:
+        shadow_filter._pcss_taps, shadow_filter._pcf_taps = saved
+
+
 def reset_counts() -> None:
-    from funky_tpu_torch.ops import (compact, gather_cuda, lightmap_cuda,
-                                     overlay_cuda, raster_cuda)
+    from funky_tpu_torch.ops import (compact, gather_cuda, group_counts_cuda,
+                                     lightmap_cuda, overlay_cuda,
+                                     pair_taps_cuda, raster_cuda)
 
     raster_cuda.reset_launches()
     gather_cuda.reset_launches()
     lightmap_cuda.reset_launches()
     overlay_cuda.reset_launches()
+    pair_taps_cuda.reset_launches()
+    group_counts_cuda.reset_launches()
     compact.reset_host_syncs()
 
 
@@ -363,7 +404,8 @@ def phase_build() -> None:
     from funky_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap"])
+    libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap",
+                                 "pair_taps", "group_counts"])
     say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
         f" [{_GPU}]")
@@ -611,16 +653,18 @@ def poses_for(params, n_parked, n_orbit):
 def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
-    ms up to the frame's synchronize, host syncs, K1, K3 and K5 launches per
-    frame, and the peak device memory (GiB)."""
+    ms up to the frame's synchronize, host syncs, K1, K3, K5, K6 and K7
+    launches per frame, and the peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
-    from funky_tpu_torch.ops import (compact, gather_cuda, lightmap_cuda,
+    from funky_tpu_torch.ops import (compact, gather_cuda, group_counts_cuda,
+                                     lightmap_cuda, pair_taps_cuda,
                                      raster_cuda)
 
     state = frame.init_frame_state(cfg, dev)
-    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[])
+    out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[],
+               k6=[], k7=[])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
@@ -628,6 +672,7 @@ def run_frames(scene, poses, cfg, dev):
         k1_0 = raster_cuda.LAUNCHES
         k3_0 = gather_cuda.LAUNCHES
         k5_0 = lightmap_cuda.LAUNCHES
+        k6_0, k7_0 = pair_taps_cuda.LAUNCHES, group_counts_cuda.LAUNCHES
         sync(dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -646,6 +691,8 @@ def run_frames(scene, poses, cfg, dev):
         out["k1"].append(raster_cuda.LAUNCHES - k1_0)
         out["k3"].append(gather_cuda.LAUNCHES - k3_0)
         out["k5"].append(lightmap_cuda.LAUNCHES - k5_0)
+        out["k6"].append(pair_taps_cuda.LAUNCHES - k6_0)
+        out["k7"].append(group_counts_cuda.LAUNCHES - k7_0)
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -760,6 +807,7 @@ def phase_dense(dev, gltf, scene):
     frames_equal(krun, prun, "dense kernel vs plain raster")
     say(f"dense path: kernel run == plain-raster run, all {len(poses)} "
         f"frames bit for bit")
+    check_filter_launches(krun, "dense", "dense path", dense=True)
     with plain_gathers():
         grun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
                                                      "auto"), dev)
@@ -771,6 +819,10 @@ def phase_dense(dev, gltf, scene):
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, plain raster", prun)
     report(f"dense frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2, plain row gather",
            grun)
+    cfg = dense_config(WIDTH, HEIGHT, SHADOW, "auto")
+    verify_filter("dense path", lambda: run_frames(scene, poses, cfg, dev))
+    FILTER_TIMES["dense"] = time_pair_taps(
+        frame_filter_calls(scene, poses[-1], cfg, dev))
     return params, poses, krun
 
 
@@ -788,6 +840,7 @@ def phase_default(dev, gltf, scene, params):
     check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
           and counts["raster_padded"] == 0,
           "default path: expected 5 K1 launches per frame")
+    check_filter_launches(srun, "default", "default path (multimesh)")
     with plain_gathers():
         grun = run_frames(scene, poses, default_config(), dev)
     check_gathers(srun, grun, "default path (multimesh)")
@@ -802,6 +855,8 @@ def phase_default(dev, gltf, scene, params):
            f"poses)", drun)
     report(f"default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2 (multimesh), plain "
            f"row gather", grun)
+    verify_filter("default path (multimesh)",
+                  lambda: run_frames(scene, poses, default_config(), dev))
     return counts, srun, drun
 
 
@@ -1018,6 +1073,7 @@ def phase_shipped(dev, gltf, scene, params):
           f"{label}: expected {n_win + 1} K1 launches per frame")
     check(len(calls) == (n_win + 1) * len(poses),
           f"{label}: {len(calls)} rasters recorded")
+    check_filter_launches(crun, "shipped", label)
     with plain_gathers():
         grun = run_frames(scene, poses, cfg, dev)
     check_gathers(crun, grun, label)
@@ -1066,6 +1122,10 @@ def phase_shipped(dev, gltf, scene, params):
         say(f"shipped frame (committed), {name}: host clock per frame "
             f"{[round(x, 3) for x in run['wall']]} ms, median after the "
             f"first {statistics.median(run['wall'][1:]):.3f} ms [{_GPU}]")
+    verify_filter(label, lambda: run_frames(scene, poses, cfg, dev))
+    calls = frame_filter_calls(scene, poses[-1], cfg, dev)
+    FILTER_TIMES["shipped"] = time_pair_taps(calls)
+    FILTER_TIMES["histogram"] = time_group_counts(calls)
     return counts["raster_table"], err, cfg, crun["k3"]
 
 
@@ -1283,6 +1343,7 @@ def phase_large(dev):
     check(counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
           and counts["raster_table"] == 0,
           "large scene: expected 5 K2 launches and no K1 launch per frame")
+    check_filter_launches(krun, "large", "large scene")
     prun = run_frames(scene, poses[:1], default_config("torch"), dev)
     krun1 = dict(krun, frames=krun["frames"][:1])
     frames_equal(krun1, prun, "large scene K2 vs plain raster")
@@ -1295,6 +1356,8 @@ def phase_large(dev):
                 on_ground=False)
     report(f"large-scene default frame {WIDTH}x{HEIGHT}, 4x{SHADOW}^2", krun)
     say(f"large scene, plain raster frame: {prun['ms'][0]:.3f} ms [{_GPU}]")
+    verify_filter("large scene", lambda: run_frames(scene, poses,
+                                                    default_config(), dev))
 
     cfg = default_config()
     calls = record_raster_calls(lambda: frame.render_gltf_frame(
@@ -1389,9 +1452,12 @@ def phase_gather(dev, scene, params):
     n_big = 4 * SHADOW * SHADOW
     n_l2 = 1 << 20                       # 16 MB table: fits the 50 MB L2
     # one PCF tap set of the dense frame: per cascade the blocker search
-    # (nearest), then the PCF compare; the first cascade's compare
-    taps = [i for t, i in dense_frame_gathers(scene, params, dev)
-            if t.shape == (n_big, 4) and tuple(i.shape) == TAP_SHAPE]
+    # (nearest), then the PCF compare; the first cascade's compare. The
+    # frame's tap sets run in K6, so they are recorded from its plain
+    # twins, which gather the same rows through K3.
+    with plain_filter_taps():
+        taps = [i for t, i in dense_frame_gathers(scene, params, dev)
+                if t.shape == (n_big, 4) and tuple(i.shape) == TAP_SHAPE]
     check(len(taps) >= 2, f"recorded {len(taps)} tap sets")
     cases = [
         (f"uniform, {16 * n_big / 1e6:.0f} MB table", n_big,
@@ -1522,7 +1588,8 @@ def bits_equal(a, b) -> bool:
     import torch
 
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def phase_cube(dev):
@@ -1657,8 +1724,9 @@ def phase_compiled_shipped(dev, scene, params, cfg):
           and g.launches == per_frame,
           f"{label}: capture launches {g.launches} != the eager frame's "
           f"{per_frame}")
-    check(g.launches["raster_table"] > 0 and g.launches["row_gather"] > 0,
-          f"{label}: K1 or K3 missing at capture")
+    check(g.launches["raster_table"] > 0 and g.launches["row_gather"] > 0
+          and g.launches["pair_taps"] > 0 and g.launches["group_counts"] == 1,
+          f"{label}: K1, K3, K6 or K7 missing at capture")
     for i, (fe, fg) in enumerate(zip(erun["frames"], grun["frames"])):
         for name, a, b in zip(names, fe, fg):
             check(bits_equal(a, b), f"{label}: frame {i} {name} differs "
@@ -1848,6 +1916,334 @@ def check_light_maps(calls, launched, label) -> float:
     return err
 
 
+# The shadow filter's kernels, K6 (the tap sets, passes/shadow_filter.py::
+# _pcss_taps / _pcf_taps on CUDA tensors) and K7 (the per-group pair
+# histogram, _group_counts): each dispatcher and its plain twin.
+FILTER_TWINS = {"_pcss_taps": "_pcss_taps_plain",
+                "_pcf_taps": "_pcf_taps_plain",
+                "_group_counts": "_group_counts_plain"}
+# Every K6 and K7 call held against its twin so far: [calls, max |diff|].
+FILTER_CHECKED = {"pair_taps": [0, 0.0], "group_counts": [0, 0.0]}
+# K6 and K7 launches of each main path's run: key -> (K6, K7, frames).
+FILTER_RUNS: dict = {}
+# K6 per dense and per shipped frame, K7 per shipped frame (time_*).
+FILTER_TIMES: dict = {}
+# Reckoned FP32 operations per entry of a K6 call (csrc/pair_taps.cu): the
+# 16 Vogel offsets (4 operations, a sin and a cos at 20 each), a blocker
+# tap (16: its uv, the texel setup, the nearest pick, the sums), the
+# penumbra (12), a compare tap (27: its uv, the setup, four compares, the
+# lerp, the two sums), and the sums' scaling (2).
+TAP_OPS = dict(offsets=16 * 44, blocker=16, penumbra=12, compare=27, scale=2)
+
+
+def _kernel_name(name: str) -> str:
+    return "group_counts" if name == "_group_counts" else "pair_taps"
+
+
+def _tensors(x) -> list:
+    """Every tensor in x (in tuples, named tuples and lists too)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def record_filter_calls(fn):
+    """Run fn() and return every K6 and K7 call it makes, as (dispatcher
+    name, args, kwargs, outputs, held): the arguments and outputs kept by
+    reference, `held` their version counters at the call, so the check
+    can tell that nothing wrote them since (a copy of every frame's maps
+    would add 268 MB per call)."""
+    from funky_tpu_torch.passes import shadow_filter
+
+    calls = []
+    saved = {name: getattr(shadow_filter, name) for name in FILTER_TWINS}
+
+    def recorder(name, dispatch):
+        def record(*args, **kwargs):
+            out = dispatch(*args, **kwargs)
+            held = _tensors((args, tuple(kwargs.values()), out))
+            calls.append((name, args, kwargs, out,
+                          [(t, t._version) for t in held]))
+            return out
+        return record
+
+    for name, dispatch in saved.items():
+        setattr(shadow_filter, name, recorder(name, dispatch))
+    try:
+        fn()
+    finally:
+        for name, dispatch in saved.items():
+            setattr(shadow_filter, name, dispatch)
+    return calls
+
+
+def check_filter_calls(calls, launched, label) -> None:
+    """Every recorded K6 and K7 call against its plain twin on the same
+    inputs, bit for bit, with as many calls of each as the run launched
+    (`launched`, read_counts() after it); the inputs and outputs unchanged
+    since the call."""
+    from funky_tpu_torch.passes import shadow_filter
+
+    n = collections.Counter(_kernel_name(c[0]) for c in calls)
+    check(n["pair_taps"] == launched["pair_taps"]
+          and n["group_counts"] == launched["group_counts"],
+          f"{label}: {dict(n)} shadow-filter calls recorded, K6 launched "
+          f"{launched['pair_taps']} and K7 {launched['group_counts']} times")
+    modes = collections.Counter()
+    for i, (name, args, kwargs, out, held) in enumerate(calls):
+        check(all(t._version == v for t, v in held),
+              f"{label}: a tensor of {name} call {i} was written after it")
+        want = getattr(shadow_filter, FILTER_TWINS[name])(*args, **kwargs)
+        got = out if isinstance(out, tuple) else (out,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(len(got) == len(want) and all(
+            bits_equal(a, b) for a, b in zip(got, want)),
+            f"{label}: {name} call {i} ({tuple(got[0].shape)}) differs from "
+            f"its plain twin")
+        kernel = _kernel_name(name)
+        err = max((float((a.double() - b.double()).abs().nan_to_num().max())
+                   for a, b in zip(got, want) if a.numel()), default=0.0)
+        FILTER_CHECKED[kernel][0] += 1
+        FILTER_CHECKED[kernel][1] = max(FILTER_CHECKED[kernel][1], err)
+        if kernel == "pair_taps":
+            window = kwargs.get("window", args[6] if len(args) > 6 else None)
+            ro = "(radius_only)" if kwargs.get("radius_only") else ""
+            name = f"{name}{ro} {'packed' if window is None else 'window'}"
+        modes[name] += 1
+    say(f"{label}: K6 and K7 == their plain twins bit for bit on all "
+        f"{n['pair_taps']} tap sets and {n['group_counts']} histograms of "
+        f"the run ({dict(modes)})")
+
+
+def verify_filter(label, fn) -> dict:
+    """fn() (a run the phase has already counted, again) with every K6 and
+    K7 call recorded and held against its twin. The script's reference
+    run: its launches do not count. Returns its launch counts."""
+    reset_counts()
+    calls = record_filter_calls(fn)
+    counts = read_counts()
+    check_filter_calls(calls, counts, label)
+    return counts
+
+
+def check_filter_launches(run, key, label, dense: bool = False) -> None:
+    """The main run of a path (run_frames') reached K6 on every frame, and
+    K7 once per sparse frame (never on the dense path); its launches are
+    kept under `key` for the kernels line."""
+    check(all(k > 0 for k in run["k6"]),
+          f"{label}: a frame launched no K6: {run['k6']}")
+    check(all(k == (0 if dense else 1) for k in run["k7"]),
+          f"{label}: K7 launches per frame {run['k7']}")
+    FILTER_RUNS[key] = (sum(run["k6"]), sum(run["k7"]), len(run["k6"]))
+    say(f"{label}: K6 launches per frame {run['k6']}, K7 {run['k7']}")
+
+
+def frame_filter_calls(scene, pose, cfg, dev):
+    """The K6 and K7 calls of one frame at `pose`, rendered after one frame
+    at the same pose (a chained state, as the main runs' frames have)."""
+    from funky_tpu_torch import frame
+
+    state = frame.init_frame_state(cfg, dev)
+    _, state = frame.render_gltf_frame(scene, pose, state, cfg)
+    return record_filter_calls(
+        lambda: frame.render_gltf_frame(scene, pose, state, cfg))
+
+
+def pair_tap_work(name, args, kwargs):
+    """(bytes, FP32 operations) one K6 call needs on these inputs: each
+    entry's uv, receiver and phi (and its layer on the packed maps) read
+    and its 16-byte row written, and each distinct quad row its taps read
+    (the union of the rows of the twin's two gathers, counted as K3's
+    distinct-row bytes) read once; the operations per TAP_OPS for the
+    call's mode (fixed-radius PCF: 9 or 16 compare taps by the radius)."""
+    import torch
+
+    from funky_tpu_torch.passes import shadow_filter
+
+    twin = getattr(shadow_filter, FILTER_TWINS[name])
+    a = _bound_args(name, args, kwargs)
+    n = a["uv"].numel() // 2
+    gathers = record_gather_calls(lambda: twin(*args, **kwargs))
+    rows = torch.unique(torch.cat([
+        torch.where(idx < 0, idx + t.shape[0], idx).clamp(
+            0, t.shape[0] - 1).reshape(-1) for t, idx in gathers]))
+    per_entry = 16 + (0 if a["window"] is not None else 4) + 16
+    nbytes = n * per_entry + 16 * int(rows.numel())
+    o = TAP_OPS
+    if name == "_pcss_taps":
+        ops = o["offsets"] + 16 * o["blocker"] + o["penumbra"]
+        if not a["radius_only"]:
+            ops += 16 * o["compare"] + o["scale"]
+    else:
+        radius = max(float(a["uni"].shadow_bias[0]), 0.5)
+        ops = o["offsets"] + (9 if radius <= 1.25 else 16) * o["compare"] \
+            + o["scale"]
+    return nbytes, n * ops
+
+
+def _bound_args(name, args, kwargs) -> dict:
+    """The arguments of a recorded dispatcher call, by name."""
+    from funky_tpu_torch.passes import shadow_filter
+
+    a = inspect.signature(getattr(shadow_filter, FILTER_TWINS[name])).bind(
+        *args, **kwargs)
+    a.apply_defaults()
+    return a.arguments
+
+
+def wrapper_args(name, args, kwargs) -> tuple:
+    """pair_taps_cuda.pair_taps' arguments for a recorded dispatcher call,
+    as the dispatcher hands them over."""
+    a = _bound_args(name, args, kwargs)
+    if name == "_pcf_taps":
+        mode, recv = "pcf", a["ref"]
+    else:
+        mode = "radius_only" if a["radius_only"] else "pcss"
+        recv = a["receiver"]
+    return (a["shadow_maps"], a["layer"], a["uv"], recv, a["phi"],
+            a["uni"].shadow_map_size, a["uni"].shadow_bias, mode,
+            a["window"])
+
+
+def graph_ms(fn, iters: int = 5) -> float:
+    """Device ms of fn() recorded once as a CUDA graph (after a warm-up
+    on a side stream) and replayed behind a sleep (device_ms). For the
+    plain twins: enqueued one by one, their ~270 launches per call outrun
+    the sleep, and the time follows the host (on an H100, five times the
+    summed kernel time of the shipped frame's five calls); replayed, they
+    run back to back, as a committed frame's graph ran them before K6."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return device_ms(graph.replay, iters=iters)
+
+
+def time_pair_taps(calls) -> dict:
+    """The K6 calls of one frame (`calls`, record_filter_calls'): K6
+    through its wrapper (pair_taps_cuda.pair_taps on each call's
+    arguments) by device time behind a sleep long enough for the host's
+    enqueue (device_ms), the plain twins by device time as a replayed CUDA
+    graph (graph_ms), and the bound over the card's peaks of the calls'
+    summed bytes and operations (pair_tap_work)."""
+    from funky_tpu_torch.ops import pair_taps_cuda
+    from funky_tpu_torch.passes import shadow_filter
+
+    taps = [c for c in calls if c[0] != "_group_counts"]
+    wrapper = [wrapper_args(name, args, kwargs)
+               for name, args, kwargs, _, _ in taps]
+
+    def run_wrapper():
+        for w in wrapper:
+            pair_taps_cuda.pair_taps(*w)
+
+    def run_twins():
+        for name, args, kwargs, _, _ in taps:
+            getattr(shadow_filter, FILTER_TWINS[name])(*args, **kwargs)
+
+    work = [pair_tap_work(c[0], c[1], c[2]) for c in taps]
+    nbytes, ops = sum(w[0] for w in work), sum(w[1] for w in work)
+    return dict(
+        calls=len(taps), entries=sum(w[2].numel() // 2 for w in wrapper),
+        ms=device_ms(run_wrapper, iters=10, sleep_cycles=400_000_000),
+        plain_ms=graph_ms(run_twins),
+        bytes=nbytes, ops=ops,
+        bound_ms=max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BPS > ops / FP32_OPS
+        else "operations")
+
+
+def time_group_counts(calls) -> dict:
+    """The K7 call of one frame: K7 (its memset and kernel) and the twin
+    by device time behind a sleep; torch.bincount of the same masked keys
+    (the where() outside the timing) by CUDA events with its host time,
+    and the synchronising calls torch's sync debug mode reports for it;
+    the byte bound of this run's data: every `needs` byte read, the key of
+    each needed entry (only those are counted), the counts written."""
+    import torch
+
+    from funky_tpu_torch.passes import shadow_filter
+
+    (_, args, kwargs, _, _), = [c for c in calls if c[0] == "_group_counts"]
+    needs, key, n_groups = args
+    masked = torch.where(needs, key, n_groups).reshape(-1)
+    nbytes = needs.numel() + 4 * int(needs.sum()) + 4 * n_groups
+    syncs = count_syncs_reported(
+        lambda: torch.bincount(masked, minlength=n_groups + 1))
+    return dict(
+        entries=needs.numel(), n_groups=n_groups,
+        ms=device_ms(lambda: shadow_filter._group_counts(*args)),
+        plain_ms=device_ms(lambda: shadow_filter._group_counts_plain(*args)),
+        library_ms=cuda_ms(lambda: torch.bincount(
+            masked, minlength=n_groups + 1), iters=20),
+        library_syncs=len(syncs),
+        bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes")
+
+
+def phase_filter_cases(dev) -> None:
+    """K6 and K7 against their twins bit for bit on synthetic entries the
+    frames do not reach: every mode (PCSS, radius-only, fixed-radius PCF
+    with 16 Vogel taps and with the 3x3 kernel) on the packed 2048^2 maps
+    with the edge entries of tests/torch_scenes.py::pair_taps_case, and
+    through a 512^2 window at an origin past S - Wc (host ints and int32
+    tensors); K7 on random keys at the 1080p pair shape, a ragged length
+    and an unaligned needs view."""
+    import torch
+
+    from funky_tpu_torch.ops import sampling
+    from funky_tpu_torch.passes import shadow_filter
+    from funky_tpu_torch.passes.uniforms import FrameUniforms
+    from tests.torch_scenes import light_uniform_fields, pair_taps_case
+
+    n = 163_840    # the shipped frame's tap slots
+    depth, uv, layer, recv, phi = pair_taps_case(0, n, SHADOW)
+    maps = sampling.quad_pack(torch.from_numpy(depth).to(dev))
+    uv, layer, recv, phi = (torch.from_numpy(x).to(dev)
+                            for x in (uv, layer, recv, phi))
+    wc, origin = 512, (1700, 1650)
+    rows = sampling.dynamic_slice(maps[3], origin, (wc, wc))
+    win_uv = (torch.tensor(origin[::-1], device=dev) - 8
+              + torch.rand((n, 2), generator=torch.Generator(
+                  device=dev).manual_seed(1), device=dev) * (wc + 16)) / SHADOW
+    layer0 = torch.zeros_like(layer)
+    cases = []
+    for mode, soft in (("pcss", 2.5), ("radius_only", 2.5),
+                       ("pcf_vogel", 2.5), ("pcf_3x3", 1.0)):
+        uni = FrameUniforms(**{k: torch.from_numpy(v).to(dev) for k, v in
+                               light_uniform_fields(soft, SHADOW).items()})
+        kw = {"radius_only": True} if mode == "radius_only" else {}
+        fn = "_pcf_taps" if mode.startswith("pcf") else "_pcss_taps"
+        cases.append((fn, (uni, maps, layer, uv, recv, phi), kw))
+        for org in (origin, tuple(torch.tensor(o, dtype=torch.int32,
+                                               device=dev) for o in origin)):
+            cases.append((fn, (uni, maps[3:4], layer0, win_uv, recv, phi),
+                          dict(kw, window=(rows, org, SHADOW))))
+    rng = np.random.default_rng(2)
+    for shape in ((2, HEIGHT, WIDTH), (2, 4097)):
+        needs = torch.from_numpy(rng.random(shape) < 0.03).to(dev)
+        key = torch.from_numpy(rng.integers(0, 16, shape).astype(np.int32)
+                               ).to(dev)
+        cases.append(("_group_counts", (needs, key, 16), {}))
+    base = torch.from_numpy(rng.random(2 * 4097 + 1) < 0.5).to(dev)
+    cases.append(("_group_counts", (base[1:].reshape(2, 4097), key, 16), {}))
+
+    def run():   # the dispatchers looked up at the call: the recorder's
+        for name, args, kw in cases:
+            getattr(shadow_filter, name)(*args, **kw)
+
+    verify_filter("K6 / K7 synthetic cases", run)
+
+
 def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     """One perf mode of the shipped configuration, `cfg` tuned on its own
     (committed): 8 chained committed frames eager (no host sync, K1 ==
@@ -1903,6 +2299,7 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     err = check_rasters_bitwise(rasters, label)
     say(f"{label}: K1 == plain raster bit for bit on all {len(rasters)} "
         f"recorded rasters (max |depth| difference {err})")
+    check_filter_launches(crun, name, label)
     if cfg.flags.light_space_ground_shadows:
         check(all(k == n_win for k in crun["k5"]),
               f"{label}: expected {n_win} K5 launches per frame, got "
@@ -1923,6 +2320,7 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
         f"{diffs or 'all frames bit for bit'}")
     check(not diffs, f"{label}: committed != cond'd on the frame poses")
     check_tuned_and_chained(dev, scene, params, cfg, label)
+    verify_filter(label, lambda: run_frames(scene, poses, cfg, dev))
 
     fn = frame.compiled_gltf_frame(cfg)
     check(fn.uses_graph(dev), f"{label}: a committed config is not recorded")
@@ -1937,7 +2335,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
                   f"differs from the eager frame")
     # the graph is recorded from the first frame's inputs
     first = {"raster_table": crun["k1"][0], "raster_padded": 0,
-             "row_gather": crun["k3"][0], "light_map": crun["k5"][0]}
+             "row_gather": crun["k3"][0], "light_map": crun["k5"][0],
+             "pair_taps": crun["k6"][0], "group_counts": crun["k7"][0]}
     check(g.launches == first, f"{label}: capture launches {g.launches} "
           f"!= the first eager frame's {first}")
     say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
@@ -2426,6 +2825,14 @@ def sharded_graph(dev, scene, params, mesh, name, flags):
     check(len(calls) == 2 * 3 and g.replays == len(poses),
           f"{label}: {len(calls)} gathers in the graph run (expected 3 at "
           f"the warm-up and 3 at the capture), {g.replays} replays")
+    check(per_frame["pair_taps"] > 0 and per_frame["group_counts"] == 1,
+          f"{label}: K6 / K7 per eager frame {per_frame}")
+    FILTER_RUNS[f"sharded_committed_{name}"] = (
+        e_counts["pair_taps"], e_counts["group_counts"], len(poses))
+    FILTER_RUNS[f"sharded_committed_{name}_graph"] = (
+        g_counts["pair_taps"], g_counts["group_counts"], 2)
+    verify_filter(f"{label} eager", lambda: gltf_frames(
+        fn.eager, scene, poses, cfg, dev))
     say(f"{label}: every raster of the eager frames == the plain raster "
         f"({len(rasters)} rasters); the eager frames with the plain row "
         f"gather == the K3 frames, rgba and every FrameState field")
@@ -2538,6 +2945,18 @@ def phase_sharded(dev, scene, params):
                     if maps:
                         check_light_maps(maps, run["counts"]["light_map"],
                                          f"{label} {run_name}")
+                    check(run["counts"]["pair_taps"] > 0
+                          and run["counts"]["group_counts"] > 0,
+                          f"{label} {run_name}: K6 or K7 not launched: "
+                          f"{run['counts']}")
+                    key = "nccl" if run is one else f"{n}slabs"
+                    FILTER_RUNS[f"sharded_{name}_{key}"] = (
+                        run["counts"]["pair_taps"],
+                        run["counts"]["group_counts"], len(pose_list))
+                verify_filter(f"{label} one-rank NCCL", lambda: shard_chain(
+                    sharded, scene, pose_list, cfg, dev))
+                verify_filter(f"{label} {n} slabs", lambda: shard_chain(
+                    composed, scene, pose_list, cfg, dev))
                 with plain_gathers():
                     one_plain, _ = shard_chain(sharded, scene, pose_list, cfg,
                                                dev)
@@ -2753,7 +3172,8 @@ def dryrun_references(dev, out, label) -> int:
     the spawned rank's rgba bit for bit, every raster == the plain raster,
     every light map == the plain twin (as many as the rank launched K5),
     and the same chain with the plain row gather == the K3 chain in rgba
-    and every FrameState field. These are the script's references: their
+    and every FrameState field; every K6 and K7 call == its plain twin (as
+    many as the rank launched). These are the script's references: their
     launches do not count. Returns the rasters checked."""
     import datetime
 
@@ -2763,7 +3183,7 @@ def dryrun_references(dev, out, label) -> int:
     from funky_tpu_torch.ops import gather_cuda
     from funky_tpu_torch.parallel import make_mesh
 
-    checked, maps = 0, []
+    checked, maps, taps = 0, [], []
     with tempfile.TemporaryDirectory() as td:
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo",
@@ -2779,14 +3199,17 @@ def dryrun_references(dev, out, label) -> int:
                 box = {}
                 calls = record_raster_calls(lambda: box.update(
                     maps=record_light_maps(lambda: box.update(
-                        run=entry._sharded_frames(mesh, cfg, scene, params,
-                                                  n_frames, dev.type)))))
+                        taps=record_filter_calls(lambda: box.update(
+                            run=entry._sharded_frames(
+                                mesh, cfg, scene, params, n_frames,
+                                dev.type)))))))
                 rgba, state, _ = box["run"]
                 check(bits_equal(rgba.cpu(), want), f"{label}: the {name} "
                       f"frame in process differs from the dry run's rank")
                 check(len(calls) > 0, f"{label}: {name}: no raster recorded")
                 check_rasters_bitwise(calls, f"{label} {name}")
                 maps += box["maps"]
+                taps += box["taps"]
                 k3 = gather_cuda.LAUNCHES
                 with plain_gathers():
                     prgba, pstate, _ = entry._sharded_frames(
@@ -2802,6 +3225,7 @@ def dryrun_references(dev, out, label) -> int:
                   f"light map")
             check_light_maps(maps, out["launches"]["light_map"],
                              f"{label} perf-mode")
+            check_filter_calls(taps, out["launches"], f"{label} dry run")
         finally:
             dist.destroy_process_group()
     return checked
@@ -2852,6 +3276,9 @@ def phase_entry(dev):
     check(gather_cuda.LAUNCHES == k3, f"{label}: the plain-gather run "
           f"launched K3")
     check_fields_equal(eager, plain, label, "K3 vs plain row gather differ")
+    check(counts["pair_taps"] > 0 and counts["group_counts"] > 0,
+          f"{label}: K6 or K7 not launched: {counts}")
+    verify_filter(label, lambda: gltf_frames(fn, scene, poses, cfg, dev))
     reset_counts()
     compiled = frame.compiled_gltf_frame(cfg)
     check(compiled.uses_graph(dev), f"{label}: the config is not recorded")
@@ -2906,6 +3333,7 @@ def main() -> None:
 
     phase_build()
     phase_gather_cases(dev)
+    phase_filter_cases(dev)
     err_k1 = phase_kernel_cases(dev, padded=False)
     err_k2 = phase_kernel_cases(dev, padded=True)
     gltf, scene = load_scene(dev, large=False)
@@ -2959,6 +3387,27 @@ def main() -> None:
     say(f"launches on the app paths (cube, compiled shipped, driver; "
         f"warm-ups and captures): {app_counts}")
     say(f"K3 launches per frame on the main paths: {k3_per_frame}")
+    check(all(n > 0 for n, _ in FILTER_CHECKED.values()),
+          f"K6 / K7 calls held against their twins: {FILTER_CHECKED}")
+    filter_per_frame = [{k: v[i] / v[2] for k, v in FILTER_RUNS.items()}
+                        for i in (0, 1)]
+    say(f"K6 launches per frame on the main paths: {filter_per_frame[0]}; "
+        f"K7: {filter_per_frame[1]}")
+    dense_taps, ship_taps, hist = (FILTER_TIMES[k] for k in (
+        "dense", "shipped", "histogram"))
+    for key, t in (("dense", dense_taps), ("shipped", ship_taps)):
+        say(f"K6 per {key} frame ({t['calls']} calls, {t['entries']} "
+            f"entries): through its wrapper {t['ms']:.4f} ms (device time "
+            f"behind a sleep), the plain twins {t['plain_ms']:.4f} ms (device "
+            f"time of a graph replay); "
+            f"bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}: {t['bytes']} B, {t['ops']} FP32 operations)"
+            f" [{_GPU}]")
+    say(f"K7 per shipped frame ({hist['entries']} entries, "
+        f"{hist['n_groups']} groups): kernel {hist['ms']:.4f} ms, plain "
+        f"{hist['plain_ms']:.4f} ms, torch.bincount {hist['library_ms']:.4f}"
+        f" ms ({hist['library_syncs']} synchronising calls reported), bound "
+        f"{hist['bound_ms']:.5f} ms (bytes) [{_GPU}]")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3019,6 +3468,41 @@ def main() -> None:
              plain_busy_ms=k5_info["plain_busy_ms"],
              per_window=[[m["wc"], m["k5_ms"], m["kernel_busy_ms"],
                           m["plain_busy_ms"]] for m in k5_info["maps"]]),
+        dict(name="pair_taps", route="cuda",
+             source="funky_tpu_torch/csrc/pair_taps.cu",
+             replaces="funky_tpu/passes/shadow_filter.py:159",
+             launches=(sum(v[0] for v in FILTER_RUNS.values())
+                       + app_counts["pair_taps"]
+                       + shell_counts["pair_taps"]),
+             max_abs_err=FILTER_CHECKED["pair_taps"][1], ms=ship_taps["ms"],
+             plain_ms=ship_taps["plain_ms"], bound_ms=ship_taps["bound_ms"],
+             bound_by=ship_taps["bound_by"], library_ms=None,
+             timed_on=f"the shipped frame's {ship_taps['calls']} pair groups "
+                      f"({ship_taps['entries']} entry slots), summed (ms: "
+                      f"K6 through its wrapper behind a sleep; plain_ms: "
+                      f"the twins as a replayed CUDA graph)",
+             checked_calls=FILTER_CHECKED["pair_taps"][0],
+             launches_per_frame=filter_per_frame[0],
+             frame_ms={"dense": dense_taps["ms"], "shipped": ship_taps["ms"]},
+             frame_plain_ms={"dense": dense_taps["plain_ms"],
+                             "shipped": ship_taps["plain_ms"]},
+             frame_bound_ms={"dense": dense_taps["bound_ms"],
+                             "shipped": ship_taps["bound_ms"]}),
+        dict(name="group_counts", route="cuda",
+             source="funky_tpu_torch/csrc/group_counts.cu",
+             replaces="funky_tpu/passes/shadow_filter.py:714",
+             launches=(sum(v[1] for v in FILTER_RUNS.values())
+                       + app_counts["group_counts"]
+                       + shell_counts["group_counts"]),
+             max_abs_err=FILTER_CHECKED["group_counts"][1], ms=hist["ms"],
+             plain_ms=hist["plain_ms"], bound_ms=hist["bound_ms"],
+             bound_by=hist["bound_by"], library_ms=hist["library_ms"],
+             timed_on=f"the shipped frame's histogram, {hist['entries']} "
+                      f"pairs into {hist['n_groups']} groups (library: "
+                      f"torch.bincount of the masked keys, by CUDA events)",
+             library_syncs=hist["library_syncs"],
+             checked_calls=FILTER_CHECKED["group_counts"][0],
+             launches_per_frame=filter_per_frame[1]),
     ]
     say(_GPU)
     say(json.dumps({"kernels": kernels}))

@@ -133,8 +133,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     JAX's ok lines, with the row all-gathers per frame counted from
     parallel/sharded_frame.py's _gather_rows (JAX counts them in the HLO
     text). Returns rank 0's results: "frame" and "perf_frame" (rgba on the
-    CPU), "gathers" and "perf_gathers" (per frame), "launches" (K1, K3 and K5
-    in the rank), "backend" and "seconds".
+    CPU), "gathers" and "perf_gathers" (per frame), "launches" (each
+    kernel's launches in the rank, keyed as frame._launch_counts), "backend"
+    and "seconds".
 
     With fewer cards than ranks on the card this raises: JAX falls back to
     virtual CPU devices (__graft_entry__.py:56-67), the port does not fall
@@ -210,7 +211,6 @@ def _dryrun_rank(rank: int, n: int, kind: str, work_dir: str) -> None:
     to work_dir/rank0.pt."""
     import torch.distributed as dist
 
-    from .ops import gather_cuda, lightmap_cuda, raster_cuda
     from .parallel import make_mesh
 
     os.environ["LOCAL_RANK"] = str(rank)    # make_mesh's card
@@ -223,8 +223,7 @@ def _dryrun_rank(rank: int, n: int, kind: str, work_dir: str) -> None:
     try:
         mesh = make_mesh(n, device=kind)
         scene, params, _ = flagship_scene(kind)
-        k1, k3, k5 = (raster_cuda.LAUNCHES, gather_cuda.LAUNCHES,
-                      lightmap_cuda.LAUNCHES)
+        before = frame._launch_counts()
         rgba, _, gathers = _sharded_frames(mesh, dryrun_config(n), scene,
                                            params, 1, kind)
         perf, _, perf_gathers = _sharded_frames(
@@ -236,9 +235,8 @@ def _dryrun_rank(rank: int, n: int, kind: str, work_dir: str) -> None:
                 frame=rgba.cpu(), perf_frame=perf.cpu(), gathers=gathers[0],
                 perf_gathers=perf_gathers[0],
                 backend=dist.get_backend(),
-                launches={"raster_table": raster_cuda.LAUNCHES - k1,
-                          "row_gather": gather_cuda.LAUNCHES - k3,
-                          "light_map": lightmap_cuda.LAUNCHES - k5}),
+                launches={k: v - before[k] for k, v in
+                          frame._launch_counts().items()}),
                 pathlib.Path(work_dir) / "rank0.pt")
     finally:
         dist.destroy_process_group()

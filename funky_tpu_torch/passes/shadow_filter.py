@@ -12,6 +12,11 @@ The 16 taps of each filter are summed in a fixed order (`_sum_taps`), not
 by a reduction: a reduction kernel's order can depend on how many
 outputs it has, and the sparse filter must equal the dense one bit for
 bit on batches of any size.
+
+On the card the tap sets (`_pcss_taps`, `_pcf_taps`) run as the kernel K6
+(ops/pair_taps_cuda.py) and the pair groups' histogram (`_group_counts`)
+as K7 (ops/group_counts_cuda.py), each equal to its plain twin bit for
+bit; CPU tensors take the twins.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..math3d import apply_rows, const
+from ..ops import group_counts_cuda, pair_taps_cuda
 from ..ops.compact import (Compacted, compact_blocks_any, compact_indices,
                            compact_indices_blocked, gather_rows, host_cond,
                            scatter_back)
@@ -157,7 +163,22 @@ def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi,
     (oy, ox), full map size) reads every tap from a window of one cascade
     (bit-identical values for in-window taps); radius_only skips the PCF
     phase and returns m1 = m2 = 1 (the LIT-certified radius-only groups).
-    Returns (m1, m2, penumbra, has_blockers)."""
+    Returns (m1, m2, penumbra, has_blockers). CUDA tensors go to the
+    pair-tap kernel K6 (ops/pair_taps_cuda.py), which raises on what it
+    does not take; CPU tensors to the plain twin."""
+    if uv.device.type == "cuda":
+        rows = pair_taps_cuda.pair_taps(
+            shadow_maps, layer, uv, receiver, phi, uni.shadow_map_size,
+            uni.shadow_bias, "radius_only" if radius_only else "pcss",
+            window)
+        return rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3] != 0.0
+    return _pcss_taps_plain(uni, shadow_maps, layer, uv, receiver, phi,
+                            window, radius_only)
+
+
+def _pcss_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, receiver,
+                     phi, window=None, radius_only: bool = False):
+    """_pcss_taps in torch ops: the CPU path and K6's test oracle."""
     texel = uni.shadow_map_size[2]
     light_size_texels = uni.shadow_bias[0] * 2.0
 
@@ -218,12 +239,26 @@ def shadow_pcss(uni: FrameUniforms, shadow_maps: torch.Tensor,
 
 
 def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
-               window=None):
+              window=None):
     """Fixed-radius PCF (shadow_filter.py:248-283), `window` as in
-    _pcss_taps. The frame-uniform lax.cond computes both kernels and
-    selects by the device-side radius, so the host never reads it and a
-    committed frame can be captured as a CUDA graph; each kernel's values
-    are the branch's own."""
+    _pcss_taps: (m1, m2, kernel). CUDA tensors go to K6, which selects the
+    3x3 or the Vogel kernel by the device-side radius per entry; CPU
+    tensors to the plain twin."""
+    if uv.device.type == "cuda":
+        rows = pair_taps_cuda.pair_taps(shadow_maps, layer, uv, ref, phi,
+                                        uni.shadow_map_size, uni.shadow_bias,
+                                        "pcf", window)
+        return rows[..., 0], rows[..., 1], rows[..., 2]
+    return _pcf_taps_plain(uni, shadow_maps, layer, uv, ref, phi, window)
+
+
+def _pcf_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
+                    window=None):
+    """_pcf_taps in torch ops: the CPU path and K6's test oracle. The
+    frame-uniform lax.cond computes both kernels and selects by the
+    device-side radius, so the host never reads it and a committed frame
+    can be captured as a CUDA graph; each kernel's values are the
+    branch's own."""
     texel = uni.shadow_map_size[2]
     radius = torch.clamp(uni.shadow_bias[0], min=0.5)
 
@@ -444,7 +479,18 @@ def _fetch_rows(rows, origin, wc: int, uv: torch.Tensor,
 
 
 def _group_counts(needs, group_key, n_groups: int) -> torch.Tensor:
-    """(n_groups,) int32: how many needed entries each group key holds."""
+    """(n_groups,) int32: how many needed entries each group key holds
+    (shadow_filter.py:714-716). CUDA tensors go to the histogram kernel K7
+    (ops/group_counts_cuda.py), which raises on what it does not take; CPU
+    tensors to the plain twin."""
+    if needs.device.type == "cuda":
+        return group_counts_cuda.group_counts(needs, group_key, n_groups)
+    return _group_counts_plain(needs, group_key, n_groups)
+
+
+def _group_counts_plain(needs, group_key, n_groups: int) -> torch.Tensor:
+    """_group_counts as one scatter_add_: the CPU path and K7's test
+    oracle."""
     key = torch.where(needs, group_key, n_groups).reshape(-1).long()
     counts = torch.zeros(n_groups + 1, dtype=torch.int32,
                          device=needs.device)

@@ -5,7 +5,7 @@
                                       lightspace]
                             [--scene multimesh|large] [--trace trace.json]
                             [--graph] [--occupancy]
-                            [--override FIELD=VALUE ...]
+                            [--override FIELD=VALUE ...] [--tree PATH]
 
 Renders one of chip_smoke.py's configurations at 1920x1080 with 4 x
 2048^2 cascades and kernel rasters: the exact dense path (`dense`, the
@@ -22,7 +22,13 @@ synchronize around every stage (per-stage host-clock medians), 8 more
 without (frame time), then one frame under torch.profiler (device time
 by kernel, device busy and idle share, the device time of the row-gather
 kernel K3 and of torch indexing `aten::index`, and the launch geometry of
-the frame's largest gather kernels). Writes the profiler's chrome trace
+the frame's largest gather kernels). In that frame every stage runs under
+a `record_function` range, and each kernel, copy and memset is charged
+to the ranges that were open on the host when it was launched: each
+stage's device ms with the stages nested in it and without them. The
+shadow filter's parts are stages nested in it: its tap sets (`_pcss_taps`,
+`_pcf_taps`), its per-group pair histogram (`_group_counts`), and its
+pair gathers and scatters (`gather_rows`, `scatter_back`). Writes the profiler's chrome trace
 to the path given, if any. With `--graph` (a committed configuration,
 whose frame frame.compiled_gltf_frame records as a CUDA graph)
 it then times 8 chained replays and profiles one: the device's own kernel
@@ -36,18 +42,33 @@ bench_poses alone, and prints each frame's poll (utils/diagnostics.
 probe_occupancy) against its predecessor's state and against its own,
 the overflows of those caps, and the caps the autotune gives over
 frame.tuning_poses, which adds bench.py's motion run: which counts follow
-the pose and which the carried state. Needs a CUDA card; imports no jax.
+the pose and which the carried state. `--tree PATH` profiles the package
+(and chip_smoke.py) of another checkout, such as a parent commit unpacked
+under local/, with this script. Needs a CUDA card; imports no jax.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import collections
+import contextlib
 import dataclasses
+import json
+import pathlib
 import statistics
+import sys
+import tempfile
 import time
 
 import torch
+
+# --tree: the checkout whose package and chip_smoke.py are imported, read
+# before the import below (argparse reads it again in main).
+TREE = pathlib.Path(__file__).resolve().parent
+if "--tree" in sys.argv[:-1]:
+    TREE = pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+sys.path.insert(0, str(TREE))
 
 from chip_smoke import (HEIGHT, PERF_MODES, SHADOW, WIDTH, autotune_shipped,
                         chained_trajectory, default_config, dense_config,
@@ -106,6 +127,19 @@ STAGES["lightspace"] = STAGES["shipped"] + (
     ("shadow_filter", "_fetchable", "fetch split"),
     ("shadow_filter", "_fetch_rows", "fetch groups"),
 )
+# Parts of the shadow filter, timed and charged as stages nested in it:
+# the tap sets (the dense filter's, or the sparse filter's pair groups'),
+# the per-group pair histogram, and the filter's own compaction gathers and
+# scatters (the pair groups' payload, the band's classification).
+NESTED = (
+    ("shadow_filter", "_pcss_taps", "filter taps (PCSS)"),
+    ("shadow_filter", "_pcf_taps", "filter taps (PCF)"),
+    ("shadow_filter", "_group_counts", "pair histogram"),
+    ("shadow_filter", "gather_rows", "filter gather_rows"),
+    ("shadow_filter", "scatter_back", "filter scatter_back"),
+)
+NESTED_LABELS = {label for _, _, label in NESTED}
+RANGE = "stage: "
 
 
 def chain(scene, poses, cfg, dev):
@@ -123,9 +157,10 @@ def chain(scene, poses, cfg, dev):
     return ms, state
 
 
-def stage_times(scene, poses, cfg, dev, stages):
-    """Per-stage ms: each stage function wrapped in synchronizes for the
-    length of one chain, then restored."""
+@contextlib.contextmanager
+def wrapped_stages(stages, wrap):
+    """Replace each stage function by wrap(fn, label) for the length of
+    the block, then restore it."""
     from funky_tpu_torch import frame
     from funky_tpu_torch.passes import (contact, deferred, geometry, shading,
                                         shadow, shadow_filter,
@@ -135,8 +170,22 @@ def stage_times(scene, poses, cfg, dev, stages):
                 deferred=deferred, shadow_filter=shadow_filter, taa=taa,
                 contact=contact, shading=shading,
                 shadow_lightspace=shadow_lightspace)
-    times = {label: [] for _, _, label in stages}
     saved = []
+    for mod, attr, label in stages:
+        fn = getattr(mods[mod], attr)
+        saved.append((mods[mod], attr, fn))
+        setattr(mods[mod], attr, wrap(fn, label))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def stage_times(scene, poses, cfg, dev, stages):
+    """Per-stage ms: each stage function wrapped in synchronizes for the
+    length of one chain."""
+    times = {label: [] for _, _, label in stages}
 
     def timed(fn, label):
         def run(*args, **kwargs):
@@ -148,16 +197,58 @@ def stage_times(scene, poses, cfg, dev, stages):
             return out
         return run
 
-    for mod, attr, label in stages:
-        fn = getattr(mods[mod], attr)
-        saved.append((mods[mod], attr, fn))
-        setattr(mods[mod], attr, timed(fn, label))
-    try:
+    with wrapped_stages(stages, timed):
         chain(scene, poses, cfg, dev)
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
     return times
+
+
+def ranged(fn, label):
+    """fn under a record_function range named for its stage."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(RANGE + label):
+            return fn(*args, **kwargs)
+    return run
+
+
+def trace_events(prof, path=None) -> list:
+    """The events of a profiled run's chrome trace, written to `path` if
+    given (a profile's trace can be exported once)."""
+    with tempfile.TemporaryDirectory() as td:
+        out = pathlib.Path(path or pathlib.Path(td) / "trace.json")
+        prof.export_chrome_trace(str(out))
+        return json.loads(out.read_text())["traceEvents"]
+
+
+def stage_device_ms(events):
+    """{stage: (calls, device ms with its nested stages, device ms without
+    them)} of one profiled run's trace events whose stages ran under
+    `ranged`: each kernel, copy and memset is charged to every stage range
+    open on the host when it was launched (its launch call's correlation
+    id), and its own share to the innermost one; "(no stage)" holds the
+    rest."""
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"][len(RANGE):])
+              for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith(RANGE)]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    calls = collections.Counter(label for _, _, label in ranges)
+    incl = collections.defaultdict(float)
+    own = collections.defaultdict(float)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ms = e.get("dur", 0) / 1e3
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        open_ = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        for label in {r[2] for r in open_}:
+            incl[label] += ms
+        inner = min(open_, key=lambda r: r[1] - r[0])[2] if open_ \
+            else "(no stage)"
+        own[inner] += ms
+    return {label: (calls.get(label, 0), incl.get(label, own[label]),
+                    own[label])
+            for label in list(calls) + ["(no stage)"]}
 
 
 def main() -> None:
@@ -175,6 +266,8 @@ def main() -> None:
     ap.add_argument("--override", action="append", default=[],
                     metavar="FIELD=VALUE",
                     help="replace a field of the tuned configuration")
+    ap.add_argument("--tree", default=str(TREE),
+                    help="profile the package of this checkout")
     args = ap.parse_args()
     if (args.graph or args.occupancy) and args.config in ("dense",
                                                           "default"):
@@ -208,17 +301,22 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, **{field: ast.literal_eval(value)})
         print(f"override {field} = {getattr(cfg, field)}", flush=True)
     poses = poses_for(params, 2, 6)
-    print(f"{args.config} configuration, {args.scene} scene", flush=True)
+    print(f"{args.config} configuration, {args.scene} scene, package "
+          f"{TREE}", flush=True)
 
-    times = stage_times(scene, poses, cfg, dev, STAGES[args.config])
-    total = sum(statistics.median(v[1:]) for v in times.values() if v[1:])
+    stages = STAGES[args.config] + NESTED
+    times = stage_times(scene, poses, cfg, dev, stages)
+    total = sum(statistics.median(v[1:]) for label, v in times.items()
+                if v[1:] and label not in NESTED_LABELS)
     for label, v in times.items():
         if not v[1:]:
             print(f"stage {label:24s} not run", flush=True)
             continue
         m = statistics.median(v[1:])
+        nest = "  (nested in the shadow filter)" if label in NESTED_LABELS \
+            else ""
         print(f"stage {label:24s} {m:10.3f} ms  {m / total:6.1%}  "
-              f"({len(v)} calls)", flush=True)
+              f"({len(v)} calls){nest}", flush=True)
     compact.reset_host_syncs()
     ms, state = chain(scene, poses, cfg, dev)
     frame_ms = statistics.median(ms[1:])
@@ -227,15 +325,17 @@ def main() -> None:
           f"over {len(poses)} frames {dict(compact.BRANCHES)} [{gpu}]",
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with wrapped_stages(stages, ranged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         frame.render_gltf_frame(scene, frame.orbit_params(params, 7), state,
                                 cfg)
         torch.cuda.synchronize()
     ka = prof.key_averages()
     # Kernels and copies only: an aten op's row repeats its kernels' time.
     dev_rows = [e for e in ka
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(RANGE)]
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
     print(f"profiled frame: {sum(e.count for e in dev_rows)} device "
           f"launches, device busy {busy:.3f} ms; idle share against the "
@@ -249,12 +349,28 @@ def main() -> None:
           f"{sum(e.count for e in k3)} launches; aten::index {index_ms:.3f} "
           f"ms device time over {sum(e.count for e in index)} calls [{gpu}]",
           flush=True)
+    for kernel, word in (("K6", "pair_taps"), ("K7", "group_counts")):
+        rows = [e for e in dev_rows if word in e.key]
+        print(f"profiled frame: {kernel} {word} "
+              f"{sum(e.self_device_time_total for e in rows) / 1e3:.4f} ms "
+              f"device time over {sum(e.count for e in rows)} launches "
+              f"[{gpu}]", flush=True)
+    events = trace_events(prof, args.trace)
+    by_stage = stage_device_ms(events)
+    for label, (n_calls, incl, own) in by_stage.items():
+        print(f"profiled frame device ms: stage {label:24s} {incl:9.3f} ms "
+              f"{incl / busy:6.1%} of busy, without nested stages {own:9.3f}"
+              f" ms ({n_calls} calls) [{gpu}]", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
-    for name, ms, grid, block in trace_kernels(prof)[:8]:
+    gathers = sorted(((e["name"], e.get("dur", 0) / 1e3,
+                       e.get("args", {}).get("grid"),
+                       e.get("args", {}).get("block")) for e in events
+                      if e.get("cat") == "kernel"
+                      and ("gather" in e["name"] or "index" in e["name"])),
+                     key=lambda k: -k[1])
+    for name, ms, grid, block in gathers[:8]:
         print(f"gather kernel {name[:90]}: {ms:.3f} ms, grid {grid}, block "
               f"{block}", flush=True)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     if args.graph:
         replay_profile(scene, params, poses, cfg, dev, gpu)
 

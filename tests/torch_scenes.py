@@ -397,3 +397,43 @@ def light_uniform_fields(softness: float, size: int = 1024, taa: float = 1.0,
                 debug_flags=f(0.0, 1.0, taa, frame),
                 shadow_bias=f(softness, 0, 0, 0),
                 prev_view_proj=z, models=np.zeros((2, 4, 4), np.float32))
+
+
+# Edge entries of a tap set: uv NaN, infinite, far outside the map, on the
+# map's edges and on texel boundaries; a NaN receiver.
+_EDGE_UV = [(np.nan, 0.5), (0.5, np.nan), (np.inf, 0.5), (-np.inf, 0.5),
+            (0.5, np.inf), (1e12, -1e12), (-1e12, 1e12), (0.0, 0.0),
+            (1.0, 1.0), (0.0, 1.0), (-0.001, 0.5), (1.001, 0.5)]
+
+
+def pair_taps_case(seed: int, n: int, size: int, layers: int = 4,
+                   edges: bool = True):
+    """Inputs of the shadow filter's tap sets (numpy, f32 / int32):
+    (depth (layers, size, size), uv (n, 2), layer (n,), receiver (n,),
+    phi (n,)). The maps are a gentle slope with random occluder blocks
+    nearer the light, so entries see no, some and all blockers; uv spans
+    [-0.05, 1.05) (taps off the map's edges), receivers [0.2, 1.0); with
+    `edges` the first entries are _EDGE_UV's, the texel boundaries i / size
+    and (i + 0.5) / size, and one NaN receiver."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    depth = np.repeat((0.55 + 0.2 * x + 0.1 * y)[None], layers, 0)
+    for li in range(layers):
+        for _ in range(12):
+            y0, x0 = rng.integers(0, size, 2)
+            h, w = rng.integers(1, max(2, size // 4), 2)
+            depth[li, y0:y0 + h, x0:x0 + w] = rng.uniform(0.2, 0.5)
+    uv = rng.uniform(-0.05, 1.05, (n, 2))
+    layer = rng.integers(0, layers, n)
+    recv = rng.uniform(0.2, 1.0, n)
+    phi = rng.uniform(0.0, 6.2831853, n)
+    if edges:
+        k = np.arange(8)
+        edge = np.array(_EDGE_UV + [(i / size, (i + 0.5) / size) for i in k]
+                        + [((size - i) / size, 1 - (i + 0.5) / size)
+                           for i in k])
+        uv[:len(edge)] = edge
+        recv[len(edge)] = np.nan
+    return (depth.astype(np.float32), uv.astype(np.float32),
+            layer.astype(np.int32), recv.astype(np.float32),
+            phi.astype(np.float32))
