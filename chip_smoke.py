@@ -111,7 +111,8 @@ failure raises and the script exits non-zero):
    windows JAX's rule keeps, in turns; K5 launches once per window in
    every frame (the capture counts it too), every light map of a frame
    == the plain twin (build_light_shadow_map_plain) bit for bit, and each
-   is timed against the twin (device ms, launches) beside its bound;
+   is timed against the twin by CUDA events (K5 alone behind a sleep,
+   each call behind a sleep and as a replayed graph) beside its bound;
 11. the SDF frame: compiled_sdf_frame(SdfConfig(960, 540)) over 20 times
    (bench.py:221-251), finite, graph == eager, the 160x96 frame at t = 1
    against tests/goldens/sdf_t1_160x96.png;
@@ -179,9 +180,11 @@ again with every K6 and K7 call recorded (verify_filter: the inputs held
 by reference, unchanged since the call) and held against the plain twins
 (passes/shadow_filter.py::_pcss_taps_plain, _pcf_taps_plain,
 _group_counts_plain) bit for bit, as many calls as that run launched.
-K6 is timed per dense and per shipped frame, K7 per shipped frame beside
-torch.bincount of the same keys (and the syncs torch's debug mode
-reports for it).
+The sparse frames pass each pair group's live count to K6, which
+zeroes the slots past it and does no tap work for them. K6 is timed per
+dense and per shipped frame, its bound reckoned over the live entries
+(the slots beside them), K7 per shipped frame beside torch.bincount of
+the same keys (and the syncs torch's debug mode reports for it).
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -1809,44 +1812,46 @@ def light_map_work(args, kwargs, rows):
     return nbytes, ops
 
 
-def time_light_maps(calls, reps: int = 3):
+def time_light_maps(calls):
     """Per recorded build_light_shadow_map call (one per cascade with a
-    window): its window size; for K5's path (build_light_shadow_map on the
-    frame's tap geometry: the parameters' torch ops, then the kernel) and
-    for the plain twin the device ms behind a sleep (device_ms; where
-    enqueueing takes longer than the sleep, the host's gaps count too),
-    the kernels launched and their summed device time (torch.profiler,
-    `reps` calls); K5's own device time; and the bound (light_map_work
-    over the card's peaks). Returns (those rows, the launches and device
-    ms of building the tap geometry, once per frame)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    window), all by CUDA events: its window size; K5's own device time (the
+    kernel's wrapper on the call's recorded arguments, behind a sleep);
+    for K5's path (build_light_shadow_map on the frame's tap geometry: the
+    parameters' torch ops, then the kernel) and for the plain twin the
+    device ms behind a sleep (device_ms; where enqueueing takes longer
+    than the sleep, the host's gaps count too) and the device ms of one
+    call's kernels back to back, recorded as a CUDA graph and replayed
+    (graph_ms: the busy time); and the bound (light_map_work over the
+    card's peaks). Returns (those rows, the busy ms of building the tap
+    geometry, once per frame)."""
+    from funky_tpu_torch.ops import lightmap_cuda
     from funky_tpu_torch.passes import shadow_lightspace
-
-    def profiled(fn):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                rows = fn()
-            torch.cuda.synchronize()
-        return rows, trace_kernels(prof, words=("",))
 
     out = []
     for args, kwargs, _ in calls:
         row = {"wc": args[5]}
+        kernel = []
+        light_map = lightmap_cuda.light_map
+
+        def record(*a, **kw):
+            kernel.append((a, kw))
+            return light_map(*a, **kw)
+
+        lightmap_cuda.light_map = record
+        try:
+            rows = shadow_lightspace.build_light_shadow_map(*args, **kwargs)
+        finally:
+            lightmap_cuda.light_map = light_map
+        (ka, kkw), = kernel
+        row["k5_ms"] = device_ms(lambda: light_map(*ka, **kkw))
         for name, fn in (
                 ("kernel", lambda: shadow_lightspace.build_light_shadow_map(
                     *args, **kwargs)),
                 ("plain", lambda: shadow_lightspace
                  .build_light_shadow_map_plain(*args, **kwargs))):
             row[f"{name}_ms"] = device_ms(fn, iters=3)
-            rows, ks = profiled(fn)
-            row[f"{name}_launches"] = len(ks) // reps
-            row[f"{name}_busy_ms"] = sum(k[1] for k in ks) / reps
-            if name == "kernel":
-                row["k5_ms"] = sum(k[1] for k in ks
-                                   if "light_map" in k[0]) / reps
-                nbytes, ops = light_map_work(args, kwargs, rows)
+            row[f"{name}_graph_ms"] = graph_ms(fn, iters=3)
+        nbytes, ops = light_map_work(args, kwargs, rows)
         row["bound_ms"] = max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3
         row["bound_by"] = "bytes" if nbytes / HBM_BPS > ops / FP32_OPS \
             else "operations"
@@ -1856,9 +1861,9 @@ def time_light_maps(calls, reps: int = 3):
                           ).bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
-    _, ks = profiled(lambda: shadow_lightspace.light_map_taps(
-        a["uni"], a["use_pcss"], a["rungs"], a["phases"], args[0].device))
-    return out, (len(ks) // reps, sum(k[1] for k in ks) / reps)
+    return out, graph_ms(lambda: shadow_lightspace.light_map_taps(
+        a["uni"], a["use_pcss"], a["rungs"], a["phases"], args[0].device),
+        iters=3)
 
 
 def _copied(x):
@@ -1993,7 +1998,7 @@ def check_filter_calls(calls, launched, label) -> None:
           and n["group_counts"] == launched["group_counts"],
           f"{label}: {dict(n)} shadow-filter calls recorded, K6 launched "
           f"{launched['pair_taps']} and K7 {launched['group_counts']} times")
-    modes = collections.Counter()
+    modes, sizes = collections.Counter(), collections.Counter()
     for i, (name, args, kwargs, out, held) in enumerate(calls):
         check(all(t._version == v for t, v in held),
               f"{label}: a tensor of {name} call {i} was written after it")
@@ -2010,13 +2015,22 @@ def check_filter_calls(calls, launched, label) -> None:
         FILTER_CHECKED[kernel][0] += 1
         FILTER_CHECKED[kernel][1] = max(FILTER_CHECKED[kernel][1], err)
         if kernel == "pair_taps":
+            sizes[got[0].numel()] += 1
             window = kwargs.get("window", args[6] if len(args) > 6 else None)
             ro = "(radius_only)" if kwargs.get("radius_only") else ""
-            name = f"{name}{ro} {'packed' if window is None else 'window'}"
+            cnt = "" if kwargs.get("count") is None else " counted"
+            name = (f"{name}{ro} {'packed' if window is None else 'window'}"
+                    f"{cnt}")
         modes[name] += 1
     say(f"{label}: K6 and K7 == their plain twins bit for bit on all "
         f"{n['pair_taps']} tap sets and {n['group_counts']} histograms of "
         f"the run ({dict(modes)})")
+    if sizes:
+        from funky_tpu_torch.ops import pair_taps_cuda
+
+        say(f"{label}: K6 calls by entries (calls, lanes per entry): "
+            + ", ".join(f"{e} ({c}, {pair_taps_cuda.lanes_for(e)})"
+                        for e, c in sorted(sizes.items())))
 
 
 def verify_filter(label, fn) -> dict:
@@ -2054,12 +2068,15 @@ def frame_filter_calls(scene, pose, cfg, dev):
 
 
 def pair_tap_work(name, args, kwargs):
-    """(bytes, FP32 operations) one K6 call needs on these inputs: each
-    entry's uv, receiver and phi (and its layer on the packed maps) read
-    and its 16-byte row written, and each distinct quad row its taps read
-    (the union of the rows of the twin's two gathers, counted as K3's
-    distinct-row bytes) read once; the operations per TAP_OPS for the
-    call's mode (fixed-radius PCF: 9 or 16 compare taps by the radius)."""
+    """(bytes, FP32 operations, live entries, slots) one K6 call needs on
+    these inputs. A call with a live count (a pair group's) does tap work
+    for the slots before it only: each live entry's uv, receiver and phi
+    (and its layer on the packed maps) read, each distinct quad row the
+    live entries' taps read (the union of the rows of the twin's two
+    gathers over those entries, counted as K3's distinct-row bytes) read
+    once, and the operations per TAP_OPS for the call's mode (fixed-radius
+    PCF: 9 or 16 compare taps by the radius); every slot's 16-byte row
+    written, and the count read."""
     import torch
 
     from funky_tpu_torch.passes import shadow_filter
@@ -2067,12 +2084,16 @@ def pair_tap_work(name, args, kwargs):
     twin = getattr(shadow_filter, FILTER_TWINS[name])
     a = _bound_args(name, args, kwargs)
     n = a["uv"].numel() // 2
+    count = a["count"]
+    live = n if count is None else max(0, min(int(count), n))
     gathers = record_gather_calls(lambda: twin(*args, **kwargs))
     rows = torch.unique(torch.cat([
         torch.where(idx < 0, idx + t.shape[0], idx).clamp(
-            0, t.shape[0] - 1).reshape(-1) for t, idx in gathers]))
-    per_entry = 16 + (0 if a["window"] is not None else 4) + 16
-    nbytes = n * per_entry + 16 * int(rows.numel())
+            0, t.shape[0] - 1).reshape(idx.shape[0], -1)[:, :live]
+        .reshape(-1) for t, idx in gathers]))
+    per_entry = 16 + (0 if a["window"] is not None else 4)
+    nbytes = (live * per_entry + 16 * n + 16 * int(rows.numel())
+              + (0 if count is None else 4))
     o = TAP_OPS
     if name == "_pcss_taps":
         ops = o["offsets"] + 16 * o["blocker"] + o["penumbra"]
@@ -2082,7 +2103,7 @@ def pair_tap_work(name, args, kwargs):
         radius = max(float(a["uni"].shadow_bias[0]), 0.5)
         ops = o["offsets"] + (9 if radius <= 1.25 else 16) * o["compare"] \
             + o["scale"]
-    return nbytes, n * ops
+    return nbytes, live * ops, live, n
 
 
 def _bound_args(name, args, kwargs) -> dict:
@@ -2106,7 +2127,7 @@ def wrapper_args(name, args, kwargs) -> tuple:
         recv = a["receiver"]
     return (a["shadow_maps"], a["layer"], a["uv"], recv, a["phi"],
             a["uni"].shadow_map_size, a["uni"].shadow_bias, mode,
-            a["window"])
+            a["window"], a["count"])
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -2115,18 +2136,23 @@ def graph_ms(fn, iters: int = 5) -> float:
     plain twins: enqueued one by one, their ~270 launches per call outrun
     the sleep, and the time follows the host (on an H100, five times the
     summed kernel time of the shipped frame's five calls); replayed, they
-    run back to back, as a committed frame's graph ran them before K6."""
+    run back to back, as a committed frame's graph ran them before K6.
+    Host constants (math3d.const) are uploaded in the warm-up and reused
+    by the capture, as compiled frames do."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return device_ms(graph.replay, iters=iters)
+    from funky_tpu_torch import math3d
+
+    with math3d.kept_constants({}):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return device_ms(graph.replay, iters=iters)
 
 
 def time_pair_taps(calls) -> dict:
@@ -2134,8 +2160,9 @@ def time_pair_taps(calls) -> dict:
     through its wrapper (pair_taps_cuda.pair_taps on each call's
     arguments) by device time behind a sleep long enough for the host's
     enqueue (device_ms), the plain twins by device time as a replayed CUDA
-    graph (graph_ms), and the bound over the card's peaks of the calls'
-    summed bytes and operations (pair_tap_work)."""
+    graph (graph_ms), each call's live entries against its slots, and the
+    bound over the card's peaks of the calls' summed bytes and operations
+    on their live entries (pair_tap_work)."""
     from funky_tpu_torch.ops import pair_taps_cuda
     from funky_tpu_torch.passes import shadow_filter
 
@@ -2154,7 +2181,10 @@ def time_pair_taps(calls) -> dict:
     work = [pair_tap_work(c[0], c[1], c[2]) for c in taps]
     nbytes, ops = sum(w[0] for w in work), sum(w[1] for w in work)
     return dict(
-        calls=len(taps), entries=sum(w[2].numel() // 2 for w in wrapper),
+        calls=len(taps), entries=sum(w[3] for w in work),
+        live=sum(w[2] for w in work),
+        live_per_call=[[w[2], w[3]] for w in work],
+        lanes=[pair_taps_cuda.lanes_for(w[3]) for w in work],
         ms=device_ms(run_wrapper, iters=10, sleep_cycles=400_000_000),
         plain_ms=graph_ms(run_twins),
         bytes=nbytes, ops=ops,
@@ -2196,8 +2226,9 @@ def phase_filter_cases(dev) -> None:
     with 16 Vogel taps and with the 3x3 kernel) on the packed 2048^2 maps
     with the edge entries of tests/torch_scenes.py::pair_taps_case, and
     through a 512^2 window at an origin past S - Wc (host ints and int32
-    tensors); K7 on random keys at the 1080p pair shape, a ragged length
-    and an unaligned needs view."""
+    tensors), each also with a live count (half the slots, and past
+    them); K7 on random keys at the 1080p pair shape, a ragged length and
+    an unaligned needs view."""
     import torch
 
     from funky_tpu_torch.ops import sampling
@@ -2228,6 +2259,14 @@ def phase_filter_cases(dev) -> None:
                                                device=dev) for o in origin)):
             cases.append((fn, (uni, maps[3:4], layer0, win_uv, recv, phi),
                           dict(kw, window=(rows, org, SHADOW))))
+        # live counts: an odd split (a warp whose lane groups are partly
+        # live) and a committed overflow past the slots
+        cases.append((fn, (uni, maps, layer, uv, recv, phi), dict(
+            kw, count=torch.tensor(n // 2 + 1, dtype=torch.int32,
+                                   device=dev))))
+        cases.append((fn, (uni, maps[3:4], layer0, win_uv, recv, phi), dict(
+            kw, window=(rows, origin, SHADOW), count=torch.full(
+                (1,), n + 7, dtype=torch.int32, device=dev))))
     rng = np.random.default_rng(2)
     for shape in ((2, HEIGHT, WIDTH), (2, 4097)):
         needs = torch.from_numpy(rng.random(shape) < 0.03).to(dev)
@@ -2387,29 +2426,29 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
         _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
         calls = record_light_maps(
             lambda: frame.render_gltf_frame(scene, poses[-1], state, cfg))
-        maps, (taps_launches, taps_ms) = time_light_maps(calls)
+        maps, taps_ms = time_light_maps(calls)
         for m in maps:
-            say(f"{label}: light map on a {m['wc']}^2 window: K5 alone "
-                f"{m['k5_ms']:.4f} ms; with its parameters "
-                f"{m['kernel_launches']} launches, {m['kernel_busy_ms']:.4f}"
-                f" ms busy, {m['kernel_ms']:.4f} ms behind a sleep; plain "
-                f"twin {m['plain_launches']} launches, "
-                f"{m['plain_busy_ms']:.4f} ms busy, {m['plain_ms']:.4f} ms "
+            say(f"{label}: light map on a {m['wc']}^2 window (CUDA events):"
+                f" K5 alone {m['k5_ms']:.4f} ms; with its parameters "
+                f"{m['kernel_graph_ms']:.4f} ms as a replayed graph, "
+                f"{m['kernel_ms']:.4f} ms behind a sleep; plain twin "
+                f"{m['plain_graph_ms']:.4f} ms as a graph, "
+                f"{m['plain_ms']:.4f} ms "
                 f"behind a sleep; bound "
                 f"{m['bound_ms']:.5f} ms ({m['bound_by']}) [{_GPU}]")
         k5 = {k: sum(m[k] for m in maps)
               for k in ("kernel_ms", "plain_ms", "bound_ms", "k5_ms",
-                        "kernel_busy_ms", "plain_busy_ms")}
+                        "kernel_graph_ms", "plain_graph_ms")}
         k5.update(err=k5_err, maps=maps, taps_ms=taps_ms,
-                  frame_busy_ms=k5["kernel_busy_ms"] + taps_ms,
+                  frame_graph_ms=k5["kernel_graph_ms"] + taps_ms,
                   bound_by=max(maps, key=lambda m: m["bound_ms"])["bound_by"])
         say(f"{label}: light maps per frame: K5 alone {k5['k5_ms']:.4f} ms;"
-            f" the tap geometry, built once, {taps_launches} launches, "
-            f"{taps_ms:.4f} ms busy; with it and each window's parameters "
-            f"{k5['frame_busy_ms']:.4f} ms busy "
-            f"({k5['frame_busy_ms'] / statistics.median(grun['ms'][1:]):.1%}"
+            f" the tap geometry, built once, {taps_ms:.4f} ms busy; with it"
+            f" and each window's parameters "
+            f"{k5['frame_graph_ms']:.4f} ms as replayed graphs "
+            f"({k5['frame_graph_ms'] / statistics.median(grun['ms'][1:]):.1%}"
             f" of the graph replay's CUDA-event median), plain twin "
-            f"{k5['plain_busy_ms']:.4f} ms busy [{_GPU}]")
+            f"{k5['plain_graph_ms']:.4f} ms as graphs [{_GPU}]")
         return counts, crun["k3"], k5
     return counts, crun["k3"], None
 
@@ -3397,10 +3436,12 @@ def main() -> None:
         "dense", "shipped", "histogram"))
     for key, t in (("dense", dense_taps), ("shipped", ship_taps)):
         say(f"K6 per {key} frame ({t['calls']} calls, {t['entries']} "
-            f"entries): through its wrapper {t['ms']:.4f} ms (device time "
+            f"entry slots, {t['live']} live; [live, slots] per call "
+            f"{t['live_per_call']}, lanes per entry {t['lanes']}): through "
+            f"its wrapper {t['ms']:.4f} ms (device time "
             f"behind a sleep), the plain twins {t['plain_ms']:.4f} ms (device "
             f"time of a graph replay); "
-            f"bound {t['bound_ms']:.5f} ms "
+            f"bound {t['bound_ms']:.5f} ms on the live entries "
             f"({t['bound_by']}: {t['bytes']} B, {t['ops']} FP32 operations)"
             f" [{_GPU}]")
     say(f"K7 per shipped frame ({hist['entries']} entries, "
@@ -3463,11 +3504,11 @@ def main() -> None:
              timed_on="the light-space frame's maps, windows "
                       f"{[m['wc'] for m in k5_info['maps']]}, summed (ms: "
                       "K5's own device time; plain_ms behind a sleep)",
-             call_busy_ms=k5_info["frame_busy_ms"],
-             taps_busy_ms=k5_info["taps_ms"],
-             plain_busy_ms=k5_info["plain_busy_ms"],
-             per_window=[[m["wc"], m["k5_ms"], m["kernel_busy_ms"],
-                          m["plain_busy_ms"]] for m in k5_info["maps"]]),
+             call_graph_ms=k5_info["frame_graph_ms"],
+             taps_graph_ms=k5_info["taps_ms"],
+             plain_graph_ms=k5_info["plain_graph_ms"],
+             per_window=[[m["wc"], m["k5_ms"], m["kernel_graph_ms"],
+                          m["plain_graph_ms"]] for m in k5_info["maps"]]),
         dict(name="pair_taps", route="cuda",
              source="funky_tpu_torch/csrc/pair_taps.cu",
              replaces="funky_tpu/passes/shadow_filter.py:159",
@@ -3478,9 +3519,12 @@ def main() -> None:
              plain_ms=ship_taps["plain_ms"], bound_ms=ship_taps["bound_ms"],
              bound_by=ship_taps["bound_by"], library_ms=None,
              timed_on=f"the shipped frame's {ship_taps['calls']} pair groups "
-                      f"({ship_taps['entries']} entry slots), summed (ms: "
-                      f"K6 through its wrapper behind a sleep; plain_ms: "
-                      f"the twins as a replayed CUDA graph)",
+                      f"({ship_taps['entries']} entry slots, "
+                      f"{ship_taps['live']} live), summed (ms: K6 through "
+                      f"its wrapper behind a sleep; plain_ms: the twins as "
+                      f"a replayed CUDA graph; bound_ms: the live entries' "
+                      f"work)",
+             live_per_call=ship_taps["live_per_call"],
              checked_calls=FILTER_CHECKED["pair_taps"][0],
              launches_per_frame=filter_per_frame[0],
              frame_ms={"dense": dense_taps["ms"], "shipped": ship_taps["ms"]},

@@ -51,15 +51,35 @@
 // is ~0.6 M texels, ~0.4 G ops, ~6 us at 67 TFLOP/s. The bytes are the
 // haloed window read once (~2.6 MB) and the (wc^2, 4) rows written
 // (~9.4 MB at 768^2). The twin moved ~150 MB of tap tensors per tap set
-// through ~680 launches per window.
+// through ~680 launches per window. A texel reads ~100-150 depths within
+// +-halo texels of itself, and a tap-table entry per tap: the reuse is
+// between neighbouring texels, vertical as much as horizontal. In
+// practice the instructions bound it: a compare tap kept bit-exact is ~26
+// issued instructions (its table entry, four depths, four compares, the
+// lerp without contraction, two sums), so a texel on two rungs issues
+// ~1,100. On an H100, variants that cut shared-memory wavefronts but
+// added instructions (a parity-split tile, a split tap table) ran slower,
+// and so did one that looked each compare tap up in a per-block table of
+// its 16 outcomes (ten FP32 operations fewer, one shared load more, 48
+// registers); fewer loop instructions (the taps fully unrolled) ran
+// faster.
 //
-// Design: one thread per texel, 256 threads a block over the row-major
-// window, so a warp holds 32 neighbouring texels of one row (two phases,
-// alternating). Every tap reads the raw map through the read-only path:
-// the taps of neighbouring texels overlap, so L1 serves most of them. The
-// per-frame parameters (a few KB) are read through the same path. The
-// output row is one float4 store. Shared-memory staging of the window is
-// left for a later change.
+// Design: one thread per texel, a block per 2D tile of TILE_W x rows
+// texels (a block of 32 x 8 threads, each taking rows / 8 texels of its
+// column; rows is 24, 16 or 8, the tallest that still leaves ~4 blocks an
+// SM: ops/lightmap_cuda.py::tile_rows), so a warp holds 32 neighbouring
+// texels of one row (two phases, alternating). The block first stages,
+// with cp.async, the tile's haloed window (TILE_W + 2 halo + 1) x (rows +
+// 2 halo + 1) into shared memory, resolving on the way dynamic_slice's
+// clamped start, the 1.0 border outside the map and the window's
+// last-row and last-column clamp of the compare quads (window
+// coordinates, not the tile's: a staged texel past the window's last row
+// or column repeats it), and the per-frame tap tables, each tap's clamped
+// shift turned into one offset into the staged tile. The taps then read
+// shared memory with no bounds checks and no clamps: a compare tap is one
+// 16-byte table read and four depths. A texel walks only its own live
+// rungs, so a warp whose texels sit on different rungs runs two rung
+// passes, not their union. The output row is one float4 store.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,7 +87,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int TILE_W = 32;      // texels per tile row: one warp
+constexpr int BLOCK_Y = 8;      // warps a block
+constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90
 constexpr int TAPS = 16;        // BLOCKER_SAMPLES == PCF_SAMPLES
 
 // torch.clamp(v, min=lo): NaN stays NaN.
@@ -94,41 +116,43 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
 
-struct Window {
-  const float* __restrict__ raw;
-  int s;        // the raw map is (s, s)
-  int sy0, sx0; // window start in the padded map, minus halo: raw origin
-  int wp;       // window side, wc + 2 halo
-  int span;     // 2 halo: the largest clamped view start
-
-  // Depth of window texel (y, x): the raw map, 1.0 outside it.
-  __device__ __forceinline__ float at(int y, int x) const {
-    const int ry = sy0 + y, rx = sx0 + x;
-    return (ry >= 0 && ry < s && rx >= 0 && rx < s)
-               ? __ldg(raw + (long long)ry * s + rx) : 1.0f;
+// A block's shared memory: the compare taps (R * 16 * P of {offset, fy,
+// fx, 1 - fx}), the blocker taps (16 * P offsets, PCSS), the finite flags
+// (R * P), then the staged tile ((rows + span + 1) x sw).
+struct Layout {
+  int n_cmp, n_blk, n_fin, sw, tile;
+  __host__ __device__ Layout(int rows, int halo, int phases, int rungs,
+                             int use_pcss) {
+    const int n_r = use_pcss ? rungs : 1;
+    n_cmp = n_r * TAPS * phases;
+    n_blk = use_pcss ? TAPS * phases : 0;
+    n_fin = n_r * phases;
+    sw = TILE_W + 2 * halo + 1;
+    tile = (rows + 2 * halo + 1) * sw;
+  }
+  __host__ __device__ long long bytes() const {
+    return 16LL * n_cmp + 4LL * (n_blk + n_fin) + 4LL * tile;
   }
 };
 
 // Mean and mean square of the 16 compare-bilinear taps of one PCF radius
-// for phase p: y0/x0/fy/fx hold the radius's (16, phases) taps, tap-major.
+// for phase p: `cmp` holds the radius's (16, phases) taps, tap-major, as
+// {offset from the texel's own staged origin `at`, fy, fx, 1 - fx}; sw is
+// the staged tile's row length.
 __device__ __forceinline__ void compare_taps(
-    const Window& w, int halo, int i, int j, float receiver,
-    const int* __restrict__ y0, const int* __restrict__ x0,
-    const float* __restrict__ fy, const float* __restrict__ fx, int phases,
-    int p, float* m1, float* m2) {
+    const float* at, int sw, const int4* cmp, int phases, int p,
+    float receiver, float* m1, float* m2) {
   float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll 4
+#pragma unroll
   for (int k = 0; k < TAPS; ++k) {
-    const int q = k * phases + p;
-    const int y = clampi(add_wrap(halo, __ldg(y0 + q)), 0, w.span) + i;
-    const int x = clampi(add_wrap(halo, __ldg(x0 + q)), 0, w.span) + j;
-    const int y1 = min(y + 1, w.wp - 1), x1 = min(x + 1, w.wp - 1);
-    const float t00 = receiver <= w.at(y, x) ? 1.0f : 0.0f;
-    const float t10 = receiver <= w.at(y, x1) ? 1.0f : 0.0f;
-    const float t01 = receiver <= w.at(y1, x) ? 1.0f : 0.0f;
-    const float t11 = receiver <= w.at(y1, x1) ? 1.0f : 0.0f;
-    const float ffx = __ldg(fx + q), ffy = __ldg(fy + q);
-    const float gx = __fsub_rn(1.0f, ffx), gy = __fsub_rn(1.0f, ffy);
+    const int4 c = cmp[k * phases + p];
+    const float* q = at + c.x;
+    const float ffy = __int_as_float(c.y), ffx = __int_as_float(c.z);
+    const float t00 = receiver <= q[0] ? 1.0f : 0.0f;
+    const float t10 = receiver <= q[1] ? 1.0f : 0.0f;
+    const float t01 = receiver <= q[sw] ? 1.0f : 0.0f;
+    const float t11 = receiver <= q[sw + 1] ? 1.0f : 0.0f;
+    const float gx = __int_as_float(c.w), gy = __fsub_rn(1.0f, ffy);
     const float top = __fadd_rn(__fmul_rn(t00, gx), __fmul_rn(t10, ffx));
     const float bot = __fadd_rn(__fmul_rn(t01, gx), __fmul_rn(t11, ffx));
     const float tap = __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, ffy));
@@ -140,35 +164,18 @@ __device__ __forceinline__ void compare_taps(
   *m2 = __fmul_rn(s2, 1.0f / TAPS);
 }
 
-// ints:   [oy, ox, (PCSS) sy[16 * P], sx[16 * P],
-//          y0[R * 16 * P], x0[R * 16 * P]]
-// floats: [p0, p1, p2, bias, a, b, fy[R * 16 * P], fx[R * 16 * P],
-//          finite[R * P]]
-// with a, b = light_size, span (PCSS) or radius, radius <= 1.25 (fixed),
-// R = rungs (PCSS) or 1 (fixed), every (16, P) block tap-major.
-__global__ void __launch_bounds__(THREADS)
-light_map_kernel(const float* __restrict__ raw, int s,
-                 const int* __restrict__ ints,
-                 const float* __restrict__ floats, int wc, int halo,
-                 int phases, int rungs, int use_pcss, float inv_s,
-                 float4* __restrict__ out) {
-  const int t = blockIdx.x * THREADS + threadIdx.x;
-  if (t >= wc * wc) return;
-  const int i = t / wc, j = t - i * wc;
-  const int oy = __ldg(ints), ox = __ldg(ints + 1);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
 
-  // dynamic_slice's start: negative counts from the end of the padded
-  // axis (s + 2 halo), then clamped into [0, s - wc].
-  const long long dim = (long long)s + 2 * halo;
-  const long long sty = oy < 0 ? oy + dim : oy, stx = ox < 0 ? ox + dim : ox;
-  Window w;
-  w.raw = raw;
-  w.s = s;
-  w.sy0 = (int)min(max(sty, 0LL), (long long)(s - wc)) - halo;
-  w.sx0 = (int)min(max(stx, 0LL), (long long)(s - wc)) - halo;
-  w.wp = wc + 2 * halo;
-  w.span = 2 * halo;
-
+// One texel's row: (i, j) of the window, `at` its staged origin.
+__device__ __forceinline__ float4 texel_row(
+    const float* at, int sw, int i, int j, int oy, int ox, int halo,
+    int phases, int rungs, int use_pcss, float inv_s,
+    const float* __restrict__ floats, const int4* cmp, const int* blk,
+    const float* fin) {
   const long long gy = (long long)oy + i, gx = (long long)ox + j;
   const int p = (int)((((gy % 2) + 2) % 2 * 2 + ((gx % 2) + 2) % 2) % phases);
 
@@ -182,17 +189,8 @@ light_map_kernel(const float* __restrict__ raw, int s,
                 __ldg(floats + 2)),
       __ldg(floats + 3));
   const float a = __ldg(floats + 4), b = __ldg(floats + 5);
-  const int tp = TAPS * phases;
-  const int* shifts = ints + 2;
-  const int* corners = use_pcss ? shifts + 2 * tp : shifts;
-  const int n_r = use_pcss ? rungs : 1;
-  const int* y0 = corners;
-  const int* x0 = corners + n_r * tp;
-  const float* fy = floats + 6;
-  const float* fx = fy + n_r * tp;
-  const float* finite = fx + n_r * tp;
+  const int tp = TAPS * phases;   // compare entries per radius
 
-  float4 row;
   if (!use_pcss) {
     float m1, m2;
     if (b != 0.0f) {   // radius <= 1.25: the 3x3 kernel
@@ -200,84 +198,191 @@ light_map_kernel(const float* __restrict__ raw, int s,
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
         const int dy = k / 3 - 1, dx = k % 3 - 1;
-        const float v = receiver <= w.at(halo + dy + i, halo + dx + j)
+        const float v = receiver <= at[(halo + dy) * sw + halo + dx]
                             ? 1.0f : 0.0f;
         s1 = k == 0 ? v : __fadd_rn(s1, v);
         s2 = k == 0 ? __fmul_rn(v, v) : __fadd_rn(s2, __fmul_rn(v, v));
       }
       m1 = __fmul_rn(s1, 1.0f / 9.0f);
       m2 = __fmul_rn(s2, 1.0f / 9.0f);
-      row = make_float4(m1, m2, 1.0f, 1.0f);
-    } else {
-      compare_taps(w, halo, i, j, receiver, y0, x0, fy, fx, phases, p, &m1,
-                   &m2);
-      row = make_float4(m1, m2, a, 1.0f);
+      return make_float4(m1, m2, 1.0f, 1.0f);
     }
-  } else {
-    const float ls = a, span = b;
-    float b_sum = 0.0f, b_cnt = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < TAPS; ++k) {
-      const int q = k * phases + p;
-      const int y = clampi(add_wrap(halo, __ldg(shifts + q)), 0, w.span) + i;
-      const int x =
-          clampi(add_wrap(halo, __ldg(shifts + tp + q)), 0, w.span) + j;
-      const float d = w.at(y, x);
-      const bool hit = d < receiver;
-      const float dv = hit ? d : 0.0f, hv = hit ? 1.0f : 0.0f;
-      b_sum = k == 0 ? dv : __fadd_rn(b_sum, dv);
-      b_cnt = k == 0 ? hv : __fadd_rn(b_cnt, hv);
-    }
-    if (!(b_cnt > 0.0f)) {
-      row = make_float4(1.0f, 1.0f, 0.0f, 1.0f);
-    } else {
-      const float depth = __fdiv_rn(b_sum, nan_max(b_cnt, 1.0f));
-      const float ratio = __fdiv_rn(__fsub_rn(receiver, depth),
-                                    nan_max(depth, (float)1e-8));
-      const float pen = nan_min(nan_max(__fmul_rn(ratio, ls), 0.5f),
-                                __fmul_rn(ls, 2.0f));
-      const float pos = __fdiv_rn(
-          __fmul_rn((float)(rungs - 1), logf(__fmul_rn(pen, 2.0f))), span);
-      float m1 = 0.0f, m2 = 0.0f;
-      for (int r = 0; r < rungs; ++r) {
-        const float wj =
-            clamp01(__fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)r))));
-        if (wj == 0.0f && __ldg(finite + r * phases + p) != 0.0f) continue;
-        float m1j, m2j;
-        compare_taps(w, halo, i, j, receiver, y0 + r * tp, x0 + r * tp,
-                     fy + r * tp, fx + r * tp, phases, p, &m1j, &m2j);
-        m1 = __fadd_rn(m1, __fmul_rn(wj, m1j));
-        m2 = __fadd_rn(m2, __fmul_rn(wj, m2j));
+    compare_taps(at, sw, cmp, phases, p, receiver, &m1, &m2);
+    return make_float4(m1, m2, a, 1.0f);
+  }
+  const float ls = a, span_log = b;
+  float b_sum = 0.0f, b_cnt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k) {
+    const float d = at[blk[k * phases + p]];
+    const bool hit = d < receiver;
+    const float dv = hit ? d : 0.0f, hv = hit ? 1.0f : 0.0f;
+    b_sum = k == 0 ? dv : __fadd_rn(b_sum, dv);
+    b_cnt = k == 0 ? hv : __fadd_rn(b_cnt, hv);
+  }
+  if (!(b_cnt > 0.0f)) return make_float4(1.0f, 1.0f, 0.0f, 1.0f);
+  const float depth = __fdiv_rn(b_sum, nan_max(b_cnt, 1.0f));
+  const float ratio = __fdiv_rn(__fsub_rn(receiver, depth),
+                                nan_max(depth, (float)1e-8));
+  const float pen = nan_min(nan_max(__fmul_rn(ratio, ls), 0.5f),
+                            __fmul_rn(ls, 2.0f));
+  const float pos = __fdiv_rn(
+      __fmul_rn((float)(rungs - 1), logf(__fmul_rn(pen, 2.0f))), span_log);
+  // The rungs this texel evaluates, in order: all but those of weight 0
+  // whose taps are finite. A warp then walks each texel's own rungs in
+  // step (one or two of them), not the union of its texels' rungs.
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int base = 0; base < rungs; base += 32) {
+    const int top = min(rungs - base, 32);
+    unsigned live = 0;
+    for (int r = 0; r < top; ++r) {
+      const float wj = clamp01(
+          __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)(base + r)))));
+      if (!(wj == 0.0f && fin[(base + r) * phases + p] != 0.0f)) {
+        live |= 1u << r;
       }
-      row = make_float4(m1, m2, pen, 1.0f);
+    }
+    while (live != 0) {
+      const int r = base + __ffs(live) - 1;
+      live &= live - 1;
+      const float wj =
+          clamp01(__fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)r))));
+      float m1j, m2j;
+      compare_taps(at, sw, cmp + r * tp, phases, p, receiver, &m1j, &m2j);
+      m1 = __fadd_rn(m1, __fmul_rn(wj, m1j));
+      m2 = __fadd_rn(m2, __fmul_rn(wj, m2j));
     }
   }
-  out[t] = row;
+  return make_float4(m1, m2, pen, 1.0f);
+}
+
+// ints:   [oy, ox, (PCSS) sy[16 * P], sx[16 * P],
+//          y0[R * 16 * P], x0[R * 16 * P]]
+// floats: [p0, p1, p2, bias, a, b, fy[R * 16 * P], fx[R * 16 * P],
+//          finite[R * P]]
+// with a, b = light_size, span (PCSS) or radius, radius <= 1.25 (fixed),
+// R = rungs (PCSS) or 1 (fixed), every (16, P) block tap-major. The block
+// is (TILE_W, BLOCK_Y) threads over the tile of TILE_W x rows texels at
+// (blockIdx.y * rows, blockIdx.x * TILE_W); a thread takes the tile's
+// texel rows threadIdx.y, threadIdx.y + BLOCK_Y, ...
+__global__ void __launch_bounds__(TILE_W * BLOCK_Y)
+light_map_kernel(const float* __restrict__ raw, int s,
+                 const int* __restrict__ ints,
+                 const float* __restrict__ floats, int wc, int halo,
+                 int phases, int rungs, int use_pcss, int rows, float inv_s,
+                 float4* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(rows, halo, phases, rungs, use_pcss);
+  int4* cmp = reinterpret_cast<int4*>(smem);
+  int* blk = reinterpret_cast<int*>(cmp + lay.n_cmp);
+  float* fin = reinterpret_cast<float*>(blk + lay.n_blk);
+  float* tile = fin + lay.n_fin;
+  const int span = 2 * halo;          // the largest clamped view start
+  const int wp = wc + span;           // the haloed window's side
+  const int sw = lay.sw;              // the staged tile's row length
+  const int th = rows + span + 1;     // the staged tile's rows
+  const int tid = threadIdx.y * TILE_W + threadIdx.x;
+  const int nthreads = TILE_W * BLOCK_Y;
+  const int ti = blockIdx.y * rows, tj = blockIdx.x * TILE_W;
+  const int oy = __ldg(ints), ox = __ldg(ints + 1);
+
+  // dynamic_slice's start: negative counts from the end of the padded
+  // axis (s + 2 halo), then clamped into [0, s - wc]; minus the halo, the
+  // raw texel of window texel (0, 0).
+  const long long dim = (long long)s + 2 * halo;
+  const long long sty = oy < 0 ? oy + dim : oy, stx = ox < 0 ? ox + dim : ox;
+  const int sy0 = (int)min(max(sty, 0LL), (long long)(s - wc)) - halo;
+  const int sx0 = (int)min(max(stx, 0LL), (long long)(s - wc)) - halo;
+
+  // Staged texel (yy, xx) holds window texel (min(ti + yy, wp - 1),
+  // min(tj + xx, wp - 1)): the raw map there, 1.0 outside it.
+  for (int yy = threadIdx.y; yy < th; yy += BLOCK_Y) {
+    const int ry = sy0 + min(ti + yy, wp - 1);
+    const bool row_in = ry >= 0 && ry < s;
+    const float* src = raw + (long long)ry * s;
+    for (int xx = threadIdx.x; xx < sw; xx += TILE_W) {
+      const int rx = sx0 + min(tj + xx, wp - 1);
+      if (row_in && rx >= 0 && rx < s) {
+        cp_async4(tile + yy * sw + xx, src + rx);
+      } else {
+        tile[yy * sw + xx] = 1.0f;
+      }
+    }
+  }
+
+  // The tap tables, each tap's clamped shift (clamp(halo + d, 0, span))
+  // as an offset into the staged tile.
+  const int tp = TAPS * phases;
+  const int* shifts = ints + 2;
+  const int* corners = use_pcss ? shifts + 2 * tp : shifts;
+  for (int q = tid; q < lay.n_cmp; q += nthreads) {
+    const int cy = clampi(add_wrap(halo, __ldg(corners + q)), 0, span);
+    const int cx = clampi(add_wrap(halo, __ldg(corners + lay.n_cmp + q)), 0,
+                          span);
+    const float fx = __ldg(floats + 6 + lay.n_cmp + q);
+    cmp[q] = make_int4(cy * sw + cx, __float_as_int(__ldg(floats + 6 + q)),
+                       __float_as_int(fx),
+                       __float_as_int(__fsub_rn(1.0f, fx)));
+  }
+  for (int q = tid; q < lay.n_blk; q += nthreads) {
+    const int cy = clampi(add_wrap(halo, __ldg(shifts + q)), 0, span);
+    const int cx = clampi(add_wrap(halo, __ldg(shifts + tp + q)), 0, span);
+    blk[q] = cy * sw + cx;
+  }
+  for (int q = tid; q < lay.n_fin; q += nthreads) {
+    fin[q] = __ldg(floats + 6 + 2 * lay.n_cmp + q);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int j = tj + threadIdx.x;
+  if (j >= wc) return;
+  for (int li = threadIdx.y; li < rows; li += BLOCK_Y) {
+    const int i = ti + li;
+    if (i >= wc) break;
+    // A tap at clamped shift (cy, cx) reads at[cy * sw + cx].
+    out[(long long)i * wc + j] = texel_row(
+        tile + li * sw + threadIdx.x, sw, i, j, oy, ox, halo, phases, rungs,
+        use_pcss, inv_s, floats, cmp, blk, fin);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). raw: (s, s) contiguous f32;
 // ints / floats: the packed parameters above (ops/lightmap_cuda.py::
-// kernel_params); out: (wc * wc, 4) f32, 16-byte aligned, every value
-// written. Launches on `stream`, does not synchronise, allocates nothing,
-// and returns a CUDA error code (0: launched).
+// kernel_params); rows: the tile's texel rows, 8, 16 or 24 (each of a
+// block's 32 x 8 threads takes rows / 8 texels of its column);
+// out: (wc * wc, 4) f32, 16-byte aligned, every value written. Launches
+// on `stream`, does not synchronise, allocates nothing, and returns a
+// CUDA error code (0: launched; cudaErrorInvalidValue also where a
+// block's shared memory would exceed the card's 227 KB).
 extern "C" int light_map_launch(const void* raw, int s, const void* ints,
                                 const void* floats, int wc, int halo,
                                 int phases, int rungs, int use_pcss,
-                                float inv_s, void* out, void* stream) {
+                                int rows, float inv_s, void* out,
+                                void* stream) {
   if (raw == nullptr || ints == nullptr || floats == nullptr ||
       out == nullptr || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       wc <= 0 || wc > s || halo < 1 || halo > (1 << 20) || phases < 1 ||
-      phases > 4 || (use_pcss && rungs < 2) ||
+      phases > 4 || (use_pcss && (rungs < 2 || rungs > (1 << 20))) ||
+      (rows != BLOCK_Y && rows != 2 * BLOCK_Y && rows != 3 * BLOCK_Y) ||
       (long long)wc * wc > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n = wc * wc;
-  light_map_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+  const long long bytes = Layout(rows, halo, phases, rungs, use_pcss).bytes();
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        light_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((wc + TILE_W - 1) / TILE_W, (wc + rows - 1) / rows);
+  light_map_kernel<<<grid, dim3(TILE_W, BLOCK_Y), (size_t)bytes,
                      (cudaStream_t)stream>>>(
       static_cast<const float*>(raw), s, static_cast<const int*>(ints),
       static_cast<const float*>(floats), wc, halo, phases, rungs,
-      use_pcss != 0, inv_s, static_cast<float4*>(out));
+      use_pcss != 0, rows, inv_s, static_cast<float4*>(out));
   return (int)cudaGetLastError();
 }

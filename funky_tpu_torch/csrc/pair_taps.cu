@@ -1,6 +1,6 @@
 // Shadow-filter tap sets for Hopper (sm_90a): the PCSS blocker search,
 // penumbra and penumbra-radius PCF, or the fixed-radius PCF, of N entries,
-// one thread per entry.
+// a group of lanes per entry.
 //
 // K6 pair_taps_launch replaces the JAX package's jnp tap cores
 // funky_tpu/passes/shadow_filter.py::_pcss_taps (:159-219) and ::_pcf_taps
@@ -43,18 +43,35 @@
 // math, so the rows equal the plain twin's bit for bit on the card.
 //
 // What bounds it on this card: FP32 work, just ahead of the bytes. Per
-// entry ~1,400 operations (the 16 Vogel offsets with a sin and a cos each
-// are half of them, then 16 blocker and 16 compare taps); it reads its
-// uv, receiver, phi and layer (20 B) and the distinct quad rows of its 32
-// taps (16 B each; neighbouring entries share most of them) and writes
-// one 16-byte row. The shipped frame's five pair groups are ~164 K entry
-// slots: ~0.23 G operations, ~8.6 MB.
+// live entry ~1,400 operations (the 16 Vogel offsets with a sin and a cos
+// each are half of them, then 16 blocker and 16 compare taps); it reads
+// its uv, receiver, phi and layer (20 B) and the distinct quad rows of its
+// 32 taps (16 B each; neighbouring entries share most of them) and writes
+// one 16-byte row. Each tap is a dependent chain of ~40 rounded operations
+// behind one 16-byte read, so one thread walking an entry's 32 taps is
+// latency-bound, and a pair group of ~32 K entries is too few threads to
+// hide it: the card must be filled with taps, not entries.
 //
-// Design: one thread per entry, 256 threads a block. The 16 Vogel offsets
-// are computed once into registers and serve both tap sets. Quad rows are
-// read through the read-only path (__ldg, 16-byte loads where the table is
-// aligned): the entries of a compacted group are neighbouring pixels, so
-// L1 serves much of the reuse. Nothing is staged in global memory.
+// Design: LANES lanes of a warp per entry (the wrapper picks the width
+// from N: 8 up to 2^17 entries, the pair groups; 1 above, the dense
+// filters, where one thread per entry spends the fewest instructions),
+// each lane evaluating taps k = lane, lane + LANES, ... of the 16: its own
+// Vogel offsets (r_k and k * 2.4 from two constant tables), its blocker
+// taps and its compare taps (9 taps over the group for the 3x3 kernel).
+// The sums stay in tap order: each lane gathers the group's tap values
+// with __shfl_sync, tap by tap, and adds them in order (a square is taken
+// after the gather), so every lane holds the same sums, blocker depth,
+// penumbra and radius without a broadcast; the blocker count, whose
+// partial sums are small integers and so exact in any order, is one
+// ballot. The shuffle masks name the group's own lanes, and groups leave
+// a warp only whole (past N, or past the count), so a mask never names an
+// exited lane. With a device `count` (the pair group's live count), a
+// slot at or past it writes (0, 0, 0, 0) and does no tap work: the frame
+// sizes its launches by the group's capacity, and its padding slots cost
+// one store. Quad rows are read through the read-only path (__ldg,
+// 16-byte loads where the table is aligned); the entries of a compacted
+// group are neighbouring pixels, so L1 serves much of the reuse. Nothing
+// is staged in global memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +81,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TAPS = 16;  // BLOCKER_SAMPLES == PCF_SAMPLES
+constexpr int TAPS_3X3 = 9;
 
 enum Mode { PCSS = 0, RADIUS_ONLY = 1, PCF = 2 };
 
@@ -92,16 +110,13 @@ __device__ __forceinline__ int mul_wrap(int a, int b) {
   return (int)((unsigned)a * (unsigned)b);
 }
 
-// XLA's saturating f32 -> s32 (ops/sampling.py::to_i32): NaN -> 0.
-__device__ __forceinline__ int to_i32(float x) {
-  if (x != x) return 0;
-  if (x >= 2147483648.0f) return 2147483647;
-  if (x <= -2147483648.0f) return (int)0x80000000u;
-  return (int)x;
-}
+// XLA's saturating f32 -> s32 (ops/sampling.py::to_i32): NaN -> 0, out of
+// range to INT_MIN / INT_MAX; the card's cvt.rzi.s32.f32 does just that.
+__device__ __forceinline__ int to_i32(float x) { return __float2int_rz(x); }
 
-__device__ __forceinline__ bool in_map(int iy, int ix, int s) {
-  return iy >= 0 && iy < s && ix >= 0 && ix < s;
+// 0 <= i < s (s > 0) as one unsigned compare.
+__device__ __forceinline__ bool in_range(int i, int s) {
+  return (unsigned)i < (unsigned)s;
 }
 
 // Where the quad rows come from: the packed maps (L * s * s rows) at a
@@ -170,7 +185,7 @@ __device__ __forceinline__ float nearest_tap(const Source& src, int layer,
   const float sf = (float)src.s;
   const int nxi = to_i32(floorf(__fmul_rn(u, sf)));
   const int nyi = to_i32(floorf(__fmul_rn(v, sf)));
-  if (!in_map(nyi, nxi, src.s)) return 1.0f;
+  if (!(in_range(nyi, src.s) && in_range(nxi, src.s))) return 1.0f;
   const int nx = clampi(clampi(nxi, 0, src.s - 1) - q.cx, 0, 1);
   const int ny = clampi(clampi(nyi, 0, src.s - 1) - q.cy, 0, 1);
   return ny == 0 ? (nx == 0 ? q.c00 : q.c10) : (nx == 0 ? q.c01 : q.c11);
@@ -181,109 +196,209 @@ __device__ __forceinline__ float compare_tap(const Source& src, int layer,
                                              float u, float v, float ref) {
   const Quad q = tap_quad(src, layer, u, v);
   const int s = src.s;
-  const float t00 = in_map(q.y0, q.x0, s)
-      ? (ref <= q.c00 ? 1.0f : 0.0f) : 1.0f;
-  const float t10 = in_map(q.y0, add_wrap(q.x0, 1), s)
-      ? (ref <= q.c10 ? 1.0f : 0.0f) : 1.0f;
-  const float t01 = in_map(add_wrap(q.y0, 1), q.x0, s)
-      ? (ref <= q.c01 ? 1.0f : 0.0f) : 1.0f;
-  const float t11 = in_map(add_wrap(q.y0, 1), add_wrap(q.x0, 1), s)
-      ? (ref <= q.c11 ? 1.0f : 0.0f) : 1.0f;
+  const bool x0_in = in_range(q.x0, s), x1_in = in_range(add_wrap(q.x0, 1), s);
+  const bool y0_in = in_range(q.y0, s), y1_in = in_range(add_wrap(q.y0, 1), s);
+  const float t00 = y0_in && x0_in ? (ref <= q.c00 ? 1.0f : 0.0f) : 1.0f;
+  const float t10 = y0_in && x1_in ? (ref <= q.c10 ? 1.0f : 0.0f) : 1.0f;
+  const float t01 = y1_in && x0_in ? (ref <= q.c01 ? 1.0f : 0.0f) : 1.0f;
+  const float t11 = y1_in && x1_in ? (ref <= q.c11 ? 1.0f : 0.0f) : 1.0f;
   const float gx = __fsub_rn(1.0f, q.fx), gy = __fsub_rn(1.0f, q.fy);
   const float top = __fadd_rn(__fmul_rn(t00, gx), __fmul_rn(t10, q.fx));
   const float bot = __fadd_rn(__fmul_rn(t01, gx), __fmul_rn(t11, q.fx));
   return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, q.fy));
 }
 
-// Mean and mean square of the 16 compare taps at uv + (dx, dy) * scale.
-__device__ __forceinline__ void vogel_compare(
-    const Source& src, int layer, float u, float v, float ref,
-    const float* dx, const float* dy, float scale, float* m1, float* m2) {
-  float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < TAPS; ++k) {
-    const float t = compare_tap(src, layer,
-                                __fadd_rn(u, __fmul_rn(dx[k], scale)),
-                                __fadd_rn(v, __fmul_rn(dy[k], scale)), ref);
-    const float sq = __fmul_rn(t, t);
-    s1 = k == 0 ? t : __fadd_rn(s1, t);
-    s2 = k == 0 ? sq : __fadd_rn(s2, sq);
+// vogel_disk_all(16, phi)'s per-tap constants: r_k = sqrt(k + 0.5) /
+// sqrt(16) and k * 2.4f, each an IEEE-rounded result as the twin's torch
+// ops round it (sqrt, and division by 4, are exact to the last bit).
+__device__ const float VOGEL_R[TAPS] = {
+    0x1.6a09e6p-3f, 0x1.3988e2p-2f, 0x1.94c584p-2f, 0x1.deeea2p-2f,
+    0x1.0f876cp-1f, 0x1.2c2fc6p-1f, 0x1.465656p-1f, 0x1.5e8adep-1f,
+    0x1.752e5p-1f, 0x1.8a85c2p-1f, 0x1.9ec474p-1f, 0x1.b211b2p-1f,
+    0x1.c48c6p-1f, 0x1.d64d52p-1f, 0x1.e768d4p-1f, 0x1.f7efbep-1f};
+__device__ const float VOGEL_ANGLE[TAPS] = {
+    0x0p+0f, 0x1.333334p+1f, 0x1.333334p+2f, 0x1.cccccep+2f,
+    0x1.333334p+3f, 0x1.8p+3f, 0x1.cccccep+3f, 0x1.0ccccep+4f,
+    0x1.333334p+4f, 0x1.59999ap+4f, 0x1.8p+4f, 0x1.a66668p+4f,
+    0x1.cccccep+4f, 0x1.f33334p+4f, 0x1.0ccccep+5f, 0x1.2p+5f};
+
+// v_0 + v_1 + ... + v_{N-1} in that order (_sum_taps), where tap k is slot
+// k / LANES of lane k % LANES of the entry's group: every lane of the group
+// gathers each value in turn and adds it, so all of them hold the sum.
+template <int LANES, int SLOTS>
+__device__ __forceinline__ float gather_tap(const float (&v)[SLOTS], int k,
+                                            unsigned mask) {
+  if constexpr (LANES == 1) {
+    return v[k];
+  } else {
+    return __shfl_sync(mask, v[k / LANES], k % LANES, LANES);
   }
-  *m1 = __fmul_rn(s1, 1.0f / TAPS);
-  *m2 = __fmul_rn(s2, 1.0f / TAPS);
 }
 
-__global__ void __launch_bounds__(THREADS)
-pair_taps_kernel(Source src, const int* __restrict__ origin,
-                 const int* __restrict__ layer,
-                 long long layer_stride, const float* __restrict__ uv,
-                 long long uv_stride, const float* __restrict__ recv,
-                 long long recv_stride, const float* __restrict__ phi,
-                 long long phi_stride, const float* __restrict__ texel_p,
-                 const float* __restrict__ soft_p, int n, int mode,
-                 float4* __restrict__ out) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= n) return;
-  if (origin != nullptr) {   // a device-valued window origin
-    src.oy = __ldg(origin);
-    src.ox = __ldg(origin + 1);
-  }
-  const int lay = layer != nullptr ? __ldg(layer + e * layer_stride) : 0;
-  const float u = __ldg(uv + e * uv_stride), v = __ldg(uv + e * uv_stride + 1);
-  const float ref = __ldg(recv + e * recv_stride);
-  const float ph = __ldg(phi + e * phi_stride);
-  const float texel = __ldg(texel_p), soft = __ldg(soft_p);
-
-  // vogel_disk_all(16, phi): the same offsets for every tap set.
-  float dx[TAPS], dy[TAPS];
+template <int LANES, int N, int SLOTS>
+__device__ __forceinline__ float ordered_sum(const float (&v)[SLOTS],
+                                             unsigned mask) {
+  float s = 0.0f;
 #pragma unroll
-  for (int k = 0; k < TAPS; ++k) {
-    const float fk = (float)k;
-    const float r = __fdiv_rn(__fsqrt_rn(__fadd_rn(fk, 0.5f)),
-                              __fsqrt_rn((float)TAPS));
-    const float theta = __fadd_rn(__fmul_rn(fk, 2.4f), ph);
-    dx[k] = __fmul_rn(r, cosf(theta));
-    dy[k] = __fmul_rn(r, sinf(theta));
+  for (int k = 0; k < N; ++k) {
+    const float t = gather_tap<LANES>(v, k, mask);
+    s = k == 0 ? t : __fadd_rn(s, t);
   }
+  return s;
+}
+
+// The tap-order sums of t and of t * t, each square taken after the
+// gather (the same value as before it), times 1 / N: the mean and the
+// mean square.
+template <int LANES, int N, int SLOTS>
+__device__ __forceinline__ void ordered_moments(const float (&t)[SLOTS],
+                                                unsigned mask, float* m1,
+                                                float* m2) {
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float v = gather_tap<LANES>(t, k, mask);
+    const float sq = __fmul_rn(v, v);
+    s1 = k == 0 ? v : __fadd_rn(s1, v);
+    s2 = k == 0 ? sq : __fadd_rn(s2, sq);
+  }
+  *m1 = __fmul_rn(s1, 1.0f / N);
+  *m2 = __fmul_rn(s2, 1.0f / N);
+}
+
+// vogel_disk_all(16, phi) at this lane's taps k = lane + j * LANES.
+template <int LANES>
+__device__ __forceinline__ void vogel_offsets(int lane, float ph,
+                                              float (&dx)[TAPS / LANES],
+                                              float (&dy)[TAPS / LANES]) {
+#pragma unroll
+  for (int j = 0; j < TAPS / LANES; ++j) {
+    const int k = lane + j * LANES;
+    const float r = __ldg(VOGEL_R + k);
+    const float theta = __fadd_rn(__ldg(VOGEL_ANGLE + k), ph);
+    dx[j] = __fmul_rn(r, cosf(theta));
+    dy[j] = __fmul_rn(r, sinf(theta));
+  }
+}
+
+// Mean and mean square of the 16 compare taps at uv + (dx, dy) * scale,
+// this lane's taps evaluated here, the sums over the group's.
+template <int LANES>
+__device__ __forceinline__ void vogel_compare(
+    const Source& src, int layer, float u, float v, float ref,
+    const float (&dx)[TAPS / LANES], const float (&dy)[TAPS / LANES],
+    float scale, unsigned mask, float* m1, float* m2) {
+  float t[TAPS / LANES];
+#pragma unroll
+  for (int j = 0; j < TAPS / LANES; ++j) {
+    t[j] = compare_tap(src, layer, __fadd_rn(u, __fmul_rn(dx[j], scale)),
+                       __fadd_rn(v, __fmul_rn(dy[j], scale)), ref);
+  }
+  ordered_moments<LANES, TAPS>(t, mask, m1, m2);
+}
+
+// What every entry reads besides the quad rows.
+struct Entries {
+  const int* __restrict__ origin;   // device window origin (oy, ox), or null
+  const int* __restrict__ layer;    // packed maps: each entry's layer
+  long long layer_stride;
+  const float* __restrict__ uv;
+  long long uv_stride;
+  const float* __restrict__ recv;
+  long long recv_stride;
+  const float* __restrict__ phi;
+  long long phi_stride;
+  const float* __restrict__ texel;  // shadow_map_size[2]
+  const float* __restrict__ soft;   // shadow_bias[0]
+  const int* __restrict__ count;    // live slots, or null: all N
+};
+
+template <int LANES>
+__global__ void __launch_bounds__(THREADS)
+pair_taps_kernel(Source src, Entries in, int n, int mode,
+                 float4* __restrict__ out) {
+  static_assert(TAPS % LANES == 0 && THREADS % LANES == 0 && LANES <= 16,
+                "a group of lanes holds whole taps and never spans warps");
+  constexpr int SLOTS9 = (TAPS_3X3 + LANES - 1) / LANES;
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (g >= (long long)n * LANES) return;      // whole groups leave
+  const int e = (int)(g / LANES);
+  const int lane = (int)(threadIdx.x % LANES);
+  if (in.count != nullptr && e >= __ldg(in.count)) {   // whole groups too
+    if (lane == 0) out[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  // The group's own lanes of the warp.
+  const unsigned mask = (LANES == 1 ? 1u : ((1u << LANES) - 1u))
+                        << ((threadIdx.x & 31u) & ~(unsigned)(LANES - 1));
+  if (in.origin != nullptr) {   // a device-valued window origin
+    src.oy = __ldg(in.origin);
+    src.ox = __ldg(in.origin + 1);
+  }
+  const int lay = in.layer != nullptr
+      ? __ldg(in.layer + e * in.layer_stride) : 0;
+  const float u = __ldg(in.uv + e * in.uv_stride);
+  const float v = __ldg(in.uv + e * in.uv_stride + 1);
+  const float ref = __ldg(in.recv + e * in.recv_stride);
+  const float ph = __ldg(in.phi + e * in.phi_stride);
+  const float texel = __ldg(in.texel), soft = __ldg(in.soft);
 
   if (mode == PCF) {
     const float radius = nan_max(soft, 0.5f);
-    float m1, m2;
-    if (radius <= 1.25f) {
-      float s1 = 0.0f, s2 = 0.0f;
+    if (radius <= 1.25f) {      // the 3x3 kernel, dy-major
+      float t[SLOTS9], m1, m2;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const float ox = __fmul_rn((float)(k % 3 - 1), texel);
-        const float oy = __fmul_rn((float)(k / 3 - 1), texel);
-        const float t = compare_tap(src, lay, __fadd_rn(u, ox),
-                                    __fadd_rn(v, oy), ref);
-        const float sq = __fmul_rn(t, t);
-        s1 = k == 0 ? t : __fadd_rn(s1, t);
-        s2 = k == 0 ? sq : __fadd_rn(s2, sq);
+      for (int j = 0; j < SLOTS9; ++j) {
+        const int k = lane + j * LANES;
+        t[j] = 0.0f;
+        if (k < TAPS_3X3) {
+          const float ox = __fmul_rn((float)(k % 3 - 1), texel);
+          const float oy = __fmul_rn((float)(k / 3 - 1), texel);
+          t[j] = compare_tap(src, lay, __fadd_rn(u, ox), __fadd_rn(v, oy),
+                             ref);
+        }
       }
-      out[e] = make_float4(__fmul_rn(s1, 1.0f / 9.0f),
-                           __fmul_rn(s2, 1.0f / 9.0f), 1.0f, 0.0f);
+      ordered_moments<LANES, TAPS_3X3>(t, mask, &m1, &m2);
+      if (lane == 0) out[e] = make_float4(m1, m2, 1.0f, 0.0f);
     } else {
-      vogel_compare(src, lay, u, v, ref, dx, dy, __fmul_rn(radius, texel),
-                    &m1, &m2);
-      out[e] = make_float4(m1, m2, radius, 0.0f);
+      float dx[TAPS / LANES], dy[TAPS / LANES], m1, m2;
+      vogel_offsets<LANES>(lane, ph, dx, dy);
+      vogel_compare<LANES>(src, lay, u, v, ref, dx, dy,
+                           __fmul_rn(radius, texel), mask, &m1, &m2);
+      if (lane == 0) out[e] = make_float4(m1, m2, radius, 0.0f);
     }
     return;
   }
 
-  // PCSS: the blocker search (nearest taps, border 1.0).
+  // PCSS: the blocker search (nearest taps, border 1.0), each lane's
+  // offsets serving its compare taps after.
+  float dx[TAPS / LANES], dy[TAPS / LANES];
+  vogel_offsets<LANES>(lane, ph, dx, dy);
   const float ls = __fmul_rn(soft, 2.0f);
   const float bscale = __fmul_rn(ls, texel);
-  float b_sum = 0.0f, b_cnt = 0.0f;
+  float dv[TAPS / LANES], hv[TAPS / LANES];
 #pragma unroll
-  for (int k = 0; k < TAPS; ++k) {
+  for (int j = 0; j < TAPS / LANES; ++j) {
     const float d = nearest_tap(src, lay,
-                                __fadd_rn(u, __fmul_rn(dx[k], bscale)),
-                                __fadd_rn(v, __fmul_rn(dy[k], bscale)));
+                                __fadd_rn(u, __fmul_rn(dx[j], bscale)),
+                                __fadd_rn(v, __fmul_rn(dy[j], bscale)));
     const bool hit = d < ref;
-    const float dv = hit ? d : 0.0f, hv = hit ? 1.0f : 0.0f;
-    b_sum = k == 0 ? dv : __fadd_rn(b_sum, dv);
-    b_cnt = k == 0 ? hv : __fadd_rn(b_cnt, hv);
+    dv[j] = hit ? d : 0.0f;
+    hv[j] = hit ? 1.0f : 0.0f;
+  }
+  const float b_sum = ordered_sum<LANES, TAPS>(dv, mask);
+  // The hit count's partial sums are small integers, exact in any order:
+  // one ballot counts the group's hits.
+  float b_cnt;
+  if constexpr (LANES == 1) {
+    b_cnt = ordered_sum<LANES, TAPS>(hv, mask);
+  } else {
+    unsigned hits = 0;
+#pragma unroll
+    for (int j = 0; j < TAPS / LANES; ++j) {
+      hits += __popc(__ballot_sync(mask, hv[j] != 0.0f) & mask);
+    }
+    b_cnt = (float)hits;
   }
   const float has = b_cnt > 0.0f ? 1.0f : 0.0f;
   const float depth = __fdiv_rn(b_sum, nan_max(b_cnt, 1.0f));
@@ -292,12 +407,22 @@ pair_taps_kernel(Source src, const int* __restrict__ origin,
   const float pen = nan_min(nan_max(__fmul_rn(ratio, ls), 0.5f),
                             __fmul_rn(ls, 2.0f));
   if (mode == RADIUS_ONLY) {
-    out[e] = make_float4(1.0f, 1.0f, pen, has);
+    if (lane == 0) out[e] = make_float4(1.0f, 1.0f, pen, has);
     return;
   }
   float m1, m2;
-  vogel_compare(src, lay, u, v, ref, dx, dy, __fmul_rn(pen, texel), &m1, &m2);
-  out[e] = make_float4(m1, m2, pen, has);
+  vogel_compare<LANES>(src, lay, u, v, ref, dx, dy, __fmul_rn(pen, texel),
+                       mask, &m1, &m2);
+  if (lane == 0) out[e] = make_float4(m1, m2, pen, has);
+}
+
+template <int LANES>
+int launch(const Source& src, const Entries& in, int n, int mode,
+           float4* out, cudaStream_t stream) {
+  const long long threads = (long long)n * LANES;
+  pair_taps_kernel<LANES><<<(unsigned)((threads + THREADS - 1) / THREADS),
+                            THREADS, 0, stream>>>(src, in, n, mode, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -311,21 +436,25 @@ pair_taps_kernel(Source src, const int* __restrict__ origin,
 // host values oy, ox; `layer` unused. uv: rows of 2 f32 (uv_stride floats
 // apart); recv, phi: f32 with element strides; texel, softness: one f32
 // each on the card (the uniforms shadow_map_size[2] and shadow_bias[0]);
-// mode 0 PCSS, 1 PCSS radius-only, 2 fixed-radius PCF; out: (n, 4) f32,
-// 16-byte aligned, every row written. Launches on `stream`, does not
-// synchronise, allocates nothing, and returns a CUDA error code (0:
-// launched).
+// count: one int32 on the card, the live slots (entries at or past it get
+// the row (0, 0, 0, 0) and no taps), or null for all n; mode 0 PCSS, 1
+// PCSS radius-only, 2 fixed-radius PCF; lanes: lanes per entry, 1 or 8;
+// out: (n, 4) f32, 16-byte aligned, every row written. Launches
+// on `stream`, does not synchronise, allocates nothing, and returns a
+// CUDA error code (0: launched).
 extern "C" int pair_taps_launch(
     const void* table, long long n_rows, int s, int windowed, int wh, int ww,
     long long row_stride, const void* origin, int oy, int ox,
     const void* layer, long long layer_stride, const void* uv,
     long long uv_stride, const void* recv, long long recv_stride,
     const void* phi, long long phi_stride, const void* texel,
-    const void* softness, int n, int mode, void* out, void* stream) {
+    const void* softness, const void* count, int n, int mode, int lanes,
+    void* out, void* stream) {
   if (table == nullptr || uv == nullptr || recv == nullptr ||
       phi == nullptr || texel == nullptr || softness == nullptr ||
       out == nullptr || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       s <= 0 || n < 0 || mode < 0 || mode > 2 ||
+      (lanes != 1 && lanes != 8) ||
       (!windowed && (layer == nullptr || n_rows <= 0)) ||
       (windowed && (wh <= 0 || ww <= 0 || row_stride < 4 * (long long)ww))) {
     return (int)cudaErrorInvalidValue;
@@ -343,14 +472,21 @@ extern "C" int pair_taps_launch(
   src.windowed = windowed != 0;
   src.aligned = reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                 (!windowed || row_stride % 4 == 0);
-  pair_taps_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                     (cudaStream_t)stream>>>(
-      src, static_cast<const int*>(windowed ? origin : nullptr),
-      static_cast<const int*>(windowed ? nullptr : layer), layer_stride,
-      static_cast<const float*>(uv), uv_stride,
-      static_cast<const float*>(recv), recv_stride,
-      static_cast<const float*>(phi), phi_stride,
-      static_cast<const float*>(texel), static_cast<const float*>(softness),
-      n, mode, static_cast<float4*>(out));
-  return (int)cudaGetLastError();
+  Entries in;
+  in.origin = static_cast<const int*>(windowed ? origin : nullptr);
+  in.layer = static_cast<const int*>(windowed ? nullptr : layer);
+  in.layer_stride = layer_stride;
+  in.uv = static_cast<const float*>(uv);
+  in.uv_stride = uv_stride;
+  in.recv = static_cast<const float*>(recv);
+  in.recv_stride = recv_stride;
+  in.phi = static_cast<const float*>(phi);
+  in.phi_stride = phi_stride;
+  in.texel = static_cast<const float*>(texel);
+  in.soft = static_cast<const float*>(softness);
+  in.count = static_cast<const int*>(count);
+  float4* o = static_cast<float4*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  return lanes == 8 ? launch<8>(src, in, n, mode, o, st)
+                    : launch<1>(src, in, n, mode, o, st);
 }

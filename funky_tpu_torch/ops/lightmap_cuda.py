@@ -6,8 +6,10 @@ K5 replaces the JAX package's jnp pass funky_tpu/passes/
 shadow_lightspace.py::build_light_shadow_map (:210-331), which XLA fuses
 on the TPU: one thread per texel of the (wc, wc) window evaluates the
 PCSS or fixed-radius PCF of its own rotation phase and writes its
-[v, m2, kernel, 1] row. It reads the per-frame tap geometry from two
-small device buffers (the layout of `param_sizes`, packed by
+[v, m2, kernel, 1] row, a block per 32 x `tile_rows(wc)` tile of texels
+with the tile's haloed window and the tap tables staged in shared
+memory. It reads the per-frame tap geometry from two small device
+buffers (the layout of `param_sizes`, packed by
 shadow_lightspace.py::kernel_params), so no value is read on the host
 and the light-space frame still records as a CUDA graph. `light_map`
 launches the kernel or raises (`check_args` names the argument); the pass
@@ -35,6 +37,11 @@ TAPS = 16
 # radius <= 1.25) for fixed-radius PCF.
 FLOAT_HEAD = 6
 
+# Texels per tile row (csrc/lightmap.cu's TILE_W) and the shared memory a
+# block may hold on sm_90 (227 KB).
+TILE_W = 32
+MAX_SMEM = 232448
+
 _FN = None
 
 
@@ -48,7 +55,7 @@ def _launcher():
     if _FN is None:
         fn = cuda_build.load("lightmap").light_map_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, i, i, i, i, ctypes.c_float, p, p]
+        fn.argtypes = [p, i, p, p, i, i, i, i, i, i, ctypes.c_float, p, p]
         fn.restype = i
         _FN = fn
     return _FN
@@ -65,6 +72,40 @@ def param_sizes(use_pcss: bool, rungs: int, phases: int) -> Tuple[int, int]:
     n_r = rungs if use_pcss else 1
     return (2 + (2 * tp if use_pcss else 0) + 2 * n_r * tp,
             FLOAT_HEAD + 2 * n_r * tp + n_r * phases)
+
+
+# The tile heights the kernel takes, tallest first: each thread of a 32 x
+# 8 block takes rows / 8 texels of its column.
+ROWS = (24, 16, 8)
+
+# Blocks a launch should keep (about four per SM of an H100) before a
+# taller tile is taken.
+MIN_BLOCKS = 512
+
+
+def tile_rows(wc: int) -> int:
+    """Texel rows of a block's tile for a (wc, wc) window: the tallest of
+    ROWS that still makes MIN_BLOCKS blocks, else 8. A taller tile stages
+    its halo once for more texels; fewer blocks leave SMs idle. On an H100
+    80GB HBM3 (700 W, time_passes.py) this picked the fastest of 8, 16, 24
+    and 32 rows at each of the light-space frame's windows: 24 at 768^2, 16
+    at 512^2, 8 at 384^2 and 256^2."""
+    cols = -(-wc // TILE_W)
+    for rows in ROWS[:-1]:
+        if cols * -(-wc // rows) >= MIN_BLOCKS:
+            return rows
+    return ROWS[-1]
+
+
+def smem_bytes(rows: int, halo: int, phases: int, rungs: int,
+               use_pcss: bool) -> int:
+    """Shared memory of one block (csrc/lightmap.cu's Layout): the compare
+    taps (16 B each), the blocker taps and finite flags (4 B each), and
+    the staged tile of (rows + 2 halo + 1) x (TILE_W + 2 halo + 1) f32."""
+    n_r = rungs if use_pcss else 1
+    tp = TAPS * phases
+    return (16 * n_r * tp + 4 * ((tp if use_pcss else 0) + n_r * phases)
+            + 4 * (rows + 2 * halo + 1) * (TILE_W + 2 * halo + 1))
 
 
 def check_args(raw_map: torch.Tensor, ints: torch.Tensor,
@@ -97,6 +138,10 @@ def check_args(raw_map: torch.Tensor, ints: torch.Tensor,
         raise ValueError(f"phases: {phases}, expected 1 to 4")
     if use_pcss and rungs < 2:
         raise ValueError(f"rungs: {rungs}, expected at least 2")
+    need = smem_bytes(tile_rows(wc), halo, phases, rungs, use_pcss)
+    if need > MAX_SMEM:
+        raise ValueError(f"halo: {halo} texels at {rungs} rungs need {need} "
+                         f"B of shared memory a block, at most {MAX_SMEM}")
     n_int, n_float = param_sizes(use_pcss, rungs, phases)
     for name, t, n in (("ints", ints, n_int), ("floats", floats, n_float)):
         if tuple(t.shape) != (n,):
@@ -125,7 +170,8 @@ def light_map(raw_map: torch.Tensor, ints: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _launcher()(raw_map.data_ptr(), s, ints.data_ptr(),
                              floats.data_ptr(), wc, halo, phases, rungs,
-                             int(use_pcss), inv_s, out.data_ptr(), stream)
+                             int(use_pcss), tile_rows(wc), inv_s,
+                             out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"light map launch failed: CUDA error {status}")
     LAUNCHES += 1

@@ -4,12 +4,14 @@ _pcss_taps and _pcf_taps.
 
 K6 replaces the JAX package's jnp tap cores funky_tpu/passes/
 shadow_filter.py::_pcss_taps (:159-219) and _pcf_taps (:248-283), which
-XLA fuses on the TPU: one thread per entry evaluates its 16 blocker taps,
+XLA fuses on the TPU: a group of lanes per entry (`lanes_for`: 8, two
+Vogel taps each, on the frame's pair groups) evaluates its 16 blocker taps,
 its penumbra and its 16 compare taps (or the fixed-radius PCF) and writes
 one [m1, m2, penumbra | kernel, has_blockers] row. It reads the quad rows
 from the packed maps at a per-entry layer, or from a window of one
-cascade at an origin that may be a device value, and the two uniforms it
-needs (shadow_map_size[2], shadow_bias[0]) from device memory, so no
+cascade at an origin that may be a device value, the two uniforms it
+needs (shadow_map_size[2], shadow_bias[0]) and an optional live count
+(slots at or past it get the row 0 and no taps) from device memory, so no
 value is read on the host and a committed frame still records as a CUDA
 graph. `pair_taps` launches the kernel or raises (`check_args` names the
 argument); the pass above it takes the plain twins for CPU tensors.
@@ -30,6 +32,18 @@ LAUNCHES = 0
 # The kernel's modes (csrc/pair_taps.cu's Mode).
 MODES = {"pcss": 0, "radius_only": 1, "pcf": 2}
 
+# Lanes per entry the kernel takes (lanes_for picks one).
+LANES = (1, 8)
+
+# Launches of at most this many entries take 8 lanes per entry, larger
+# ones 1. On an H100 80GB HBM3 (700 W, time_passes.py), on entries drawn
+# from a pair group and from the dense frame alike, 8 lanes ran 1.4-2.2x
+# faster up to 32 K entries, the two about equal at 64 K, and from 128 K
+# entries on 1 lane ran up to 1.4x faster (but for a tie on the dense
+# frame's entries at 256 K). The frames' pair groups hold at most ~98 K
+# slots (fewer live), their dense filters at least ~393 K entries.
+LANES_8_MAX = 1 << 17
+
 _I32 = (-2 ** 31, 2 ** 31 - 1)
 _FN = None
 
@@ -45,7 +59,7 @@ def _launcher():
         fn = cuda_build.load("pair_taps").pair_taps_launch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, ll, i, i, i, i, ll, p, i, i, p, ll, p, ll, p, ll,
-                       p, ll, p, p, i, i, p, p]
+                       p, ll, p, p, p, i, i, i, p, p]
         fn.restype = i
         _FN = fn
     return _FN
@@ -60,15 +74,23 @@ def _tensor(name: str, t, dtype, device=None) -> None:
         raise ValueError(f"{name}: on {t.device}, uv on {device}")
 
 
+def lanes_for(n: int) -> int:
+    """Lanes per entry for a launch of n entries: 8 (two taps each) up to
+    LANES_8_MAX, where more threads hide the taps' latency, else 1."""
+    return 8 if n <= LANES_8_MAX else 1
+
+
 def check_args(maps, layer, uv: torch.Tensor, receiver: torch.Tensor,
                phi: torch.Tensor, shadow_map_size: torch.Tensor,
-               shadow_bias: torch.Tensor, mode: str, window=None) -> None:
+               shadow_bias: torch.Tensor, mode: str, window=None,
+               count=None) -> None:
     """Raises, naming the argument, on a call the kernel does not take.
     Reads only types, shapes, strides and devices, never a value, so it
     runs on the CPU as well. uv (..., 2) f32; receiver, phi (...) f32;
     packed: maps (L, S, S, 4) f32 and layer (...) int32; window: (rows
     (Wh, Ww, 4) f32 with unit strides along its last two axes, origin
-    (oy, ox) of ints or integer 0-d tensors, full map size S)."""
+    (oy, ox) of ints or integer 0-d tensors, full map size S); count: None
+    or one int32 (shape () or (1,)) beside uv."""
     _tensor("uv", uv, torch.float32)
     dev = uv.device
     if uv.ndim < 1 or uv.shape[-1] != 2:
@@ -89,6 +111,11 @@ def check_args(maps, layer, uv: torch.Tensor, receiver: torch.Tensor,
         raise ValueError(f"mode: {mode!r}, expected one of {sorted(MODES)}")
     if math.prod(batch) >= 2 ** 31:
         raise ValueError(f"uv: {math.prod(batch)} entries, at most 2^31 - 1")
+    if count is not None:
+        _tensor("count", count, torch.int32, dev)
+        if tuple(count.shape) not in ((), (1,)):
+            raise ValueError(f"count: shape {tuple(count.shape)}, expected "
+                             f"() or (1,)")
     if window is None:
         _tensor("maps", maps, torch.float32, dev)
         if maps.ndim != 4 or maps.shape[1] != maps.shape[2] \
@@ -143,15 +170,17 @@ def _origin(origin, dev):
 
 def pair_taps(maps, layer, uv: torch.Tensor, receiver: torch.Tensor,
               phi: torch.Tensor, shadow_map_size: torch.Tensor,
-              shadow_bias: torch.Tensor, mode: str,
-              window=None) -> torch.Tensor:
+              shadow_bias: torch.Tensor, mode: str, window=None,
+              count=None) -> torch.Tensor:
     """receiver.shape + (4,) f32 rows [m1, m2, penumbra, has_blockers]
     (mode "pcss"; "radius_only": m1 = m2 = 1) or [m1, m2, kernel, 0]
     ("pcf") of each entry's taps: _pcss_taps' and _pcf_taps' contract,
-    reading the packed `maps` at `layer` or, given one, the `window`."""
+    reading the packed `maps` at `layer` or, given one, the `window`. With
+    a `count` (one int32 on the card), the rows of the flat entries at or
+    past it are 0. The lanes per entry are lanes_for(N)."""
     global LAUNCHES
     check_args(maps, layer, uv, receiver, phi, shadow_map_size, shadow_bias,
-               mode, window)
+               mode, window, count)
     dev = uv.device
     if dev.type != "cuda":
         raise ValueError(f"uv: the pair-tap kernel takes CUDA tensors, got "
@@ -184,8 +213,9 @@ def pair_taps(maps, layer, uv: torch.Tensor, receiver: torch.Tensor,
             table.data_ptr(), n_rows, s, *geometry, lay_ptr, lay_stride,
             uv2.data_ptr(), uv2.stride(0), recv.data_ptr(), recv.stride(0),
             ph.data_ptr(), ph.stride(0), shadow_map_size[2:3].data_ptr(),
-            shadow_bias[0:1].data_ptr(), n, MODES[mode], out.data_ptr(),
-            stream)
+            shadow_bias[0:1].data_ptr(),
+            None if count is None else count.data_ptr(), n, MODES[mode],
+            lanes_for(n), out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"pair-tap launch failed: CUDA error {status}")
     LAUNCHES += 1

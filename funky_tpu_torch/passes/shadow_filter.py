@@ -157,12 +157,14 @@ def _light_project(uni, cascade, world, normal, n_dot_l):
 
 
 def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi,
-               window=None, radius_only: bool = False):
+               window=None, radius_only: bool = False, count=None):
     """Blocker search + penumbra + penumbra-radius PCF
     (shadow_filter.py:159-219). `window` = (rows (Wc, Wc, 4), origin
     (oy, ox), full map size) reads every tap from a window of one cascade
     (bit-identical values for in-window taps); radius_only skips the PCF
     phase and returns m1 = m2 = 1 (the LIT-certified radius-only groups).
+    `count` (one int32, a pair group's live count): entries at or past it
+    (flat order) get 0 (has_blockers False) and, on the card, no taps.
     Returns (m1, m2, penumbra, has_blockers). CUDA tensors go to the
     pair-tap kernel K6 (ops/pair_taps_cuda.py), which raises on what it
     does not take; CPU tensors to the plain twin."""
@@ -170,14 +172,24 @@ def _pcss_taps(uni: FrameUniforms, shadow_maps, layer, uv, receiver, phi,
         rows = pair_taps_cuda.pair_taps(
             shadow_maps, layer, uv, receiver, phi, uni.shadow_map_size,
             uni.shadow_bias, "radius_only" if radius_only else "pcss",
-            window)
+            window, count)
         return rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3] != 0.0
     return _pcss_taps_plain(uni, shadow_maps, layer, uv, receiver, phi,
-                            window, radius_only)
+                            window, radius_only, count)
+
+
+def _live_rows(rows: torch.Tensor, count) -> torch.Tensor:
+    """rows (..., k) with the rows of the flat entries at or past `count`
+    zeroed: K6's count contract."""
+    batch = rows.shape[:-1]
+    slot = torch.arange(rows[..., 0].numel(), dtype=torch.int32,
+                        device=rows.device).reshape(batch)
+    return torch.where((slot < count.reshape(()))[..., None], rows, 0.0)
 
 
 def _pcss_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, receiver,
-                     phi, window=None, radius_only: bool = False):
+                     phi, window=None, radius_only: bool = False,
+                     count=None):
     """_pcss_taps in torch ops: the CPU path and K6's test oracle."""
     texel = uni.shadow_map_size[2]
     light_size_texels = uni.shadow_bias[0] * 2.0
@@ -204,19 +216,24 @@ def _pcss_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, receiver,
     penumbra = torch.minimum(penumbra, light_size_texels * 2.0)
     if radius_only:
         one = torch.ones_like(penumbra)
-        return one, one, penumbra, has_blockers
-
-    dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
-    off = torch.stack([dx, dy], dim=-1) * (penumbra * texel)[None, ..., None]
-    if window is not None:
-        s = sample_shadow_compare_window(window[0], window[1], window[2],
-                                         uv[None] + off, receiver[None])
+        m1, m2 = one, one
     else:
-        s = sample_shadow_compare_packed(shadow_maps, layer[None],
-                                         uv[None] + off, receiver[None])
-    s_sum = _sum_taps(s)
-    s_sum2 = _sum_taps(s * s)
-    return s_sum / PCF_SAMPLES, s_sum2 / PCF_SAMPLES, penumbra, has_blockers
+        dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
+        off = torch.stack([dx, dy], dim=-1) * (penumbra
+                                               * texel)[None, ..., None]
+        if window is not None:
+            s = sample_shadow_compare_window(window[0], window[1], window[2],
+                                             uv[None] + off, receiver[None])
+        else:
+            s = sample_shadow_compare_packed(shadow_maps, layer[None],
+                                             uv[None] + off, receiver[None])
+        m1, m2 = _sum_taps(s) / PCF_SAMPLES, _sum_taps(s * s) / PCF_SAMPLES
+    if count is None:
+        return m1, m2, penumbra, has_blockers
+    rows = _live_rows(torch.stack([m1, m2, penumbra,
+                                   has_blockers.to(torch.float32)], dim=-1),
+                      count)
+    return rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3] != 0.0
 
 
 def shadow_pcss(uni: FrameUniforms, shadow_maps: torch.Tensor,
@@ -239,21 +256,22 @@ def shadow_pcss(uni: FrameUniforms, shadow_maps: torch.Tensor,
 
 
 def _pcf_taps(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
-              window=None):
-    """Fixed-radius PCF (shadow_filter.py:248-283), `window` as in
-    _pcss_taps: (m1, m2, kernel). CUDA tensors go to K6, which selects the
-    3x3 or the Vogel kernel by the device-side radius per entry; CPU
-    tensors to the plain twin."""
+              window=None, count=None):
+    """Fixed-radius PCF (shadow_filter.py:248-283), `window` and `count`
+    as in _pcss_taps: (m1, m2, kernel). CUDA tensors go to K6, which
+    selects the 3x3 or the Vogel kernel by the device-side radius per
+    entry; CPU tensors to the plain twin."""
     if uv.device.type == "cuda":
         rows = pair_taps_cuda.pair_taps(shadow_maps, layer, uv, ref, phi,
                                         uni.shadow_map_size, uni.shadow_bias,
-                                        "pcf", window)
+                                        "pcf", window, count)
         return rows[..., 0], rows[..., 1], rows[..., 2]
-    return _pcf_taps_plain(uni, shadow_maps, layer, uv, ref, phi, window)
+    return _pcf_taps_plain(uni, shadow_maps, layer, uv, ref, phi, window,
+                           count)
 
 
 def _pcf_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
-                    window=None):
+                    window=None, count=None):
     """_pcf_taps in torch ops: the CPU path and K6's test oracle. The
     frame-uniform lax.cond computes both kernels and selects by the
     device-side radius, so the host never reads it and a committed frame
@@ -275,11 +293,14 @@ def _pcf_taps_plain(uni: FrameUniforms, shadow_maps, layer, uv, ref, phi,
     dx, dy = vogel_disk_all(PCF_SAMPLES, phi)
     s = compare(torch.stack([dx, dy], dim=-1) * (radius * texel))
     small = radius <= 1.25
-    return (torch.where(small, _sum_taps(s3) / 9.0,
-                        _sum_taps(s) / PCF_SAMPLES),
-            torch.where(small, _sum_taps(s3 * s3) / 9.0,
-                        _sum_taps(s * s) / PCF_SAMPLES),
-            torch.where(small, 1.0, radius.expand_as(ref)))
+    m1 = torch.where(small, _sum_taps(s3) / 9.0, _sum_taps(s) / PCF_SAMPLES)
+    m2 = torch.where(small, _sum_taps(s3 * s3) / 9.0,
+                     _sum_taps(s * s) / PCF_SAMPLES)
+    kernel = torch.where(small, 1.0, radius.expand_as(ref))
+    if count is None:
+        return m1, m2, kernel
+    rows = _live_rows(torch.stack([m1, m2, kernel], dim=-1), count)
+    return rows[..., 0], rows[..., 1], rows[..., 2]
 
 
 def shadow_pcf(uni: FrameUniforms, shadow_maps: torch.Tensor,
@@ -711,7 +732,8 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
             if use_pcss:
                 m1, m2, pen, hasb = _pcss_taps(
                     uni, maps_c, layer0, uv_e, recv_e, phi_e, window=window,
-                    radius_only=rad_split and g // n_casc == rad_k)
+                    radius_only=rad_split and g // n_casc == rad_k,
+                    count=counts_c[g])
                 # Entries are in bounds by construction; the no-blocker
                 # lit override still applies.
                 vals = torch.stack([torch.where(hasb, m1, 1.0),
@@ -720,7 +742,8 @@ def cascaded_shadow_sparse(uni: FrameUniforms, shadow_maps: torch.Tensor,
                                     torch.where(hasb, pen, 0.0)], dim=-1)
             else:
                 m1, m2, kern = _pcf_taps(uni, maps_c, layer0, uv_e, recv_e,
-                                         phi_e, window=window)
+                                         phi_e, window=window,
+                                         count=counts_c[g])
                 vals = torch.stack([m1, m1, m2, kern], dim=-1)
             out = scatter_back(out, compc, vals)
     else:

@@ -16,8 +16,9 @@ texel.
 
 The port keeps the JAX arithmetic and its summation order. On the card
 each map is one launch of the light-map kernel K5 (ops/lightmap_cuda.py,
-csrc/lightmap.cu): one thread per texel walks its own phase's taps in
-registers, reading the tap geometry that `kernel_params` packs. The
+csrc/lightmap.cu): one thread per texel walks its own phase's taps over
+its block's tile of the window, staged in shared memory with the tap
+geometry that `kernel_params` packs. The
 plain twin `build_light_shadow_map_plain` reads the 16 taps of a phase's
 blocker search or of one PCF rung for the four phases at once, as one
 row gather (`take_rows`) of the haloed window at device-valued shifts,

@@ -1,7 +1,10 @@
 """The light-map kernel K5 (funky_tpu_torch/csrc/lightmap.cu through
 ops/lightmap_cuda.py::light_map) against its plain twin
 (passes/shadow_lightspace.py::build_light_shadow_map_plain), on the card,
-and the light-space frame that launches it recorded as a CUDA graph. Every
+on windows of 256^2, 512^2 and 768^2 at the map's interior, edges and
+corners, past S - wc and at negative origins, at every tile height the
+kernel takes, and the light-space frame that launches it recorded as a
+CUDA graph. Every
 test here needs an NVIDIA GPU and skips without one. The module imports no
 jax:
 
@@ -86,6 +89,56 @@ def test_kernel_bit_equal_to_plain(dev, mode, wc, origin):
 @pytest.mark.parametrize("phases, rungs", [(1, 6), (2, 2), (3, 4)])
 def test_phases_and_rungs_bit_equal_to_plain(dev, phases, rungs):
     args = map_args(dev, "pcss", 256, (101, 77), phases=phases, rungs=rungs)
+    got = shadow_lightspace.build_light_shadow_map(*args)
+    want = shadow_lightspace.build_light_shadow_map_plain(*args)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def origins(wc):
+    """name -> (oy, ox): the interior, every edge and corner of the map,
+    past S - wc (the slice's start clamps) and negative (it counts from
+    the padded map's end)."""
+    e = S - wc
+    return {"interior": (301, 419 % (e + 1)), "top": (0, e // 2 + 1),
+            "bottom": (e, e // 3), "left": (e // 2 + 3, 0),
+            "right": (e // 4, e), "top_left": (0, 0), "top_right": (0, e),
+            "bottom_left": (e, 0), "bottom_right": (e, e),
+            "past_end": (e + 37, e + 101), "negative": (-5, -17),
+            "negative_far": (-300, 41)}
+
+
+@pytest.mark.parametrize("where", sorted(origins(256)))
+@pytest.mark.parametrize("wc", [256, 512, 768])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_edges_and_corners_bit_equal_to_plain(dev, mode, wc, where):
+    """Windows of every size the frame uses, at every edge and corner of
+    the map, past S - wc and negative: the staged tile's border, the
+    slice's clamped start and the window's last-row and last-column clamp
+    (tiles at the window's right and bottom edges) equal the twin's."""
+    args = map_args(dev, mode, wc, origins(wc)[where])
+    got = shadow_lightspace.build_light_shadow_map(*args)
+    want = shadow_lightspace.build_light_shadow_map_plain(*args)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("where", ["bottom_right", "negative"])
+@pytest.mark.parametrize("wc", [512, 768])
+@pytest.mark.parametrize("phases, rungs", [(1, 6), (2, 2), (3, 4)])
+def test_phases_and_rungs_on_large_windows(dev, phases, rungs, wc, where):
+    args = map_args(dev, "pcss", wc, origins(wc)[where], phases=phases,
+                    rungs=rungs)
+    got = shadow_lightspace.build_light_shadow_map(*args)
+    want = shadow_lightspace.build_light_shadow_map_plain(*args)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("rows", lightmap_cuda.ROWS)
+@pytest.mark.parametrize("wc", [256, 333])
+def test_tile_rows_bit_equal_to_plain(dev, monkeypatch, wc, rows):
+    """Every tile height the kernel takes, on a window that no tile size
+    divides (333) and on the frame's smallest: equal to the twin."""
+    monkeypatch.setattr(lightmap_cuda, "tile_rows", lambda _: rows)
+    args = map_args(dev, "pcss", wc, (101, 77))
     got = shadow_lightspace.build_light_shadow_map(*args)
     want = shadow_lightspace.build_light_shadow_map_plain(*args)
     np.testing.assert_array_equal(bits(got), bits(want))

@@ -198,6 +198,7 @@ def _refused():
         "five phases": ("phases", *but(phases=5)),
         "one rung": ("rungs", *but(rungs=1)),
         "no halo": ("halo", *but(halo=0)),
+        "halo past shared memory": ("halo", *but(halo=120)),
         "map not a tensor": ("raw_map", *but(raw_map=raw.numpy())),
     }
 
@@ -208,6 +209,39 @@ def test_check_args_refuses(case):
     name, *args = _refused()[case]
     with pytest.raises((TypeError, ValueError), match=f"^{name}:"):
         lightmap_cuda.check_args(*args)
+
+
+@pytest.mark.parametrize("wc, rows", [(16, 8), (256, 8), (333, 8),
+                                      (384, 8), (512, 16), (640, 24),
+                                      (768, 24), (2048, 24)])
+def test_tile_rows_per_window(wc, rows):
+    """The tallest tile height (of 24, 16 and 8) that still makes 512
+    blocks: 24 rows at 768^2, 16 at 512^2, 8 at 384^2 and below; a window
+    too small for 512 blocks at any height takes 8."""
+    assert lightmap_cuda.tile_rows(wc) == rows
+    blocks = -(-wc // lightmap_cuda.TILE_W) * -(-wc // rows)
+    assert rows == 8 or blocks >= lightmap_cuda.MIN_BLOCKS
+
+
+def test_tile_shared_memory():
+    """A block's shared memory (the staged haloed tile and the tap tables)
+    at the frame's settings (max_softness 4: halo 18; 4 phases; 2-6
+    rungs) and every window size stays under the 48 KB a launch takes
+    without opting in, and at the largest halo the class maps allow
+    (max_softness 8: halo 34) under the card's 227 KB."""
+    rows = [lightmap_cuda.tile_rows(wc) for wc in (256, 384, 512, 768)]
+    assert all(r in lightmap_cuda.ROWS for r in rows)
+    for r in rows:
+        for rungs in (2, 6):
+            for use_pcss in (True, False):
+                need = lightmap_cuda.smem_bytes(r, tlsm.halo_texels(4.0), 4,
+                                                rungs, use_pcss)
+                assert need < 48 * 1024
+    assert lightmap_cuda.smem_bytes(8, tlsm.halo_texels(4.0), 4, 6,
+                                    True) == (16 * 6 * 64 + 4 * (64 + 24)
+                                              + 4 * 45 * 69)
+    assert lightmap_cuda.smem_bytes(24, tlsm.halo_texels(8.0), 4, 6,
+                                    True) < lightmap_cuda.MAX_SMEM
 
 
 def test_frame_light_maps_pass_check_args(monkeypatch):

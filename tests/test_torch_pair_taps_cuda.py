@@ -1,8 +1,10 @@
 """The pair-tap kernel K6 (funky_tpu_torch/csrc/pair_taps.cu through
 ops/pair_taps_cuda.py::pair_taps) against its plain twins (passes/
-shadow_filter.py::_pcss_taps_plain, _pcf_taps_plain), on the card, and the
-committed shipped frame that launches it (with K7) recorded as a CUDA
-graph. Every test here needs an NVIDIA GPU and skips without one. The
+shadow_filter.py::_pcss_taps_plain, _pcf_taps_plain), on the card, at
+every lane width the kernel takes, at launch sizes that leave the last
+warp partial, with live counts (none, an odd split, all, past the slots),
+and the committed shipped frame that launches it (with K7) recorded as a
+CUDA graph. Every test here needs an NVIDIA GPU and skips without one. The
 module imports no jax:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_pair_taps_cuda.py
@@ -132,6 +134,119 @@ def test_window_bit_equal_to_plain(dev, mode, window, origin_kind):
                window=(rows, origin, S))
 
 
+def force_lanes(monkeypatch, lanes) -> None:
+    """Make the wrapper launch `lanes` lanes per entry (None: its own
+    choice, lanes_for)."""
+    if lanes is not None:
+        monkeypatch.setattr(pair_taps_cuda, "lanes_for", lambda n: lanes)
+
+
+def kernel_rows(mode, args, window=None, count=None):
+    """K6's rows through its wrapper."""
+    uni, maps, layer, uv, recv, phi = args
+    _, use_pcss, radius_only = MODES[mode]
+    kmode = ("radius_only" if radius_only else "pcss") if use_pcss \
+        else "pcf"
+    before = pair_taps_cuda.LAUNCHES
+    rows = pair_taps_cuda.pair_taps(maps, layer, uv, recv, phi,
+                                    uni.shadow_map_size, uni.shadow_bias,
+                                    kmode, window, count)
+    torch.cuda.synchronize()
+    assert pair_taps_cuda.LAUNCHES - before == (1 if uv.numel() else 0)
+    return rows
+
+
+def twin_rows(mode, args, window=None, count=None):
+    """The plain twin's outputs as K6's rows."""
+    uni, maps, layer, uv, recv, phi = args
+    _, use_pcss, radius_only = MODES[mode]
+    if use_pcss:
+        m1, m2, pen, hasb = tsf._pcss_taps_plain(
+            uni, maps, layer, uv, recv, phi, window, radius_only, count)
+        return torch.stack([m1, m2, pen, hasb.to(torch.float32)], dim=-1)
+    m1, m2, kern = tsf._pcf_taps_plain(uni, maps, layer, uv, recv, phi,
+                                       window, count)
+    return torch.stack([m1, m2, kern, torch.zeros_like(m1)], dim=-1)
+
+
+def window_args(dev, mode, n=N, window="past_end"):
+    """Entries around a window of one cascade (WINDOWS), an int32 origin
+    on the card."""
+    c, (oy, ox), wc = WINDOWS[window]
+    uni, maps, _, _, recv, phi = packed_args(dev, mode, seed=2, n=n,
+                                             edges=False)
+    rng = np.random.default_rng(3)
+    lo = (np.array([ox, oy]) - 8) / S
+    uv = torch.from_numpy((lo + rng.random((n, 2)) * (wc + 16) / S)
+                          .astype(np.float32)).to(dev)
+    origin = tuple(torch.tensor(o, dtype=torch.int32, device=dev)
+                   for o in (oy, ox))
+    rows = sampling.dynamic_slice(maps[c], origin, (wc, wc))
+    layer0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    return ((uni, maps[c:c + 1], layer0, uv, recv, phi),
+            (rows, origin, S))
+
+
+# Launch sizes: one entry, a partial last warp at 8 lanes (31 and 33
+# entries: a last warp of three groups and of one), several waves at 8
+# lanes and at 1.
+SIZES = (1, 31, 33, 4099, 300_001)
+
+
+@pytest.mark.parametrize("lanes", pair_taps_cuda.LANES)
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_lanes_and_sizes_bit_equal_to_plain(dev, mode, n, lanes,
+                                            monkeypatch):
+    """Every lane width the kernel takes, at group sizes that leave the
+    last warp partial and at several waves: the rows equal the twin's."""
+    args = packed_args(dev, mode, seed=5, n=n, edges=n > 40)
+    force_lanes(monkeypatch, lanes)
+    got = kernel_rows(mode, args)
+    np.testing.assert_array_equal(bits(got), bits(twin_rows(mode, args)))
+
+
+# count -> the live slots of an N-entry call: none, an odd split (a warp
+# whose lane groups are partly live), all, and a committed overflow (the
+# group's count past its capacity).
+COUNTS = {"zero": 0, "partial": N // 2 + 1, "full": N, "over": N + 500}
+
+
+@pytest.mark.parametrize("lanes", (None,) + pair_taps_cuda.LANES)
+@pytest.mark.parametrize("count", sorted(COUNTS))
+@pytest.mark.parametrize("source", ["packed", "window"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_count_bit_equal_to_plain(dev, mode, source, count, lanes,
+                                  monkeypatch):
+    """The live count on the card: slots at or past it are the row 0, the
+    others the rows without a count, bit for bit, as the twin with the
+    same count."""
+    if source == "packed":
+        args, window = packed_args(dev, mode, seed=6), None
+    else:
+        args, window = window_args(dev, mode)
+    cnt = torch.tensor(COUNTS[count], dtype=torch.int32, device=dev)
+    force_lanes(monkeypatch, lanes)
+    got = kernel_rows(mode, args, window, cnt)
+    np.testing.assert_array_equal(bits(got),
+                                  bits(twin_rows(mode, args, window, cnt)))
+    live = min(COUNTS[count], N)
+    np.testing.assert_array_equal(
+        bits(got[:live]), bits(kernel_rows(mode, args, window)[:live]))
+    assert not bool(got[live:].any())
+
+
+def test_count_through_the_dispatcher(dev):
+    """_pcss_taps hands its count to K6: equal to the twin with it."""
+    args = packed_args(dev, "pcss", seed=7)
+    cnt = torch.full((1,), 777, dtype=torch.int32, device=dev)
+    got = tsf._pcss_taps(*args, count=cnt)
+    want = tsf._pcss_taps_plain(*args, count=cnt)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(bits(g), bits(w))
+    assert not bool(got[3][777:].any()) and bool(got[3][:777].any())
+
+
 def test_wrong_arguments_raise(dev):
     """A CUDA call the kernel cannot take raises; it never falls back."""
     uni, maps, layer, uv, recv, phi = packed_args(dev, "pcss", n=64)
@@ -144,6 +259,12 @@ def test_wrong_arguments_raise(dev):
     with pytest.raises(ValueError, match="^window rows:"):
         tsf._pcss_taps(uni, maps[:1], layer, uv, recv, phi,
                        window=(maps[0, :64, :64].transpose(0, 1), (0, 0), S))
+    with pytest.raises(ValueError, match="^count:"):
+        tsf._pcss_taps(uni, maps, layer, uv, recv, phi,
+                       count=torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(TypeError, match="^count:"):
+        tsf._pcf_taps(uni, maps, layer, uv, recv, phi,
+                      count=torch.tensor(3, device=dev))
 
 
 def test_shipped_frame_graph_equals_eager(dev):

@@ -5,10 +5,13 @@ _pcss_taps_plain and _pcf_taps_plain; here the twins are held against the
 JAX package's _pcss_taps and _pcf_taps (funky_tpu/passes/shadow_filter.py:
 159-283) on the quad-packed maps, through a window of one cascade (origins
 inside the map and past S - Wc, as host ints and as tensors), in
-radius-only mode and for both fixed-radius PCF kernels; `check_args` is
-held to the calls the kernel takes and refuses; and every tap call of a
-dense, a default and a tuned shipped frame is shown to pass `check_args`,
-so that no frame call raises on the card. The kernel itself runs on the
+radius-only mode and for both fixed-radius PCF kernels; the twins' live
+`count` (K6's contract: the slots before it as without one, bit for bit,
+the rest 0) on every mode, packed and windowed, and a tuned shipped frame
+the same bit for bit with and without the counts its pair groups pass;
+`check_args` is held to the calls the kernel takes and refuses; and every
+tap call of a dense, a default and a tuned shipped frame is shown to pass
+`check_args`, so that no frame call raises on the card. The kernel itself runs on the
 card only (tests/test_torch_pair_taps_cuda.py, chip_smoke.py).
 
 Tolerance: tests/test_torch_passes.py's for the shadow filter. XLA and
@@ -74,12 +77,12 @@ def close_to_jax(got, want, name):
 
 
 def port_call(mode, uni, maps, layer, uv, recv, phi, window=None,
-              fn_pcss=tsf._pcss_taps, fn_pcf=tsf._pcf_taps):
+              fn_pcss=tsf._pcss_taps, fn_pcf=tsf._pcf_taps, **kw):
     _, use_pcss, radius_only = MODES[mode]
     if use_pcss:
         return fn_pcss(uni, maps, layer, uv, recv, phi, window=window,
-                       radius_only=radius_only)
-    return fn_pcf(uni, maps, layer, uv, recv, phi, window=window)
+                       radius_only=radius_only, **kw)
+    return fn_pcf(uni, maps, layer, uv, recv, phi, window=window, **kw)
 
 
 def jax_call(mode, uni, maps, layer, uv, recv, phi, window=None):
@@ -166,6 +169,67 @@ def test_window_twin_matches_jax(mode, window, origin_kind):
                               "pcss", (rows, origin, S))
 
 
+# count -> the live slots of an N-entry call: none, some, all, and a
+# committed overflow (the group's count past its capacity).
+COUNTS = {"zero": 0, "partial": 1234, "full": N, "over": N + 500}
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (a.view(np.uint8) == b.view(np.uint8)).all())
+
+
+@pytest.mark.parametrize("source", ["packed", "window"])
+@pytest.mark.parametrize("count", sorted(COUNTS))
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_twin_count_contract(mode, count, source):
+    """The twins' optional live count (K6's contract): the entries before
+    it equal the call without a count bit for bit, those at or past it are
+    0 (has_blockers False); a count past N changes nothing; the count may
+    be 0-d or of shape (1,); the dispatcher takes the twin on the CPU."""
+    depth, uv, layer, recv, phi = pair_taps_case(3, N, S)
+    uni = uniforms(MODES[mode][0])[1]
+    maps = sampling.quad_pack(T(depth))
+    args = (uni, maps, T(layer), T(uv), T(recv), T(phi))
+    window = None
+    if source == "window":
+        c, origin, wc = WINDOWS["past_end"]
+        window = (sampling.dynamic_slice(maps[c], origin, (wc, wc)),
+                  origin, S)
+        args = (uni, maps[c:c + 1], torch.zeros(N, dtype=torch.int32),
+                *args[3:])
+    plain = dict(fn_pcss=tsf._pcss_taps_plain, fn_pcf=tsf._pcf_taps_plain)
+    want = port_call(mode, *args, window=window, **plain)
+    live = min(COUNTS[count], N)
+    for shape in ((), (1,)):
+        cnt = torch.full(shape, COUNTS[count], dtype=torch.int32)
+        got = port_call(mode, *args, window=window, count=cnt, **plain)
+        via = port_call(mode, *args, window=window, count=cnt)
+        assert len(got) == len(want) == len(via)
+        for g, w, d in zip(got, want, via):
+            g, w, d = t2n(g), t2n(w), t2n(d)
+            assert same_bits(g, d)
+            assert same_bits(g[:live], w[:live])
+            assert not g[live:].any()
+
+
+def test_twin_count_flat_order():
+    """On a batch of entries (the dense filter's (H, W)), the count runs
+    over the flat order."""
+    depth, uv, layer, recv, phi = pair_taps_case(4, N, S)
+    uni = uniforms(2.5)[1]
+    hw = (30, N // 30)
+    args = (uni, sampling.quad_pack(T(depth)), T(layer).reshape(hw),
+            T(uv).reshape(hw + (2,)), T(recv).reshape(hw), T(phi).reshape(hw))
+    want = tsf._pcss_taps_plain(*args)
+    got = tsf._pcss_taps_plain(*args, count=torch.tensor(
+        1001, dtype=torch.int32))
+    for g, w in zip(got, want):
+        g, w = t2n(g).reshape(-1), t2n(w).reshape(-1)
+        assert same_bits(g[:1001], w[:1001]) and not g[1001:].any()
+
+
 def _refused():
     """(argument named in the error, check_args keyword overrides) of
     calls the kernel does not take. The meta device stands in for a second
@@ -201,6 +265,13 @@ def _refused():
             torch.zeros((8, 8, 4)), (0, 2 ** 31), 16))),
         "full size not an int": ("window full size", dict(window=(
             torch.zeros((8, 8, 4)), (0, 0), 16.0))),
+        "count not a tensor": ("count", dict(count=5)),
+        "int64 count": ("count", dict(count=torch.tensor(5))),
+        "f32 count": ("count", dict(count=torch.tensor(5.0))),
+        "count of two": ("count", dict(count=torch.zeros(2,
+                                                         dtype=torch.int32))),
+        "count on another device": ("count", dict(count=torch.zeros(
+            (), dtype=torch.int32, device="meta"))),
     }
 
 
@@ -215,9 +286,22 @@ def test_check_args_refuses(case):
               phi=torch.zeros(8), shadow_map_size=uni.shadow_map_size,
               shadow_bias=uni.shadow_bias, mode="pcss", window=None)
     pair_taps_cuda.check_args(**kw)           # the base call is taken
+    for count in (torch.tensor(3, dtype=torch.int32),
+                  torch.zeros(1, dtype=torch.int32)):
+        pair_taps_cuda.check_args(**kw, count=count)
     kw.update(over)
     with pytest.raises((TypeError, ValueError), match=f"^{name}:"):
         pair_taps_cuda.check_args(**kw)
+
+
+@pytest.mark.parametrize("n, lanes", [(1, 8), (76_800, 8), (98_304, 8),
+                                      (131_072, 8), (131_073, 1),
+                                      (393_216, 1), (2_073_600, 1)])
+def test_lanes_per_launch_size(n, lanes):
+    """8 lanes per entry up to 2^17 entries (the frames' pair groups), one
+    above (the dense filters)."""
+    assert pair_taps_cuda.lanes_for(n) == lanes
+    assert lanes in pair_taps_cuda.LANES
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -249,31 +333,77 @@ def test_frame_taps_pass_check_args(path, monkeypatch):
     plain_pcss, plain_pcf = tsf._pcss_taps_plain, tsf._pcf_taps_plain
 
     def pcss(uni, maps, layer, uv, recv, phi, window=None,
-             radius_only=False):
+             radius_only=False, count=None):
         mode = "radius_only" if radius_only else "pcss"
         pair_taps_cuda.check_args(maps, layer, uv, recv, phi,
                                   uni.shadow_map_size, uni.shadow_bias, mode,
-                                  window)
-        calls.append((mode, tuple(uv.shape), window))
+                                  window, count)
+        calls.append((mode, tuple(uv.shape), window, count))
         return plain_pcss(uni, maps, layer, uv, recv, phi, window,
-                          radius_only)
+                          radius_only, count)
 
-    def pcf(uni, maps, layer, uv, recv, phi, window=None):
+    def pcf(uni, maps, layer, uv, recv, phi, window=None, count=None):
         pair_taps_cuda.check_args(maps, layer, uv, recv, phi,
                                   uni.shadow_map_size, uni.shadow_bias,
-                                  "pcf", window)
-        calls.append(("pcf", tuple(uv.shape), window))
-        return plain_pcf(uni, maps, layer, uv, recv, phi, window)
+                                  "pcf", window, count)
+        calls.append(("pcf", tuple(uv.shape), window, count))
+        return plain_pcf(uni, maps, layer, uv, recv, phi, window, count)
 
     monkeypatch.setattr(tsf, "_pcss_taps_plain", pcss)
     monkeypatch.setattr(tsf, "_pcf_taps_plain", pcf)
     state = tf.init_frame_state(cfg, "cpu")
     for pose in (params, tf.orbit_params(params, 1)):
         _, state = tf.render_gltf_frame(scene, pose, state, cfg)
-    assert len(calls) >= 4 and all(m == "pcss" for m, _, _ in calls)
+    assert len(calls) >= 4 and all(m == "pcss" for m, _, _, _ in calls)
+    if path == "dense":
+        assert all(c is None for _, _, _, c in calls)
+    else:     # the pair groups pass their live counts
+        assert all(c is not None for _, _, _, c in calls)
     if path != "shipped":
-        assert all(w is None for _, _, w in calls)
+        assert all(w is None for _, _, w, _ in calls)
     else:
-        windows = [w for _, _, w in calls if w is not None]
+        windows = [w for _, _, w, _ in calls if w is not None]
         assert windows, "the shipped frame read no tap window"
         assert any(isinstance(w[1][0], torch.Tensor) for w in windows)
+
+
+def test_shipped_frame_same_without_counts(monkeypatch):
+    """The tuned shipped frame (480x272, committed, synthesized maps) on
+    the multimesh scene, two chained frames: passing each pair group's
+    live count to its tap sets changes no output bit (scatter_back drops
+    the padding slots the count zeroes), and at least one group had
+    padding for the count to zero."""
+    scene = port_scene(multimesh_jax_scene())
+    params = port_params(multimesh_params())
+    cfg = _shipped_config(scene, params)
+    poses = (params, tf.orbit_params(params, 1))
+    padded = []
+    pcss, pcf = tsf._pcss_taps, tsf._pcf_taps
+
+    def frames():
+        state = tf.init_frame_state(cfg, "cpu")
+        out = []
+        for pose in poses:
+            rgba, state = tf.render_gltf_frame(scene, pose, state, cfg)
+            out.append([t2n(rgba)] + [t2n(x) for x in state])
+        return out
+
+    def seen(fn):
+        def call(*args, count=None, **kw):
+            padded.append(int(count) < args[3].shape[0])
+            return fn(*args, count=count, **kw)
+        return call
+
+    monkeypatch.setattr(tsf, "_pcss_taps", seen(pcss))
+    monkeypatch.setattr(tsf, "_pcf_taps", seen(pcf))
+    with_counts = frames()
+    assert padded and any(padded)
+    monkeypatch.setattr(tsf, "_pcss_taps",
+                        lambda *a, count=None, **kw: pcss(*a, **kw))
+    monkeypatch.setattr(tsf, "_pcf_taps",
+                        lambda *a, count=None, **kw: pcf(*a, **kw))
+    without = frames()
+    names = ("rgba",) + tf.FrameState._fields
+    for got, want in zip(with_counts, without):
+        for name, a, b in zip(names, got, want):
+            assert same_bits(a, b), name

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the debug panel and the light-space ground light maps of the port
-(funky_tpu_torch) on one NVIDIA GPU, in this checkout or another one:
+"""Time the debug panel, the light-space ground light maps (K5) and the
+shadow filter's tap sets (K6) of the port (funky_tpu_torch) on one NVIDIA
+GPU, in this checkout or another one:
 
-    python3 time_passes.py [--tree PATH]
+    python3 time_passes.py [--tree PATH] [--skip-panel]
 
 PATH (default: the directory of this script) is the root of a checkout;
 its funky_tpu_torch and chip_smoke.py are imported, so two commits are
@@ -12,18 +13,32 @@ on chip_smoke.py's multimesh scene:
 
 - `DebugPanel.render_over` of the debug window (the driver's default
   UiData) over a 1080p frame: host clock to a synchronize,
-  RENDER_OVER_RUNS runs after one untimed;
+  RENDER_OVER_RUNS runs after one untimed (not with --skip-panel);
+- the shipped configuration (bench.py's: committed, synthesized maps),
+  autotuned over frame.tuning_poses(params, 24): 8 chained replays of its
+  compiled_gltf_frame (2 parked, 6 orbit poses), host-clock and
+  CUDA-event medians after the first, twice; then every K6 call
+  (ops/pair_taps_cuda.py::pair_taps) of one eager frame at the last
+  pose, recorded and replayed through the wrapper: device ms behind a
+  sleep kernel (chip_smoke.device_ms, CUDA events), with each call's
+  live count against its slots where the checkout's frame passes one,
+  and, where the checkout's wrapper picks a lane width
+  (pair_taps_cuda.lanes_for), the same at every width it takes;
+- the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
+  calls of one frame, timed as above, and, where the checkout picks a
+  lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
+  dense frame's first call and from the shipped frame's largest pair
+  group (its live entries, evenly spaced or repeated);
 - the light-space configuration (the shipped flags with
   light_space_ground_shadows, skip_backfacing_shadows and
-  synth_shadow_maps), autotuned over frame.tuning_poses(params, 24): 8
-  chained replays of its compiled_gltf_frame (2 parked, 6 orbit poses),
-  host-clock and CUDA-event medians after the first, and 8 chained eager
-  frames' K3 (row gather) launches;
-- each light map of one eager frame (build_light_shadow_map, one per
-  light window): device ms behind a sleep kernel (where enqueueing the
-  call takes longer than the sleep, the host's gaps count too), and the
-  kernels it launches and their summed device time, from torch.profiler
-  over three calls;
+  synth_shadow_maps), autotuned the same way: 8 chained replays, twice,
+  and 8 chained eager frames' K3 (row gather) launches;
+- each light map of one eager light-space frame: the K5 launch alone
+  (ops/lightmap_cuda.py::light_map on the recorded arguments) and the
+  whole call (build_light_shadow_map: the window's parameters, then K5),
+  each by device ms behind a sleep (CUDA events), and, where the
+  checkout's wrapper picks a tile height (lightmap_cuda.tile_rows), K5
+  alone at every height it takes;
 - the same frame's whole light-map stage (frame._light_maps: the tap
   geometry and every window's map): the kernels it launches and their
   summed device time, from torch.profiler over three calls.
@@ -35,6 +50,7 @@ card; imports no jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -42,11 +58,103 @@ import sys
 import time
 
 RENDER_OVER_RUNS = 8
+SLEEP = 400_000_000     # cycles: longer than the host's enqueue of a frame's K6
+
+
+def record(module, name: str, fn):
+    """Run fn() with module.name wrapped; return every call's (args,
+    kwargs), the tensors held by reference."""
+    calls, inner = [], getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        fn()
+    finally:
+        setattr(module, name, inner)
+    return calls
+
+
+@contextlib.contextmanager
+def forced(module, name: str, value):
+    """module.name replaced by a function that returns `value`."""
+    inner = getattr(module, name)
+    setattr(module, name, lambda *_: value)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def time_taps(cs, calls) -> float:
+    """Device ms of the recorded K6 calls replayed through the wrapper."""
+    from funky_tpu_torch.ops import pair_taps_cuda
+
+    def run():
+        for a, kw in calls:
+            pair_taps_cuda.pair_taps(*a, **kw)
+
+    return cs.device_ms(run, iters=10, sleep_cycles=SLEEP)
+
+
+def taps_report(cs, calls) -> dict:
+    """K6 calls of one frame: their slots, live counts (the `count`
+    argument, where passed), device ms, and per lane width where taken."""
+    from funky_tpu_torch.ops import pair_taps_cuda
+
+    out = {"calls": len(calls), "slots": [], "live": [],
+           "ms": time_taps(cs, calls)}
+    for a, kw in calls:
+        slots = a[2].numel() // 2
+        count = kw.get("count", a[9] if len(a) > 9 else None)
+        out["slots"].append(slots)
+        out["live"].append(slots if count is None
+                           else min(int(count), slots))
+    if hasattr(pair_taps_cuda, "lanes_for"):
+        out["lanes_ms"] = {}
+        for n in pair_taps_cuda.LANES:
+            with forced(pair_taps_cuda, "lanes_for", n):
+                out["lanes_ms"][n] = time_taps(cs, calls)
+    return out
+
+
+def lanes_by_entries(cs, call, live: int) -> dict:
+    """K6 at every lane width on n entries taken from one recorded call,
+    n from 2^14 to 2^21: its first `live` entries evenly spaced (n below
+    live) or repeated (n above), so each size keeps the call's mix of
+    work. Shows where one width overtakes the other."""
+    import torch
+
+    from funky_tpu_torch.ops import pair_taps_cuda
+
+    args, kw = call
+    args, kw = list(args), dict(kw)
+    if len(args) > 9:
+        args[9] = None
+    kw.pop("count", None)
+    flat = [None if t is None else t.reshape((-1,) + t.shape[len(
+        args[3].shape):]) for t in args[1:5]]
+    out = {}
+    for k in range(14, 22):
+        n = 1 << k
+        idx = (torch.linspace(0, live - 1, n, device=flat[2].device).long()
+               if n < live else
+               torch.arange(n, device=flat[2].device) % live)
+        part = [None if t is None else t[idx] for t in flat]
+        out[n] = {}
+        for w in pair_taps_cuda.LANES:
+            with forced(pair_taps_cuda, "lanes_for", w):
+                out[n][w] = time_taps(cs, [(args[:1] + part + args[5:], kw)])
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).parent))
+    ap.add_argument("--skip-panel", action="store_true")
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -57,6 +165,7 @@ def main() -> None:
     import chip_smoke as cs
     from funky_tpu_torch import frame
     from funky_tpu_torch.app import ui
+    from funky_tpu_torch.ops import lightmap_cuda, pair_taps_cuda
     from funky_tpu_torch.passes import shadow_lightspace
 
     if not torch.cuda.is_available():
@@ -68,75 +177,109 @@ def main() -> None:
     out = {"tree": str(tree), "gpu": gpu}
 
     # the debug panel over a 1080p frame
-    image = torch.rand((cs.HEIGHT, cs.WIDTH, 4), generator=torch.Generator(
-        ).manual_seed(0)).to(dev)
-    panel = ui.DebugPanel(cs.WIDTH, cs.HEIGHT, device=dev)
-    data = ui.UiData()
-    panel.render_over(image, data)
-    walls = []
-    for _ in range(RENDER_OVER_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    if not args.skip_panel:
+        image = torch.rand((cs.HEIGHT, cs.WIDTH, 4),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+        panel = ui.DebugPanel(cs.WIDTH, cs.HEIGHT, device=dev)
+        data = ui.UiData()
         panel.render_over(image, data)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    out["render_over_ms"] = walls
-    out["render_over_median_ms"] = statistics.median(walls)
+        walls = []
+        for _ in range(RENDER_OVER_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            panel.render_over(image, data)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["render_over_ms"] = walls
+        out["render_over_median_ms"] = statistics.median(walls)
 
-    # the light-space configuration
     gltf, scene = cs.load_scene(dev, large=False)
     params = cs.scene_params(gltf, dev)
+    poses = cs.poses_for(params, cs.N_PARKED, cs.N_ORBIT)
+
+    def replays(cfg, key):
+        fn = frame.compiled_gltf_frame(cfg)
+        for i in (1, 2):
+            run = cs.gltf_frames(fn, scene, poses, cfg, dev)
+            out[f"{key}_replay_{i}_host_ms"] = statistics.median(
+                run["wall"][1:])
+            out[f"{key}_replay_{i}_events_ms"] = statistics.median(
+                run["ms"][1:])
+
+    def one_frame(cfg, module, name):
+        """The calls of module.name in one eager frame at the last pose,
+        after one frame at the first (a chained state)."""
+        state = frame.init_frame_state(cfg, dev)
+        _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
+        return record(module, name, lambda: frame.render_gltf_frame(
+            scene, poses[-1], state, cfg))
+
+    # the shipped configuration: its replays, then K6 on one frame's calls
+    _, cfg, _, tune_s = cs.autotune_shipped(
+        dev, scene, frame.tuning_poses(params, cs.N_TUNE))
+    out["shipped_tune_s"] = tune_s
+    replays(cfg, "shipped")
+    ship_calls = one_frame(cfg, pair_taps_cuda, "pair_taps")
+    out["k6_shipped"] = taps_report(cs, ship_calls)
+
+    # the dense frame's K6 calls
+    dense = cs.dense_config(cs.WIDTH, cs.HEIGHT, cs.SHADOW, "auto")
+    dense_calls = one_frame(dense, pair_taps_cuda, "pair_taps")
+    out["k6_dense"] = taps_report(cs, dense_calls)
+    if hasattr(pair_taps_cuda, "lanes_for"):
+        live = out["k6_shipped"]["live"]
+        g = live.index(max(live))
+        out["k6_lanes_by_entries"] = {
+            "dense": lanes_by_entries(cs, dense_calls[0],
+                                      out["k6_dense"]["live"][0]),
+            "pair_group": lanes_by_entries(cs, ship_calls[g], live[g])}
+
+    # the light-space configuration
     _, cfg, _, tune_s = cs.autotune_shipped(
         dev, scene, frame.tuning_poses(params, cs.N_TUNE),
         **cs.PERF_MODES["lightspace"])
     out["tune_s"] = tune_s
     out["windows"] = list(cfg.effective_light_windows())
-    poses = cs.poses_for(params, cs.N_PARKED, cs.N_ORBIT)
-    fn = frame.compiled_gltf_frame(cfg)
-    for name in ("replay_1", "replay_2"):
-        run = cs.gltf_frames(fn, scene, poses, cfg, dev)
-        out[f"{name}_host_ms"] = statistics.median(run["wall"][1:])
-        out[f"{name}_events_ms"] = statistics.median(run["ms"][1:])
+    replays(cfg, "lightspace")
     eager = cs.run_frames(scene, poses, cfg, dev)
     out["k3_per_eager_frame"] = eager["k3"]
 
-    # each light map of one eager frame
-    state = frame.init_frame_state(cfg, dev)
-    _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
-    calls = cs.record_light_maps(
-        lambda: frame.render_gltf_frame(scene, poses[-1], state, cfg))
+    # each light map of one eager frame: K5 alone and the whole call
+    calls = one_frame(cfg, shadow_lightspace, "build_light_shadow_map")
+    kernel_calls = []
+    for a, kw in calls:
+        kernel_calls += record(
+            lightmap_cuda, "light_map",
+            lambda: shadow_lightspace.build_light_shadow_map(*a, **kw))
     maps = []
-    for a, kw, *_ in calls:
-        def one():
-            return shadow_lightspace.build_light_shadow_map(*a, **kw)
-
-        ms = cs.device_ms(one, iters=3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                one()
-            torch.cuda.synchronize()
-        ks = cs.trace_kernels(prof, words=("",))
-        maps.append([a[5], ms, len(ks) // 3, sum(k[1] for k in ks) / 3])
-    out["light_maps"] = maps            # [wc, ms, launches, busy ms]
-    out["light_maps_ms"] = sum(m[1] for m in maps)
-    out["light_maps_busy_ms"] = sum(m[3] for m in maps)
+    for (a, kw), (ka, kkw) in zip(calls, kernel_calls):
+        row = {"wc": a[5],
+               "k5_ms": cs.device_ms(
+                   lambda: lightmap_cuda.light_map(*ka, **kkw), iters=20),
+               "call_ms": cs.device_ms(
+                   lambda: shadow_lightspace.build_light_shadow_map(
+                       *a, **kw), iters=20)}
+        if hasattr(lightmap_cuda, "tile_rows"):
+            row["rows"] = lightmap_cuda.tile_rows(a[5])
+            row["k5_rows_ms"] = {}
+            for r in lightmap_cuda.ROWS:
+                with forced(lightmap_cuda, "tile_rows", r):
+                    row["k5_rows_ms"][r] = cs.device_ms(
+                        lambda: lightmap_cuda.light_map(*ka, **kkw),
+                        iters=20)
+        maps.append(row)
+    out["light_maps"] = maps
+    out["light_maps_k5_ms"] = sum(m["k5_ms"] for m in maps)
+    out["light_maps_call_ms"] = sum(m["call_ms"] for m in maps)
 
     # the frame's whole light-map stage
-    stage, light_maps = [], frame._light_maps
-
-    def record(*a, **kw):
-        stage.append((a, kw))
-        return light_maps(*a, **kw)
-
-    frame._light_maps = record
-    try:
-        frame.render_gltf_frame(scene, poses[-1], state, cfg)
-    finally:
-        frame._light_maps = light_maps
-    a, kw = stage[0]
+    state = frame.init_frame_state(cfg, dev)
+    _, state = frame.render_gltf_frame(scene, poses[0], state, cfg)
+    (a, kw), = record(frame, "_light_maps", lambda: frame.render_gltf_frame(
+        scene, poses[-1], state, cfg))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            light_maps(*a, **kw)
+            frame._light_maps(*a, **kw)
         torch.cuda.synchronize()
     ks = cs.trace_kernels(prof, words=("",))
     out["light_stage_launches"] = len(ks) // 3
