@@ -124,10 +124,12 @@ failure raises and the script exits non-zero):
    a probe failed (the driver swallows both by design). Times per step and
    of the panel's render_over; the panel goes through K4 once per
    readback, save_png and render_over; K4 == the plain twin
-   (rasterize_overlay_plain) bit for bit on the driver's panel and on one
-   with every checkbox toggled and the error line shown; render_over at
-   1080p timed by parts (tessellation, table, kernel, composite), K4 by
-   device time, the twin on the host clock;
+   (rasterize_overlay_plain) bit for bit on the driver's panel, on one
+   with every checkbox toggled and the error line shown, on a full
+   2048-row table (more rows than one chunk of K4's tile lists) and on a
+   ragged 100x130 panel; render_over at 1080p timed by parts
+   (tessellation, table, kernel, composite), K4 by device time on the
+   driver's and the toggled panel, the twin on the host clock;
 13. the row-sharded frame (funky_tpu_torch/parallel) at the JAX package's
    sharded scale, 1920x1088 with 4 x 2048^2 cascades, 8x128 main and
    128x128 shadow tiles, for GltfConfig()'s flags (3 frames: 1 parked, 2
@@ -184,7 +186,9 @@ The sparse frames pass each pair group's live count to K6, which
 zeroes the slots past it and does no tap work for them. K6 is timed per
 dense and per shipped frame, its bound reckoned over the live entries
 (the slots beside them), K7 per shipped frame beside torch.bincount of
-the same keys (and the syncs torch's debug mode reports for it).
+the same keys (and the syncs torch's debug mode reports for it), with
+its launches per call and the node kinds of a CUDA graph that records
+one call (one kernel node, no memset).
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -2155,6 +2159,45 @@ def graph_ms(fn, iters: int = 5) -> float:
         return device_ms(graph.replay, iters=iters)
 
 
+# CUgraphNodeType (the driver API's cuda.h) by value.
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_node_kinds(fn) -> dict:
+    """{node kind: count} of a CUDA graph that records one call of fn(),
+    after one eager call (as compiled frames warm up), read through the
+    driver API (cuGraphGetNodes, cuGraphNodeGetType); the graph is never
+    replayed."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds[NODE_KINDS.get(kind.value, str(kind.value))] += 1
+    return dict(kinds)
+
+
 def time_pair_taps(calls) -> dict:
     """The K6 calls of one frame (`calls`, record_filter_calls'): K6
     through its wrapper (pair_taps_cuda.pair_taps on each call's
@@ -2194,14 +2237,17 @@ def time_pair_taps(calls) -> dict:
 
 
 def time_group_counts(calls) -> dict:
-    """The K7 call of one frame: K7 (its memset and kernel) and the twin
-    by device time behind a sleep; torch.bincount of the same masked keys
-    (the where() outside the timing) by CUDA events with its host time,
-    and the synchronising calls torch's sync debug mode reports for it;
-    the byte bound of this run's data: every `needs` byte read, the key of
-    each needed entry (only those are counted), the counts written."""
+    """The K7 call of one frame: K7 and the twin by device time behind a
+    sleep; torch.bincount of the same masked keys (the where() outside
+    the timing) by CUDA events with its host time, and the synchronising
+    calls torch's sync debug mode reports for it; K7's launches per call
+    and the node kinds of a graph that records one call (one kernel, no
+    memset); the byte bound of this run's data: every `needs` byte read,
+    the key of each needed entry (only those are counted), the counts
+    written."""
     import torch
 
+    from funky_tpu_torch.ops import group_counts_cuda
     from funky_tpu_torch.passes import shadow_filter
 
     (_, args, kwargs, _, _), = [c for c in calls if c[0] == "_group_counts"]
@@ -2210,8 +2256,16 @@ def time_group_counts(calls) -> dict:
     nbytes = needs.numel() + 4 * int(needs.sum()) + 4 * n_groups
     syncs = count_syncs_reported(
         lambda: torch.bincount(masked, minlength=n_groups + 1))
+    before = group_counts_cuda.LAUNCHES
+    shadow_filter._group_counts(*args)
+    per_call = group_counts_cuda.LAUNCHES - before
+    nodes = graph_node_kinds(lambda: shadow_filter._group_counts(*args))
+    check(per_call == 1 and nodes == {"kernel": 1},
+          f"K7: {per_call} launches per call, graph nodes {nodes}; "
+          f"expected one launch, one kernel node")
     return dict(
-        entries=needs.numel(), n_groups=n_groups,
+        entries=needs.numel(), n_groups=n_groups, launches_per_call=per_call,
+        graph_nodes=nodes,
         ms=device_ms(lambda: shadow_filter._group_counts(*args)),
         plain_ms=device_ms(lambda: shadow_filter._group_counts_plain(*args)),
         library_ms=cuda_ms(lambda: torch.bincount(
@@ -2618,11 +2672,16 @@ def overlay_work(table: np.ndarray, panel_hw, atlas_bytes: int):
 
 def phase_overlay(dev, data) -> dict:
     """K4 against its plain twin (rasterize_overlay_plain) bit for bit on
-    the panel of `data` (the driver's UiData) and on one with every
-    checkbox toggled and the error line shown; then render_over at 1080p
-    timed by parts on the host clock (tessellation, table, kernel,
-    composite), K4 by device time, the plain twin on the host clock, and
-    the bound. Returns the kernel's numbers for the kernels line."""
+    the panel of `data` (the driver's UiData), on one with every checkbox
+    toggled and the error line shown, on a full table of 2048 rows
+    (tests/torch_scenes.py::overlay_chunks_case: more rows than one chunk
+    of the kernel's tile lists, tiny full-panel triangles in every chunk)
+    and on a 100x130 panel, whose sides the tile does not divide
+    (overlay_case's triangles across the edges); then render_over at
+    1080p timed by parts on the host clock (tessellation, table, kernel,
+    composite), K4 by device time on the driver's and the toggled panel,
+    the plain twin on the host clock, and the bound. Returns the kernel's
+    numbers for the kernels line."""
     import dataclasses
 
     import torch
@@ -2630,6 +2689,7 @@ def phase_overlay(dev, data) -> dict:
     from funky_tpu_torch.app import ui
     from funky_tpu_torch.ops import overlay_cuda
     from funky_tpu_torch.passes import overlay
+    from tests.torch_scenes import overlay_case, overlay_chunks_case
 
     label = "overlay K4"
     hw = (ui.PANEL_H, ui.PANEL_W)
@@ -2639,19 +2699,33 @@ def phase_overlay(dev, data) -> dict:
         use_pcss=not data.use_pcss, use_shadow_taa=not data.use_shadow_taa,
         last_error="frame 7: a failure shown on the panel")
     err = 0.0
-    for name, d in (("driver", data), ("toggled", toggled)):
-        arrays = ui.build_panel(d).arrays()
+    tables = {}
+    cases = [("driver", ui.build_panel(data).arrays(), hw),
+             ("toggled", ui.build_panel(toggled).arrays(), hw),
+             ("2048-row", overlay_chunks_case(hw), hw),
+             ("ragged 100x130", overlay_case("edges", (100, 130)),
+              (100, 130))]
+    for name, arrays, panel_hw in cases:
         table = torch.from_numpy(overlay.overlay_table(
-            *arrays[:4], int(arrays[4]), hw)).to(dev)
-        got = overlay_cuda.overlay_raster(table, atlas, hw)
-        want = overlay.rasterize_overlay_plain(table, atlas, hw)
+            *arrays[:4], int(arrays[4]), panel_hw)).to(dev)
+        tables[name] = table
+        got = overlay_cuda.overlay_raster(table, atlas, panel_hw)
+        want = overlay.rasterize_overlay_plain(table, atlas, panel_hw)
         check(bits_equal(got, want), f"{label}: the {name} panel differs "
               f"from the plain twin's")
-        check(float((got[..., 3] > 0.5).float().mean()) > 0.5,
-              f"{label}: the {name} panel is not drawn")
+        # the panels: alpha above 0.5 on most pixels; the synthetic tables
+        # draw through the atlas's sparse glyph texels
+        alpha = 0.5 if name in ("driver", "toggled") else 0.0
+        drawn = float((got[..., 3] > alpha).float().mean())
+        check(drawn > (0.5 if alpha else 0.05), f"{label}: the {name} panel "
+              f"is not drawn ({drawn:.3f} of its pixels)")
         err = max(err, float((got - want).abs().max()))
-        say(f"{label}: the {name} panel ({table.shape[0]} triangles of "
-            f"{int(arrays[4])}) == plain twin bit for bit")
+        say(f"{label}: the {name} panel {panel_hw} ({table.shape[0]} "
+            f"triangles of {int(arrays[4])}, {drawn:.3f} of its pixels "
+            f"above alpha {alpha}) == plain twin bit for bit; tile "
+            f"{overlay_cuda.TILE}")
+    check(tables["2048-row"].shape[0] == 2048,
+          f"{label}: the full table has {tables['2048-row'].shape[0]} rows")
 
     # render_over at 1080p by parts, host clock (medians of 20)
     image = torch.rand((HEIGHT, WIDTH, 4), generator=torch.Generator(
@@ -2681,6 +2755,8 @@ def phase_overlay(dev, data) -> dict:
             parts[k].append(v * 1e3)
     med = {k: statistics.median(v) for k, v in parts.items()}
     ms = device_ms(lambda: overlay_cuda.overlay_raster(table, atlas, hw))
+    toggled_ms = device_ms(lambda: overlay_cuda.overlay_raster(
+        tables["toggled"], atlas, hw))
     plain = []
     for _ in range(3):
         sync(dev)
@@ -2698,8 +2774,9 @@ def phase_overlay(dev, data) -> dict:
         f" {statistics.median(plain):.3f} ms host clock (its own launches), "
         f"bound {bound:.5f} ms ({by}: {nbytes} B, {ops} FP32 operations) "
         f"[{_GPU}]")
-    return dict(err=err, ms=ms, plain_ms=statistics.median(plain),
-                bound_ms=bound, bound_by=by, parts=med)
+    return dict(err=err, ms=ms, toggled_ms=toggled_ms,
+                plain_ms=statistics.median(plain), bound_ms=bound,
+                bound_by=by, parts=med)
 
 
 # The row-sharded frame at the JAX package's full sharded scale
@@ -3445,7 +3522,9 @@ def main() -> None:
             f"({t['bound_by']}: {t['bytes']} B, {t['ops']} FP32 operations)"
             f" [{_GPU}]")
     say(f"K7 per shipped frame ({hist['entries']} entries, "
-        f"{hist['n_groups']} groups): kernel {hist['ms']:.4f} ms, plain "
+        f"{hist['n_groups']} groups; {hist['launches_per_call']} launch per "
+        f"call, graph nodes {hist['graph_nodes']}): kernel "
+        f"{hist['ms']:.4f} ms, plain "
         f"{hist['plain_ms']:.4f} ms, torch.bincount {hist['library_ms']:.4f}"
         f" ms ({hist['library_syncs']} synchronising calls reported), bound "
         f"{hist['bound_ms']:.5f} ms (bytes) [{_GPU}]")
@@ -3491,6 +3570,7 @@ def main() -> None:
              library_ms=None,
              timed_on="the driver's debug panel, 256x384 (plain: host "
                       "clock, its launches included)",
+             toggled_ms=k4_info["toggled_ms"],
              render_over_ms=k4_info["parts"]),
         dict(name="light_map", route="cuda",
              source="funky_tpu_torch/csrc/lightmap.cu",
@@ -3545,6 +3625,8 @@ def main() -> None:
                       f"pairs into {hist['n_groups']} groups (library: "
                       f"torch.bincount of the masked keys, by CUDA events)",
              library_syncs=hist["library_syncs"],
+             launches_per_call=hist["launches_per_call"],
+             graph_nodes=hist["graph_nodes"],
              checked_calls=FILTER_CHECKED["group_counts"][0],
              launches_per_frame=filter_per_frame[1]),
     ]

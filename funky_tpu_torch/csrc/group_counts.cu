@@ -15,17 +15,26 @@
 // scatter_add_ would fail on it; the frame's keys never do).
 //
 // What bounds it on this card: the bytes. Every `needs` byte is read
-// (4.1 MB at 1080p, two cascades per pixel), and the int32 key only of a
-// needed entry, a few percent of the pairs: ~0.0013 ms at 3.35 TB/s
-// (5 B per entry, ~0.006 ms, if every key were read). The atomics are as
+// (2.76 MB at 1080p, two cascades per pixel), and the int32 key only of
+// a needed entry, a few percent of the pairs: ~0.001 ms at 3.35 TB/s
+// (5 B per entry, ~0.004 ms, if every key were read). The atomics are as
 // few as the needed entries.
 //
-// Design: a grid-stride loop reads `needs` four entries at a time (one
-// 32-bit load where the pointer allows) and the key only of a needed
-// entry; each block counts into a shared-memory histogram and then adds
-// each nonzero bin to the output with one global atomicAdd. The wrapper's
-// memset clears the output first on the same stream. No value is read on
-// the host, so the launch records inside a CUDA graph.
+// Design: one launch and no memset. Each thread reads `needs` 16 entries
+// at a time (one 16-byte load; a scalar head up to the first 16-byte
+// boundary and a scalar tail), then the keys of the needed ones among
+// them, all 16 loads issued before the first count (the needed pairs come
+// in runs, so a thread often needs all 16, and loads interleaved with the
+// counts would wait one after another); the grid is sized so that the
+// 1080p pairs are one wave of such loads. Each block counts into a
+// shared-memory histogram, adds each nonzero bin to a persistent
+// accumulator with one global atomicAdd (one 128-byte line per bin, so
+// the bins' atomics do not queue on one line), and takes a ticket after a
+// __threadfence(). The block that takes the last ticket copies the
+// accumulators to `out` and zeroes them and the ticket, so the next
+// launch, eager or in a replayed CUDA graph, starts from zero. No value
+// is read on the host, so the launch records inside a CUDA graph as one
+// kernel node.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +43,9 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_GROUPS = 64;
+constexpr int VEC = 16;   // entries per 16-byte load of `needs`
+constexpr int BIN_STRIDE = 32;   // ints between two accumulators: 128 B
+constexpr int TICKET = MAX_GROUPS * BIN_STRIDE;
 
 __device__ __forceinline__ void count(const int* __restrict__ key,
                                       long long i, int n_groups, int* hist) {
@@ -41,63 +53,94 @@ __device__ __forceinline__ void count(const int* __restrict__ key,
   if (k >= 0 && k < n_groups) atomicAdd(hist + k, 1);
 }
 
+// acc: MAX_GROUPS accumulators BIN_STRIDE ints apart, then the ticket;
+// all zero at launch, and left zero by the last block. `head` entries
+// precede the first 16-byte boundary of needs.
 __global__ void __launch_bounds__(THREADS)
 group_counts_kernel(const uint8_t* __restrict__ needs,
-                    const int* __restrict__ key, long long n, int n_groups,
-                    bool aligned, int* __restrict__ out) {
+                    const int* __restrict__ key, long long n, long long head,
+                    int n_groups, int* __restrict__ acc,
+                    int* __restrict__ out) {
   __shared__ int hist[MAX_GROUPS];
+  __shared__ bool last;
   for (int g = threadIdx.x; g < n_groups; g += THREADS) hist[g] = 0;
   __syncthreads();
   const long long stride = (long long)gridDim.x * THREADS;
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (aligned) {
-    const long long n4 = n / 4;
-    const uint32_t* needs4 = reinterpret_cast<const uint32_t*>(needs);
-    for (long long q = t; q < n4; q += stride) {
-      const uint32_t w = __ldg(needs4 + q);
-      if (w == 0) continue;
+  const long long n16 = (n - head) / VEC;
+  const uint4* vec = reinterpret_cast<const uint4*>(needs + head);
+  for (long long q = t; q < n16; q += stride) {
+    const uint4 w = __ldg(vec + q);
+    if ((w.x | w.y | w.z | w.w) == 0) continue;
+    const long long i = head + VEC * q;
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    int k[VEC];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((w >> (8 * b)) & 0xffu) count(key, 4 * q + b, n_groups, hist);
-      }
+    for (int b = 0; b < VEC; ++b) {   // the needed entries' keys, in flight
+      k[b] = ((words[b >> 2] >> (8 * (b & 3))) & 0xffu) ? __ldg(key + i + b)
+                                                        : -1;
     }
-    for (long long i = 4 * n4 + t; i < n; i += stride) {
-      if (__ldg(needs + i)) count(key, i, n_groups, hist);
+#pragma unroll
+    for (int b = 0; b < VEC; ++b) {
+      if (k[b] >= 0 && k[b] < n_groups) atomicAdd(hist + k[b], 1);
     }
-  } else {
-    for (long long i = t; i < n; i += stride) {
-      if (__ldg(needs + i)) count(key, i, n_groups, hist);
-    }
+  }
+  // the head and the tail, fewer than 2 * VEC entries, one a thread
+  const long long tail = head + VEC * n16;
+  if (t < head + (n - tail)) {
+    const long long i = t < head ? t : tail + (t - head);
+    if (__ldg(needs + i)) count(key, i, n_groups, hist);
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < n_groups; g += THREADS) {
-    if (hist[g] != 0) atomicAdd(out + g, hist[g]);
+  if (threadIdx.x < n_groups) {   // n_groups <= MAX_GROUPS < THREADS
+    const int g = threadIdx.x;
+    if (hist[g] != 0) atomicAdd(acc + g * BIN_STRIDE, hist[g]);
+    __threadfence();   // this block's sums before its ticket
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket = reinterpret_cast<unsigned*>(acc + TICKET);
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // every other block has added its bins: hand them out and reset
+  if (threadIdx.x < n_groups) {
+    out[threadIdx.x] = atomicExch(acc + threadIdx.x * BIN_STRIDE, 0);
+  }
+  if (threadIdx.x == 0) atomicExch(acc + TICKET, 0);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). needs: n bools (one byte
-// each, 0 or 1); key: n int32; out: n_groups int32, cleared here on
-// `stream` and then counted into. n_groups in [1, 64]. Launches on
-// `stream`, does not synchronise, allocates nothing, and returns a CUDA
-// error code (0: launched).
+// each, 0 or 1); key: n int32; acc: MAX_GROUPS * BIN_STRIDE + 1 int32,
+// zero at the call and left zero (the accumulators and the ticket, kept
+// by the caller across calls; no two launches that share it may
+// overlap); out: n_groups int32, every value written. n_groups in
+// [1, 64]; at most max_blocks blocks. Launches one kernel on `stream`,
+// does not synchronise, allocates nothing, and returns a CUDA error code
+// (0: launched).
 extern "C" int group_counts_launch(const void* needs, const void* key,
-                                   long long n, int n_groups, void* out,
-                                   int sms, void* stream) {
-  if (out == nullptr || n < 0 || n_groups < 1 || n_groups > MAX_GROUPS ||
-      (n > 0 && (needs == nullptr || key == nullptr)) || sms < 1) {
+                                   long long n, int n_groups, void* acc,
+                                   void* out, int max_blocks,
+                                   void* stream) {
+  if (out == nullptr || acc == nullptr || n < 0 || n_groups < 1 ||
+      n_groups > MAX_GROUPS || (n > 0 && (needs == nullptr ||
+                                          key == nullptr)) ||
+      max_blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * n_groups,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess || n == 0) return (int)err;
-  const long long blocks_needed = (n + 4LL * THREADS - 1) / (4LL * THREADS);
-  const int blocks = (int)(blocks_needed < 4LL * sms ? blocks_needed
-                                                      : 4LL * sms);
-  const bool aligned = reinterpret_cast<uintptr_t>(needs) % 4 == 0;
+  const long long misaligned = reinterpret_cast<uintptr_t>(needs) % VEC;
+  const long long head = n < (VEC - misaligned) % VEC
+                             ? n : (VEC - misaligned) % VEC;
+  const long long vectors = (n - head) / VEC;
+  const long long blocks_needed = (vectors + THREADS - 1) / THREADS;
+  const int blocks = (int)(blocks_needed < 1 ? 1
+                           : blocks_needed < max_blocks ? blocks_needed
+                                                        : max_blocks);
   group_counts_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(needs), static_cast<const int*>(key), n,
-      n_groups, aligned, static_cast<int*>(out));
+      head, n_groups, static_cast<int*>(acc), static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

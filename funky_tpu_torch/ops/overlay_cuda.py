@@ -4,11 +4,13 @@ rasterize_overlay.
 
 K4 replaces the JAX package's jnp pass funky_tpu/passes/overlay.py::
 rasterize_overlay (:26-82), a lax.scan over the triangle slots that XLA
-runs as one program: one thread per panel pixel walks the triangle table
-of passes/overlay.py::overlay_table in draw order and blends each
-triangle that covers it. `overlay_raster` launches the kernel or raises
-(`check_args` names the argument); the pass above it takes the plain twin,
-passes/overlay.py::rasterize_overlay_plain, for a CPU atlas.
+runs as one program: one block per panel tile (TILE) builds, chunk by
+chunk on the card, the list of the rows of passes/overlay.py::
+overlay_table whose crop box meets the tile, in draw order, and each
+pixel walks only that list, blending each triangle that covers it.
+`overlay_raster` launches the kernel or raises (`check_args` names the
+argument); the pass above it takes the plain twin, passes/overlay.py::
+rasterize_overlay_plain, for a CPU atlas.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ TABLE_CROP = 9        # cx0, cx1, cy0, cy1
 TABLE_UV = 13         # uv of vertex k at TABLE_UV + 2k
 TABLE_COLOR = 19      # colour of vertex k at TABLE_COLOR + 4k
 
+# The kernel's tile: (width, height, warp width) in pixels, a whole number
+# of warps up to 256 threads, each warp on warp width x 32 / warp width
+# pixels. 16 x 16 with warps on 8 x 4 was the fastest of time_passes.py's
+# sweep (its TILES) on both debug panels on an H100 (PERF.md).
+TILE = (16, 16, 8)
+
 # Kernel launches made by overlay_raster since the last reset.
 LAUNCHES = 0
 
@@ -45,7 +53,7 @@ def _launcher():
     if _FN is None:
         fn = cuda_build.load("overlay").overlay_raster_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, i, i, i, p, p]
+        fn.argtypes = [p, i, p, i, i, i, i, i, i, i, p, p]
         fn.restype = i
         _FN = fn
     return _FN
@@ -96,7 +104,8 @@ def overlay_raster(table: torch.Tensor, atlas: torch.Tensor,
         stream = torch.cuda.current_stream(atlas.device).cuda_stream
         status = _launcher()(table.data_ptr(), table.shape[0],
                              atlas.data_ptr(), atlas.shape[0],
-                             atlas.shape[1], ph, pw, out.data_ptr(), stream)
+                             atlas.shape[1], ph, pw, *TILE, out.data_ptr(),
+                             stream)
     if status != 0:
         raise RuntimeError(f"overlay raster launch failed: CUDA error "
                            f"{status}")

@@ -17,7 +17,7 @@ from funky_tpu_torch.app import ui
 from funky_tpu_torch.ops import overlay_cuda
 from funky_tpu_torch.passes import overlay
 
-from .torch_scenes import OVERLAY_CASES, overlay_case
+from .torch_scenes import OVERLAY_CASES, overlay_case, overlay_chunks_case
 
 pytestmark = pytest.mark.cuda
 
@@ -35,13 +35,14 @@ def bits(x: torch.Tensor) -> np.ndarray:
     return x.cpu().reshape(-1).contiguous().numpy().view(np.uint8)
 
 
-def kernel_and_plain(arrays, dev, panel_hw=PANEL):
+def kernel_and_plain(arrays, dev, panel_hw=PANEL, rows=None):
     """(kernel, plain twin) panels of the same table on the card; the
-    kernel launches once."""
+    kernel launches once. `rows`: the table's expected row count."""
     verts, uvs, cols, tris, n = arrays
     atlas = torch.from_numpy(ui.build_font_atlas()[0]).to(dev)
     table = torch.from_numpy(overlay.overlay_table(
         verts, uvs, cols, tris, int(n), panel_hw)).to(dev)
+    assert rows is None or table.shape[0] == rows
     before = overlay_cuda.LAUNCHES
     got = overlay_cuda.overlay_raster(table, atlas, panel_hw)
     torch.cuda.synchronize()
@@ -71,6 +72,43 @@ def test_triangle_sets_bit_equal_to_plain(dev, case):
     got, want = kernel_and_plain(overlay_case(case), dev)
     np.testing.assert_array_equal(bits(got), bits(want))
     assert float(got[..., 3].max()) > 0
+
+
+def test_more_rows_than_one_chunk(dev):
+    """A full table, 2048 rows (ui.MAX_TRIS): small overlapping quads and,
+    every 16th row, a tiny triangle with the whole panel as its crop box,
+    so every chunk of every tile's list holds rows of both kinds."""
+    got, want = kernel_and_plain(overlay_chunks_case(PANEL), dev,
+                                 rows=ui.MAX_TRIS)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert float((got[..., 3] > 0).float().mean()) > 0.1   # drawn
+
+
+@pytest.mark.parametrize("case", sorted(OVERLAY_CASES))
+def test_ragged_panel(dev, case):
+    """A 100 x 130 panel, whose sides the tile does not divide: the right
+    and bottom tiles are partial."""
+    got, want = kernel_and_plain(overlay_case(case, (100, 130)), dev,
+                                 (100, 130))
+    assert got.shape == (100, 130, 4)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert float(got[..., 3].max()) > 0
+
+
+def test_one_row_and_none(dev):
+    """A table of one triangle, and one of none (every slot padded): the
+    zero panel."""
+    verts = np.array([[20, 10], [300, 40], [60, 230]], np.float32)
+    uvs = np.array([[0.1, 0.1], [0.9, 0.2], [0.3, 0.8]], np.float32)
+    cols = np.array([[0.5, 0.25, 0.1, 0.5]] * 3, np.float32)
+    tris = np.array([[0, 1, 2], [-1, -1, -1]], np.int32)
+    got, want = kernel_and_plain((verts, uvs, cols, tris, 1), dev, rows=1)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert float(got[..., 3].max()) > 0
+    got, want = kernel_and_plain((verts, uvs, cols, tris[1:], 1), dev,
+                                 rows=0)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert not bool(got.any())
 
 
 def test_render_over_launches_the_kernel(dev):

@@ -2,8 +2,9 @@
 (funky_tpu_torch/passes/overlay.py::overlay_table), its plain twin
 (rasterize_overlay_plain) against the JAX package's rasterize_overlay, and
 the kernel's wrapper (ops/overlay_cuda.py): the arguments it refuses, and
-the plain twin the pass takes for CPU tensors. The kernel itself runs
-only on the card (tests/test_torch_overlay_cuda.py).
+the plain twin the pass takes for CPU tensors, and a model of the
+kernel's per-tile triangle lists drawn by the plain twin. The kernel
+itself runs only on the card (tests/test_torch_overlay_cuda.py).
 
 Tolerances and why:
 - the table: equal, bit for bit, to the per-triangle f32 scalars of the
@@ -13,7 +14,9 @@ Tolerances and why:
 - the plain twin against JAX on the debug window's triangles and on tiny
   triangles: within 3e-5, the panel tolerance of tests/test_torch_app.py
   (XLA fuses and contracts the scan's arithmetic; an atlas coordinate near
-  160 carries one f32 ulp, 1.5e-5, into a bilinear weight).
+  160 carries one f32 ulp, 1.5e-5, into a bilinear weight);
+- the tile-list model against the plain twin's whole panel: equal, bit for
+  bit (the same operations on the same pixels in the same order).
 """
 
 import math
@@ -205,3 +208,104 @@ def test_check_args_takes_the_panel():
     with pytest.raises(ValueError, match="^atlas:"):
         overlay_cuda.overlay_raster(table.to("meta"), atlas.to("meta"),
                                     panel_hw)
+
+
+TOGGLED = tui.UiData(fps=59.9, frame_time_ms=16.7, gltf_scale=0.0123,
+                     debug_cascades=True, use_pcss=False,
+                     use_shadow_taa=False, entity_count=3,
+                     component_count=7, gpu_info="NVIDIA H100",
+                     last_error="frame 3: boom")
+RAGGED_PANEL = (100, 130)     # sides the tile does not divide
+
+
+def tile_lists(table, panel_hw, tile):
+    """The kernel's tile lists: for each tile of `tile` (width, height)
+    over the panel, row-major, its rectangle [x0, x1) x [y0, y1) within
+    the panel and the indices, in table order, of the rows whose crop box
+    meets it (csrc/overlay.cu's test on columns 9-12)."""
+    ph, pw = panel_hw
+    tw, th = tile
+    cx0, cx1, cy0, cy1 = table[:, toverlay.TABLE_CROP:
+                               toverlay.TABLE_CROP + 4].T
+    out = []
+    for y0 in range(0, ph, th):
+        for x0 in range(0, pw, tw):
+            x1, y1 = min(x0 + tw, pw), min(y0 + th, ph)
+            meets = (cx0 < x1) & (cx1 > x0) & (cy0 < y1) & (cy1 > y0)
+            out.append(((x0, x1, y0, y1), np.flatnonzero(meets)))
+    return out
+
+
+def tile_model(table, atlas, panel_hw, tile):
+    """Each tile drawn by the plain twin from its list alone, the list's
+    crop boxes clipped to the tile (no pixel of the tile leaves its box,
+    and the twin then works on the tile's pixels only), and the tiles
+    pasted together. Returns (panel, list lengths)."""
+    out = torch.zeros(panel_hw + (4,))
+    lengths = []
+    for (x0, x1, y0, y1), rows in tile_lists(table, panel_hw, tile):
+        sub = table[rows].copy()
+        c = toverlay.TABLE_CROP
+        sub[:, c] = np.maximum(sub[:, c], x0)
+        sub[:, c + 1] = np.minimum(sub[:, c + 1], x1)
+        sub[:, c + 2] = np.maximum(sub[:, c + 2], y0)
+        sub[:, c + 3] = np.minimum(sub[:, c + 3], y1)
+        drawn = toverlay.rasterize_overlay_plain(torch.from_numpy(sub),
+                                                 atlas, panel_hw)
+        out[y0:y1, x0:x1] = drawn[y0:y1, x0:x1]
+        lengths.append(len(rows))
+    return out, lengths
+
+
+def model_case(case):
+    """(arrays, panel_hw) of a tile-model case."""
+    if case == "debug window":
+        return tui.build_panel(tui.UiData()).arrays(), (tui.PANEL_H,
+                                                        tui.PANEL_W)
+    if case == "toggled":
+        return tui.build_panel(TOGGLED).arrays(), (tui.PANEL_H, tui.PANEL_W)
+    if case == "ragged":
+        return overlay_case("edges", RAGGED_PANEL, n_tris=48), RAGGED_PANEL
+    return overlay_case(case, SMALL_PANEL, n_tris=48), SMALL_PANEL
+
+
+@pytest.mark.parametrize("case", ["debug window", "toggled", "ragged"]
+                         + sorted(OVERLAY_CASES))
+def test_tile_lists_skip_no_value(case):
+    """The kernel's per-tile lists (overlay_cuda.TILE) change no value:
+    drawing each tile from only the rows whose crop box meets it, in
+    table order, and pasting the tiles equals the plain twin's panel bit
+    for bit. On the debug panels the lists are a small part of the
+    table, so the test is not vacuous."""
+    (verts, uvs, cols, tris, n), panel_hw = model_case(case)
+    table = toverlay.overlay_table(verts, uvs, cols, tris, int(n), panel_hw)
+    atlas = torch.from_numpy(tui.build_font_atlas()[0])
+    tw, th, _ = overlay_cuda.TILE
+    got, lengths = tile_model(table, atlas, panel_hw, (tw, th))
+    want = toverlay.rasterize_overlay_plain(torch.from_numpy(table), atlas,
+                                            panel_hw)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+    assert want[..., 3].max() > 0
+    if case in ("debug window", "toggled"):
+        assert max(lengths) < len(table) / 4
+
+
+def test_tile_lists_hold_every_box_pixel():
+    """At every tile shape of the kernel's sweep, on the ragged panel, a
+    tile lists a row exactly when some pixel of the tile lies in the
+    row's crop box: the interval test on columns 9-12 against the
+    pixels themselves."""
+    verts, uvs, cols, tris, n = overlay_case("edges", RAGGED_PANEL,
+                                             n_tris=48)
+    table = toverlay.overlay_table(verts, uvs, cols, tris, int(n),
+                                   RAGGED_PANEL)
+    c = toverlay.TABLE_CROP
+    boxes = np.zeros((len(table),) + RAGGED_PANEL, bool)
+    for k, row in enumerate(table):
+        cx0, cx1, cy0, cy1 = (int(v) for v in row[c:c + 4])
+        boxes[k, cy0:cy1, cx0:cx1] = True
+    for tile in ((16, 16), (32, 8), (16, 8), (8, 8), (64, 4)):
+        for (x0, x1, y0, y1), rows in tile_lists(table, RAGGED_PANEL, tile):
+            want = np.flatnonzero(boxes[:, y0:y1, x0:x1].any(axis=(1, 2)))
+            np.testing.assert_array_equal(rows, want)

@@ -358,6 +358,39 @@ def overlay_case(name: str, panel_hw=(256, 384), n_tris: int = 96,
     return verts, uvs, colors, tris, n_tris
 
 
+def overlay_chunks_case(panel_hw=(256, 384), n_rows: int = 2048,
+                        every: int = 16, seed: int = 0):
+    """A full triangle table for K4's chunked tile lists: n_rows drawn
+    triangles (ui.MAX_TRIS = 2048 by default, more rows than one block
+    stages at once), the halves of small overlapping quads of 4-12 px
+    sides (tight crop boxes) across the panel in draw order, with every
+    `every`-th triangle a tiny one instead (under 16 px^2 of |area|: the
+    whole panel as its crop box), so that each chunk holds both. As
+    overlay_case, padded with 8 rows of -1."""
+    ph, pw = panel_hw
+    rng = np.random.default_rng(seed)
+    tris_xy = []
+    while len(tris_xy) < n_rows:
+        if len(tris_xy) % every == every - 1:
+            c = rng.uniform((4, 4), (pw - 4, ph - 4), (1, 2))
+            tris_xy.append(c + rng.uniform(-1.5, 1.5, (3, 2)))
+            continue
+        x, y = rng.uniform((0, 0), (pw - 12, ph - 12))
+        w, h = rng.uniform(4, 12, 2)
+        a, b, c, d = (x, y), (x + w, y), (x + w, y + h), (x, y + h)
+        tris_xy.append(np.array([a, b, c]))
+        if len(tris_xy) % every != every - 1 and len(tris_xy) < n_rows:
+            tris_xy.append(np.array([a, c, d]))
+    verts = np.concatenate(tris_xy).astype(np.float32)
+    uvs = rng.uniform(0.0, 1.0, (len(verts), 2)).astype(np.float32)
+    alpha = rng.uniform(0.2, 1.0, (len(verts), 1))
+    colors = np.concatenate([rng.uniform(0, 1, (len(verts), 3)) * alpha,
+                             alpha], axis=-1).astype(np.float32)
+    tris = np.full((n_rows + 8, 3), -1, np.int32)
+    tris[:n_rows] = np.arange(3 * n_rows, dtype=np.int32).reshape(-1, 3)
+    return verts, uvs, colors, tris, n_rows
+
+
 def light_map_case(size: int = 1024, seed: int = 0):
     """(plane (3,), raw (size, size)) f32 for the light-map kernel K5: the
     sloped receiver plane of tests/test_lightspace.py and its raw depth,

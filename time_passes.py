@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the debug panel, the light-space ground light maps (K5) and the
-shadow filter's tap sets (K6) of the port (funky_tpu_torch) on one NVIDIA
-GPU, in this checkout or another one:
+"""Time the debug panel and its raster (K4), the light-space ground light
+maps (K5), the shadow filter's tap sets (K6) and its pair histogram (K7)
+of the port (funky_tpu_torch) on one NVIDIA GPU, in this checkout or
+another one:
 
     python3 time_passes.py [--tree PATH] [--skip-panel]
 
@@ -13,7 +14,13 @@ on chip_smoke.py's multimesh scene:
 
 - `DebugPanel.render_over` of the debug window (the driver's default
   UiData) over a 1080p frame: host clock to a synchronize,
-  RENDER_OVER_RUNS runs after one untimed (not with --skip-panel);
+  RENDER_OVER_RUNS runs after one untimed; then K4 alone
+  (ops/overlay_cuda.py::overlay_raster) on the tables of the debug
+  window and of the toggled panel (every checkbox flipped, the error line
+  shown): device ms behind a sleep (chip_smoke.device_ms, CUDA events),
+  and, where the checkout's wrapper has a tile (overlay_cuda.TILE), the
+  same at every tile of TILES, patched into the module (not with
+  --skip-panel);
 - the shipped configuration (bench.py's: committed, synthesized maps),
   autotuned over frame.tuning_poses(params, 24): 8 chained replays of its
   compiled_gltf_frame (2 parked, 6 orbit poses), host-clock and
@@ -23,7 +30,11 @@ on chip_smoke.py's multimesh scene:
   sleep kernel (chip_smoke.device_ms, CUDA events), with each call's
   live count against its slots where the checkout's frame passes one,
   and, where the checkout's wrapper picks a lane width
-  (pair_taps_cuda.lanes_for), the same at every width it takes;
+  (pair_taps_cuda.lanes_for), the same at every width it takes; and the
+  frame's K7 call (ops/group_counts_cuda.py::group_counts) through the
+  wrapper, device ms behind a sleep, and, where the checkout's wrapper
+  has a grid cap (group_counts_cuda.BLOCKS_PER_SM), the same at every
+  cap of BLOCKS_PER_SM, patched into the module;
 - the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
   calls of one frame, timed as above, and, where the checkout picks a
   lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
@@ -59,6 +70,11 @@ import time
 
 RENDER_OVER_RUNS = 8
 SLEEP = 400_000_000     # cycles: longer than the host's enqueue of a frame's K6
+# K4's tiles swept: (width, height, warp width) in pixels
+TILES = ((16, 16, 16), (16, 16, 8), (32, 8, 32), (32, 8, 8), (16, 8, 16),
+         (16, 8, 8), (8, 8, 8), (64, 4, 32))
+# K7's grid caps swept: 256-thread blocks per SM
+BLOCKS_PER_SM = (1, 2, 4, 8)
 
 
 def record(module, name: str, fn):
@@ -79,14 +95,78 @@ def record(module, name: str, fn):
 
 
 @contextlib.contextmanager
-def forced(module, name: str, value):
-    """module.name replaced by a function that returns `value`."""
+def patched(module, name: str, value):
+    """module.name set to `value` inside the block."""
     inner = getattr(module, name)
-    setattr(module, name, lambda *_: value)
+    setattr(module, name, value)
     try:
         yield
     finally:
         setattr(module, name, inner)
+
+
+def forced(module, name: str, value):
+    """module.name replaced by a function that returns `value`."""
+    return patched(module, name, lambda *_: value)
+
+
+def k4_report(cs, dev) -> dict:
+    """K4 alone on the debug window's table and the toggled panel's:
+    device ms, at the checkout's tile and, where it has one, at each of
+    TILES."""
+    import torch
+
+    from funky_tpu_torch.app import ui
+    from funky_tpu_torch.ops import overlay_cuda
+    from funky_tpu_torch.passes import overlay
+
+    hw = (ui.PANEL_H, ui.PANEL_W)
+    atlas = torch.from_numpy(ui.build_font_atlas()[0]).to(dev)
+    toggled = ui.UiData(fps=59.9, frame_time_ms=16.7, gltf_scale=0.0123,
+                        debug_cascades=True, use_pcss=False,
+                        use_shadow_taa=False, entity_count=3,
+                        component_count=7, gpu_info="NVIDIA H100",
+                        last_error="frame 3: boom")
+    out = {}
+    for name, data in (("debug_window", ui.UiData()), ("toggled", toggled)):
+        arrays = ui.build_panel(data).arrays()
+        table = torch.from_numpy(overlay.overlay_table(
+            *arrays[:4], int(arrays[4]), hw)).to(dev)
+
+        def run():
+            overlay_cuda.overlay_raster(table, atlas, hw)
+
+        row = {"rows": table.shape[0], "ms": cs.device_ms(run, iters=50)}
+        if hasattr(overlay_cuda, "TILE"):
+            row["tile"] = list(overlay_cuda.TILE)
+            row["tile_ms"] = {}
+            for tile in TILES:
+                with patched(overlay_cuda, "TILE", tile):
+                    row["tile_ms"]["x".join(map(str, tile))] = cs.device_ms(
+                        run, iters=50)
+        out[name] = row
+    return out
+
+
+def k7_report(cs, calls) -> dict:
+    """The frame's K7 call through the wrapper: device ms, at the
+    checkout's grid cap and, where it has one, at each of BLOCKS_PER_SM."""
+    from funky_tpu_torch.ops import group_counts_cuda
+
+    (args, kw), = calls
+
+    def run():
+        group_counts_cuda.group_counts(*args, **kw)
+
+    out = {"entries": args[0].numel(), "n_groups": args[2],
+           "needed": int(args[0].sum()), "ms": cs.device_ms(run, iters=50)}
+    if hasattr(group_counts_cuda, "BLOCKS_PER_SM"):
+        out["blocks_per_sm"] = group_counts_cuda.BLOCKS_PER_SM
+        out["blocks_ms"] = {}
+        for b in BLOCKS_PER_SM:
+            with patched(group_counts_cuda, "BLOCKS_PER_SM", b):
+                out["blocks_ms"][b] = cs.device_ms(run, iters=50)
+    return out
 
 
 def time_taps(cs, calls) -> float:
@@ -165,7 +245,8 @@ def main() -> None:
     import chip_smoke as cs
     from funky_tpu_torch import frame
     from funky_tpu_torch.app import ui
-    from funky_tpu_torch.ops import lightmap_cuda, pair_taps_cuda
+    from funky_tpu_torch.ops import (group_counts_cuda, lightmap_cuda,
+                                     pair_taps_cuda)
     from funky_tpu_torch.passes import shadow_lightspace
 
     if not torch.cuda.is_available():
@@ -192,6 +273,7 @@ def main() -> None:
             walls.append((time.perf_counter() - t0) * 1e3)
         out["render_over_ms"] = walls
         out["render_over_median_ms"] = statistics.median(walls)
+        out["k4"] = k4_report(cs, dev)
 
     gltf, scene = cs.load_scene(dev, large=False)
     params = cs.scene_params(gltf, dev)
@@ -221,6 +303,8 @@ def main() -> None:
     replays(cfg, "shipped")
     ship_calls = one_frame(cfg, pair_taps_cuda, "pair_taps")
     out["k6_shipped"] = taps_report(cs, ship_calls)
+    out["k7_shipped"] = k7_report(cs, one_frame(cfg, group_counts_cuda,
+                                                "group_counts"))
 
     # the dense frame's K6 calls
     dense = cs.dense_config(cs.WIDTH, cs.HEIGHT, cs.SHADOW, "auto")
