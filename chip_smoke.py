@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 torch. It imports nothing of jax or of the JAX package. Phases (any
 failure raises and the script exits non-zero):
 
-1. build the six kernel sources (csrc/raster.cu: K1 and K2;
+1. build the eight kernel sources (csrc/raster.cu: K1 and K2;
    csrc/gather.cu: K3; csrc/overlay.cu: K4; csrc/lightmap.cu: K5;
-   csrc/pair_taps.cu: K6; csrc/group_counts.cu: K7) with one nvcc each,
-   started together, and print the ptxas lines;
+   csrc/pair_taps.cu: K6; csrc/group_counts.cu: K7; csrc/class_maps.cu:
+   K10; csrc/contact.cu: K8 and K9) with one nvcc each, started
+   together, and print the ptxas lines;
 1b. K3, the frame's row gather, vs its plain twin (take_rows_plain) bit
    for bit on unit cases: f32 rows of 1, 2, 4, 7, 8, 16 and 46, 1-D f32,
    int32, bool and f16 tables, f64 rows, tables 4 and 2 bytes past a
@@ -189,6 +190,21 @@ dense and per shipped frame, its bound reckoned over the live entries
 the same keys (and the syncs torch's debug mode reports for it), with
 its launches per call and the node kinds of a CUDA graph that records
 one call (one kernel node, no memset).
+
+Every path that reaches the contact shadows or the class maps (dense:
+K8 and K9's march; default, shipped committed and cond'd, large, the
+perf modes, the sharded runs, entry's chain, the dry run's frames in
+process: K8, both K9 and K10) launches them on every frame, and every
+K8-K10 call of the reference runs above, of the cond'd frames, of every
+tuned-pose and chained-trajectory check (its polls and both frames), of
+the driver phase and of the bench phase's in-process run is held against
+its plain twin (passes/contact.py::_contact_front_plain,
+_contact_certify_plain, _contact_march_plain; passes/shadow_classify.py::
+_class_rows_plain) bit for bit as it returns (checked_stages, the twin
+with the plain row gather), as many calls as the run launched, a call
+made while a CUDA graph captures counted apart. Each of the four is timed
+on one shipped and one dense frame's calls beside its twin (a replayed
+graph) and its bound on this run's data.
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -385,10 +401,13 @@ def plain_filter_taps():
 
 
 def reset_counts() -> None:
-    from funky_tpu_torch.ops import (compact, gather_cuda, group_counts_cuda,
+    from funky_tpu_torch.ops import (class_maps_cuda, compact, contact_cuda,
+                                     gather_cuda, group_counts_cuda,
                                      lightmap_cuda, overlay_cuda,
                                      pair_taps_cuda, raster_cuda)
 
+    class_maps_cuda.reset_launches()
+    contact_cuda.reset_launches()
     raster_cuda.reset_launches()
     gather_cuda.reset_launches()
     lightmap_cuda.reset_launches()
@@ -412,7 +431,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap",
-                                 "pair_taps", "group_counts"])
+                                 "pair_taps", "group_counts", "class_maps",
+                                 "contact"])
     say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
         f" [{_GPU}]")
@@ -660,8 +680,9 @@ def poses_for(params, n_parked, n_orbit):
 def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
-    ms up to the frame's synchronize, host syncs, K1, K3, K5, K6 and K7
-    launches per frame, and the peak device memory (GiB)."""
+    ms up to the frame's synchronize, host syncs, K1, K3, K5, K6, K7 and
+    K8-K10 (keyed as frame._launch_counts) launches per frame, and the
+    peak device memory (GiB)."""
     import torch
 
     from funky_tpu_torch import frame
@@ -671,7 +692,7 @@ def run_frames(scene, poses, cfg, dev):
 
     state = frame.init_frame_state(cfg, dev)
     out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[],
-               k6=[], k7=[])
+               k6=[], k7=[], **{k: [] for k in STAGE_KERNELS})
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
@@ -680,6 +701,7 @@ def run_frames(scene, poses, cfg, dev):
         k3_0 = gather_cuda.LAUNCHES
         k5_0 = lightmap_cuda.LAUNCHES
         k6_0, k7_0 = pair_taps_cuda.LAUNCHES, group_counts_cuda.LAUNCHES
+        stages0 = frame._launch_counts()
         sync(dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -700,6 +722,9 @@ def run_frames(scene, poses, cfg, dev):
         out["k5"].append(lightmap_cuda.LAUNCHES - k5_0)
         out["k6"].append(pair_taps_cuda.LAUNCHES - k6_0)
         out["k7"].append(group_counts_cuda.LAUNCHES - k7_0)
+        stages1 = frame._launch_counts()
+        for k in STAGE_KERNELS:
+            out[k].append(stages1[k] - stages0[k])
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -830,6 +855,8 @@ def phase_dense(dev, gltf, scene):
     verify_filter("dense path", lambda: run_frames(scene, poses, cfg, dev))
     FILTER_TIMES["dense"] = time_pair_taps(
         frame_filter_calls(scene, poses[-1], cfg, dev))
+    STAGE_TIMES["dense"] = time_stage_kernels(frame_stage_calls(
+        scene, poses[-1], cfg, dev))
     return params, poses, krun
 
 
@@ -910,7 +937,8 @@ def check_trajectory(dev, scene, traj, cfg, label) -> None:
     counts the pairs of the band blocks a committed frame drops), whose
     capacity_overflows must name nothing but band_block_capacity, and
     after it committed == cond'd in tri_id, depth, rgba and history, bit
-    for bit, with no condition."""
+    for bit, with no condition; every K8-K10 call of the polls and frames
+    == its plain twin (checked_stages)."""
     import torch
 
     from funky_tpu_torch import frame
@@ -921,21 +949,26 @@ def check_trajectory(dev, scene, traj, cfg, label) -> None:
     sd = frame.init_frame_state(cfg, dev)
     polls, bad_over, bad_eq = [], [], []
     t0 = time.perf_counter()
-    for i, p in enumerate(traj):
-        occ = diagnostics.probe_occupancy(scene, p, sc, cfg)
-        over = autotune.capacity_overflows(cfg, occ)
-        polls.append(occ)
-        if set(over) - {"band_block_capacity"}:
-            bad_over.append((i, over))
-        rgba_c, sc, tri_c = frame.render_gltf_frame_ids(scene, p, sc, cfg)
-        rgba_d, sd, tri_d = frame.render_gltf_frame_ids(scene, p, sd, conded)
-        for name, a, b in (("tri_id", tri_c, tri_d),
-                           ("depth", sc.prev_depth, sd.prev_depth),
-                           ("rgba", rgba_c, rgba_d),
-                           ("history", sc.shadow_history, sd.shadow_history)):
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                bad_eq.append((i, name))
-    sync(dev)
+    with checked_stages(label):
+        for i, p in enumerate(traj):
+            occ = diagnostics.probe_occupancy(scene, p, sc, cfg)
+            over = autotune.capacity_overflows(cfg, occ)
+            polls.append(occ)
+            if set(over) - {"band_block_capacity"}:
+                bad_over.append((i, over))
+            rgba_c, sc, tri_c = frame.render_gltf_frame_ids(scene, p, sc,
+                                                            cfg)
+            rgba_d, sd, tri_d = frame.render_gltf_frame_ids(scene, p, sd,
+                                                            conded)
+            for name, a, b in (("tri_id", tri_c, tri_d),
+                               ("depth", sc.prev_depth, sd.prev_depth),
+                               ("rgba", rgba_c, rgba_d),
+                               ("history", sc.shadow_history,
+                                sd.shadow_history)):
+                if not torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32)):
+                    bad_eq.append((i, name))
+        sync(dev)
     band = sum(1 for o in polls if o["band_blocks"] > o["band_bcap"])
 
     def peak(key):
@@ -1100,7 +1133,8 @@ def phase_shipped(dev, gltf, scene, params):
         say(f"  {n} x {line}")
 
     reset_counts()
-    drun = run_frames(scene, poses, conded_config(cfg), dev)
+    with checked_stages(f"{label}, cond'd"):
+        drun = run_frames(scene, poses, conded_config(cfg), dev)
     say_branches(f"{label}, cond'd, frame poses")
     diffs = frames_diff(crun, drun)
     say(f"{label}, frame poses: committed vs cond'd: "
@@ -1133,6 +1167,8 @@ def phase_shipped(dev, gltf, scene, params):
     calls = frame_filter_calls(scene, poses[-1], cfg, dev)
     FILTER_TIMES["shipped"] = time_pair_taps(calls)
     FILTER_TIMES["histogram"] = time_group_counts(calls)
+    STAGE_TIMES["shipped"] = time_stage_kernels(frame_stage_calls(
+        scene, poses[-1], cfg, dev))
     return counts["raster_table"], err, cfg, crun["k3"]
 
 
@@ -2039,10 +2075,13 @@ def check_filter_calls(calls, launched, label) -> None:
 
 def verify_filter(label, fn) -> dict:
     """fn() (a run the phase has already counted, again) with every K6 and
-    K7 call recorded and held against its twin. The script's reference
-    run: its launches do not count. Returns its launch counts."""
+    K7 call recorded and held against its twin, and every K8-K10 call
+    held against its twin as it returns (checked_stages). The script's
+    reference run: its launches do not count. Returns its launch
+    counts."""
     reset_counts()
-    calls = record_filter_calls(fn)
+    with checked_stages(label):
+        calls = record_filter_calls(fn)
     counts = read_counts()
     check_filter_calls(calls, counts, label)
     return counts
@@ -2058,6 +2097,10 @@ def check_filter_launches(run, key, label, dense: bool = False) -> None:
           f"{label}: K7 launches per frame {run['k7']}")
     FILTER_RUNS[key] = (sum(run["k6"]), sum(run["k7"]), len(run["k6"]))
     say(f"{label}: K6 launches per frame {run['k6']}, K7 {run['k7']}")
+    note_stage_runs(key, {k: sum(run[k]) for k in STAGE_KERNELS},
+                    len(run["k6"]), dense, label)
+    say(f"{label}: K8-K10 launches per frame "
+        + ", ".join(f"{k} {run[k]}" for k in STAGE_KERNELS))
 
 
 def frame_filter_calls(scene, pose, cfg, dev):
@@ -2274,6 +2317,261 @@ def time_group_counts(calls) -> dict:
         bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes")
 
 
+# The contact shadows' kernels K8 (passes/contact.py::contact_front) and K9
+# (contact_certify, contact_march), and the class maps' K10
+# (passes/shadow_classify.py::_class_rows): dispatcher -> (module, plain
+# twin). Their launch counters are keyed by the dispatchers' names, K10's
+# as "class_maps".
+STAGE_TWINS = {"contact_front": ("contact", "_contact_front_plain"),
+               "contact_certify": ("contact", "_contact_certify_plain"),
+               "contact_march": ("contact", "_contact_march_plain"),
+               "_class_rows": ("shadow_classify", "_class_rows_plain")}
+STAGE_KERNELS = ("contact_front", "contact_certify", "contact_march",
+                 "class_maps")
+# Every K8-K10 call held against its twin so far: kernel -> [calls, max
+# |diff|], and the calls counted at a capture (their outputs are a graph's
+# until it replays, so they are counted, not compared).
+STAGE_CHECKED = {k: [0, 0.0] for k in STAGE_KERNELS}
+STAGE_CAPTURED = collections.Counter()
+# K8-K10 launches of each main path's run: key -> {kernel: launches,
+# "frames": frames}.
+STAGE_RUNS: dict = {}
+# Reckoned FP32 operations per pixel of K8 (the ray, its clip, the jitter,
+# the segment certificate at its four endpoints), per live slot of K9's
+# certificate (8 probes) and march (8 linear and 4 bisection probes), and
+# per fine texel of K10 (its rung-3 row and column windows, the residuals,
+# and on the pooled maps a quarter of the pools, the four rungs' and the
+# rise's windows and the cell maxima).
+STAGE_OPS = dict(front=220, certify=8 * 30, march=12 * 60,
+                 class_fine=24, class_pooled=158)
+
+
+def _stage_module(name: str):
+    from funky_tpu_torch.passes import contact, shadow_classify
+
+    return {"contact": contact,
+            "shadow_classify": shadow_classify}[STAGE_TWINS[name][0]]
+
+
+def _stage_kernel(name: str) -> str:
+    return "class_maps" if name == "_class_rows" else name
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _stage_equal(got, want) -> tuple:
+    """(equal bit for bit, max |diff|) of two dispatcher results (a tuple
+    may hold None: the front's stage-2 mask without a pyramid)."""
+    got, want = _outputs(got), _outputs(want)
+    ok, err = len(got) == len(want), 0.0
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            ok = ok and a is b
+            continue
+        ok = ok and bits_equal(a, b)
+        if a.numel() and a.shape == b.shape:
+            err = max(err, float((a.double() - b.double()).abs()
+                                 .nan_to_num().max()))
+    return ok, err
+
+
+@contextlib.contextmanager
+def checked_stages(label):
+    """Inside the block every K8, K9 and K10 call is held against its plain
+    twin on the same inputs right after it returns, bit for bit (the twin
+    with the plain row gather, so it launches no K3); a call made while a
+    CUDA graph captures is counted (STAGE_CAPTURED), not compared. On
+    exit, each kernel's compared and captured calls must equal its
+    launches in the block. These comparisons are the script's own: their
+    twins launch no kernel of the port."""
+    import torch
+
+    from funky_tpu_torch import frame
+
+    counts = collections.Counter()
+    saved = {name: getattr(_stage_module(name), name)
+             for name in STAGE_TWINS}
+
+    def checked(name, dispatch):
+        twin = getattr(_stage_module(name), STAGE_TWINS[name][1])
+        kernel = _stage_kernel(name)
+
+        def run(*args, **kwargs):
+            out = dispatch(*args, **kwargs)
+            if (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                STAGE_CAPTURED[kernel] += 1
+                counts[kernel, "captured"] += 1
+                return out
+            with plain_gathers():
+                want = twin(*args, **kwargs)
+            ok, err = _stage_equal(out, want)
+            shapes = [tuple(o.shape) for o in _outputs(out) if o is not None]
+            check(ok, f"{label}: {name} call {counts[kernel]} ({shapes}) "
+                  f"differs from its plain twin")
+            counts[kernel] += 1
+            STAGE_CHECKED[kernel][0] += 1
+            STAGE_CHECKED[kernel][1] = max(STAGE_CHECKED[kernel][1], err)
+            return out
+        return run
+
+    before = frame._launch_counts()
+    for name, dispatch in saved.items():
+        setattr(_stage_module(name), name, checked(name, dispatch))
+    try:
+        yield counts
+    finally:
+        for name, dispatch in saved.items():
+            setattr(_stage_module(name), name, dispatch)
+    after = frame._launch_counts()
+    for k in STAGE_KERNELS:
+        launched = after[k] - before[k]
+        check(counts[k] + counts[k, "captured"] == launched,
+              f"{label}: {k}: {counts[k]} calls held against the twin and "
+              f"{counts[k, 'captured']} captured, {launched} launches")
+    held = ", ".join(f"{k} {counts[k]}" for k in STAGE_KERNELS)
+    captured = sum(counts[k, "captured"] for k in STAGE_KERNELS)
+    say(f"{label}: K8, K9 and K10 == their plain twins bit for bit on every "
+        f"call of the run ({held}; at captures {captured})")
+
+
+def note_stage_runs(key, counts, frames, dense=False, label="") -> None:
+    """A main path's K8-K10 launches (`counts`, keyed as
+    frame._launch_counts) over `frames` frames, kept for the kernels line;
+    each kernel of the path must have launched (K8 and K9's march on every
+    path, the certificate and K10 on the sparse ones)."""
+    need = (("contact_front", "contact_march") if dense else STAGE_KERNELS)
+    launched = {k: counts[k] for k in STAGE_KERNELS}
+    check(all(counts[k] >= frames for k in need),
+          f"{label or key}: K8-K10 launches {launched} over {frames} frames")
+    STAGE_RUNS[key] = dict({k: counts[k] for k in STAGE_KERNELS},
+                           frames=frames)
+
+
+def frame_stage_calls(scene, pose, cfg, dev):
+    """(dispatcher name, args, kwargs) of every K8-K10 call of one frame
+    at `pose` after one frame at the same pose (the arguments held by
+    reference: the frame state is a new tensor per eager frame)."""
+    from funky_tpu_torch import frame
+
+    state = frame.init_frame_state(cfg, dev)
+    _, state = frame.render_gltf_frame(scene, pose, state, cfg)
+    calls = []
+    saved = {name: getattr(_stage_module(name), name)
+             for name in STAGE_TWINS}
+
+    def recorder(name, dispatch):
+        def record(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return dispatch(*args, **kwargs)
+        return record
+
+    for name, dispatch in saved.items():
+        setattr(_stage_module(name), name, recorder(name, dispatch))
+    try:
+        frame.render_gltf_frame(scene, pose, state, cfg)
+        sync(dev)
+    finally:
+        for name, dispatch in saved.items():
+            setattr(_stage_module(name), name, dispatch)
+    return calls
+
+
+def _stage_args(name, args, kwargs) -> dict:
+    m = _stage_module(name)
+    a = inspect.signature(getattr(m, STAGE_TWINS[name][1])).bind(
+        *args, **kwargs)
+    a.apply_defaults()
+    return a.arguments
+
+
+def stage_work(name, args, kwargs) -> tuple:
+    """(bytes, FP32 operations, live, slots) one K8-K10 call needs on these
+    inputs. K8: each pixel's world, normal, frag and valid read, its
+    payload row and masks written. K9: the live slots' indices and
+    payload rows read, each distinct row their probes read (the
+    pyramid's quad rows, or the depth's quads, counted from the rows the
+    twin gathers for the live slots, as K3's distinct-row bytes) read once,
+    the certificates (every slot) or the live terms written. K10: the map
+    read once and the cell rows written."""
+    import torch
+
+    a = _stage_args(name, args, kwargs)
+    if name == "_class_rows":
+        maps, coarse = a["shadow_maps"], a["coarse"]
+        l, s, _ = maps.shape
+        cells = l * (s // coarse) ** 2
+        nbytes = maps.numel() * 4 + cells * 32 + l * 16
+        pooled = coarse % 2 == 0 and s % 2 == 0
+        ops = maps.numel() * (STAGE_OPS["class_fine"]
+                              + (STAGE_OPS["class_pooled"] / 4 if pooled
+                                 else 0))
+        return nbytes, ops, cells, cells
+    if name == "contact_front":
+        n = a["world"].numel() // 3
+        per = (24 + (8 if a["frag"] is not None else 0)
+               + (1 if a["valid"] is not None else 0) + 28 + 1
+               + (1 if a["pyr"] is not None else 0))
+        return n * per, n * STAGE_OPS["front"], n, n
+    payload, idx, count = a["payload"], a["idx"], a["count"]
+    m = payload.shape[0] if idx is None else idx.shape[0]
+    live = m if count is None else max(0, min(int(count), m))
+    twin = getattr(_stage_module(name), STAGE_TWINS[name][1])
+    gathers = record_gather_calls(lambda: twin(*args, **kwargs))
+    rows = [torch.where(i < 0, i + t.shape[0], i).clamp(
+        0, t.shape[0] - 1).reshape(-1, m)[:, :live].reshape(-1)
+        for t, i in gathers if t is not payload and i.numel() % m == 0]
+    distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    nbytes = live * (4 + 28) + 16 * distinct + (
+        m if name == "contact_certify" else 4 * live)
+    ops = live * STAGE_OPS["certify" if name == "contact_certify"
+                           else "march"]
+    return nbytes, ops, live, m
+
+
+def time_stage_kernels(calls) -> dict:
+    """Each K8-K10 kernel on one frame's calls (frame_stage_calls'): the
+    dispatchers (the kernels) by device time behind a sleep, the plain
+    twins by device time as a replayed CUDA graph, and the bound over the
+    card's peaks of the calls' bytes and operations on this run's data
+    (stage_work). No single PyTorch call computes any of these
+    functions: library_ms is None."""
+    out = {}
+    for name in STAGE_TWINS:
+        mine = [c for c in calls if c[0] == name]
+        if not mine:
+            continue
+        m = _stage_module(name)
+        dispatch = getattr(m, name)
+        twin = getattr(m, STAGE_TWINS[name][1])
+
+        def run_kernel(mine=mine, dispatch=dispatch):
+            for _, args, kwargs in mine:
+                dispatch(*args, **kwargs)
+
+        def run_twin(mine=mine, twin=twin):
+            for _, args, kwargs in mine:
+                twin(*args, **kwargs)
+
+        work = [stage_work(*c) for c in mine]
+        nbytes, ops = sum(w[0] for w in work), sum(w[1] for w in work)
+        out[_stage_kernel(name)] = dict(
+            calls=len(mine), live=sum(w[2] for w in work),
+            slots=sum(w[3] for w in work),
+            ms=device_ms(run_kernel, iters=20, sleep_cycles=100_000_000),
+            plain_ms=graph_ms(run_twin), bytes=nbytes, ops=ops,
+            bound_ms=max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3,
+            bound_by="bytes" if nbytes / HBM_BPS > ops / FP32_OPS
+            else "operations", library_ms=None)
+    return out
+
+
+# Per-frame K8-K10 timings of the shipped and the dense frame.
+STAGE_TIMES: dict = {}
+
+
 def phase_filter_cases(dev) -> None:
     """K6 and K7 against their twins bit for bit on synthetic entries the
     frames do not reach: every mode (PCSS, radius-only, fixed-radius PCF
@@ -2406,7 +2704,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     check_image(crun, poses, cfg, dev, label)
 
     conded = conded_config(cfg)
-    drun = run_frames(scene, poses, conded, dev)
+    with checked_stages(f"{label}, cond'd"):
+        drun = run_frames(scene, poses, conded, dev)
     say_branches(f"{label}, cond'd")
     diffs = frames_diff(crun, drun)
     say(f"{label}, frame poses: committed vs cond'd: "
@@ -2429,7 +2728,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     # the graph is recorded from the first frame's inputs
     first = {"raster_table": crun["k1"][0], "raster_padded": 0,
              "row_gather": crun["k3"][0], "light_map": crun["k5"][0],
-             "pair_taps": crun["k6"][0], "group_counts": crun["k7"][0]}
+             "pair_taps": crun["k6"][0], "group_counts": crun["k7"][0],
+             **{k: crun[k][0] for k in STAGE_KERNELS}}
     check(g.launches == first, f"{label}: capture launches {g.launches} "
           f"!= the first eager frame's {first}")
     say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
@@ -2551,8 +2851,11 @@ def phase_driver(dev):
     readback, save_png, save_state / load_state and one more step. Fails
     on any failed step or probe; the panel goes through K4 once per
     readback, save_png and render_over (phase_overlay then holds K4 to its
-    plain twin and times the panel). Returns (launch counts, capture
-    launches, step ms, render_over ms, K4's numbers)."""
+    plain twin and times the panel); every K8-K10 call outside a capture
+    (the autotune's and the re-tunes' probes and frames, the graphs'
+    warm-ups, the eager reference frames) == its plain twin. Returns
+    (launch counts, capture launches, step ms, render_over ms, K4's
+    numbers)."""
     import io
 
     import torch
@@ -2574,7 +2877,7 @@ def phase_driver(dev):
     out_dir.mkdir(exist_ok=True)
     log = io.StringIO()
     reset_counts()
-    with contextlib.redirect_stdout(log), \
+    with checked_stages(label), contextlib.redirect_stdout(log), \
             tempfile.TemporaryDirectory() as td:
         from funky_tpu_torch.models.sample_scenes import build_multimesh_glb
 
@@ -2947,6 +3250,10 @@ def sharded_graph(dev, scene, params, mesh, name, flags):
         e_counts["pair_taps"], e_counts["group_counts"], len(poses))
     FILTER_RUNS[f"sharded_committed_{name}_graph"] = (
         g_counts["pair_taps"], g_counts["group_counts"], 2)
+    note_stage_runs(f"sharded_committed_{name}", e_counts, len(poses),
+                    label=label)
+    note_stage_runs(f"sharded_committed_{name}_graph", g_counts, 2,
+                    label=label)
     verify_filter(f"{label} eager", lambda: gltf_frames(
         fn.eager, scene, poses, cfg, dev))
     say(f"{label}: every raster of the eager frames == the plain raster "
@@ -3069,6 +3376,8 @@ def phase_sharded(dev, scene, params):
                     FILTER_RUNS[f"sharded_{name}_{key}"] = (
                         run["counts"]["pair_taps"],
                         run["counts"]["group_counts"], len(pose_list))
+                    note_stage_runs(f"sharded_{name}_{key}", run["counts"],
+                                    len(pose_list), label=label)
                 verify_filter(f"{label} one-rank NCCL", lambda: shard_chain(
                     sharded, scene, pose_list, cfg, dev))
                 verify_filter(f"{label} {n} slabs", lambda: shard_chain(
@@ -3194,8 +3503,10 @@ def phase_bench(dev, scene, params, shipped_cfg, half_cfg):
     parked run recorded (one capture, 2 (n + 1) replays); the last motion
     frame == the same pose chain through eager render_gltf_frame bit for
     bit; a chained run drained by bench_torch.drain takes no less host
-    time than its CUDA-event time. Returns the launch counts of the
-    in-process run."""
+    time than its CUDA-event time; every K8-K10 call of the in-process run
+    outside a capture == its plain twin (checked_stages: the autotunes'
+    probes and frames, the graphs' warm-ups). Returns the launch counts of
+    the in-process run."""
     import io
 
     import torch
@@ -3209,7 +3520,8 @@ def phase_bench(dev, scene, params, shipped_cfg, half_cfg):
     out, err = io.StringIO(), io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    with checked_stages(label), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
         primary = bench_torch.run_primary(scene, params,
                                           entry.shipped_config(), N_TUNE, 1,
                                           dev, "multimesh")
@@ -3300,6 +3612,7 @@ def dryrun_references(dev, out, label) -> int:
     from funky_tpu_torch.parallel import make_mesh
 
     checked, maps, taps = 0, [], []
+    stage_calls = collections.Counter()
     with tempfile.TemporaryDirectory() as td:
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo",
@@ -3313,12 +3626,15 @@ def dryrun_references(dev, out, label) -> int:
                     ("perf-mode", entry.dryrun_config(1, entry.PERF_FLAGS), 2,
                      out["perf_frame"])):
                 box = {}
-                calls = record_raster_calls(lambda: box.update(
-                    maps=record_light_maps(lambda: box.update(
-                        taps=record_filter_calls(lambda: box.update(
-                            run=entry._sharded_frames(
-                                mesh, cfg, scene, params, n_frames,
-                                dev.type)))))))
+                with checked_stages(f"{label} {name}") as counted:
+                    calls = record_raster_calls(lambda: box.update(
+                        maps=record_light_maps(lambda: box.update(
+                            taps=record_filter_calls(lambda: box.update(
+                                run=entry._sharded_frames(
+                                    mesh, cfg, scene, params, n_frames,
+                                    dev.type)))))))
+                for k in STAGE_KERNELS:
+                    stage_calls[k] += counted[k]
                 rgba, state, _ = box["run"]
                 check(bits_equal(rgba.cpu(), want), f"{label}: the {name} "
                       f"frame in process differs from the dry run's rank")
@@ -3342,6 +3658,11 @@ def dryrun_references(dev, out, label) -> int:
             check_light_maps(maps, out["launches"]["light_map"],
                              f"{label} perf-mode")
             check_filter_calls(taps, out["launches"], f"{label} dry run")
+            check(all(stage_calls[k] == out["launches"][k]
+                      for k in STAGE_KERNELS),
+                  f"{label}: K8-K10 calls held against the twins in "
+                  f"process {dict(stage_calls)}, the rank launched "
+                  f"{out['launches']}")
         finally:
             dist.destroy_process_group()
     return checked
@@ -3505,6 +3826,29 @@ def main() -> None:
     say(f"K3 launches per frame on the main paths: {k3_per_frame}")
     check(all(n > 0 for n, _ in FILTER_CHECKED.values()),
           f"K6 / K7 calls held against their twins: {FILTER_CHECKED}")
+    check(all(n > 0 for n, _ in STAGE_CHECKED.values()),
+          f"K8-K10 calls held against their twins: {STAGE_CHECKED}")
+    stage_launches = {k: sum(v[k] for v in STAGE_RUNS.values())
+                      + app_counts[k] + shell_counts[k]
+                      for k in STAGE_KERNELS}
+    stage_per_frame = {k: {key: v[k] / v["frames"]
+                           for key, v in STAGE_RUNS.items()}
+                       for k in STAGE_KERNELS}
+    held = {k: v[0] for k, v in STAGE_CHECKED.items()}
+    say(f"K8-K10 launches on the main paths {stage_launches}; calls held "
+        f"against the twins {held}, counted at captures "
+        f"{dict(STAGE_CAPTURED)}")
+    for k in STAGE_KERNELS:
+        say(f"{k} launches per frame on the main paths: "
+            f"{stage_per_frame[k]}")
+    for key, times in STAGE_TIMES.items():
+        for k, t in times.items():
+            say(f"{k} per {key} frame ({t['calls']} calls, {t['live']} live "
+                f"of {t['slots']} pixels or slots): kernel {t['ms']:.4f} ms "
+                f"(device time behind a sleep), the plain twin "
+                f"{t['plain_ms']:.4f} ms (device time of a graph replay), "
+                f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
+                f"{t['bytes']} B, {t['ops']:.0f} FP32 operations) [{_GPU}]")
     filter_per_frame = [{k: v[i] / v[2] for k, v in FILTER_RUNS.items()}
                         for i in (0, 1)]
     say(f"K6 launches per frame on the main paths: {filter_per_frame[0]}; "
@@ -3630,6 +3974,36 @@ def main() -> None:
              checked_calls=FILTER_CHECKED["group_counts"][0],
              launches_per_frame=filter_per_frame[1]),
     ]
+    stage_sources = {
+        "contact_front": ("funky_tpu_torch/csrc/contact.cu",
+                          "funky_tpu/passes/contact.py:76"),
+        "contact_certify": ("funky_tpu_torch/csrc/contact.cu",
+                            "funky_tpu/passes/contact.py:590"),
+        "contact_march": ("funky_tpu_torch/csrc/contact.cu",
+                          "funky_tpu/passes/contact.py:124"),
+        "class_maps": ("funky_tpu_torch/csrc/class_maps.cu",
+                       "funky_tpu/passes/shadow_classify.py:199")}
+    for k in STAGE_KERNELS:
+        t = STAGE_TIMES["shipped"][k]
+        kernels.append(dict(
+            name=k, route="cuda", source=stage_sources[k][0],
+            replaces=stage_sources[k][1], launches=stage_launches[k],
+            max_abs_err=STAGE_CHECKED[k][1], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
+            timed_on=f"the shipped frame's {t['calls']} call(s), "
+                     f"{t['live']} live of {t['slots']} pixels, slots or "
+                     f"cells (ms: the kernel behind a sleep; plain_ms: the "
+                     f"twin as a replayed CUDA graph)",
+            checked_calls=STAGE_CHECKED[k][0],
+            captured_calls=STAGE_CAPTURED[k],
+            launches_per_frame=stage_per_frame[k],
+            frame_ms={key: v[k]["ms"] for key, v in STAGE_TIMES.items()
+                      if k in v},
+            frame_plain_ms={key: v[k]["plain_ms"]
+                            for key, v in STAGE_TIMES.items() if k in v},
+            frame_bound_ms={key: v[k]["bound_ms"]
+                            for key, v in STAGE_TIMES.items() if k in v}))
     say(_GPU)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

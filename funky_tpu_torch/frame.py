@@ -779,15 +779,20 @@ _CACHE: dict = {}
 
 
 def _launch_counts() -> dict:
-    from .ops import (gather_cuda, group_counts_cuda, lightmap_cuda,
-                      pair_taps_cuda, raster_cuda)
+    from .ops import (class_maps_cuda, contact_cuda, gather_cuda,
+                      group_counts_cuda, lightmap_cuda, pair_taps_cuda,
+                      raster_cuda)
 
     return {"raster_table": raster_cuda.LAUNCHES,
             "raster_padded": raster_cuda.PADDED_LAUNCHES,
             "row_gather": gather_cuda.LAUNCHES,
             "light_map": lightmap_cuda.LAUNCHES,
             "pair_taps": pair_taps_cuda.LAUNCHES,
-            "group_counts": group_counts_cuda.LAUNCHES}
+            "group_counts": group_counts_cuda.LAUNCHES,
+            "contact_front": contact_cuda.FRONT_LAUNCHES,
+            "contact_certify": contact_cuda.CERTIFY_LAUNCHES,
+            "contact_march": contact_cuda.MARCH_LAUNCHES,
+            "class_maps": class_maps_cuda.LAUNCHES}
 
 
 def _copy_in(dst: torch.Tensor, src) -> None:

@@ -5,6 +5,14 @@ the nearest filter: densely (`compute_contact_shadow`) or sparsely
 (`compute_contact_shadow_sparse`, the default), where an analytic-plane
 residual certificate retires most rays and only a compacted set marches;
 `contact_occupancy` counts those sets for the autotuner.
+
+Three dispatchers hold the per-ray work: `contact_front` (ray setup,
+jitter and the stage-1 segment certificate), `contact_certify` (the
+stage-2 probe certificate over compacted slots) and `contact_march` (the
+exact march and its soft term, over slots or every ray). CUDA tensors go
+to the hand-written kernels K8 and K9 (ops/contact_cuda.py), CPU tensors
+to the plain twins `_contact_front_plain`, `_contact_certify_plain` and
+`_contact_march_plain`, which equal the kernels bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import numpy as np
 import torch
 
 from ..math3d import apply_rows, f32
+from ..ops import contact_cuda
 from ..ops.binning import triangle_setup_corners
 from ..ops.clipping import expand_near_clipped
 from ..ops.compact import (Compacted, compact_indices,
@@ -184,7 +193,34 @@ def compute_contact_shadow(world: torch.Tensor, normal: torch.Tensor,
     """Shadow factor in [0, 1] for a row slab at global row y0
     (frag=None), or for any batch with explicit `frag` pixel centres
     (contact.py:215-236); prev_depth is the full previous frame."""
-    depth_packed = quad_pack(prev_depth)
+    cand, _, payload = contact_front(world, normal, uni, prev_depth.shape,
+                                     y0=y0, frag=frag)
+    return contact_march(prev_depth, payload,
+                         mask=cand.reshape(-1)).reshape(cand.shape)
+
+
+def contact_front(world: torch.Tensor, normal: torch.Tensor,
+                  uni: FrameUniforms, depth_shape, valid=None, y0=0,
+                  frag=None, pyr=None):
+    """The per-pixel front of the contact march (contact.py:76-121,
+    197-212 and 496-621): (cand, stage2, payload) with cand = facing & on
+    screen (& valid) over world's batch, stage2 = cand & (intersects |
+    ~cert) given the residual pyramid `pyr` (else None), and payload the
+    (n, 7) rows [march start, march dir, jitter]. The jitter is of `frag`
+    or, without it, of the slab's pixel centres at global row y0. CUDA
+    tensors go to the front kernel K8 (ops/contact_cuda.py), which raises
+    on what it does not take; CPU tensors to the plain twin."""
+    if world.device.type == "cuda":
+        return contact_cuda.contact_front(
+            world, normal, uni.light_dir, uni.proj @ uni.view,
+            uni.debug_flags[3], depth_shape, valid, y0, frag, pyr)
+    return _contact_front_plain(world, normal, uni, depth_shape, valid, y0,
+                                frag, pyr)
+
+
+def _contact_front_plain(world, normal, uni: FrameUniforms, depth_shape,
+                         valid=None, y0=0, frag=None, pyr=None):
+    """contact_front as torch ops: the CPU path and K8's test oracle."""
     march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
                                                            uni)
     if frag is None:
@@ -192,9 +228,89 @@ def compute_contact_shadow(world: torch.Tensor, normal: torch.Tensor,
         jitter = _jitter(h, w, y0, uni.debug_flags[3])
     else:
         jitter = _jitter_at(frag, uni.debug_flags[3])
-    intersected, max_t, last_pen = _march(depth_packed, march_start,
-                                          march_dir, jitter)
-    return _soft_term(intersected & on_screen & facing, max_t, last_pen)
+    cand = facing & on_screen
+    if valid is not None:
+        cand = cand & valid
+    stage2 = (None if pyr is None else
+              contact_classify(pyr, march_start, march_dir, cand,
+                               depth_shape))
+    payload = torch.cat([march_start, march_dir, jitter[..., None]],
+                        dim=-1).reshape(cand.numel(), 7)
+    return cand, stage2, payload
+
+
+def _live(m: int, count, device) -> torch.Tensor:
+    """(m,) bool: the slots before the live count (all without one)."""
+    if count is None:
+        return torch.ones((m,), dtype=torch.bool, device=device)
+    return torch.arange(m, dtype=torch.int32, device=device) < count
+
+
+def contact_certify(pyr, payload: torch.Tensor, depth_shape, idx=None,
+                    count=None) -> torch.Tensor:
+    """Stage-2 certificates (contact.py:590-608) of the rays whose payload
+    rows `idx` (m,) names (every row without it): (m,) bool, true where
+    each in-bounds probe of the 8 lies below the plane bound plus the
+    level-0 box min, and at or past the live `count` (one int32 on the
+    device). CUDA tensors go to K9's certify kernel (ops/contact_cuda.py),
+    which raises on what it does not take; CPU tensors to the plain
+    twin."""
+    if payload.device.type == "cuda":
+        return contact_cuda.contact_certify(pyr, payload, depth_shape, idx,
+                                            count)
+    return _contact_certify_plain(pyr, payload, depth_shape, idx, count)
+
+
+def _contact_certify_plain(pyr, payload, depth_shape, idx=None,
+                           count=None) -> torch.Tensor:
+    """contact_certify as torch ops: the CPU path and K9's test oracle."""
+    rows = payload if idx is None else take_rows(payload, idx.clamp(min=0))
+    cert = _stage2_certify(pyr, rows[:, 0:3], rows[:, 3:6], rows[:, 6],
+                           _size(depth_shape, payload.device))
+    return cert | ~_live(cert.shape[0], count, payload.device)
+
+
+def contact_march(prev_depth: torch.Tensor, payload: torch.Tensor, idx=None,
+                  count=None, mask=None, window=None) -> torch.Tensor:
+    """Contact terms (contact.py:124-194) of the (n, 7) payload's rays as
+    (n,) f32. With `idx` (m,) the slots before the live `count` march the
+    rows they name and write their terms at those pixels of a ones-filled
+    output (scatter_back); without it every ray marches and is lit where
+    `mask` is false. `window` = (origin (2,) int32 [oy, ox], cw) reads the
+    probes through a (cw, cw) window of the depth at that origin. CUDA
+    tensors go to K9's march kernel (ops/contact_cuda.py), which reads
+    prev_depth directly and raises on what it does not take; CPU tensors
+    to the plain twin."""
+    if prev_depth.device.type == "cuda":
+        return contact_cuda.contact_march(prev_depth, payload, idx, count,
+                                          mask, window)
+    return _contact_march_plain(prev_depth, payload, idx, count, mask,
+                                window)
+
+
+def _contact_march_plain(prev_depth, payload, idx=None, count=None,
+                         mask=None, window=None) -> torch.Tensor:
+    """contact_march through quad_pack and the row gathers: the CPU path
+    and K9's test oracle."""
+    depth_packed = quad_pack(prev_depth)
+    rows = payload if idx is None else take_rows(payload, idx.clamp(min=0))
+    win = None
+    if window is not None:
+        origin, cw = window
+        oy, ox = origin[0], origin[1]
+        win = (dynamic_slice(depth_packed, (oy, ox), (cw, cw)), (oy, ox),
+               tuple(prev_depth.shape))
+    inter, max_t, last_pen = _march(depth_packed, rows[:, 0:3], rows[:, 3:6],
+                                    rows[:, 6], win)
+    if idx is None:
+        return _soft_term(inter if mask is None else inter & mask, max_t,
+                          last_pen)
+    live = _live(idx.shape[0], count, payload.device)
+    term = _soft_term(inter & live, max_t, last_pen)
+    ones = torch.ones((payload.shape[0],), dtype=torch.float32,
+                      device=payload.device)
+    return scatter_back(ones, Compacted(idx=idx, slot_valid=live,
+                                        count=count), term)
 
 
 # ---------------------------------------------------------------------------
@@ -461,22 +577,18 @@ def contact_occupancy(world: torch.Tensor, normal: torch.Tensor,
     contact_capacity / contact_march_capacity, and the stage-3 probe
     bbox extent that sizes the committed march window, as a dict of
     device tensors. Pass the frame's `plane` (reference_plane)."""
-    h, w = world.shape[:2]
     size = _size(prev_depth.shape, world.device)
     if plane is None:
         plane = fit_ground_plane(uni.prev_view_proj, prev_depth.shape[1],
                                  prev_depth.shape[0], uni.camera_pos)
     pyr = build_residual_pyramid(prev_depth, plane)
-    march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
-                                                           uni)
-    jitter = _jitter(h, w, y0, uni.debug_flags[3])
-    cand = facing & on_screen
-    if valid is not None:
-        cand = cand & valid
-    stage2 = contact_classify(pyr, march_start, march_dir, cand,
-                              prev_depth.shape)
-    cert2 = _stage2_certify(pyr, march_start, march_dir, jitter, size)
+    _, stage2, payload = contact_front(world, normal, uni, prev_depth.shape,
+                                       valid, y0, pyr=pyr)
+    cert2 = contact_certify(pyr, payload, prev_depth.shape).reshape(
+        stage2.shape)
     st3 = stage2 & ~cert2
+    march_start = payload[:, 0:3].reshape(stage2.shape + (3,))
+    march_dir = payload[:, 3:6].reshape(stage2.shape + (3,))
     p0 = (march_start[..., :2] * 0.5 + 0.5) * size
     p1 = ((march_start[..., :2] + march_dir[..., :2]) * 0.5 + 0.5) * size
     big = float(1 << 28)
@@ -523,24 +635,12 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
     dev = world.device
     size = _size(prev_depth.shape, dev)
 
-    depth_packed = quad_pack(prev_depth)
     if plane is None:
         plane = fit_ground_plane(uni.prev_view_proj, wd, hd, uni.camera_pos)
     pyr = build_residual_pyramid(prev_depth, plane)
-
-    march_start, march_dir, on_screen, facing = _ray_setup(world, normal,
-                                                           uni)
-    if frag is None:
-        h, w = batch
-        jitter = _jitter(h, w, y0, uni.debug_flags[3])
-    else:
-        jitter = _jitter_at(frag, uni.debug_flags[3])
-
-    cand = facing & on_screen
-    if valid is not None:
-        cand = cand & valid
-    stage2 = contact_classify(pyr, march_start, march_dir, cand,
-                              prev_depth.shape)
+    cand, stage2, payload = contact_front(world, normal, uni,
+                                          prev_depth.shape, valid, y0, frag,
+                                          pyr)
 
     blocked = None
     if (block_capacity is not None and stage2.ndim == 2
@@ -551,12 +651,8 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
                                           1, 64, block_capacity)
     comp2 = (blocked.comp if blocked is not None
              else compact_indices(stage2, cap2))
-    payload = torch.cat([march_start, march_dir, jitter[..., None]],
-                        dim=-1).reshape(n, 7)
-    rows2 = gather_rows(payload, comp2)
-    start2, dir2, jit2 = rows2[:, 0:3], rows2[:, 3:6], rows2[:, 6]
-
-    cert2 = _stage2_certify(pyr, start2, dir2, jit2, size)
+    cert2 = contact_certify(pyr, payload, prev_depth.shape, comp2.idx,
+                            comp2.count)
 
     stage3 = comp2.slot_valid & ~cert2
     comp3_local = compact_indices(stage3, cap3)
@@ -571,27 +667,21 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
         fits = fits & (blocked.block_count <= block_capacity)
         occupancy.append((blocked.block_count, block_capacity))
     if committed or host_cond(fits, "contact", occupancy):
-        dense = torch.ones((n,), dtype=torch.float32, device=dev)
-        rows = gather_rows(payload, comp3)
-        start3, dir3, jit3 = rows[:, 0:3], rows[:, 3:6], rows[:, 6]
         window = None
         if committed and march_window is not None \
                 and march_window < min(hd, wd):
             cw = march_window
-            p0 = (start3[:, :2] * 0.5 + 0.5) * size
-            p1 = ((start3[:, :2] + dir3[:, :2]) * 0.5 + 0.5) * size
+            rows = gather_rows(payload, comp3)
+            p0 = (rows[:, 0:2] * 0.5 + 0.5) * size
+            p1 = ((rows[:, 0:2] + rows[:, 3:5]) * 0.5 + 0.5) * size
             big = float(1 << 28)
             v = comp3.slot_valid[:, None]
             lo = torch.clamp(torch.where(v, torch.minimum(p0, p1), big)
                              .amin(0) - FOOT - 1.0, max=big)
             oy = to_i32(lo[1]).clamp(0, hd - cw)
             ox = to_i32(lo[0]).clamp(0, wd - cw)
-            window = (dynamic_slice(depth_packed, (oy, ox), (cw, cw)),
-                      (oy, ox), (hd, wd))
-        inter, max_t, last_pen = _march(depth_packed, start3, dir3, jit3,
-                                        window)
-        term = _soft_term(inter & comp3.slot_valid, max_t, last_pen)
-        return scatter_back(dense, comp3, term).reshape(batch)
-    inter, max_t, last_pen = _march(depth_packed, march_start, march_dir,
-                                    jitter)
-    return _soft_term(inter & cand, max_t, last_pen)
+            window = (torch.stack([oy, ox]), cw)
+        return contact_march(prev_depth, payload, comp3.idx, comp3.count,
+                             window=window).reshape(batch)
+    return contact_march(prev_depth, payload,
+                         mask=cand.reshape(-1)).reshape(batch)

@@ -8,7 +8,9 @@ against an analytic per-cascade ground plane. `classify` turns these
 into two conservative certificates per pixel: LIT (every tap of the exact
 filter passes, m1 = m2 = 1) and UMBRA (every tap is shadowed, m1 = m2 =
 0). The soundness argument is in the JAX module's docstring; the port
-keeps its arithmetic and association op for op.
+keeps its arithmetic and association op for op. On the card the cell rows
+come from the class-map kernel K10 (ops/class_maps_cuda.py, `_class_rows`),
+equal to the plain twin `_class_rows_plain` bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..math3d import f32
+from ..ops import class_maps_cuda
 from ..ops.sampling import take_rows, to_i32
 
 BORDER_DEPTH = 1.0
@@ -145,54 +148,85 @@ def build_class_maps(shadow_maps: torch.Tensor, coarse: int = 8,
     (shadow_classify.py:199-275). `planes` None = zero planes."""
     l, s, _ = shadow_maps.shape
     assert (s // coarse) * coarse == s
-    uw = rise_window(max_softness)
     assert DROP_LADDER[-1] >= math.ceil(4.0 * max_softness + FOOT_MARGIN), \
         "drop ladder must cover the max PCSS penumbra"
     assert DROP_LADDER[_lw_rung(max_softness)] >= blocker_window(
         max_softness)
-
-    # Smallest rung: exact full-resolution dilation.
-    r0 = DROP_LADDER[0]
-    mins0 = _dilate_exact(shadow_maps, r0, torch.minimum, BORDER_DEPTH)
-    drops = {r0: _cell_max(shadow_maps - mins0[r0], coarse)}
-
-    if coarse % 2 == 0 and s % 2 == 0:
-        # Larger rungs and the rise window on 2x2-pooled hi/lo maps:
-        # conservative (bounds only loosen), never unsound.
-        d_hi, d_lo = _pool2(shadow_maps)
-        ch = coarse // 2
-        half_rungs = [(r, (r + 1) // 2) for r in DROP_LADDER[1:]]
-        min2 = _dilate_exact(d_lo, half_rungs[-1][1], torch.minimum,
-                             BORDER_DEPTH,
-                             collect_at=[hr for _, hr in half_rungs])
-        for r, hr in half_rungs:
-            drops[r] = _cell_max(d_hi - min2[hr], ch)
-        ru = (uw + 1) // 2
-        max2 = _dilate_exact(d_hi, ru, torch.maximum, BORDER_DEPTH)
-        rise = _cell_max(max2[ru] - d_lo, ch)
-    else:
-        mins = _dilate_exact(shadow_maps, DROP_LADDER[-1], torch.minimum,
-                             BORDER_DEPTH, collect_at=DROP_LADDER)
-        drops = {r: _cell_max(shadow_maps - mins[r], coarse)
-                 for r in DROP_LADDER}
-        maxs = _dilate_exact(shadow_maps, uw, torch.maximum, BORDER_DEPTH)
-        rise = _cell_max(maxs[uw] - shadow_maps, coarse)
-
     if planes is None:
         planes = torch.zeros((l, 3), dtype=torch.float32,
                              device=shadow_maps.device)
-    resid = shadow_maps - _plane_at_texels(planes, s)
     # f32 slack for the plane evaluation here and in classify()
-    eps = (planes.abs().sum(dim=-1) * 4e-7 + 2e-7)[:, None, None]
+    eps = planes.abs().sum(dim=-1) * 4e-7 + 2e-7
+    return ShadowClassMaps(
+        cell_rows=_class_rows(shadow_maps, coarse, max_softness, planes,
+                              eps),
+        planes=planes, size=s, coarse=coarse, max_softness=max_softness)
+
+
+def _class_rows(shadow_maps, coarse: int, max_softness: float, planes,
+                eps) -> torch.Tensor:
+    """(L * Sc * Sc, K+3) cell rows [drop ladder, rise, min_resid,
+    max_resid] of the raw cascades. CUDA maps go to the class-map kernel
+    K10 (ops/class_maps_cuda.py), which raises on what it does not take;
+    CPU maps to the plain twin."""
+    if shadow_maps.device.type == "cuda":
+        return class_maps_cuda.class_rows(shadow_maps, coarse,
+                                          rise_window(max_softness), planes,
+                                          eps)
+    return _class_rows_plain(shadow_maps, coarse, max_softness, planes, eps)
+
+
+def _class_rows_plain(shadow_maps, coarse: int, max_softness: float, planes,
+                      eps) -> torch.Tensor:
+    """_class_rows by composed shifts, pools and cell maxima
+    (shadow_classify.py:205-275): the CPU path and K10's test oracle.
+    The maps are taken plus 0.0 first: torch's minimum and maximum pick a
+    tie of -0 and +0 by operand order (and on the CPU by vector width), so
+    with no -0 in the map every tie is between equal bits and the rows do
+    not depend on the order of the reductions. Nothing downstream tells
+    the two zeros apart (classify only compares these values)."""
+    shadow_maps = shadow_maps + 0.0
+    l, s, _ = shadow_maps.shape
+    ladder = (_ladder_pooled if coarse % 2 == 0 and s % 2 == 0
+              else _ladder_full)
+    columns = ladder(shadow_maps, coarse, rise_window(max_softness))
+    resid = shadow_maps - _plane_at_texels(planes, s)
+    eps = eps[:, None, None]
     min_resid = -_cell_max(-(resid - eps), coarse)
     max_resid = _cell_max(resid + eps, coarse)
 
-    cell = torch.stack([drops[r] for r in DROP_LADDER]
-                       + [rise, min_resid, max_resid], dim=-1)
+    cell = torch.stack(columns + [min_resid, max_resid], dim=-1)
     sc = s // coarse
-    return ShadowClassMaps(
-        cell_rows=cell.reshape(l * sc * sc, len(DROP_LADDER) + 3),
-        planes=planes, size=s, coarse=coarse, max_softness=max_softness)
+    return cell.reshape(l * sc * sc, len(DROP_LADDER) + 3)
+
+
+def _ladder_pooled(x: torch.Tensor, coarse: int, uw: int) -> list:
+    """The drop ladder and the rise per cell, [(L, Sc, Sc)] * 6, with the
+    smallest rung at full resolution and the larger rungs and the rise
+    window on 2x2-pooled hi/lo maps: conservative (bounds only loosen),
+    never unsound (shadow_classify.py:221-250)."""
+    r0 = DROP_LADDER[0]
+    mins0 = _dilate_exact(x, r0, torch.minimum, BORDER_DEPTH)
+    drops = [_cell_max(x - mins0[r0], coarse)]
+    d_hi, d_lo = _pool2(x)
+    ch = coarse // 2
+    half_rungs = [(r, (r + 1) // 2) for r in DROP_LADDER[1:]]
+    min2 = _dilate_exact(d_lo, half_rungs[-1][1], torch.minimum,
+                         BORDER_DEPTH, collect_at=[hr for _, hr in half_rungs])
+    drops += [_cell_max(d_hi - min2[hr], ch) for _, hr in half_rungs]
+    ru = (uw + 1) // 2
+    max2 = _dilate_exact(d_hi, ru, torch.maximum, BORDER_DEPTH)
+    return drops + [_cell_max(max2[ru] - d_lo, ch)]
+
+
+def _ladder_full(x: torch.Tensor, coarse: int, uw: int) -> list:
+    """_ladder_pooled at full resolution throughout, for an odd `coarse`
+    or S (shadow_classify.py:251-258)."""
+    mins = _dilate_exact(x, DROP_LADDER[-1], torch.minimum, BORDER_DEPTH,
+                         collect_at=DROP_LADDER)
+    maxs = _dilate_exact(x, uw, torch.maximum, BORDER_DEPTH)
+    return ([_cell_max(x - mins[r], coarse) for r in DROP_LADDER]
+            + [_cell_max(maxs[uw] - x, coarse)])
 
 
 def classify(cmaps: ShadowClassMaps, layer: torch.Tensor, uv: torch.Tensor,

@@ -28,8 +28,10 @@ to the ranges that were open on the host when it was launched: each
 stage's device ms with the stages nested in it and without them. The
 shadow filter's parts are stages nested in it: its tap sets (`_pcss_taps`,
 `_pcf_taps`), its per-group pair histogram (`_group_counts`), and its
-pair gathers and scatters (`gather_rows`, `scatter_back`). Writes the profiler's chrome trace
-to the path given, if any. With `--graph` (a committed configuration,
+pair gathers and scatters (`gather_rows`, `scatter_back`). So are the
+contact stage's: its residual pyramid, front, stage-2 compaction,
+certificate, stage-3 compaction, payload gathers and march (NESTED).
+Writes the profiler's chrome trace to the path given, if any. With `--graph` (a committed configuration,
 whose frame frame.compiled_gltf_frame records as a CUDA graph)
 it then times 8 chained replays and profiles one: the device's own kernel
 times with the host's launches out of the way, summed by kernel name from
@@ -137,6 +139,35 @@ NESTED = (
     ("shadow_filter", "_group_counts", "pair histogram"),
     ("shadow_filter", "gather_rows", "filter gather_rows"),
     ("shadow_filter", "scatter_back", "filter scatter_back"),
+) + (
+    # Parts of the contact stage: its residual pyramid, the front (the ray
+    # setup, jitter and segment certificate: K8 where the package has
+    # contact_front, else _ray_setup, _jitter_at and contact_classify),
+    # the stage-2 and stage-3 compactions (compact_indices_blocked for a
+    # blocked stage 2, compact_indices for stage 3 and an unblocked stage
+    # 2), the certificate (K9's certify, else _stage2_certify), the
+    # payload gathers (without K9 the stage-2 and stage-3 rows; with it,
+    # the march window's rows), and the march (K9's march, else
+    # quad_pack, _march, _soft_term and scatter_back; contact.quad_pack
+    # also packs the pyramid's level-0 map inside build_residual_pyramid,
+    # a few us, charged here in both). A part whose function the package
+    # lacks is skipped, so one list serves a checkout with the kernels and
+    # one without.
+    ("contact", "build_residual_pyramid", "contact pyramid"),
+    ("contact", "contact_front", "contact front"),
+    ("contact", "_ray_setup", "contact front"),
+    ("contact", "_jitter_at", "contact front"),
+    ("contact", "contact_classify", "contact front"),
+    ("contact", "compact_indices_blocked", "contact stage-2 compaction"),
+    ("contact", "compact_indices", "contact stage-3 compaction"),
+    ("contact", "contact_certify", "contact certify"),
+    ("contact", "_stage2_certify", "contact certify"),
+    ("contact", "gather_rows", "contact gather_rows"),
+    ("contact", "contact_march", "contact march"),
+    ("contact", "quad_pack", "contact march"),
+    ("contact", "_march", "contact march"),
+    ("contact", "_soft_term", "contact march"),
+    ("contact", "scatter_back", "contact march"),
 )
 NESTED_LABELS = {label for _, _, label in NESTED}
 RANGE = "stage: "
@@ -172,6 +203,8 @@ def wrapped_stages(stages, wrap):
                 shadow_lightspace=shadow_lightspace)
     saved = []
     for mod, attr, label in stages:
+        if not hasattr(mods[mod], attr):
+            continue
         fn = getattr(mods[mod], attr)
         saved.append((mods[mod], attr, fn))
         setattr(mods[mod], attr, wrap(fn, label))
@@ -313,8 +346,8 @@ def main() -> None:
             print(f"stage {label:24s} not run", flush=True)
             continue
         m = statistics.median(v[1:])
-        nest = "  (nested in the shadow filter)" if label in NESTED_LABELS \
-            else ""
+        nest = "  (nested in the shadow filter or contact)" \
+            if label in NESTED_LABELS else ""
         print(f"stage {label:24s} {m:10.3f} ms  {m / total:6.1%}  "
               f"({len(v)} calls){nest}", flush=True)
     compact.reset_host_syncs()
@@ -349,7 +382,9 @@ def main() -> None:
           f"{sum(e.count for e in k3)} launches; aten::index {index_ms:.3f} "
           f"ms device time over {sum(e.count for e in index)} calls [{gpu}]",
           flush=True)
-    for kernel, word in (("K6", "pair_taps"), ("K7", "group_counts")):
+    for kernel, word in (("K6", "pair_taps"), ("K7", "group_counts"),
+                         ("K8", "contact_front"), ("K9", "contact_certify"),
+                         ("K9", "contact_march"), ("K10", "class_maps")):
         rows = [e for e in dev_rows if word in e.key]
         print(f"profiled frame: {kernel} {word} "
               f"{sum(e.self_device_time_total for e in rows) / 1e3:.4f} ms "

@@ -191,7 +191,9 @@ def test_dryrun_multichip_over_gloo(dryruns, n):
         entry.dryrun_config(n, entry.PERF_FLAGS), 2))
     assert out["launches"] == {"raster_table": 0, "raster_padded": 0,
                                "row_gather": 0, "light_map": 0,
-                               "pair_taps": 0, "group_counts": 0}
+                               "pair_taps": 0, "group_counts": 0,
+                               "contact_front": 0, "contact_certify": 0,
+                               "contact_march": 0, "class_maps": 0}
 
 
 def gate_frac(got, want) -> float:

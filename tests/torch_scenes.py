@@ -470,3 +470,32 @@ def pair_taps_case(seed: int, n: int, size: int, layers: int = 4,
     return (depth.astype(np.float32), uv.astype(np.float32),
             layer.astype(np.int32), recv.astype(np.float32),
             phi.astype(np.float32))
+
+
+def relief_maps(seed, l, s):
+    """Class-map inputs (L, S, S) f32 in [0, 1] with what the kernel's
+    edges meet: a random relief, blocks at BORDER_DEPTH = 1.0 (some on the
+    map's edge), a checkerboard of -0 and +0, runs of one value along rows
+    and columns, an occluder step, zeros at the corners."""
+    rng = np.random.default_rng(seed)
+    maps = (0.4 + 0.5 * rng.random((l, s, s))).astype(np.float32)
+    q = max(s // 8, 2)
+    maps[:, :q, -q:] = np.float32(1.0)
+    maps[:, 2 * q:3 * q, q:2 * q] = np.float32(1.0)
+    z = maps[:, 3 * q:4 * q, 3 * q:4 * q]
+    z[...] = 0.0
+    z[:, ::2, ::2] = -0.0
+    z[:, 1::2, 1::2] = -0.0
+    maps[:, 5 * q, :] = np.float32(0.625)
+    maps[:, :, 5 * q] = np.float32(0.3125)
+    maps[:, 6 * q:, 6 * q:] -= np.float32(0.25)
+    maps[:, 0, 0] = -0.0
+    maps[:, -1, -1] = 0.0
+    return maps
+
+
+def random_planes(seed, l):
+    """(L, 3) f32 uv-space depth planes: small slopes about 0.5."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((l, 3)) * np.asarray([0.05, 0.05, 0.4])
+            + np.asarray([0.0, 0.0, 0.5])).astype(np.float32)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the debug panel and its raster (K4), the light-space ground light
-maps (K5), the shadow filter's tap sets (K6) and its pair histogram (K7)
-of the port (funky_tpu_torch) on one NVIDIA GPU, in this checkout or
-another one:
+maps (K5), the shadow filter's tap sets (K6) and its pair histogram (K7),
+the class maps (K10) and the contact stage (K8, K9) of the port
+(funky_tpu_torch) on one NVIDIA GPU, in this checkout or another one:
 
     python3 time_passes.py [--tree PATH] [--skip-panel]
 
@@ -35,6 +35,13 @@ on chip_smoke.py's multimesh scene:
   wrapper, device ms behind a sleep, and, where the checkout's wrapper
   has a grid cap (group_counts_cuda.BLOCKS_PER_SM), the same at every
   cap of BLOCKS_PER_SM, patched into the module;
+- the same eager frame's class-map build (frame.build_class_maps) and
+  contact stage (contact.compute_contact_shadow_sparse), each recorded
+  and replayed by device ms behind a sleep: K10 and K8 + K9 with the
+  torch around them where the checkout has them (contact.contact_front),
+  the jnp ports before; and there each kernel's dispatcher (K8
+  contact_front, K9 contact_certify and contact_march, K10
+  shadow_classify._class_rows) on its recorded calls alone;
 - the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
   calls of one frame, timed as above, and, where the checkout picks a
   lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
@@ -231,6 +238,39 @@ def lanes_by_entries(cs, call, live: int) -> dict:
     return out
 
 
+def stages_report(cs, one_frame, cfg) -> dict:
+    """The class-map build and the contact stage of one eager frame of
+    `cfg`, and each K8-K10 dispatcher's calls where the checkout has
+    them: device ms behind a sleep (the jnp ports' thousands of launches
+    fit in it)."""
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.passes import contact, shadow_classify
+
+    def timed(calls, fn):
+        def run():
+            for a, kw in calls:
+                fn(*a, **kw)
+        return cs.device_ms(run, iters=5, sleep_cycles=SLEEP)
+
+    out = {}
+    for key, module, name in (
+            ("class_maps_stage", frame, "build_class_maps"),
+            ("contact_stage", contact, "compute_contact_shadow_sparse")):
+        calls = one_frame(cfg, module, name)
+        out[key] = {"calls": len(calls),
+                    "ms": timed(calls, getattr(module, name))}
+    for key, module, name in (
+            ("K8 contact_front", contact, "contact_front"),
+            ("K9 contact_certify", contact, "contact_certify"),
+            ("K9 contact_march", contact, "contact_march"),
+            ("K10 class_maps", shadow_classify, "_class_rows")):
+        if hasattr(module, name):
+            calls = one_frame(cfg, module, name)
+            out[key] = {"calls": len(calls),
+                        "ms": timed(calls, getattr(module, name))}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).parent))
@@ -305,6 +345,7 @@ def main() -> None:
     out["k6_shipped"] = taps_report(cs, ship_calls)
     out["k7_shipped"] = k7_report(cs, one_frame(cfg, group_counts_cuda,
                                                 "group_counts"))
+    out["stages_shipped"] = stages_report(cs, one_frame, cfg)
 
     # the dense frame's K6 calls
     dense = cs.dense_config(cs.WIDTH, cs.HEIGHT, cs.SHADOW, "auto")
@@ -325,6 +366,7 @@ def main() -> None:
     out["tune_s"] = tune_s
     out["windows"] = list(cfg.effective_light_windows())
     replays(cfg, "lightspace")
+    out["stages_lightspace"] = stages_report(cs, one_frame, cfg)
     eager = cs.run_frames(scene, poses, cfg, dev)
     out["k3_per_eager_frame"] = eager["k3"]
 
