@@ -204,7 +204,10 @@ _class_rows_plain) bit for bit as it returns (checked_stages, the twin
 with the plain row gather), as many calls as the run launched, a call
 made while a CUDA graph captures counted apart. Each of the four is timed
 on one shipped and one dense frame's calls beside its twin (a replayed
-graph) and its bound on this run's data.
+graph) and its bound on this run's data. K10 is also held against its twin
+at every tile of K10_TILES on the shipped maps with NaN, +/-inf and
+BORDER_DEPTH marks, and K8 on the shipped call's rows re-laid in memory
+(phase_stage_cases).
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -1167,8 +1170,9 @@ def phase_shipped(dev, gltf, scene, params):
     calls = frame_filter_calls(scene, poses[-1], cfg, dev)
     FILTER_TIMES["shipped"] = time_pair_taps(calls)
     FILTER_TIMES["histogram"] = time_group_counts(calls)
-    STAGE_TIMES["shipped"] = time_stage_kernels(frame_stage_calls(
-        scene, poses[-1], cfg, dev))
+    calls = frame_stage_calls(scene, poses[-1], cfg, dev)
+    STAGE_TIMES["shipped"] = time_stage_kernels(calls)
+    phase_stage_cases(dev, calls)
     return counts["raster_table"], err, cfg, crun["k3"]
 
 
@@ -2633,6 +2637,99 @@ def phase_filter_cases(dev) -> None:
             getattr(shadow_filter, name)(*args, **kw)
 
     verify_filter("K6 / K7 synthetic cases", run)
+
+
+def phase_stage_cases(dev, calls) -> None:
+    """K10 and K8 against their twins bit for bit where the frames do not
+    take them (these launches are the script's own, outside the main
+    paths' counts). K10 on the shipped frame's four maps with NaN, +/-inf
+    and BORDER_DEPTH runs written in (tests/torch_scenes.py::
+    special_maps' marks) at coarse 16 and 8, each at the wrapper's tile
+    and at every other tile of K10_TILES, forced by replacing tile_cells,
+    and the unpooled branch on 2 x 250^2 special maps at coarse 5; K8 on
+    the shipped frame's front call with its rows re-laid (contiguous (n,
+    3) rows 4 bytes off a 16-byte boundary, rows of 20 floats) and cut to
+    a pixel count inside a block."""
+    import torch
+
+    from funky_tpu_torch.ops import class_maps_cuda
+    from funky_tpu_torch.passes import contact, shadow_classify
+    from tests.torch_scenes import random_planes, special_maps
+
+    (_, cargs, ckw), = [c for c in calls if c[0] == "_class_rows"]
+    a = _stage_args("_class_rows", cargs, ckw)
+    maps = a["shadow_maps"].clone()
+    l, s, _ = maps.shape
+    marks = torch.from_numpy(special_maps(7, l, 256)).to(dev)
+    maps[:, :256, :256] = marks
+    maps[:, -256:, -256:] = marks
+    planes, eps, soft = a["planes"], a["eps"], a["max_softness"]
+    cases = [(maps, coarse, soft, planes, eps) for coarse in (16, 8)]
+    small = torch.from_numpy(special_maps(8, 2, 250)).to(dev)
+    small_planes = torch.from_numpy(random_planes(8, 2)).to(dev)
+    cases.append((small, 5, soft, small_planes,
+                  small_planes.abs().sum(dim=-1) * 4e-7 + 2e-7))
+    n_k10 = 0
+    for m, coarse, soft_, pl, ep in cases:
+        want = shadow_classify._class_rows_plain(m, coarse, soft_, pl, ep)
+        uw = shadow_classify.rise_window(soft_)
+        pooled = class_maps_cuda.pooled_branch(m.shape[1], coarse)
+        own = class_maps_cuda.tile_cells(
+            m.shape[1], coarse, pooled,
+            class_maps_cuda.rise_reach(m.shape[1], coarse, uw))
+        for tc in sorted({own, *K10_TILES.get(coarse, ())}):
+            inner = class_maps_cuda.tile_cells
+            class_maps_cuda.tile_cells = lambda *_, tc=tc: tc
+            try:
+                got = class_maps_cuda.class_rows(m, coarse, uw, pl, ep)
+            finally:
+                class_maps_cuda.tile_cells = inner
+            check(bits_equal(got, want), f"K10 at coarse {coarse}, tile "
+                  f"{tc}, on special maps {tuple(m.shape)} differs from "
+                  f"its plain twin")
+            n_k10 += 1
+    (_, fargs, fkw), = [c for c in calls if c[0] == "contact_front"]
+    f = _stage_args("contact_front", fargs, fkw)
+    world, normal = f["world"].reshape(-1, 3), f["normal"].reshape(-1, 3)
+    n = world.shape[0] - 37
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frag, valid = f["frag"], f["valid"]
+    if frag is None:     # a slab's pixel centres at its first row y0
+        rows, width = f["world"].shape[:2]
+        y0 = float(f["y0"])
+        fy, fx = torch.meshgrid(torch.arange(rows, device=dev) + 0.5 + y0,
+                                torch.arange(width, device=dev) + 0.5,
+                                indexing="ij")
+        frag = torch.stack([fx, fy], dim=-1).float()
+    if valid is None:
+        valid = torch.rand(world.shape[0], generator=gen, device=dev) < 0.9
+    rest = dict(uni=f["uni"], depth_shape=f["depth_shape"],
+                valid=valid.reshape(-1)[:n], pyr=f["pyr"],
+                frag=frag.reshape(-1, 2)[:n])
+
+    def laid(t, width, offset, at):
+        buf = torch.rand((n * width + offset,), generator=gen,
+                         device=dev)[offset:].view(n, width)
+        buf[:, at:at + t.shape[1]] = t[:n]
+        return buf[:, at:at + t.shape[1]]
+
+    layouts = {"frame rows": (world[:n], normal[:n]),
+               "unaligned (n, 3)": (laid(world, 3, 1, 0),
+                                    laid(normal, 3, 2, 0)),
+               "20-float rows": (laid(world, 20, 0, 5),
+                                 laid(normal, 20, 0, 12))}
+    for name, (w, nn) in layouts.items():
+        ok, _ = _stage_equal(contact.contact_front(w, nn, **rest),
+                             contact._contact_front_plain(w, nn, **rest))
+        check(ok, f"K8 on {name} differs from its plain twin")
+    sync(dev)
+    say(f"K10 == its plain twin bit for bit on {n_k10} special-map calls "
+        f"(coarse 16, 8 and 5, every tile of {K10_TILES}); K8 == its twin "
+        f"on {n} pixels laid out as {list(layouts)}")
+
+
+# K10's tiles (cells a side) held against the twin at each coarse.
+K10_TILES = {16: (2, 3, 4, 6), 8: (4, 6, 8, 12)}
 
 
 def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):

@@ -47,11 +47,19 @@
 // contraction), and min / max / clamp propagate NaN as torch's do, so the
 // outputs equal the twins' bit for bit.
 //
-// What bounds them on this card: K8 the bytes (a pixel's world, normal
-// and frag, 32 B, in; its payload and masks, 30 B, out: ~0.04 ms at
-// 1080p), K9 the dependent reads of each probe (8 + 4 row reads in a
-// chain per marched ray; ~0.001 ms of bytes for the shipped frame's few
-// thousand survivors). One thread per pixel or slot, with the ray's 7
+// What bounds them on this card: K8 its arithmetic and latency more than
+// its bytes (a pixel's world, normal and frag, 32 B, in; its payload and
+// masks, 30 B, out: ~0.026 ms at the shipped frame's 1,382,400 pixels;
+// per pixel two projections, ten correctly rounded divides, two fmod and
+// the segment certificate's two intervals). Staging a block's 11-float
+// attribute rows in shared memory with 16-byte loads and writing its
+// payload and masks through shared memory as 16-byte and 4-byte stores
+// (1, 2 or 4 pixels a thread) took 0.084-0.116 ms against this kernel's
+// 0.055 ms on that frame (H100): the barriers and shared-memory traffic
+// cost more than the rows' unused bytes. K9 the dependent reads of each
+// probe (8 + 4 row reads in a chain per marched ray; ~0.001 ms of bytes
+// for the shipped frame's few thousand survivors). One thread per pixel
+// or slot, with the ray's 7
 // floats in registers and nothing staged: the certificate stops at its
 // first failed probe, the march skips the linear probes after a hit and
 // does no bisection without one, and a slot past the live count, read on

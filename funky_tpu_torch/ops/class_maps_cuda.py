@@ -5,15 +5,18 @@ _class_rows.
 K10 replaces the JAX package's jnp pass funky_tpu/passes/
 shadow_classify.py::build_class_maps (:199-275), which XLA fuses on the
 TPU: one block per tile of `tile_cells` x `tile_cells` cells of one
-cascade stages the tile's haloed window in shared memory (BORDER_DEPTH
-outside the map, the 2x2 pools made on the fly), takes every rung's
-square min and the rise window's max as separable row and column passes,
-and writes the cells' rows of [drop ladder (5), rise, min_resid,
-max_resid]. The cascade planes and the residual slack `eps` are read from
-device memory, so no value is read on the host and a committed frame
-still records as a CUDA graph. `class_rows` launches the kernel or raises
-(`check_args` names the argument); the pass above it takes the plain
-twin for a CPU map.
+cascade stages its haloed window once (BORDER_DEPTH outside the map, the
+2x2 pools made on the fly) and takes the ladder as one chain of 1-D
+passes alternating between the columns and the rows, each finishing one
+rung's square min with a 3-tap step and starting the next (3 -> 6 -> 10
+-> 17 on the pooled maps), each thread a run of RUN outputs in
+registers, over the part of the window the later passes need; the
+rise's max likewise. It writes the cells' rows of [drop
+ladder (5), rise, min_resid, max_resid]. The cascade planes and the
+residual slack `eps` are read from device memory, so no value is read on
+the host and a committed frame still records as a CUDA graph.
+`class_rows` launches the kernel or raises (`check_args` names the
+argument); the pass above it takes the plain twin for a CPU map.
 """
 
 from __future__ import annotations
@@ -35,11 +38,15 @@ HALF_REACHES = (3, 6, 10, 17)
 ROW = 8   # floats per cell row
 
 # Shared memory a block may hold on sm_90 (227 KB), and the most a tile
-# choice aims at: two blocks per SM.
+# choice aims at: three blocks per SM (each also takes 1 KB of the SM's
+# 228 KB).
 MAX_SMEM = 232448
-TARGET_SMEM = 113 * 1024
+TARGET_SMEM = (233472 - 3 * 1024) // 3
 # Fine texels per tile side the tile choice starts from.
 TILE_TEXELS = 64
+# csrc/class_maps.cu's RUN: outputs per thread along a pass, and the rows
+# each window buffer holds past the window for a pass's last run.
+RUN = 8
 
 _FN = None
 
@@ -62,32 +69,59 @@ def _launcher():
     return _FN
 
 
-def _stage_floats(tc: int, cell: int, halo: int, nk: int, rise: int,
-                  pooled: bool, resid: bool) -> int:
-    """csrc/class_maps.cu's Layout(...).total for one stage."""
+def window(tc: int, cell: int, halo: int, pooled: bool) -> tuple:
+    """(core P, side, floats) of one window buffer of a stage
+    (csrc/class_maps.cu's geo): the tile's P x P core with `halo` texels
+    around it, (side + RUN) rows of the pass buffers' odd pitch (the
+    pooled stage) or of the staged fine window's 16-byte pitch (the fine
+    stages), rounded up to 4 floats."""
     p = tc * cell
     side = p + 2 * halo
-    nv = nk + (1 if rise else 0) + (2 if resid else 0)
-    return (side * side * (2 if pooled else 1) + nk * side * p
-            + (side * p if rise else 0) + nv * p * p + nv * tc * tc * cell)
+    pitch = side | 1 if pooled else (side + 6) & ~3
+    return p, side, ((side + RUN) * pitch + 3) & ~3
+
+
+def lane_cells(cell: int) -> bool:
+    """csrc/class_maps.cu's lane_cells: a cell's maxima are taken across
+    the lanes of a warp (cell a power of two up to 32), with no partials
+    in shared memory."""
+    return cell <= 32 and cell & (cell - 1) == 0
 
 
 def smem_bytes(coarse: int, pooled: bool, rise: int, tc: int) -> int:
-    """Shared memory of one block (csrc/class_maps.cu's class_maps_smem)."""
+    """Shared memory of one block (csrc/class_maps.cu's class_maps_smem):
+    the tile's rows, the larger stage's per-cell partials (one per column
+    it writes, tc x P each, where its cells are not lane_cells) and
+    buffers (its windows, its core planes of P
+    x (P + 1): one for the pooled branch's lone full-resolution rung, two
+    elsewhere; and the pooled stage's hi core)."""
+    def cores(p):
+        return 2 * p * (p + 1)
+
+    def part_of(nv, cell, p):    # none where a cell's lanes reduce it
+        return 0 if lane_cells(cell) else nv * tc * p
+
     if pooled:
-        fine = _stage_floats(tc, coarse, LADDER[0], 1, 0, False, True)
-        half = _stage_floats(tc, coarse // 2, max(HALF_REACHES[-1], rise),
-                             len(HALF_REACHES), rise, True, False)
-        return 4 * max(fine, half)
-    return 4 * _stage_floats(tc, coarse, max(LADDER[-1], rise), len(LADDER),
-                             rise, False, True)
+        fine = window(tc, coarse, LADDER[0], False)
+        half = window(tc, coarse // 2, max(HALF_REACHES[-1], rise), True)
+        part = max(part_of(3, coarse, fine[0]),
+                   part_of(5, coarse // 2, half[0]))
+        bufs = max(2 * fine[2] + cores(fine[0]) // 2,
+                   3 * half[2] + cores(half[0]) + half[0] ** 2)
+    else:
+        full = window(tc, coarse, max(LADDER[-1], rise), False)
+        part = part_of(8, coarse, full[0])
+        bufs = 3 * full[2] + cores(full[0])
+    part = (part + 3) & ~3
+    return 4 * (tc * tc * ROW + part + bufs)
 
 
 def tile_cells(s: int, coarse: int, pooled: bool, rise: int) -> int:
     """Cells per tile side: TILE_TEXELS fine texels' worth (at least one
     cell, at most the map's cells), halved until a block fits in
-    TARGET_SMEM (two blocks per SM; 4 on the shipped frame's coarse 16, 8
-    at coarse 8)."""
+    TARGET_SMEM (4 on the shipped frame's coarse 16, 8 at coarse 8: a
+    32-texel pooled core under the 17-texel halo, three blocks per
+    SM)."""
     tc = max(1, min(TILE_TEXELS // coarse, s // coarse))
     while tc > 1 and smem_bytes(coarse, pooled, rise, tc) > TARGET_SMEM:
         tc //= 2

@@ -16,7 +16,7 @@ import torch
 
 from funky_tpu_torch.ops import class_maps_cuda
 from funky_tpu_torch.passes import shadow_classify as tcls
-from tests.torch_scenes import random_planes, relief_maps
+from tests.torch_scenes import random_planes, relief_maps, special_maps
 
 pytestmark = pytest.mark.cuda
 
@@ -97,10 +97,13 @@ def test_strided_planes_and_offset_maps(dev):
 
 
 @pytest.mark.parametrize("coarse,tc", [(16, 1), (16, 2), (16, 3), (8, 8),
-                                       (8, 5)])
+                                       (8, 5), (16, 4), (16, 6), (8, 4),
+                                       (8, 12)])
 def test_every_tile_size(dev, coarse, tc, monkeypatch):
-    """K10 at tiles of 1, 2, 3 and 8 cells, and 5 (a ragged last tile),
-    forced by replacing tile_cells: the rows do not depend on the tile."""
+    """K10 at tiles of 1, 2, 3, 4 (the wrapper's) and 6 cells at coarse
+    16, 4 and 8 (the wrapper's) at coarse 8, and 5 and 12 (a ragged last
+    tile), forced by replacing tile_cells: the rows do not depend on the
+    tile."""
     maps = torch.from_numpy(relief_maps(9, 2, 512)).to(dev)
     planes = torch.from_numpy(random_planes(9, 2)).to(dev)
     eps = planes.abs().sum(dim=-1) * 4e-7 + 2e-7
@@ -126,3 +129,57 @@ def test_graph_replay(dev):
     torch.cuda.synchronize()
     assert rows_equal(out, tcls._class_rows_plain(maps, 16, 4.0, planes,
                                                   eps))
+
+
+# The maps of the frames and the tests (L, S, coarse), each at the
+# wrapper's tile and at a forced one that leaves a ragged last tile (or,
+# where the map has fewer cells, a tile larger than the map).
+SPECIAL_SHAPES = [(4, 2048, 16), (4, 2048, 8), (2, 1024, 16), (2, 256, 8),
+                  (2, 96, 16), (2, 250, 5), (1, 16, 8)]
+
+
+@pytest.mark.parametrize("l,s,coarse", SPECIAL_SHAPES, ids=str)
+@pytest.mark.parametrize("tiles", ["wrapper", "forced"])
+def test_special_maps(dev, l, s, coarse, tiles, monkeypatch):
+    """Maps holding NaN, +inf and -inf texels and runs, -0, and long
+    BORDER_DEPTH runs (tests/torch_scenes.py::special_maps): K10 == the
+    twin bit for bit (every NaN the canonical one on both), at the
+    wrapper's tile and at a forced odd one."""
+    maps = torch.from_numpy(special_maps(s + coarse, l, s)).to(dev)
+    planes = torch.from_numpy(random_planes(s, l)).to(dev)
+    eps = planes.abs().sum(dim=-1) * 4e-7 + 2e-7
+    want = tcls._class_rows_plain(maps, coarse, 4.0, planes, eps)
+    if tiles == "forced":
+        pooled = class_maps_cuda.pooled_branch(s, coarse)
+        tc = class_maps_cuda.tile_cells(
+            s, coarse, pooled, class_maps_cuda.rise_reach(s, coarse, 18))
+        forced = tc // 2 + 1 if tc > 2 else tc + 1
+        monkeypatch.setattr(class_maps_cuda, "tile_cells",
+                            lambda *a: forced)
+    before = class_maps_cuda.LAUNCHES
+    got = class_maps_cuda.class_rows(maps, coarse, 18, planes, eps)
+    torch.cuda.synchronize()
+    assert class_maps_cuda.LAUNCHES - before == 1
+    assert torch.isnan(want).any()
+    assert rows_equal(got, want)
+
+
+@pytest.mark.parametrize("coarse,softness", [(8, 4.0), (16, 2.0)])
+def test_graph_replay_special(dev, coarse, softness):
+    """A call at coarse 8 (rise 18) and 16 (rise 10) recorded as a CUDA
+    graph and replayed on special maps copied into its input: == the
+    twin on them."""
+    maps = torch.from_numpy(relief_maps(3, 4, 1024)).to(dev)
+    planes = torch.from_numpy(random_planes(3, 4)).to(dev)
+    eps = planes.abs().sum(dim=-1) * 4e-7 + 2e-7
+    uw = tcls.rise_window(softness)
+    class_maps_cuda.class_rows(maps, coarse, uw, planes, eps)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = class_maps_cuda.class_rows(maps, coarse, uw, planes, eps)
+    maps.copy_(torch.from_numpy(special_maps(4, 4, 1024)).to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rows_equal(out, tcls._class_rows_plain(maps, coarse, softness,
+                                                  planes, eps))

@@ -4,9 +4,12 @@ passes/shadow_classify.py::_class_rows sends CUDA maps to the kernel K10
 (funky_tpu_torch/ops/class_maps_cuda.py::class_rows) and CPU maps to the
 plain twin _class_rows_plain. Here a numpy model of K10's algorithm (per
 tile of cells a haloed window with BORDER_DEPTH outside the map, the 2x2
-pools made in the window, every reach's min and the rise's max as row then
-column passes, cell maxima down texel columns then across, the residuals
-against the plane) is held against the twin's composed shifts (`_dilate_exact`,
+pools made in the window, the ladder as one chain of 1-D passes
+alternating between columns and rows, each finishing one rung with a
+3-tap step and starting the next, in runs of RUN outputs over the part of
+the window the later passes need, the rise's max likewise, cell maxima
+down texel columns then across, the residuals against the plane) is held
+against the twin's composed shifts (`_dilate_exact`,
 `_cell_max`, `_ladder_pooled`, `_ladder_full`); the twin against the JAX
 package's build_class_maps; `check_args` against the calls the kernel
 takes and refuses; and every class-map build of a default and a tuned
@@ -34,7 +37,7 @@ from funky_tpu_torch.passes import shadow_classify as tcls
 from .test_torch_gather import _shipped_config
 from .torch_parity import (multimesh_jax_scene, multimesh_params,
                            port_params, port_scene, t2n)
-from .torch_scenes import random_planes, relief_maps
+from .torch_scenes import random_planes, relief_maps, special_maps
 
 F32 = np.float32
 BORDER = F32(tcls.BORDER_DEPTH)
@@ -44,52 +47,116 @@ BORDER = F32(tcls.BORDER_DEPTH)
 # The numpy model of csrc/class_maps.cu
 # ---------------------------------------------------------------------------
 
-def _window(padded, pad, y0, x0, side):
-    return padded[pad + y0:pad + y0 + side, pad + x0:pad + x0 + side]
+def model_pass(src, dst, a_rng, b_rng, steps, fn, after=(), core=None,
+               vert=True):
+    """One pass of the kernel: src read as [a][b], the window along a
+    composed of the 3-tap `steps` (out[a] = fn(in[a - s], in[a], in[a +
+    s])); that window at the core is returned as [y][x] (`core`: its
+    window index range on both axes, the pass walking y where `vert`);
+    then the steps `after`, whose window is stored transposed, dst[b][a],
+    for a in a_rng and b in b_rng. Runs of RUN outputs: the last one reads
+    up to RUN - 1 rows past a_rng, which the buffers' padding rows (NaN
+    here, unwritten shared memory there) hold; only a in a_rng is
+    stored."""
+    (a_lo, a_hi), (b_lo, b_hi) = a_rng, b_rng
+    reach = sum(steps) + sum(after)
+    a_end = a_lo + -(-(a_hi - a_lo) // k10.RUN) * k10.RUN
+    assert a_lo - reach >= 0 and a_end + reach <= src.shape[0]
+    assert 0 <= b_lo and b_hi <= src.shape[1]
+    v = src[a_lo - reach:a_end + reach, b_lo:b_hi]
+    for st in steps:
+        v = fn(fn(v[:-2 * st], v[2 * st:]), v[st:-st])
+    emitted = None
+    if core is not None:     # v's rows are a from a_lo - sum(after)
+        c0, c1 = core
+        lo = a_lo - sum(after)
+        emitted = v[c0 - lo:c1 - lo, c0 - b_lo:c1 - b_lo]
+        emitted = emitted if vert else emitted.T
+    for st in after:
+        v = fn(fn(v[:-2 * st], v[2 * st:]), v[st:-st])
+    if dst is not None:
+        dst[b_lo:b_hi, a_lo:a_hi] = v[:a_hi - a_lo].T
+    return emitted
 
 
-def model_stage(lo_map, hi_map, cell, reaches, rise, tc, ty, tx):
-    """One stage of one tile (tile row ty, column tx of tc x tc cells):
-    the haloed windows of the stage's lo and hi maps (BORDER_DEPTH outside),
-    every reach's min along rows in one walk outward, then along columns,
-    the rise's max the same way. Returns ([centre hi - min per reach] +
+def rise_steps(reach):
+    """The rise's steps on each axis: its base reach min(reach, 3) as
+    steps (1), (1, 1) or (1, 2), then one step to reach, at most 10."""
+    base = {1: (1,), 2: (1, 1), 3: (1, 2)}[min(reach, 3)]
+    return base + ((min(reach, 10) - 3,) if reach > 3 else ())
+
+
+def model_stage(lo_src, hi_src, cell, reaches, rise, tc, halo,
+                rise_first=False):
+    """One stage of one tile. lo_src and hi_src are the window as the
+    kernel reads it: (side + RUN, side), window index i = texel t0 - halo
+    + i. The min ladder takes NK + 1 passes, down the columns and along
+    the rows in turn: pass j applies the last step of rung j - 2 (the base
+    reach 3 as steps 1, 2), emits that rung's square at the core, then
+    applies the first step of rung j - 1, each pass over the window
+    widened by what the passes after it need. The rise: one pass each
+    way to reach min(rise, 10), then (past 10) passes of single steps of
+    min(2r + 1, rise - r); before the ladder where `rise_first` (the
+    pooled stage), after it elsewhere. The two pass buffers start as NaN
+    and are shared by the ladder and the rise, so a read of a value no
+    pass of the chain wrote shows. Returns ([centre hi - min per rung] +
     [max - centre lo], centre lo), each (P, P)."""
     p = tc * cell
-    halo = max(max(reaches), rise)
     side = p + 2 * halo
-    pad = halo + p
-    y0, x0 = ty * p - halo, tx * p - halo
-    lo = _window(np.pad(lo_map, pad, constant_values=BORDER), pad, y0, x0,
-                 side)
-    hi = _window(np.pad(hi_map, pad, constant_values=BORDER), pad, y0, x0,
-                 side)
-    rowmin, m = {}, lo[:, halo:halo + p]
-    for d in range(1, max(reaches) + 1):
-        m = np.minimum(np.minimum(m, lo[:, halo - d:halo - d + p]),
-                       lo[:, halo + d:halo + d + p])
-        if d in reaches:
-            rowmin[d] = m
-    vals = []
-    centre_hi = hi[halo:halo + p, halo:halo + p]
-    centre_lo = lo[halo:halo + p, halo:halo + p]
-    for r in reaches:
-        rows = rowmin[r]
-        m = rows[halo:halo + p]
-        for d in range(1, r + 1):
-            m = np.minimum(np.minimum(m, rows[halo - d:halo - d + p]),
-                           rows[halo + d:halo + d + p])
-        vals.append(centre_hi - m)
-    if rise:
-        rows = hi[:, halo:halo + p]
-        for d in range(1, rise + 1):
-            rows = np.maximum(np.maximum(rows, hi[:, halo - d:halo - d + p]),
-                              hi[:, halo + d:halo + d + p])
-        m = rows[halo:halo + p]
-        for d in range(1, rise + 1):
-            m = np.maximum(np.maximum(m, rows[halo - d:halo - d + p]),
-                           rows[halo + d:halo + d + p])
-        vals.append(m - centre_lo)
-    return vals, centre_lo
+    bufs = [np.full((side + k10.RUN, side), np.nan, F32) for _ in range(2)]
+    x_buf, y_buf = bufs
+    core = (slice(halo, halo + p), slice(halo, halo + p))
+    span = (halo, halo + p)
+
+    def rng(e):
+        return (halo - e, halo + p + e)
+
+    def ladder():
+        top, nk, drops = reaches[-1], len(reaches), []
+        for j in range(nk + 1):
+            r_after = reaches[j] if j < nk else top
+            r_other = reaches[j - 1] if j >= 1 else 0
+            steps = ((1, 2) if j <= 1
+                     else (reaches[j - 1] - reaches[j - 2],))
+            after = (() if j == 0 or j >= nk
+                     else (reaches[j] - reaches[j - 1],))
+            src = lo_src if j == 0 else (x_buf if j % 2 else y_buf)
+            dst = None if j >= nk else (y_buf if j % 2 else x_buf)
+            sq = model_pass(src, dst, rng(top - r_after), rng(top - r_other),
+                            steps, np.minimum, after,
+                            core=span if j >= 1 else None,
+                            vert=j % 2 == 0)
+            if j >= 1:
+                drops.append(hi_src[core] - sq)
+        return drops
+
+    def rise_window():
+        steps = rise_steps(rise)
+        r0 = min(rise, 10)
+        model_pass(hi_src, x_buf, rng(rise - r0), rng(rise), steps,
+                   np.maximum)
+        if rise <= 10:
+            sq = model_pass(x_buf, None, rng(0), rng(0), steps, np.maximum,
+                            core=span, vert=False)
+            return [sq - lo_src[core]]
+        model_pass(x_buf, y_buf, rng(rise - r0), rng(rise - r0), steps,
+                   np.maximum)
+        r = r0
+        while r < rise:
+            st = min(2 * r + 1, rise - r)
+            r += st
+            model_pass(y_buf, x_buf, rng(rise - r), rng(rise - r + st),
+                       (st,), np.maximum)
+            model_pass(x_buf, y_buf, rng(rise - r), rng(rise - r), (st,),
+                       np.maximum)
+        return [y_buf[core] - lo_src[core]]
+
+    if not rise:
+        return ladder(), lo_src[core].copy()
+    if rise_first:      # the pooled stage: the rise, then the ladder
+        rises = rise_window()
+        return ladder() + rises, lo_src[core].copy()
+    return ladder() + rise_window(), lo_src[core].copy()
 
 
 def _cell_max(v, tc, cell):
@@ -104,6 +171,55 @@ def _pools(x):
     lo = np.minimum(x[0::2], x[1::2])
     return (np.minimum(lo[:, 0::2], lo[:, 1::2]),
             np.maximum(hi[:, 0::2], hi[:, 1::2]))
+
+
+def fine_window(x, tc, cell, halo, ty, tx):
+    """The fine map as the kernel's passes read it for tile (ty, tx):
+    (side + RUN, side) from texel (ty * P - halo, tx * P - halo),
+    BORDER_DEPTH outside the map (the rows past the window are the map's
+    own, as the kernel's reads there are)."""
+    p = tc * cell
+    side = p + 2 * halo
+    pad = halo + p + k10.RUN
+    big = np.pad(x, pad, constant_values=BORDER)
+    y0, x0 = pad + ty * p - halo, pad + tx * p - halo
+    return big[y0:y0 + side + k10.RUN, x0:x0 + side]
+
+
+def pooled_window(plo, phi, tc, cell, halo, ty, tx):
+    """The pooled stage's staged lo and hi windows: side x side from the
+    pooled maps (BORDER_DEPTH outside), then RUN rows of NaN (the kernel
+    never stages them)."""
+    p = tc * cell
+    side = p + 2 * halo
+    out = []
+    for m in (plo, phi):
+        w = np.full((side + k10.RUN, side), np.nan, F32)
+        w[:side] = fine_window(m, tc, cell, halo, ty, tx)[:side]
+        out.append(w)
+    return out
+
+
+def tile_columns(x, plo, phi, coarse, rise, pooled, tc, ty, tx):
+    """The tile's six ladder columns (each (tc, tc)) and its fine centre
+    (P, P), by the model."""
+    if pooled:
+        xw = fine_window(x, tc, coarse, k10.LADDER[0], ty, tx)
+        (v0,), centre = model_stage(xw, xw, coarse, [3], 0, tc,
+                                    k10.LADDER[0])
+        halo = max(k10.HALF_REACHES[-1], rise)
+        lo, hi = pooled_window(plo, phi, tc, coarse // 2, halo, ty, tx)
+        half, _ = model_stage(lo, hi, coarse // 2, list(k10.HALF_REACHES),
+                              rise, tc, halo, rise_first=True)
+        cols = [_cell_max(v0, tc, coarse)] + [
+            _cell_max(v, tc, coarse // 2) for v in half]
+    else:
+        halo = max(k10.LADDER[-1], rise)
+        xw = fine_window(x, tc, coarse, halo, ty, tx)
+        full, centre = model_stage(xw, xw, coarse, list(k10.LADDER), rise,
+                                   tc, halo)
+        cols = [_cell_max(v, tc, coarse) for v in full]
+    return cols, centre
 
 
 def model_rows(maps, coarse, max_softness, planes, eps, tc=None,
@@ -123,44 +239,30 @@ def model_rows(maps, coarse, max_softness, planes, eps, tc=None,
     tiles = -(-sc // tc)
     out = np.full((l, sc, sc, 8), np.nan, F32)
     inv_s = F32(1.0) / F32(s)
-    for li in range(l):
-        x = x_all[li]
-        a, b, c = (F32(v) for v in planes[li])
-        e = F32(eps[li])
-        if pooled:
-            plo, phi = _pools(x)
-        for ty in range(tiles):
-            for tx in range(tiles):
-                cols = [None] * 6
-                if pooled:
-                    (v0,), centre = model_stage(x, x, coarse, [3], 0, tc, ty,
-                                                tx)
-                    cols[0] = _cell_max(v0, tc, coarse)
-                    half, _ = model_stage(plo, phi, coarse // 2,
-                                          list(k10.HALF_REACHES), rise, tc,
-                                          ty, tx)
-                    for k, v in enumerate(half):
-                        cols[1 + k] = _cell_max(v, tc, coarse // 2)
-                else:
-                    full, centre = model_stage(x, x, coarse,
-                                               list(k10.LADDER), rise, tc,
-                                               ty, tx)
-                    for k, v in enumerate(full):
-                        cols[k] = _cell_max(v, tc, coarse)
-                p = tc * coarse
-                jj = (np.arange(p) + tx * p).astype(F32) + F32(0.5)
-                ii = (np.arange(p) + ty * p).astype(F32) + F32(0.5)
-                u = jj / F32(s) if divide else jj * inv_s
-                v = ii / F32(s) if divide else ii * inv_s
-                plane = (a * u[None, :] + b * v[:, None]) + c
-                res = centre - plane
-                min_r = -_cell_max(-(res - e), tc, coarse)
-                max_r = _cell_max(res + e, tc, coarse)
-                block = np.stack(cols + [min_r, max_r], axis=-1)
-                ny = min(tc, sc - ty * tc)
-                nx = min(tc, sc - tx * tc)
-                out[li, ty * tc:ty * tc + ny, tx * tc:tx * tc + nx] = \
-                    block[:ny, :nx]
+    with np.errstate(invalid="ignore"):
+        for li in range(l):
+            x = x_all[li]
+            a, b, c = (F32(v) for v in planes[li])
+            e = F32(eps[li])
+            plo, phi = _pools(x) if pooled else (None, None)
+            for ty in range(tiles):
+                for tx in range(tiles):
+                    cols, centre = tile_columns(x, plo, phi, coarse, rise,
+                                                pooled, tc, ty, tx)
+                    p = tc * coarse
+                    jj = (np.arange(p) + tx * p).astype(F32) + F32(0.5)
+                    ii = (np.arange(p) + ty * p).astype(F32) + F32(0.5)
+                    u = jj / F32(s) if divide else jj * inv_s
+                    v = ii / F32(s) if divide else ii * inv_s
+                    plane = (a * u[None, :] + b * v[:, None]) + c
+                    res = centre - plane
+                    min_r = -_cell_max(-(res - e), tc, coarse)
+                    max_r = _cell_max(res + e, tc, coarse)
+                    block = np.stack(cols + [min_r, max_r], axis=-1)
+                    ny = min(tc, sc - ty * tc)
+                    nx = min(tc, sc - tx * tc)
+                    out[li, ty * tc:ty * tc + ny, tx * tc:tx * tc + nx] = \
+                        block[:ny, :nx]
     return out.reshape(l * sc * sc, 8)
 
 
@@ -200,48 +302,115 @@ def test_model_rows_match_twin(s, coarse, tiles):
     np.testing.assert_array_equal(bits(got), bits(t2n(want)))
 
 
+def model_ladders(x, coarse, uw, branch, tc):
+    """The six ladder columns (Sc, Sc) of one map by the model's tiles."""
+    s = x.shape[0]
+    sc = s // coarse
+    pooled = branch == "pooled"
+    rise = (uw + 1) // 2 if pooled else uw
+    plo, phi = _pools(x) if pooled else (None, None)
+    got = [np.zeros((sc, sc), F32) for _ in range(6)]
+    with np.errstate(invalid="ignore"):
+        for ty in range(-(-sc // tc)):
+            for tx in range(-(-sc // tc)):
+                cols, _ = tile_columns(x, plo, phi, coarse, rise, pooled, tc,
+                                       ty, tx)
+                ny, nx = min(tc, sc - ty * tc), min(tc, sc - tx * tc)
+                for k, block in enumerate(cols):
+                    got[k][ty * tc:ty * tc + ny, tx * tc:tx * tc + nx] = \
+                        block[:ny, :nx]
+    return got
+
+
+def twin_ladders(x, coarse, uw, branch):
+    ladder = {"pooled": tcls._ladder_pooled, "full": tcls._ladder_full}
+    return [t2n(c)[0] for c in ladder[branch](torch.from_numpy(x[None]),
+                                              coarse, uw)]
+
+
 @pytest.mark.parametrize("s", [64, 256, 512])
 @pytest.mark.parametrize("coarse", [8, 16])
 @pytest.mark.parametrize("branch", ["pooled", "full"])
 @pytest.mark.parametrize("max_softness", [4.0, 2.0])
 def test_model_ladders_match_dilations(s, coarse, branch, max_softness):
-    """Each ladder column of the model's separable, haloed, tiled stages ==
+    """Each ladder column of the model's composed, haloed, tiled passes ==
     the twin's composed shifts (_dilate_exact) and cell maxima (_cell_max)
     bit for bit, in both branches at coarse 8 and 16 (the full-resolution
     branch, which build_class_maps takes for an odd coarse or S, called
     directly), reaches past the map's edge at every border tile, rise
     windows 18 and 10."""
-    maps = relief_maps(s * 3 + coarse, 1, s)
-    x = maps + F32(0.0)
+    x = relief_maps(s * 3 + coarse, 1, s)[0] + F32(0.0)
     uw = tcls.rise_window(max_softness)
-    ladder = {"pooled": tcls._ladder_pooled, "full": tcls._ladder_full}
-    want = [t2n(c)[0] for c in ladder[branch](torch.from_numpy(x), coarse,
-                                              uw)]
-    sc = s // coarse
-    tc = k10.tile_cells(s, coarse, branch == "pooled",
-                        (uw + 1) // 2 if branch == "pooled" else uw)
-    got = [np.zeros((sc, sc), F32) for _ in range(6)]
-    for ty in range(-(-sc // tc)):
-        for tx in range(-(-sc // tc)):
-            if branch == "pooled":
-                plo, phi = _pools(x[0])
-                vals = model_stage(x[0], x[0], coarse, [3], 0, tc, ty, tx)[0]
-                vals += model_stage(plo, phi, coarse // 2,
-                                    list(k10.HALF_REACHES), (uw + 1) // 2,
-                                    tc, ty, tx)[0]
-                cells = [coarse] + [coarse // 2] * 5
-            else:
-                vals = model_stage(x[0], x[0], coarse, list(k10.LADDER), uw,
-                                   tc, ty, tx)[0]
-                cells = [coarse] * 6
-            for k, (v, cell) in enumerate(zip(vals, cells)):
-                block = _cell_max(v, tc, cell)
-                ny, nx = min(tc, sc - ty * tc), min(tc, sc - tx * tc)
-                got[k][ty * tc:ty * tc + ny, tx * tc:tx * tc + nx] = \
-                    block[:ny, :nx]
+    pooled = branch == "pooled"
+    tc = k10.tile_cells(s, coarse, pooled, (uw + 1) // 2 if pooled else uw)
+    want = twin_ladders(x, coarse, uw, branch)
+    got = model_ladders(x, coarse, uw, branch, tc)
     for k in range(6):
         np.testing.assert_array_equal(bits(got[k]), bits(want[k]),
                                       err_msg=f"ladder column {k}")
+
+
+# Tile cores that end exactly at a reach: the pooled maps at coarse 2 (one
+# pooled texel a cell) with a core of each half reach, the full-resolution
+# ladder at coarse 1 with a core of each rung, each with rise windows of
+# the ladder's top, one step past the base and the base itself.
+EDGE_CASES = ([("pooled", 2, r, uw) for r in (3, 6, 10, 17)
+               for uw in (34, 8)]
+              + [("full", 1, r, uw) for r in (3, 6, 12, 20, 34)
+                 for uw in (34, 5)])
+
+
+@pytest.mark.parametrize("branch,coarse,tc,uw", EDGE_CASES,
+                         ids=[f"{b}_c{c}_tc{t}_uw{u}"
+                              for b, c, t, u in EDGE_CASES])
+def test_model_tile_edge_at_each_reach(branch, coarse, tc, uw):
+    """Tiles whose core is as wide as a rung's reach (so a window of that
+    rung ends exactly at the next tile's edge) and a last tile that runs
+    past the map: the model's ladder columns == the twin's bit for bit."""
+    s = 72 if branch == "full" else 68
+    x = relief_maps(tc + uw, 1, s)[0] + F32(0.0)
+    want = twin_ladders(x, coarse, uw, branch)
+    got = model_ladders(x, coarse, uw, branch, tc)
+    for k in range(6):
+        np.testing.assert_array_equal(bits(got[k]), bits(want[k]),
+                                      err_msg=f"ladder column {k}")
+
+
+@pytest.mark.parametrize("s,coarse,tc", [(16, 8, 4), (32, 16, 3),
+                                         (24, 3, 16)],
+                         ids=["pooled_16", "pooled_32", "full_24"])
+def test_model_map_shorter_than_a_tile(s, coarse, tc):
+    """A tile of more cells than the map has (the whole map inside one
+    tile's core, the rest of it BORDER_DEPTH): the model == the twin."""
+    maps = relief_maps(s + tc, 2, s)
+    planes = random_planes(s, 2)
+    eps = eps_of(planes)
+    want = tcls._class_rows_plain(torch.from_numpy(maps), coarse, 4.0,
+                                  torch.from_numpy(planes),
+                                  torch.from_numpy(eps))
+    got = model_rows(maps, coarse, 4.0, planes, eps, tc=tc, divide=True)
+    np.testing.assert_array_equal(bits(got), bits(t2n(want)))
+
+
+@pytest.mark.parametrize("s,coarse,tc", [(128, 16, None), (128, 8, 3),
+                                         (99, 3, None)],
+                         ids=["pooled_c16", "pooled_c8_ragged", "full_c3"])
+def test_model_nan_inf_and_border_runs(s, coarse, tc):
+    """Maps holding NaN, +/-inf (single texels and runs) and long
+    BORDER_DEPTH runs: the model == the twin, NaN where the twin has NaN
+    and the other values bit for bit."""
+    maps = special_maps(s + coarse, 2, s)
+    planes = random_planes(s, 2)
+    eps = eps_of(planes)
+    with np.errstate(invalid="ignore"):
+        want = t2n(tcls._class_rows_plain(
+            torch.from_numpy(maps), coarse, 4.0, torch.from_numpy(planes),
+            torch.from_numpy(eps)))
+    got = model_rows(maps, coarse, 4.0, planes, eps, tc=tc, divide=True)
+    assert np.isnan(want).any() and np.isinf(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(bits(got[ok]), bits(want[ok]))
 
 
 @pytest.mark.parametrize("s,coarse", [(250, 5), (129, 3), (16, 8)],
@@ -328,7 +497,7 @@ def _refused():
         "eps on another device": ("eps", maps, 8, 18, planes,
                                   eps.to("meta")),
         "a block past shared memory": ("coarse", torch.zeros((1, 256, 256)),
-                                       128, 18, planes[:1], eps[:1]),
+                                       256, 18, planes[:1], eps[:1]),
     }
 
 
@@ -343,8 +512,8 @@ def test_check_args_refuses(case):
 @pytest.mark.parametrize("s,coarse", [(2048, 16), (2048, 8), (1024, 16),
                                       (250, 5), (16, 8), (64, 1)])
 def test_check_args_takes_and_tiles(s, coarse):
-    """The frames' shapes pass, and the chosen tile fits two blocks per SM
-    (the shipped frame's 4 x 2048^2 at coarse 16: 4 x 4 cells)."""
+    """The frames' shapes pass, and the chosen tile fits three blocks per
+    SM (the shipped frame's 4 x 2048^2 at coarse 16: 4 x 4 cells)."""
     maps = torch.zeros((4, s, s))
     k10.check_args(maps, coarse, 18, torch.zeros((4, 3)), torch.zeros((4,)))
     pooled = k10.pooled_branch(s, coarse)

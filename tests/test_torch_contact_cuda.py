@@ -4,7 +4,8 @@ against their plain twins (passes/contact.py::_contact_front_plain,
 _contact_certify_plain, _contact_march_plain), on the card. The inputs
 are a default frame's own (GltfConfig() at 256x144 on the multimesh
 scene, two chained frames, every dispatcher call recorded), cut and
-re-indexed for the cases no frame reaches. Every test here needs an
+re-indexed for the cases no frame reaches, and for the front re-laid in
+memory (LAYOUTS). Every test here needs an
 NVIDIA GPU and skips without one. The module imports no jax:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_contact_cuda.py
@@ -147,6 +148,107 @@ def test_jitter_remainder(calls):
         u = uni._replace(debug_flags=flags)
         got, want = front_both(world, normal, u, (144, 256), frag=frag)
         assert same(got[2][:, 6], want[2][:, 6])
+
+
+# How a front call's world, normal and frag rows may lie in memory: the
+# deferred pass's 11-float attribute rows (world, then normal), the same
+# rows 4 bytes off a 16-byte boundary, contiguous (n, 3) rows at and off
+# the boundary, the normal before the world in its rows, and rows of 20
+# floats.
+LAYOUTS = ("rows11", "unaligned_rows11", "contiguous",
+           "unaligned_contiguous", "normal_first", "wide_stride")
+
+
+def _laid_out(world, normal, frag, layout):
+    """world, normal (n, 3) and frag (n, 2) or None copied into `layout`
+    (views of random-filled buffers)."""
+    n, dev = world.shape[0], world.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rows(width, offset):
+        return torch.rand((n * width + offset,), generator=gen,
+                          device=dev)[offset:].view(n, width)
+
+    def place(width, offset, parts):
+        buf = rows(width, offset)
+        for at, t in parts:
+            buf[:, at:at + t.shape[1]] = t
+        return [buf[:, at:at + t.shape[1]] for at, t in parts]
+
+    if layout == "contiguous":
+        w, nn = world.contiguous(), normal.contiguous()
+    elif layout == "unaligned_contiguous":
+        (w,), (nn,) = place(3, 1, [(0, world)]), place(3, 2, [(0, normal)])
+    else:
+        width, offset, w_at, n_at = {
+            "rows11": (11, 0, 0, 3), "unaligned_rows11": (11, 1, 0, 3),
+            "normal_first": (11, 0, 3, 0), "wide_stride": (20, 0, 5, 12)}[
+                layout]
+        w, nn = place(width, offset, [(w_at, world), (n_at, normal)])
+    if frag is not None and layout != "contiguous":
+        width = 20 if layout == "wide_stride" else 5
+        (frag,) = place(width, 1, [(1, frag)])
+    return w, nn, frag
+
+
+def _front_case(calls, inputs):
+    """The last frame's front call cut to a pixel count that is no
+    multiple of a block's pixels: (world, normal, frag) as (n, 3) and (n,
+    2) rows, and the call's other arguments."""
+    args, kwargs = calls["contact_front"][-1]
+    a = dict(zip(("world", "normal", "uni", "depth_shape", "valid", "y0",
+                  "frag", "pyr"), args), **kwargs)
+    world, normal = a["world"].reshape(-1, 3), a["normal"].reshape(-1, 3)
+    n = world.shape[0]
+    if inputs == "slab":
+        m = n // 250 * 250
+        frag = valid = None
+    else:
+        m = n - 37
+        frag = a["frag"].reshape(-1, 2)[:m]
+        valid = None if inputs == "no_valid" else a["valid"].reshape(-1)[:m]
+    pyr = None if inputs == "no_pyr" else a["pyr"]
+    return world[:m], normal[:m], frag, dict(
+        uni=a["uni"], depth_shape=a["depth_shape"], valid=valid, pyr=pyr)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("inputs", ["all", "no_valid", "no_pyr", "slab"])
+def test_front_layouts(calls, layout, inputs):
+    """K8 == the twin bit for bit with world, normal and frag in every
+    layout of LAYOUTS, on n pixels that end inside a block: with frag,
+    valid and the pyramid, without valid, without the pyramid, and on a
+    (rows, 250) slab without frag."""
+    world, normal, frag, kw = _front_case(calls, inputs)
+    world, normal, frag = _laid_out(world, normal, frag, layout)
+    if inputs == "slab":
+        world = world.reshape(-1, 250, 3)
+        normal = normal.reshape(-1, 250, 3)
+        kw.update(y0=5)
+    else:
+        kw.update(frag=frag)
+    got, want = front_both(world, normal, **kw)
+    for g, w in zip(got, want):
+        assert same(g, w)
+
+
+@pytest.mark.parametrize("layout", ["rows11", "unaligned_contiguous"])
+def test_front_graph_replay(calls, layout):
+    """K8 recorded as a CUDA graph on laid-out rows, replayed after new
+    normals are copied into them: == the twin on the new rows."""
+    world, normal, frag, kw = _front_case(calls, "all")
+    world, normal, frag = _laid_out(world, normal, frag, layout)
+    tcontact.contact_front(world, normal, frag=frag, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tcontact.contact_front(world, normal, frag=frag, **kw)
+    normal.copy_(torch.roll(normal, 1, dims=0))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tcontact._contact_front_plain(world, normal, frag=frag, **kw)
+    for g, w in zip(out, want):
+        assert same(g, w)
 
 
 def certify_both(pyr, payload, shape, idx=None, count=None):

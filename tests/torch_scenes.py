@@ -494,6 +494,23 @@ def relief_maps(seed, l, s):
     return maps
 
 
+def special_maps(seed, l, s):
+    """relief_maps with the values a class map must carry through every
+    window exactly: NaN texels, +inf and -inf texels and short runs of
+    each, a long BORDER_DEPTH run along a row and a column."""
+    rng = np.random.default_rng(seed)
+    maps = relief_maps(seed, l, s)
+    flat = maps.reshape(l, -1)
+    for value in (np.nan, np.inf, -np.inf):
+        at = rng.integers(0, s * s, (l, max(2, s // 16)))
+        np.put_along_axis(flat, at, np.float32(value), axis=1)
+        y, x = rng.integers(0, s - 3, 2)
+        maps[:, y, x:x + 3] = np.float32(value)
+    maps[:, s // 3, :] = np.float32(1.0)
+    maps[:, :, s // 2] = np.float32(1.0)
+    return maps
+
+
 def random_planes(seed, l):
     """(L, 3) f32 uv-space depth planes: small slopes about 0.5."""
     rng = np.random.default_rng(seed)

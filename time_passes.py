@@ -41,7 +41,9 @@ on chip_smoke.py's multimesh scene:
   torch around them where the checkout has them (contact.contact_front),
   the jnp ports before; and there each kernel's dispatcher (K8
   contact_front, K9 contact_certify and contact_march, K10
-  shadow_classify._class_rows) on its recorded calls alone;
+  shadow_classify._class_rows) on its recorded calls alone; K10's calls
+  also at coarse 16 and 8 at every tile of K10_TILES the checkout's
+  block takes (tile_cells replaced);
 - the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
   calls of one frame, timed as above, and, where the checkout picks a
   lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
@@ -82,6 +84,8 @@ TILES = ((16, 16, 16), (16, 16, 8), (32, 8, 32), (32, 8, 8), (16, 8, 16),
          (16, 8, 8), (8, 8, 8), (64, 4, 32))
 # K7's grid caps swept: 256-thread blocks per SM
 BLOCKS_PER_SM = (1, 2, 4, 8)
+# K10's tiles swept: cells a side
+K10_TILES = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
 def record(module, name: str, fn):
@@ -238,6 +242,43 @@ def lanes_by_entries(cs, call, live: int) -> dict:
     return out
 
 
+def k10_report(cs, calls) -> dict:
+    """K10's recorded calls of one frame at coarse 16 (as the frame makes
+    them) and 8 (on the same maps): device ms behind a sleep at the
+    wrapper's tile and at every tile of K10_TILES whose block the
+    checkout's kernel takes (forced by replacing tile_cells)."""
+    from funky_tpu_torch.ops import class_maps_cuda as k10
+    from funky_tpu_torch.passes import shadow_classify
+
+    out = {}
+    for coarse in (16, 8):
+        runs = []
+        for a, kw in calls:
+            a = list(a)
+            a[1] = coarse
+            runs.append((a, kw))
+
+        def run(runs=runs):
+            for a, kw in runs:
+                shadow_classify._class_rows(*a, **kw)
+
+        maps, soft = runs[0][0][0], runs[0][0][2]
+        s = maps.shape[1]
+        pooled = k10.pooled_branch(s, coarse)
+        rise = k10.rise_reach(s, coarse, shadow_classify.rise_window(soft))
+        row = {"tile": k10.tile_cells(s, coarse, pooled, rise),
+               "wrapper_ms": cs.device_ms(run, iters=20)}
+        for tc in K10_TILES:
+            if (tc > s // coarse
+                    or k10.smem_bytes(coarse, pooled, rise, tc)
+                    > k10.MAX_SMEM):
+                continue
+            with forced(k10, "tile_cells", tc):
+                row[f"tile_{tc}_ms"] = cs.device_ms(run, iters=20)
+        out[f"coarse_{coarse}"] = row
+    return out
+
+
 def stages_report(cs, one_frame, cfg) -> dict:
     """The class-map build and the contact stage of one eager frame of
     `cfg`, and each K8-K10 dispatcher's calls where the checkout has
@@ -268,6 +309,8 @@ def stages_report(cs, one_frame, cfg) -> dict:
             calls = one_frame(cfg, module, name)
             out[key] = {"calls": len(calls),
                         "ms": timed(calls, getattr(module, name))}
+            if name == "_class_rows":
+                out["k10_tiles"] = k10_report(cs, calls)
     return out
 
 
