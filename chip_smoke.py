@@ -194,20 +194,28 @@ one call (one kernel node, no memset).
 Every path that reaches the contact shadows or the class maps (dense:
 K8 and K9's march; default, shipped committed and cond'd, large, the
 perf modes, the sharded runs, entry's chain, the dry run's frames in
-process: K8, both K9 and K10) launches them on every frame, and every
-K8-K10 call of the reference runs above, of the cond'd frames, of every
-tuned-pose and chained-trajectory check (its polls and both frames), of
-the driver phase and of the bench phase's in-process run is held against
-its plain twin (passes/contact.py::_contact_front_plain,
-_contact_certify_plain, _contact_march_plain; passes/shadow_classify.py::
-_class_rows_plain) bit for bit as it returns (checked_stages, the twin
-with the plain row gather), as many calls as the run launched, a call
-made while a CUDA graph captures counted apart. Each of the four is timed
-on one shipped and one dense frame's calls beside its twin (a replayed
-graph) and its bound on this run's data. K10 is also held against its twin
-at every tile of K10_TILES on the shipped maps with NaN, +/-inf and
-BORDER_DEPTH marks, and K8 on the shipped call's rows re-laid in memory
-(phase_stage_cases).
+process: K8, both K9 and K10; the sparse frames' certificate in its
+compact mode, which also writes stage 3's compaction, the polls' in its
+mask mode) launches them on every frame, and every K8-K10 call of the
+reference runs above, of the cond'd frames, of every tuned-pose and
+chained-trajectory check (its polls and both frames), of the driver
+phase and of the bench phase's in-process run is held against its plain
+twin (passes/contact.py::_contact_front_plain, _contact_certify_plain,
+_contact_certify_compact_plain (idx, slot_valid and count),
+_contact_march_plain; passes/shadow_classify.py::_class_rows_plain) bit
+for bit as it returns (checked_stages, the twin with the plain row
+gather), as many calls as the run launched, a call made while a CUDA
+graph captures counted apart. Each of the four is timed on one shipped
+and one dense frame's calls beside its twin (a replayed graph) and its
+bound on this run's data. K10 is also held against its twin at every
+tile of K10_TILES on the shipped maps with NaN, +/-inf and BORDER_DEPTH
+marks, and K8 on the shipped call's rows re-laid in memory
+(phase_stage_cases); K9's compacting certificate on stage-2 slots that
+overflow cap3, have no live slot, are all live, or whose count passes
+them, its march on seeded rays (hits on probe 0 and 7, after an
+out-of-bounds probe, NaN rows) at every lane count, and two replays in a
+row of a graph holding the shipped frame's compacting call
+(phase_k9_cases).
 
 The scene loads print which route decoded their textures (the native
 library of utils/native.py, built from native/ on first use, or the
@@ -1173,6 +1181,7 @@ def phase_shipped(dev, gltf, scene, params):
     calls = frame_stage_calls(scene, poses[-1], cfg, dev)
     STAGE_TIMES["shipped"] = time_stage_kernels(calls)
     phase_stage_cases(dev, calls)
+    phase_k9_cases(dev, calls)
     return counts["raster_table"], err, cfg, crun["k3"]
 
 
@@ -2322,12 +2331,15 @@ def time_group_counts(calls) -> dict:
 
 
 # The contact shadows' kernels K8 (passes/contact.py::contact_front) and K9
-# (contact_certify, contact_march), and the class maps' K10
-# (passes/shadow_classify.py::_class_rows): dispatcher -> (module, plain
-# twin). Their launch counters are keyed by the dispatchers' names, K10's
-# as "class_maps".
+# (contact_certify and, in its compact mode, contact_certify_compact;
+# contact_march), and the class maps' K10 (passes/shadow_classify.py::
+# _class_rows): dispatcher -> (module, plain twin). Their launch counters
+# are keyed by the dispatchers' names, K10's as "class_maps" and the
+# compact mode's as the certificate's.
 STAGE_TWINS = {"contact_front": ("contact", "_contact_front_plain"),
                "contact_certify": ("contact", "_contact_certify_plain"),
+               "contact_certify_compact": ("contact",
+                                           "_contact_certify_compact_plain"),
                "contact_march": ("contact", "_contact_march_plain"),
                "_class_rows": ("shadow_classify", "_class_rows_plain")}
 STAGE_KERNELS = ("contact_front", "contact_certify", "contact_march",
@@ -2342,10 +2354,13 @@ STAGE_CAPTURED = collections.Counter()
 STAGE_RUNS: dict = {}
 # Reckoned FP32 operations per pixel of K8 (the ray, its clip, the jitter,
 # the segment certificate at its four endpoints), per live slot of K9's
-# certificate (8 probes) and march (8 linear and 4 bisection probes), and
-# per fine texel of K10 (its rung-3 row and column windows, the residuals,
-# and on the pooled maps a quarter of the pools, the four rungs' and the
-# rise's windows and the cell maxima).
+# certificate (8 probes; its compact mode's ballot and prefix are integer
+# work and not counted) and per marched ray of K9's march (8 linear and 4
+# bisection probes: the work of the chain; the speculative tree probes 7
+# or 15 midpoints where the chain probes 4, a layout's cost, not the
+# function's), and per fine texel of K10 (its rung-3 row and column
+# windows, the residuals, and on the pooled maps a quarter of the pools,
+# the four rungs' and the rise's windows and the cell maxima).
 STAGE_OPS = dict(front=220, certify=8 * 30, march=12 * 60,
                  class_fine=24, class_pooled=158)
 
@@ -2358,7 +2373,8 @@ def _stage_module(name: str):
 
 
 def _stage_kernel(name: str) -> str:
-    return "class_maps" if name == "_class_rows" else name
+    return {"_class_rows": "class_maps",
+            "contact_certify_compact": "contact_certify"}.get(name, name)
 
 
 def _outputs(out) -> tuple:
@@ -2494,12 +2510,15 @@ def _stage_args(name, args, kwargs) -> dict:
 def stage_work(name, args, kwargs) -> tuple:
     """(bytes, FP32 operations, live, slots) one K8-K10 call needs on these
     inputs. K8: each pixel's world, normal, frag and valid read, its
-    payload row and masks written. K9: the live slots' indices and
-    payload rows read, each distinct row their probes read (the
-    pyramid's quad rows, or the depth's quads, counted from the rows the
-    twin gathers for the live slots, as K3's distinct-row bytes) read once,
-    the certificates (every slot) or the live terms written. K10: the map
-    read once and the cell rows written."""
+    payload row and masks written. K9: the needed slots' indices and
+    payload rows read (the certificate's live slots, their slot_valid
+    bytes too in the compact mode; the march's live slots, or without an
+    index the rays its mask keeps), each distinct row their probes read
+    (the pyramid's quad rows, or the depth's quads, counted from the rows
+    the twin gathers for those slots, as K3's distinct-row bytes) read
+    once; written: the certificates (every slot), or stage 3's idx and
+    slot_valid (every one of its slots) and count, or the needed terms.
+    K10: the map read once and the cell rows written."""
     import torch
 
     a = _stage_args(name, args, kwargs)
@@ -2519,19 +2538,33 @@ def stage_work(name, args, kwargs) -> tuple:
                + (1 if a["valid"] is not None else 0) + 28 + 1
                + (1 if a["pyr"] is not None else 0))
         return n * per, n * STAGE_OPS["front"], n, n
-    payload, idx, count = a["payload"], a["idx"], a["count"]
+    payload = a["payload"]
+    if name == "contact_certify_compact":
+        idx, count = a["comp2"].idx, a["comp2"].count
+    else:
+        idx, count = a["idx"], a["count"]
     m = payload.shape[0] if idx is None else idx.shape[0]
-    live = m if count is None else max(0, min(int(count), m))
+    need = torch.arange(m, device=payload.device) < (
+        m if count is None else int(count))
+    if name == "contact_march" and a["mask"] is not None:
+        need &= a["mask"]
+    live = int(need.sum())
     twin = getattr(_stage_module(name), STAGE_TWINS[name][1])
     gathers = record_gather_calls(lambda: twin(*args, **kwargs))
     rows = [torch.where(i < 0, i + t.shape[0], i).clamp(
-        0, t.shape[0] - 1).reshape(-1, m)[:, :live].reshape(-1)
+        0, t.shape[0] - 1).reshape(-1, m)[:, need].reshape(-1)
         for t, i in gathers if t is not payload and i.numel() % m == 0]
     distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
-    nbytes = live * (4 + 28) + 16 * distinct + (
-        m if name == "contact_certify" else 4 * live)
-    ops = live * STAGE_OPS["certify" if name == "contact_certify"
-                           else "march"]
+    nbytes = live * (4 + 28) + 16 * distinct
+    if name == "contact_certify":
+        nbytes += m
+    elif name == "contact_certify_compact":
+        cap = min(a["cap3"], m)
+        nbytes += live + 5 * cap + 4
+    else:
+        nbytes += 4 * live
+    ops = live * STAGE_OPS["march" if name == "contact_march"
+                           else "certify"]
     return nbytes, ops, live, m
 
 
@@ -2561,6 +2594,9 @@ def time_stage_kernels(calls) -> dict:
 
         work = [stage_work(*c) for c in mine]
         nbytes, ops = sum(w[0] for w in work), sum(w[1] for w in work)
+        if _stage_kernel(name) in out:
+            fail(f"{name}: a frame calls both modes of "
+                 f"{_stage_kernel(name)}; time them apart")
         out[_stage_kernel(name)] = dict(
             calls=len(mine), live=sum(w[2] for w in work),
             slots=sum(w[3] for w in work),
@@ -2726,6 +2762,119 @@ def phase_stage_cases(dev, calls) -> None:
     say(f"K10 == its plain twin bit for bit on {n_k10} special-map calls "
         f"(coarse 16, 8 and 5, every tile of {K10_TILES}); K8 == its twin "
         f"on {n} pixels laid out as {list(layouts)}")
+
+
+def phase_k9_cases(dev, calls) -> None:
+    """K9 against its twins bit for bit where the frames do not take it
+    (these launches are the script's own, outside the main paths' counts):
+    the compacting certificate on the shipped frame's pyramid and payload
+    over random stage-2 slots with stage 3 past cap3, no live slot, every
+    slot live, a count past the stage-2 slots and cap3 past them; the
+    march on rays drawn from the frame's payload (tests/torch_scenes.py::
+    contact_rays: first hits on every linear probe, probe 0 and 7 among
+    them, hits after an out-of-bounds probe, misses, NaN rows) at every
+    lane count of contact_cuda.LANES (lanes_for replaced), the lane
+    layouts also with LANES_LIVE_MAX lifted (so that they, not one thread
+    a slot, march all the live rays), through an index with a live count
+    inside a warp, a mask and a window; and a CUDA
+    graph holding the frame's own compacting call, replayed twice in a row
+    (the status words its last block resets), == the twin both times."""
+    import torch
+
+    from funky_tpu_torch.ops import contact_cuda
+    from funky_tpu_torch.ops.compact import Compacted
+    from funky_tpu_torch.passes import contact
+    from tests.torch_scenes import contact_rays
+
+    (_, cargs, ckw), = [c for c in calls
+                        if c[0] == "contact_certify_compact"]
+    a = _stage_args("contact_certify_compact", cargs, ckw)
+    pyr, payload, shape = a["pyr"], a["payload"], a["depth_shape"]
+    m = a["comp2"].idx.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def stage2(live):
+        return Compacted(
+            idx=torch.randint(0, payload.shape[0], (m,), generator=gen,
+                              dtype=torch.int32, device=dev),
+            slot_valid=torch.arange(m, device=dev) < live,
+            count=torch.tensor(live, dtype=torch.int32, device=dev))
+
+    cases = {"stage 3 past cap3": (stage2(m), 1024),
+             "no live slot": (stage2(0), a["cap3"]),
+             "every slot live": (stage2(m), m),
+             "count past the stage-2 slots": (stage2(m + 13), a["cap3"]),
+             "cap3 past the slots": (stage2(m // 2), m + 100)}
+    for label, (comp2, cap3) in cases.items():
+        got = contact.contact_certify_compact(pyr, payload, shape, comp2,
+                                              cap3)
+        with plain_gathers():
+            want = contact._contact_certify_compact_plain(pyr, payload,
+                                                          shape, comp2, cap3)
+        ok, _ = _stage_equal(got, want)
+        check(ok, f"K9's compacting certificate, {label}: differs from its "
+              f"plain twin")
+        if label == "stage 3 past cap3":
+            check(int(want.count) > cap3, f"K9 case '{label}': stage 3 "
+                  f"holds {int(want.count)}, within cap3 {cap3}")
+
+    (_, margs, mkw), = [c for c in calls if c[0] == "contact_march"]
+    depth = _stage_args("contact_march", margs, mkw)["prev_depth"]
+    rows = torch.from_numpy(contact_rays(payload.cpu().numpy(), 7, 200_001)
+                            ).to(dev)
+    n = rows.shape[0]
+    cw = min(depth.shape) // 2
+    marches = {
+        "indexed": dict(idx=torch.randperm(n, generator=gen, device=dev)[
+            :150_000].to(torch.int32), count=torch.tensor(
+                149_989, dtype=torch.int32, device=dev)),
+        "masked": dict(mask=torch.rand(n, generator=gen, device=dev) < 0.8),
+        "windowed": dict(idx=torch.arange(n, dtype=torch.int32, device=dev),
+                         count=torch.tensor(n, dtype=torch.int32,
+                                            device=dev),
+                         window=(torch.tensor((depth.shape[0] // 4,
+                                               depth.shape[1] // 5),
+                                              dtype=torch.int32, device=dev),
+                                 cw))}
+    lit = {}
+    inner = contact_cuda.lanes_for, contact_cuda.LANES_LIVE_MAX
+    layouts = [(n, inner[1]) for n in contact_cuda.LANES] + [
+        (n, 2 ** 62) for n in contact_cuda.LANES if n > 1]
+    for lanes, live_max in layouts:
+        contact_cuda.lanes_for = lambda _m, lanes=lanes: lanes
+        contact_cuda.LANES_LIVE_MAX = live_max
+        try:
+            for label, kw in marches.items():
+                got = contact.contact_march(depth, rows, **kw)
+                with plain_gathers():
+                    want = contact._contact_march_plain(depth, rows, **kw)
+                ok, _ = _stage_equal(got, want)
+                check(ok, f"K9's march at {lanes} lanes a ray (one a slot "
+                      f"past {live_max} live), {label} seeded rays: "
+                      f"differs from its plain twin")
+                lit[label] = int((want < 1.0).sum())
+        finally:
+            contact_cuda.lanes_for, contact_cuda.LANES_LIVE_MAX = inner
+    check(all(v > 0 for v in lit.values()),
+          f"K9's seeded rays shadow nothing: {lit}")
+
+    contact.contact_certify_compact(*cargs, **ckw)
+    sync(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = contact.contact_certify_compact(*cargs, **ckw)
+    with plain_gathers():
+        want = contact._contact_certify_compact_plain(*cargs, **ckw)
+    for replay in (1, 2):
+        graph.replay()
+        sync(dev)
+        ok, _ = _stage_equal(out, want)
+        check(ok, f"K9's compacting certificate, graph replay {replay} in "
+              f"a row: differs from its plain twin")
+    say(f"K9 == its plain twins bit for bit on {len(cases)} compacting "
+        f"cases ({list(cases)}), on {n} seeded rays at lanes and live "
+        f"limits {layouts} ({list(marches)}; shadowed {lit}), and on 2 "
+        f"graph replays in a row of the shipped frame's compacting call")
 
 
 # K10's tiles (cells a side) held against the twin at each coarse.
@@ -4094,6 +4243,9 @@ def main() -> None:
                      f"twin as a replayed CUDA graph)",
             checked_calls=STAGE_CHECKED[k][0],
             captured_calls=STAGE_CAPTURED[k],
+            **({"also_replaces": "funky_tpu/passes/contact.py:764 (stage "
+                                 "3's compaction, the compact mode)"}
+               if k == "contact_certify" else {}),
             launches_per_frame=stage_per_frame[k],
             frame_ms={key: v[k]["ms"] for key, v in STAGE_TIMES.items()
                       if k in v},

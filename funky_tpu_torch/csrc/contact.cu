@@ -6,14 +6,18 @@
 // K8 contact_front_launch replaces the jnp stages funky_tpu/passes/
 // contact.py::_ray_setup (:76-121), _jitter / _jitter_at (:197-212) and
 // _segment_cert (:496-587); K9 contact_certify_launch replaces
-// _stage2_certify (:590-608) with its level-0 min reads (:466-493), and
-// contact_march_launch replaces _march (:124-186) and _soft_term
-// (:189-194) with the dual depth reads of funky_tpu/ops/sampling.py
-// (:437-516). XLA fuses each into a few fusions on the TPU. Their plain
-// twins are funky_tpu_torch/passes/contact.py::_contact_front_plain,
-// _contact_certify_plain and _contact_march_plain: hundreds of elementwise
-// launches over the domain, the candidates' (cap, 7) payload gathered
-// twice, and each probe's quad rows gathered through K3.
+// _stage2_certify (:590-608) with its level-0 min reads (:466-493),
+// contact_certify_compact_launch the same and stage 3's compaction
+// (:760-770: the survivors of the stage-2 slots, compacted into the
+// march's slots), and contact_march_launch replaces _march (:124-186) and
+// _soft_term (:189-194) with the dual depth reads of funky_tpu/ops/
+// sampling.py (:437-516). XLA fuses each into a few fusions on the TPU.
+// Their plain twins are funky_tpu_torch/passes/contact.py::
+// _contact_front_plain, _contact_certify_plain,
+// _contact_certify_compact_plain and _contact_march_plain: hundreds of
+// elementwise launches over the domain, the candidates' (cap, 7) payload
+// gathered twice, each probe's quad rows gathered through K3, and a
+// stable argsort over the stage-2 slots.
 //
 // Semantics (identical to the plain twins on the card):
 //   - K8, one pixel: n.l as torch's sum over the last axis of three
@@ -32,7 +36,10 @@
 //     certified (true); else the payload row at take_rows' index (clamped
 //     into range), its 8 probes at t = (k + jitter) / 8 each either off
 //     screen or at most the plane bound plus the level-0 box min minus
-//     eps (8-texel cells, quad rows of 4 mins);
+//     eps (8-texel cells, quad rows of 4 mins); in the compact mode, the
+//     slots before the count with slot_valid set and not certified, in
+//     slot order: comp2's index of each in out_idx (the first cap of
+//     them, the rest -1), out_valid true there, out_count all of them;
 //   - K9 march, one slot: 8 linear probes, then 4 bisection steps, each
 //     probe the bilinear and the nearest read of the quad at its base
 //     texel (prev_depth read directly with quad_pack's edge clamp, or
@@ -56,15 +63,27 @@
 // payload and masks through shared memory as 16-byte and 4-byte stores
 // (1, 2 or 4 pixels a thread) took 0.084-0.116 ms against this kernel's
 // 0.055 ms on that frame (H100): the barriers and shared-memory traffic
-// cost more than the rows' unused bytes. K9 the dependent reads of each
-// probe (8 + 4 row reads in a chain per marched ray; ~0.001 ms of bytes
-// for the shipped frame's few thousand survivors). One thread per pixel
-// or slot, with the ray's 7
-// floats in registers and nothing staged: the certificate stops at its
-// first failed probe, the march skips the linear probes after a hit and
-// does no bisection without one, and a slot past the live count, read on
-// the card, costs one compare, so the launch sized by the capacity costs
-// what the count needs.
+// cost more than the rows' unused bytes. K9 the latency of its dependent
+// reads (slot index, payload row, then each probe's quad; ~0.002 ms of
+// bytes for the shipped frame's 180 K live certificate slots, ~0.001 ms
+// for its 52 K marched rays). So each slot's probes are spread over lanes
+// and put in flight together: the certificate's 8 probes over 8 lanes (one
+// ballot ANDs them), each thread 8 probes of a chunk of slots with all
+// the chunk's loads in flight, and its compact mode places the survivors
+// itself (a ballot and prefix in the block, a decoupled look-back across
+// blocks in ticket order; the twin sorts all the stage-2 slots); the
+// march's 8 linear probes over 8 lanes and its 4
+// bisection steps as a speculative tree of 15 midpoints (8 lanes: 7, then
+// 1; 16 lanes: 15 at once), so a marched ray waits for 3 or 2 rounds of
+// reads where one thread a slot waits for a chain of up to 12. The tree
+// probes more midpoints than the chain, and with many live rays the march
+// is bound by its instruction count, not by that wait: one thread a
+// slot runs past LANES_LIVE_MAX live slots (read on the card) and on
+// launches past LANES_MAX slots (ops/contact_cuda.py). Slots past the live
+// count, read on the card, cost no block of the compact certificate (its
+// blocks take chunks by a ticket and stop) and no probe of the march
+// (its warps stride up to the count), and a ray masked off probes
+// nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -358,6 +377,8 @@ contact_front_kernel(Front f, long long n, bool* __restrict__ cand_out,
 // K9: the certificate and the march over compacted slots.
 // ---------------------------------------------------------------------
 
+constexpr unsigned FULL = 0xffffffffu;
+
 struct Slots {
   const float* __restrict__ payload;   // (n, 7)
   long long n;                         // payload rows
@@ -374,16 +395,25 @@ __device__ __forceinline__ long long row_of(const Slots& sl, long long s) {
   return i > sl.n - 1 ? sl.n - 1 : i;
 }
 
-__device__ __forceinline__ void read_row(const Slots& sl, long long i,
-                                         float ms[3], float md[3],
-                                         float* jit) {
-  const float* r = sl.payload + i * ROW;
+// The slots before the live count, read on the card: count clamped into
+// [0, m] (all m without one).
+__device__ __forceinline__ long long live_of(const Slots& sl) {
+  if (sl.count == nullptr) return sl.m;
+  const long long c = __ldg(sl.count);
+  return c < 0 ? 0 : (c < sl.m ? c : sl.m);
+}
+
+// The 7 payload floats of a lane group's ray, loaded once a group (lane
+// k < 7 of the group loads float k) and spread by shuffles. Every lane of
+// the warp calls this together.
+__device__ __forceinline__ void group_row(float v, int g0, float ms[3],
+                                          float md[3], float* jit) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ms[c] = __ldg(r + c);
-    md[c] = __ldg(r + 3 + c);
+    ms[c] = __shfl_sync(FULL, v, g0 + c);
+    md[c] = __shfl_sync(FULL, v, g0 + 3 + c);
   }
-  *jit = __ldg(r + 6);
+  *jit = __shfl_sync(FULL, v, g0 + 6);
 }
 
 struct Certify {
@@ -394,53 +424,271 @@ struct Certify {
   float size_w, size_h;
 };
 
-__global__ void __launch_bounds__(THREADS)
-contact_certify_kernel(Slots sl, Certify cf, bool* __restrict__ out) {
-  const long long s = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (s >= sl.m) return;
-  if (sl.count != nullptr && s >= (long long)__ldg(sl.count)) {
-    out[s] = true;
-    return;
+// Stage 3's compaction, written by the certificate in its compact mode:
+// the live stage-2 slots (before the count, slot_valid set) that are not
+// certified, in slot order, as comp3 (idx, valid, count).
+struct Stage3 {
+  const bool* __restrict__ slot_valid;   // comp2's (m,)
+  int* __restrict__ idx;                 // (cap,): -1 past the count
+  bool* __restrict__ valid;              // (cap,)
+  int* __restrict__ count;               // (): every survivor, past cap too
+  long long cap;
+  // [ticket, blocks done, one status word per chunk], zero between
+  // launches: the last block to finish resets what the launch used.
+  unsigned long long* __restrict__ sync;
+};
+
+constexpr int CERT_THREADS = 256;
+constexpr int CERT_WARPS = CERT_THREADS / 32;
+constexpr int PROBE_LANES = LINEAR_STEPS;        // lane k takes probe k
+constexpr int CHUNK = 256;                       // slots a block takes
+constexpr int PASS_SLOTS = CERT_THREADS / PROBE_LANES;   // 32
+constexpr int PASSES = CHUNK / PASS_SLOTS;       // 8 probes a thread
+constexpr int GROUPS_PER_WARP = 32 / PROBE_LANES;
+constexpr int CERT_MIN_BLOCKS = 3;   // blocks an SM holds (registers)
+static_assert(CHUNK == CERT_THREADS, "thread t places slot t of a chunk");
+constexpr unsigned long long AGGREGATE = 1ull << 62;
+constexpr unsigned long long INCLUSIVE = 2ull << 62;
+
+enum { MASK_MODE = 0, COMPACT_MODE = 1 };
+
+// One probe of _stage2_certify at t = (k + jit) / 8: in bounds, its ray
+// depth, the plane bound less eps before the box min, and the level-0 quad
+// row that holds the box min (_point_min_l0; _probe_bound).
+struct CertProbe {
+  bool inb;
+  float z, bound;
+  const float* quad;
+};
+
+__device__ __forceinline__ CertProbe cert_probe(const Certify& cf, float a,
+                                                float b, float c, float m,
+                                                float lim_w, float lim_h,
+                                                const float ms[3],
+                                                const float md[3], float jit,
+                                                int k) {
+  CertProbe p;
+  const float t = __fmul_rn(__fadd_rn((float)k, jit), 0.125f);
+  const float cs0 = __fadd_rn(ms[0], __fmul_rn(md[0], t));
+  const float cs1 = __fadd_rn(ms[1], __fmul_rn(md[1], t));
+  p.z = __fadd_rn(ms[2], __fmul_rn(md[2], t));
+  const float u = __fadd_rn(__fmul_rn(cs0, 0.5f), 0.5f);
+  const float v = __fadd_rn(__fmul_rn(cs1, 0.5f), 0.5f);
+  p.inb = u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f;
+  const float q0 = __fmul_rn(u, cf.size_w), q1 = __fmul_rn(v, cf.size_h);
+  const int cx = clampi(
+      to_i32(floorf(__fmul_rn(__fsub_rn(q0, FOOT), cf.inv_base))), 0,
+      cf.lw - 1);
+  const int cy = clampi(
+      to_i32(floorf(__fmul_rn(__fsub_rn(q1, FOOT), cf.inv_base))), 0,
+      cf.lh - 1);
+  p.quad = cf.rows + ((long long)cy * cf.lw + cx) * 4;
+  const float pq = __fadd_rn(__fadd_rn(__fmul_rn(a, q0), __fmul_rn(b, q1)),
+                             c);
+  const float bound0 =
+      __fadd_rn(pq, m) <= 1.0f ? pq
+      : (__fsub_rn(pq, m) >= 1.0f ? 1.0f
+                                  : __fsub_rn(tclamp_max(pq, 1.0f), m));
+  const bool band = q0 < FOOT || q0 > lim_w || q1 < FOOT || q1 > lim_h;
+  p.bound = __fsub_rn(bound0, band ? m : 0.0f);
+  return p;
+}
+
+// Single-pass decoupled look-back (warp 0 of a block, all 32 lanes) over
+// the chunks in ticket order: publishes this chunk's aggregate, sums its
+// predecessors' words back to the nearest inclusive prefix, publishes its
+// own inclusive prefix and returns the exclusive one. A chunk waits only
+// on chunks of lower tickets, whose blocks are already running.
+__device__ long long look_back(unsigned long long* status, long long chunk,
+                               unsigned agg, int lane) {
+  if (chunk == 0) {
+    if (lane == 0) atomicExch(status, INCLUSIVE | agg);
+    return 0;
   }
-  float ms[3], md[3], jit;
-  read_row(sl, row_of(sl, s), ms, md, &jit);
+  if (lane == 0) atomicExch(status + chunk, AGGREGATE | agg);
+  long long prefix = 0;
+  for (long long top = chunk - 1;; top -= 32) {
+    const long long q = top - lane;
+    unsigned long long w = INCLUSIVE;   // before chunk 0: a prefix of 0
+    if (q >= 0) {
+      do {
+        w = *reinterpret_cast<volatile unsigned long long*>(status + q);
+      } while ((w >> 62) == 0);
+    }
+    const unsigned done = __ballot_sync(FULL, (w >> 62) == 2);
+    const int stop = done ? __ffs(done) - 1 : 31;
+    prefix += __reduce_add_sync(FULL, lane <= stop ? (unsigned)w : 0u);
+    if (done) break;
+  }
+  if (lane == 0) {
+    atomicExch(status + chunk,
+               INCLUSIVE | (unsigned long long)(prefix + agg));
+  }
+  return prefix;
+}
+
+// The stage-2 certificate, 8 lanes a slot (lane k evaluates probe k; the
+// slot is certified where no lane's in-bounds probe fails, one ballot),
+// each thread 8 probes of a chunk of CHUNK slots with every load of the
+// chunk in flight together: the slots' indices, then their payload rows
+// (7 floats a group, one a lane), then the 8 quad rows.
+// MASK_MODE: the (m,) certificate, true at and past the live count, one
+// chunk a block. COMPACT_MODE: stage 3's compaction instead (Stage3);
+// blocks take chunks in order by an atomic ticket, stop past the live
+// count (the dead slots cost no block), place each survivor by a ballot,
+// a popcount and a prefix over the warps in the block and the decoupled
+// look-back across blocks; once every chunk is taken, each block waits
+// for the last chunk's inclusive prefix (stage 3's count) and fills its
+// share of the slots past it with -1 / false, so nothing is pre-filled;
+// the last block resets the ticket and status words, so a replayed CUDA
+// graph finds them zero.
+template <int MODE>
+__global__ void __launch_bounds__(CERT_THREADS, CERT_MIN_BLOCKS)
+contact_certify_kernel(Slots sl, Certify cf, bool* __restrict__ out,
+                       Stage3 s3) {
+  __shared__ int flags[CHUNK];
+  __shared__ long long warp_off[CERT_WARPS];
+  __shared__ long long chunk_sh, total_sh;
+  __shared__ bool last_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = lane & (PROBE_LANES - 1);
+  const int g0 = lane - k;
+  const long long live = live_of(sl);
+  const long long chunks =
+      ((MODE == COMPACT_MODE ? live : sl.m) + CHUNK - 1) / CHUNK;
   const float a = __ldg(cf.pyr.plane), b = __ldg(cf.pyr.plane + 1),
               c = __ldg(cf.pyr.plane + 2), eps = __ldg(cf.pyr.eps);
   const float m = __fmul_rn(__fadd_rn(fabsf(a), fabsf(b)), FOOT + 0.5f);
   const float lim_w = __fsub_rn(cf.size_w, FOOT);
   const float lim_h = __fsub_rn(cf.size_h, FOOT);
-  bool cert = true;
-  for (int k = 0; k < LINEAR_STEPS && cert; ++k) {
-    const float t = __fmul_rn(__fadd_rn((float)k, jit), 0.125f);
-    const float cs0 = __fadd_rn(ms[0], __fmul_rn(md[0], t));
-    const float cs1 = __fadd_rn(ms[1], __fmul_rn(md[1], t));
-    const float cs2 = __fadd_rn(ms[2], __fmul_rn(md[2], t));
-    const float u = __fadd_rn(__fmul_rn(cs0, 0.5f), 0.5f);
-    const float v = __fadd_rn(__fmul_rn(cs1, 0.5f), 0.5f);
-    if (!(u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f)) continue;
-    const float q0 = __fmul_rn(u, cf.size_w), q1 = __fmul_rn(v, cf.size_h);
-    // _point_min_l0
-    const int cx = clampi(
-        to_i32(floorf(__fmul_rn(__fsub_rn(q0, FOOT), cf.inv_base))), 0,
-        cf.lw - 1);
-    const int cy = clampi(
-        to_i32(floorf(__fmul_rn(__fsub_rn(q1, FOOT), cf.inv_base))), 0,
-        cf.lh - 1);
-    const float* quad = cf.rows + ((long long)cy * cf.lw + cx) * 4;
-    const float min_r = tmin(tmin(__ldg(quad), __ldg(quad + 1)),
-                             tmin(__ldg(quad + 2), __ldg(quad + 3)));
-    // _probe_bound
-    const float pq = __fadd_rn(__fadd_rn(__fmul_rn(a, q0), __fmul_rn(b, q1)),
-                               c);
-    const float bound0 =
-        __fadd_rn(pq, m) <= 1.0f ? pq
-        : (__fsub_rn(pq, m) >= 1.0f ? 1.0f
-                                    : __fsub_rn(tclamp_max(pq, 1.0f), m));
-    const bool band = q0 < FOOT || q0 > lim_w || q1 < FOOT || q1 > lim_h;
-    const float bound = __fsub_rn(bound0, band ? m : 0.0f);
-    cert = cs2 <= __fsub_rn(__fadd_rn(bound, min_r), eps);
+  const bool vec = (reinterpret_cast<uintptr_t>(cf.rows) & 15) == 0;
+  long long chunk = blockIdx.x;
+  for (;; chunk += gridDim.x) {
+    if (MODE == COMPACT_MODE) {
+      if (threadIdx.x == 0) chunk_sh = (long long)atomicAdd(s3.sync, 1ull);
+      __syncthreads();
+      chunk = chunk_sh;
+    }
+    if (chunk >= chunks) break;
+    const long long base = chunk * CHUNK;
+    if (MODE == MASK_MODE && base >= live) {   // past the count: certified
+      if (base + threadIdx.x < sl.m) out[base + threadIdx.x] = true;
+      continue;
+    }
+    long long slot[PASSES], row[PASSES];
+    bool lv[PASSES], sv[PASSES];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      slot[p] = base + p * PASS_SLOTS + warp * GROUPS_PER_WARP
+                + lane / PROBE_LANES;
+      lv[p] = slot[p] < live;
+      row[p] = lv[p] ? row_of(sl, slot[p]) : 0;
+      sv[p] = MODE == COMPACT_MODE && lv[p]
+              && __ldg(reinterpret_cast<const unsigned char*>(s3.slot_valid)
+                       + slot[p]);
+    }
+    float v[PASSES];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      v[p] = lv[p] && k < ROW ? __ldg(sl.payload + row[p] * ROW + k) : 0.0f;
+    }
+    CertProbe pr[PASSES];
+    float4 qv[PASSES];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      float ms[3], md[3], jit;
+      group_row(v[p], g0, ms, md, &jit);
+      pr[p] = cert_probe(cf, a, b, c, m, lim_w, lim_h, ms, md, jit, k);
+      qv[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lv[p] && pr[p].inb) {
+        qv[p] = vec ? __ldg(reinterpret_cast<const float4*>(pr[p].quad))
+                    : make_float4(__ldg(pr[p].quad), __ldg(pr[p].quad + 1),
+                                  __ldg(pr[p].quad + 2),
+                                  __ldg(pr[p].quad + 3));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const float min_r = tmin(tmin(qv[p].x, qv[p].y), tmin(qv[p].z, qv[p].w));
+      const bool fail =
+          lv[p] && pr[p].inb
+          && !(pr[p].z <= __fsub_rn(__fadd_rn(pr[p].bound, min_r), eps));
+      const unsigned fails = (__ballot_sync(FULL, fail) >> g0) & 0xffu;
+      if (k == 0) {
+        if (MODE == MASK_MODE) {
+          if (slot[p] < sl.m) out[slot[p]] = fails == 0;
+        } else {
+          flags[slot[p] - base] = sv[p] && fails != 0;
+        }
+      }
+    }
+    if (MODE == MASK_MODE) continue;
+
+    // stage 3: thread t places slot base + t
+    __syncthreads();
+    const bool f = flags[threadIdx.x] != 0;
+    const unsigned bal = __ballot_sync(FULL, f);
+    if (lane == 0) warp_off[warp] = __popc(bal);
+    __syncthreads();
+    if (warp == 0) {
+      const int own = lane < CERT_WARPS ? (int)warp_off[lane] : 0;
+      int incl = own;
+#pragma unroll
+      for (int d = 1; d < CERT_WARPS; d <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += y;
+      }
+      const unsigned agg = (unsigned)__shfl_sync(FULL, incl, CERT_WARPS - 1);
+      const long long prefix = look_back(s3.sync + 2, chunk, agg, lane);
+      if (lane < CERT_WARPS) warp_off[lane] = prefix + incl - own;
+    }
+    __syncthreads();
+    if (f) {
+      const long long pos =
+          warp_off[warp] + __popc(bal & ((1u << lane) - 1u));
+      if (pos < s3.cap) {
+        s3.idx[pos] = __ldg(sl.idx + base + threadIdx.x);
+        s3.valid[pos] = true;
+      }
+    }
   }
-  out[s] = cert;
+  if (MODE == MASK_MODE) return;
+  // Every chunk is now a running block's (the tickets go out in order):
+  // wait for the last one's inclusive prefix, stage 3's count, then fill
+  // this block's share of the slots past it with -1 / false.
+  if (threadIdx.x == 0) {
+    unsigned long long w = INCLUSIVE;
+    if (chunks > 0) {
+      do {
+        w = *reinterpret_cast<volatile unsigned long long*>(s3.sync + 2
+                                                            + chunks - 1);
+      } while ((w >> 62) != 2);
+    }
+    total_sh = (unsigned)w;
+    if (blockIdx.x == 0) *s3.count = (int)(unsigned)w;
+  }
+  __syncthreads();
+  for (long long i = (total_sh < s3.cap ? total_sh : s3.cap)
+                     + (long long)blockIdx.x * CERT_THREADS + threadIdx.x;
+       i < s3.cap; i += (long long)gridDim.x * CERT_THREADS) {
+    s3.idx[i] = -1;
+    s3.valid[i] = false;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();   // this block's status words before it counts done
+    last_sh = atomicAdd(s3.sync + 1, 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last_sh) return;
+  // every block has taken its last ticket and published: reset
+  for (long long i = threadIdx.x; i < chunks; i += CERT_THREADS) {
+    s3.sync[2 + i] = 0;
+  }
+  if (threadIdx.x == 0) {
+    s3.sync[0] = 0;
+    s3.sync[1] = 0;
+  }
 }
 
 struct Depth {
@@ -515,22 +763,58 @@ __device__ __forceinline__ float fade(float x, float inv) {
                                    __fsub_rn(3.0f, __fmul_rn(2.0f, t))));
 }
 
-__global__ void __launch_bounds__(THREADS)
-contact_march_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
-                     float* __restrict__ out) {
-  const long long s = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (s >= sl.m) return;
-  if (sl.count != nullptr && s >= (long long)__ldg(sl.count)) return;
-  int sy = 0, sx = 0, oy = 0, ox = 0;
-  if (dp.origin != nullptr) {
-    // dynamic_slice's start: negative counts from the end, then clamped
-    oy = __ldg(dp.origin);
-    ox = __ldg(dp.origin + 1);
-    sy = clampi(oy < 0 ? oy + dp.h : oy, 0, dp.h - dp.cw);
-    sx = clampi(ox < 0 ? ox + dp.w : ox, 0, dp.w - dp.cw);
+__device__ __forceinline__ float soft_term(float max_t, float last_pen) {
+  const float strength = fade(max_t, 2.0f);
+  const float pen_fade = fade(last_pen, INV_THICKNESS);
+  return __fsub_rn(1.0f, __fmul_rn(__fmul_rn(strength, pen_fade), DARKNESS));
+}
+
+// The march window's start: dynamic_slice's, a negative origin counting
+// from the end, then clamped.
+__device__ __forceinline__ void window_start(const Depth& dp, int* sy,
+                                             int* sx, int* oy, int* ox) {
+  *sy = *sx = *oy = *ox = 0;
+  if (dp.origin == nullptr) return;
+  *oy = __ldg(dp.origin);
+  *ox = __ldg(dp.origin + 1);
+  *sy = clampi(*oy < 0 ? *oy + dp.h : *oy, 0, dp.h - dp.cw);
+  *sx = clampi(*ox < 0 ? *ox + dp.w : *ox, 0, dp.w - dp.cw);
+}
+
+// A slot's term into the output: at the slot without an index, else at
+// its pixel (scatter_back: a negative index counts from the end).
+__device__ __forceinline__ void put_term(const Slots& sl, long long s,
+                                         float term, float* out) {
+  if (sl.idx == nullptr) {
+    out[s] = term;
+  } else {
+    long long i = __ldg(sl.idx + s);
+    i = i < 0 ? i + sl.n : i;
+    if (i >= 0 && i < sl.n) out[i] = term;
   }
-  float ms[3], md[3], jit;
-  read_row(sl, row_of(sl, s), ms, md, &jit);
+}
+
+constexpr int MARCH_THREADS = 256;
+
+// The march of slot s by one thread: 8 linear probes in a chain (none
+// after a hit), then 4 bisection steps (none without a hit).
+__device__ void march_chain(const Slots& sl, const Depth& dp,
+                            const bool* __restrict__ mask, int sy, int sx,
+                            int oy, int ox, long long s,
+                            float* __restrict__ out) {
+  if (mask != nullptr && !mask[s]) {   // masked off: lit, no probe
+    out[s] = 1.0f;
+    return;
+  }
+  const long long r = row_of(sl, s);
+  const float* pr = sl.payload + r * ROW;
+  float ms[3], md[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ms[c] = __ldg(pr + c);
+    md[c] = __ldg(pr + 3 + c);
+  }
+  const float jit = __ldg(pr + 6);
   float min_t = 0.0f, max_t = 1.0f, last_pen = 0.0f;
   bool inter = false;
   for (int k = 0; k < LINEAR_STEPS && !inter; ++k) {
@@ -560,23 +844,158 @@ contact_march_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
       }
     }
   }
-  float term = 1.0f;
-  if (inter && (mask == nullptr || mask[s])) {
-    const float strength = fade(max_t, 2.0f);
-    const float pen_fade = fade(last_pen, INV_THICKNESS);
-    term = __fsub_rn(1.0f, __fmul_rn(__fmul_rn(strength, pen_fade),
-                                     DARKNESS));
+  put_term(sl, s, inter ? soft_term(max_t, last_pen) : 1.0f, out);
+}
+
+// The march, one thread a slot, a grid sized by the slots.
+__global__ void __launch_bounds__(MARCH_THREADS)
+contact_march_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
+                     float* __restrict__ out) {
+  const long long s = (long long)blockIdx.x * MARCH_THREADS + threadIdx.x;
+  if (s >= live_of(sl)) return;
+  int sy, sx, oy, ox;
+  window_start(dp, &sy, &sx, &oy, &ox);
+  march_chain(sl, dp, mask, sy, sx, oy, ox, s, out);
+}
+
+// The march, LANES (8 or 16) lanes a slot. The linear probes are
+// independent: lane k < 8 takes probe k, and a ballot gives the first
+// in-bounds hit (max_t and last_pen from its lane) and the last in-bounds
+// miss before it (min_t, else 0), which is what the chain computes. The 4
+// bisection steps form a tree of 15 midpoints (heap order: node n's hit
+// child 2n + 1, its miss child 2n + 2), each node's interval following
+// from (min_t, max_t) and its path alone, every mid computed as the chain
+// computes it; so they are probed speculatively: with 16 lanes all 15 at
+// once, with 8 the 7 of depths 0-2, then the one node of depth 3 on the
+// path. A walk down the path (hit bits by ballot, pens by shuffles) gives
+// max_t and last_pen. Slots past the live count and rays masked off probe
+// nothing; the warps stride over the slots up to the live count, so a
+// grid sized to the card costs what the count needs. Past `chain_above`
+// live slots, where the tree's extra probes cost more instructions than
+// the chain's wait saves, every thread takes a slot of its own (march_chain).
+template <int LANES>
+__global__ void __launch_bounds__(MARCH_THREADS)
+contact_march_lanes_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
+                           long long chain_above, float* __restrict__ out) {
+  constexpr int PER_WARP = 32 / LANES;
+  constexpr unsigned GROUP = LANES == 32 ? FULL : (1u << LANES) - 1u;
+  constexpr int SPECULATIVE = LANES >= 15 ? 15 : 7;   // depths 0-3 or 0-2
+  const int lane = threadIdx.x & 31;
+  const int k = lane % LANES, g0 = lane - k;
+  const long long live = live_of(sl);
+  int sy, sx, oy, ox;
+  window_start(dp, &sy, &sx, &oy, &ox);
+  if (live > chain_above) {
+    for (long long s = (long long)blockIdx.x * MARCH_THREADS + threadIdx.x;
+         s < live; s += (long long)gridDim.x * MARCH_THREADS) {
+      march_chain(sl, dp, mask, sy, sx, oy, ox, s, out);
+    }
+    return;
   }
-  if (sl.idx == nullptr) {
-    out[s] = term;
-  } else {   // scatter_back: a negative index counts from the end
-    long long i = __ldg(sl.idx + s);
-    i = i < 0 ? i + sl.n : i;
-    if (i >= 0 && i < sl.n) out[i] = term;
+  const long long warps = (long long)gridDim.x * (MARCH_THREADS / 32);
+  for (long long wb = ((long long)blockIdx.x * (MARCH_THREADS / 32)
+                       + (threadIdx.x >> 5)) * PER_WARP;
+       wb < live; wb += warps * PER_WARP) {
+    const long long s = wb + lane / LANES;
+    bool act = s < live;
+    const long long r = act ? row_of(sl, s) : 0;
+    if (act && mask != nullptr) act = mask[s];   // masked off: lit
+    const float v = act && k < ROW ? __ldg(sl.payload + r * ROW + k) : 0.0f;
+    float ms[3], md[3], jit;
+    group_row(v, g0, ms, md, &jit);
+
+    // the linear probes
+    bool hit = false, inb = false;
+    float pen = 0.0f;
+    if (act && k < LINEAR_STEPS) {
+      hit = probe(dp, sy, sx, oy, ox, ms, md,
+                  __fmul_rn(__fadd_rn((float)k, jit), 0.125f), &pen, &inb);
+    }
+    const unsigned hits = (__ballot_sync(FULL, hit && inb) >> g0) & 0xffu;
+    const unsigned inbs = (__ballot_sync(FULL, inb) >> g0) & 0xffu;
+    const bool inter = hits != 0;
+    const int first = inter ? __ffs(hits) - 1 : 0;
+    float last_pen = __shfl_sync(FULL, pen, g0 + first);
+    float min_t = 0.0f, max_t = 1.0f;
+    if (inter) {
+      max_t = __fmul_rn(__fadd_rn((float)first, jit), 0.125f);
+      const unsigned before = inbs & ~hits & ((1u << first) - 1u);
+      if (before != 0) {
+        min_t = __fmul_rn(__fadd_rn((float)(31 - __clz(before)), jit),
+                          0.125f);
+      }
+    } else {
+      last_pen = 0.0f;
+    }
+
+    // the speculative bisection: lane k < SPECULATIVE probes node k
+    bool bhit = false;
+    float bpen = 0.0f;
+    if (act && inter && k < SPECULATIVE) {
+      float lo = min_t, hi = max_t;
+      const int path = k + 1;                 // the bits after its top 1
+      for (int d = 30 - __clz(path); d >= 0; --d) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+        if ((path >> d) & 1) lo = mid; else hi = mid;
+      }
+      bool unused;
+      bhit = probe(dp, sy, sx, oy, ox, ms, md,
+                   __fmul_rn(0.5f, __fadd_rn(lo, hi)), &bpen, &unused);
+    }
+    const unsigned bhits = (__ballot_sync(FULL, bhit) >> g0) & GROUP;
+    int node = 0;
+#pragma unroll
+    for (int d = 0; d < (SPECULATIVE == 15 ? 4 : 3); ++d) {
+      const float p = __shfl_sync(FULL, bpen, g0 + node);
+      const float mid = __fmul_rn(0.5f, __fadd_rn(min_t, max_t));
+      const bool h = (bhits >> node) & 1u;
+      if (h) {
+        max_t = mid;
+        last_pen = p;
+      } else {
+        min_t = mid;
+      }
+      node = 2 * node + (h ? 1 : 2);
+    }
+    if (SPECULATIVE == 7 && act && inter) {   // depth 3, on every lane
+      const float mid = __fmul_rn(0.5f, __fadd_rn(min_t, max_t));
+      float p;
+      bool unused;
+      if (probe(dp, sy, sx, oy, ox, ms, md, mid, &p, &unused)) {
+        max_t = mid;
+        last_pen = p;
+      }
+    }
+    if (k == 0 && s < live) {
+      put_term(sl, s, act && inter ? soft_term(max_t, last_pen) : 1.0f, out);
+    }
   }
 }
 
-int grid_of(long long n) { return (int)((n + THREADS - 1) / THREADS); }
+int grid_of(long long n, int threads) {
+  return (int)((n + threads - 1) / threads);
+}
+
+int capped(long long blocks, int max_blocks) {
+  return (int)(blocks < 1 ? 1 : (blocks < max_blocks ? blocks : max_blocks));
+}
+
+Certify certify_of(const float* rows, int lw, int lh, float inv_base,
+                          const float* plane, const float* eps, float size_w,
+                          float size_h) {
+  Certify cf;
+  cf.rows = rows;
+  cf.lw = lw;
+  cf.lh = lh;
+  cf.inv_base = inv_base;
+  cf.pyr.occl_lo = nullptr;
+  cf.pyr.occl_hi = nullptr;
+  cf.pyr.plane = plane;
+  cf.pyr.eps = eps;
+  cf.size_w = size_w;
+  cf.size_h = size_h;
+  return cf;
+}
 
 }  // namespace
 
@@ -612,11 +1031,13 @@ int contact_front_launch(
   f.pyr.eps = eps;
   f.size_w = size_w;
   f.size_h = size_h;
-  contact_front_kernel<<<grid_of(n), THREADS, 0, (cudaStream_t)stream>>>(
-      f, n, cand, stage2, payload);
+  contact_front_kernel<<<grid_of(n, THREADS), THREADS, 0,
+                         (cudaStream_t)stream>>>(f, n, cand, stage2,
+                                                 payload);
   return (int)cudaGetLastError();
 }
 
+// The (m,) certificate: one block a chunk of CHUNK slots.
 int contact_certify_launch(const float* payload, long long n, const int* idx,
                            long long m, const int* count, const float* rows,
                            int lw, int lh, float inv_base,
@@ -624,31 +1045,65 @@ int contact_certify_launch(const float* payload, long long n, const int* idx,
                            float size_w, float size_h, bool* out,
                            void* stream) {
   Slots sl{payload, n, idx, m, count};
-  Certify cf;
-  cf.rows = rows;
-  cf.lw = lw;
-  cf.lh = lh;
-  cf.inv_base = inv_base;
-  cf.pyr.occl_lo = nullptr;
-  cf.pyr.occl_hi = nullptr;
-  cf.pyr.plane = plane;
-  cf.pyr.eps = eps;
-  cf.size_w = size_w;
-  cf.size_h = size_h;
-  contact_certify_kernel<<<grid_of(m), THREADS, 0, (cudaStream_t)stream>>>(
-      sl, cf, out);
+  const Certify cf = certify_of(rows, lw, lh, inv_base, plane, eps, size_w,
+                                size_h);
+  Stage3 s3{};
+  contact_certify_kernel<MASK_MODE>
+      <<<grid_of(m, CHUNK), CERT_THREADS, 0, (cudaStream_t)stream>>>(
+          sl, cf, out, s3);
   return (int)cudaGetLastError();
 }
 
+// Stage 3 of the compacted slots (idx (m,), count, slot_valid), into
+// out_idx / out_valid (cap,) and out_count, every entry written; `sync` is
+// zero and holds 2 + ceil(m / CHUNK) words; at most max_blocks blocks.
+int contact_certify_compact_launch(
+    const float* payload, long long n, const int* idx, long long m,
+    const int* count, const float* rows, int lw, int lh, float inv_base,
+    const float* plane, const float* eps, float size_w, float size_h,
+    const bool* slot_valid, int* out_idx, bool* out_valid, int* out_count,
+    long long cap, unsigned long long* sync, int max_blocks, void* stream) {
+  if (idx == nullptr || count == nullptr || slot_valid == nullptr ||
+      out_count == nullptr || sync == nullptr || max_blocks < 1 || m < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Slots sl{payload, n, idx, m, count};
+  const Certify cf = certify_of(rows, lw, lh, inv_base, plane, eps, size_w,
+                                size_h);
+  Stage3 s3{slot_valid, out_idx, out_valid, out_count, cap, sync};
+  contact_certify_kernel<COMPACT_MODE>
+      <<<capped(grid_of(m, CHUNK), max_blocks), CERT_THREADS, 0,
+         (cudaStream_t)stream>>>(sl, cf, nullptr, s3);
+  return (int)cudaGetLastError();
+}
+
+// The march over m slots at `lanes` (1, 8 or 16) lanes a slot; the lane
+// layouts take at most max_blocks blocks and one thread a slot past
+// chain_above live slots.
 int contact_march_launch(const float* depth, int h, int w,
                          const float* payload, long long n, const int* idx,
                          long long m, const int* count, const bool* mask,
-                         const int* origin, int cw, float* out,
+                         const int* origin, int cw, float* out, int lanes,
+                         long long chain_above, int max_blocks,
                          void* stream) {
   Slots sl{payload, n, idx, m, count};
   Depth dp{depth, h, w, origin, cw};
-  contact_march_kernel<<<grid_of(m), THREADS, 0, (cudaStream_t)stream>>>(
-      sl, dp, mask, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 1) {
+    contact_march_kernel<<<grid_of(m, MARCH_THREADS), MARCH_THREADS, 0,
+                           st>>>(sl, dp, mask, out);
+  } else if (lanes == 8 || lanes == 16) {
+    const int blocks = capped(grid_of(m * lanes, MARCH_THREADS), max_blocks);
+    if (lanes == 8) {
+      contact_march_lanes_kernel<8><<<blocks, MARCH_THREADS, 0, st>>>(
+          sl, dp, mask, chain_above, out);
+    } else {
+      contact_march_lanes_kernel<16><<<blocks, MARCH_THREADS, 0, st>>>(
+          sl, dp, mask, chain_above, out);
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,22 +1,28 @@
 """The contact shadows' front and back as hand-written Hopper kernels, K8
 and K9 (csrc/contact.cu), the card's path of passes/contact.py::
-contact_front, contact_certify and contact_march.
+contact_front, contact_certify, contact_certify_compact and
+contact_march.
 
 K8 (`contact_front`) replaces the JAX package's jnp stages funky_tpu/
 passes/contact.py::_ray_setup (:76-121), _jitter / _jitter_at
 (:197-212) and _segment_cert (:496-587): one thread per pixel of the
 domain writes its candidate mask, its stage-2 mask (with the residual
 pyramid) and its [march start, march dir, jitter] payload row. K9
-replaces _stage2_certify (:590-608, `contact_certify`) and _march /
-_soft_term (:124-194, `contact_march`): one thread per compacted slot
-reads its payload row through the slot's index and stops at the live
-count, both read on the card; the march reads prev_depth directly (the
-quad of quad_pack, edge-clamped) or through a window at a device origin,
-and writes each term into a ones-filled output at its pixel. Uniforms,
-counts and origins stay in device memory, so no value is read on the host
-and a committed frame still records as a CUDA graph. Each wrapper
-launches its kernel or raises (its `check_*` names the argument); the
-pass above takes the plain twins for CPU tensors.
+replaces _stage2_certify (:590-608, `contact_certify`, and with stage 3's
+compaction :760-770, `contact_certify_compact`) and _march / _soft_term
+(:124-194, `contact_march`). The certificate spreads a slot's 8 probes
+over 8 lanes; its compact mode writes stage 3's Compacted itself, its
+blocks taking chunks of slots in order by a ticket and stopping at the
+live count, each survivor placed by a prefix in the block and a
+decoupled look-back across blocks. The march takes LANES lanes a slot
+(`lanes_for`): the linear probes on 8 lanes, the bisection as a
+speculative tree of midpoints, or one thread a slot; it reads prev_depth
+directly (the quad of quad_pack, edge-clamped) or through a window at a
+device origin, and writes each term into a ones-filled output at its
+pixel. Uniforms, counts and origins stay in device memory, so no value
+is read on the host and a committed frame still records as a CUDA
+graph. Each wrapper launches its kernel or raises (its `check_*` names
+the argument); the pass above takes the plain twins for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,15 +33,48 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .compact import Compacted
 
-# Kernel launches made by each wrapper since the last reset.
+# Kernel launches made by each wrapper since the last reset (the
+# certificate's in both its modes).
 FRONT_LAUNCHES = 0
 CERTIFY_LAUNCHES = 0
 MARCH_LAUNCHES = 0
 
 ROW = 7   # payload floats per ray: march start (3), march dir (3), jitter
+CHUNK = 256   # slots a block of the certificate takes (csrc/contact.cu)
+
+# The compact certificate's blocks per SM (they take chunks by a ticket;
+# 3 fit its registers), and the lane layouts' of the march (their warps
+# stride over the slots). On an H100 80GB HBM3 (700 W; time_passes.py on
+# the shipped frame's call) the certificate at 4 ran 8-9% faster than at
+# 2 or 8.
+CERTIFY_BLOCKS_PER_SM = 4
+MARCH_BLOCKS_PER_SM = 8
+
+# Lanes a slot of the march: 1 (a thread a slot, the probes in a chain),
+# 8 (the linear probes on 8 lanes, the bisection as 7 speculative
+# midpoints, then 1) or 16 (all 15 midpoints at once). The tree probes 7
+# or 15 midpoints where the chain probes 4, and where many rays are live
+# the march is bound by its instruction count: on the H100 above
+# (time_passes.py, the shipped frame's call cut to fewer live slots) 8
+# lanes ran 1.4x faster than 1 at 1-4 K live slots and 1.2x at 16 K, 4%
+# slower at 32 K and 1.5x slower at 64 K; 16 lanes as fast as 8 up to 4 K
+# and slower past it; on the dense frame's 2,073,600 rays 1 lane ran 2.5x
+# faster than 8.
+LANES = (1, 8, 16)
+LANES_MAX = 1 << 18   # launches of more slots take one lane a slot
+# Past this many live slots (read on the card) the lane layouts run one
+# thread a slot too.
+LANES_LIVE_MAX = 1 << 15
 
 _FNS: dict = {}
+_SMS: dict = {}
+# Per device: the compact certificate's ticket, done count and chunk
+# status words (int64, zero between launches), and every smaller buffer
+# it replaced, kept alive for the CUDA graphs that captured it.
+_SYNC: dict = {}
+_SYNC_OLD: list = []
 
 
 def reset_launches() -> None:
@@ -52,11 +91,48 @@ def _launcher(name: str):
             "front": [p, ll, p, ll, p, ll, p, p, p, ll, p, f, i, p, p, p, p,
                       p, f, f, ll, p, p, p, p],
             "certify": [p, ll, p, ll, p, p, i, i, f, p, p, f, f, p, p],
-            "march": [p, i, i, p, ll, p, ll, p, p, p, i, p, p],
+            "certify_compact": [p, ll, p, ll, p, p, i, i, f, p, p, f, f,
+                                p, p, p, p, ll, p, i, p],
+            "march": [p, i, i, p, ll, p, ll, p, p, p, i, p, i, ll, i, p],
         }[name]
         fn.restype = i
         _FNS[name] = fn
     return _FNS[name]
+
+
+def lanes_for(m: int) -> int:
+    """Lanes a slot for a march over m slots: 8 up to LANES_MAX, where
+    the chain of probes' reads is the longer wait, else 1."""
+    return 8 if m <= LANES_MAX else 1
+
+
+def _sms(dev: torch.device) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _sync_words(dev: torch.device, chunks: int) -> torch.Tensor:
+    """The device's ticket, done count and at least `chunks` status words,
+    zero-filled when made or grown. Growing cannot be captured: a CUDA
+    graph's memory pool would own the buffer and its zeros would be a node
+    of the graph. Compiled frames run eagerly once before they capture
+    (frame.GraphFrame), at the same capacities."""
+    buf = _SYNC.get(dev)
+    if buf is None or buf.numel() < 2 + chunks:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "contact_certify_compact: the first call on a device, or "
+                "one with more stage-2 slots than any before, allocates "
+                "its status words and cannot be captured; call it once "
+                "eagerly before the capture, as compiled frames do in "
+                "their warm-up")
+        if buf is not None:
+            _SYNC_OLD.append(buf)
+        size = 2 + max(chunks, 2 * (0 if buf is None else buf.numel() - 2))
+        buf = _SYNC[dev] = torch.zeros((size,), dtype=torch.int64,
+                                       device=dev)
+    return buf
 
 
 def _tensor(name: str, t, dtype, device=None) -> None:
@@ -255,6 +331,18 @@ def check_certify(pyr, payload, depth_shape, idx=None, count=None) -> None:
         _shape(f"pyr.{name}", t, shape)
 
 
+def _certify_args(pyr, payload, depth_shape, idx, count) -> tuple:
+    """The launchers' leading arguments: the slots, then the pyramid."""
+    hd, wd = depth_shape
+    return (payload.data_ptr(), payload.shape[0],
+            None if idx is None else idx.data_ptr(),
+            payload.shape[0] if idx is None else idx.shape[0],
+            None if count is None else count.data_ptr(),
+            pyr.rows.data_ptr(), pyr.lw, pyr.lh,
+            float(np.float32(1.0) / np.float32(pyr.base)),
+            pyr.plane.data_ptr(), pyr.eps.data_ptr(), float(wd), float(hd))
+
+
 def contact_certify(pyr, payload, depth_shape, idx=None, count=None):
     """(m,) bool: each slot's 8-probe level-0 certificate, true at or past
     the live count: contact.py::contact_certify's contract."""
@@ -264,26 +352,84 @@ def contact_certify(pyr, payload, depth_shape, idx=None, count=None):
     if dev.type != "cuda":
         raise ValueError(f"payload: the contact kernels take CUDA tensors, "
                          f"got one on {dev}")
-    n = payload.shape[0]
-    m = n if idx is None else idx.shape[0]
+    m = payload.shape[0] if idx is None else idx.shape[0]
     out = torch.empty((m,), dtype=torch.bool, device=dev)
     if m == 0:
         return out
-    hd, wd = depth_shape
-    inv_base = float(np.float32(1.0) / np.float32(pyr.base))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _launcher("certify")(
-            payload.data_ptr(), n, None if idx is None else idx.data_ptr(),
-            m, None if count is None else count.data_ptr(),
-            pyr.rows.data_ptr(), pyr.lw, pyr.lh, inv_base,
-            pyr.plane.data_ptr(), pyr.eps.data_ptr(), float(wd), float(hd),
+            *_certify_args(pyr, payload, depth_shape, idx, count),
             out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"contact certify launch failed: CUDA error "
                            f"{status}")
     CERTIFY_LAUNCHES += 1
     return out
+
+
+def check_certify_compact(pyr, payload, depth_shape, comp2, cap3) -> None:
+    """Raises, naming the argument, on a compacting certify call the kernel
+    does not take (never reads a value): check_certify's with comp2's
+    index and count (neither None), comp2.slot_valid a contiguous (m,)
+    bool, and cap3 an int >= 0."""
+    if not isinstance(comp2, Compacted):
+        raise TypeError(f"comp2: {type(comp2).__name__}, expected a "
+                        f"Compacted")
+    if comp2.idx is None or comp2.count is None:
+        raise ValueError("comp2: needs its idx and its count")
+    check_certify(pyr, payload, depth_shape, comp2.idx, comp2.count)
+    _tensor("comp2.slot_valid", comp2.slot_valid, torch.bool,
+            payload.device)
+    _shape("comp2.slot_valid", comp2.slot_valid, tuple(comp2.idx.shape))
+    if not comp2.slot_valid.is_contiguous():
+        raise ValueError("comp2.slot_valid: must be contiguous")
+    if not isinstance(cap3, int) or isinstance(cap3, bool) or cap3 < 0:
+        raise ValueError(f"cap3: {cap3!r}, expected an int >= 0")
+
+
+def contact_certify_compact(pyr, payload, depth_shape, comp2, cap3):
+    """Stage 3's Compacted (idx (min(cap3, m),) int32 with -1 past the
+    count, slot_valid, count () int32 of every survivor) of the stage-2
+    slots comp2: contact.py::contact_certify_compact's contract, in one
+    launch of the certificate, which writes every entry of its outputs.
+
+    One set of status words per device serves every call, which is right
+    while no two launches on the device overlap: the port's frames launch
+    K9 on one stream (eager, in a warm-up or in a replayed graph, one
+    after another), and each rank of a sharded frame is its own
+    process."""
+    global CERTIFY_LAUNCHES
+    check_certify_compact(pyr, payload, depth_shape, comp2, cap3)
+    dev = payload.device
+    if dev.type != "cuda":
+        raise ValueError(f"payload: the contact kernels take CUDA tensors, "
+                         f"got one on {dev}")
+    m = comp2.idx.shape[0]
+    cap = min(cap3, m)
+    if m == 0:
+        return Compacted(idx=torch.full((0,), -1, dtype=torch.int32,
+                                        device=dev),
+                         slot_valid=torch.zeros((0,), dtype=torch.bool,
+                                                device=dev),
+                         count=torch.zeros((), dtype=torch.int32, device=dev))
+    idx = torch.empty((cap,), dtype=torch.int32, device=dev)
+    valid = torch.empty((cap,), dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        sync = _sync_words(dev, -(-m // CHUNK))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _launcher("certify_compact")(
+            *_certify_args(pyr, payload, depth_shape, comp2.idx,
+                           comp2.count),
+            comp2.slot_valid.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            count.data_ptr(), cap, sync.data_ptr(),
+            CERTIFY_BLOCKS_PER_SM * _sms(dev), stream)
+    if status != 0:
+        raise RuntimeError(f"contact certify launch failed: CUDA error "
+                           f"{status}")
+    CERTIFY_LAUNCHES += 1
+    return Compacted(idx=idx, slot_valid=valid, count=count)
 
 
 def check_march(prev_depth, payload, idx=None, count=None, mask=None,
@@ -348,7 +494,8 @@ def contact_march(prev_depth, payload, idx=None, count=None, mask=None,
             None if count is None else count.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if origin is None else origin.data_ptr(), cw,
-            out.data_ptr(), stream)
+            out.data_ptr(), lanes_for(m), LANES_LIVE_MAX,
+            MARCH_BLOCKS_PER_SM * _sms(dev), stream)
     if status != 0:
         raise RuntimeError(f"contact march launch failed: CUDA error "
                            f"{status}")

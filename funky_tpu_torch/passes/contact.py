@@ -6,13 +6,16 @@ the nearest filter: densely (`compute_contact_shadow`) or sparsely
 residual certificate retires most rays and only a compacted set marches;
 `contact_occupancy` counts those sets for the autotuner.
 
-Three dispatchers hold the per-ray work: `contact_front` (ray setup,
+Four dispatchers hold the per-ray work: `contact_front` (ray setup,
 jitter and the stage-1 segment certificate), `contact_certify` (the
-stage-2 probe certificate over compacted slots) and `contact_march` (the
-exact march and its soft term, over slots or every ray). CUDA tensors go
-to the hand-written kernels K8 and K9 (ops/contact_cuda.py), CPU tensors
-to the plain twins `_contact_front_plain`, `_contact_certify_plain` and
-`_contact_march_plain`, which equal the kernels bit for bit on the card.
+stage-2 probe certificate over compacted slots or every ray),
+`contact_certify_compact` (the same over the stage-2 slots, compacted
+into stage 3's) and `contact_march` (the exact march and its soft term,
+over slots or every ray). CUDA tensors go to the hand-written kernels K8
+and K9 (ops/contact_cuda.py), CPU tensors to the plain twins
+`_contact_front_plain`, `_contact_certify_plain`,
+`_contact_certify_compact_plain` and `_contact_march_plain`, which equal
+the kernels bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -268,6 +271,37 @@ def _contact_certify_plain(pyr, payload, depth_shape, idx=None,
     cert = _stage2_certify(pyr, rows[:, 0:3], rows[:, 3:6], rows[:, 6],
                            _size(depth_shape, payload.device))
     return cert | ~_live(cert.shape[0], count, payload.device)
+
+
+def contact_certify_compact(pyr, payload: torch.Tensor, depth_shape,
+                            comp2: Compacted, cap3: int) -> Compacted:
+    """Stage 3's compaction of the stage-2 slots `comp2` (contact.py:
+    760-770): the live slots (slot_valid) whose certificate fails, in slot
+    order, as a Compacted of min(cap3, m) slots holding comp2's pixel
+    index of each (-1 past the count) and the true count, even past cap3.
+    CUDA tensors go to K9's certificate in its compact mode, one launch
+    (ops/contact_cuda.py), which raises on what it does not take; CPU
+    tensors to the plain twin."""
+    if payload.device.type == "cuda":
+        return contact_cuda.contact_certify_compact(pyr, payload,
+                                                    depth_shape, comp2, cap3)
+    return _contact_certify_compact_plain(pyr, payload, depth_shape, comp2,
+                                          cap3)
+
+
+def _contact_certify_compact_plain(pyr, payload, depth_shape,
+                                   comp2: Compacted, cap3: int) -> Compacted:
+    """contact_certify_compact as torch ops (the certificate, a stable
+    argsort of the survivors, comp2's indices gathered): the CPU path and
+    the compact mode's test oracle."""
+    cert2 = _contact_certify_plain(pyr, payload, depth_shape, comp2.idx,
+                                   comp2.count)
+    stage3 = comp2.slot_valid & ~cert2
+    comp3_local = compact_indices(stage3, cap3)
+    safe_slot = comp3_local.idx.clamp(min=0).long()
+    return Compacted(
+        idx=torch.where(comp3_local.slot_valid, comp2.idx[safe_slot], -1),
+        slot_valid=comp3_local.slot_valid, count=comp3_local.count)
 
 
 def contact_march(prev_depth: torch.Tensor, payload: torch.Tensor, idx=None,
@@ -651,15 +685,8 @@ def compute_contact_shadow_sparse(world: torch.Tensor, normal: torch.Tensor,
                                           1, 64, block_capacity)
     comp2 = (blocked.comp if blocked is not None
              else compact_indices(stage2, cap2))
-    cert2 = contact_certify(pyr, payload, prev_depth.shape, comp2.idx,
-                            comp2.count)
-
-    stage3 = comp2.slot_valid & ~cert2
-    comp3_local = compact_indices(stage3, cap3)
-    safe_slot = comp3_local.idx.clamp(min=0).long()
-    comp3 = Compacted(
-        idx=torch.where(comp3_local.slot_valid, comp2.idx[safe_slot], -1),
-        slot_valid=comp3_local.slot_valid, count=comp3_local.count)
+    comp3 = contact_certify_compact(pyr, payload, prev_depth.shape, comp2,
+                                    cap3)
 
     fits = (comp2.count <= cap2) & (comp3.count <= cap3)
     occupancy = [(comp2.count, cap2), (comp3.count, cap3)]

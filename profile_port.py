@@ -145,9 +145,12 @@ NESTED = (
     # contact_front, else _ray_setup, _jitter_at and contact_classify),
     # the stage-2 and stage-3 compactions (compact_indices_blocked for a
     # blocked stage 2, compact_indices for stage 3 and an unblocked stage
-    # 2), the certificate (K9's certify, else _stage2_certify), the
-    # payload gathers (without K9 the stage-2 and stage-3 rows; with it,
-    # the march window's rows), and the march (K9's march, else
+    # 2), the certificate (K9's certify, with stage 3's compaction inside
+    # it where the package has contact_certify_compact: its stage-3
+    # compaction part then reads 0, its time in the certificate's; else
+    # _stage2_certify), the payload gathers (without K9 the stage-2 and
+    # stage-3 rows; with it, the march window's rows), and the march
+    # (K9's march, else
     # quad_pack, _march, _soft_term and scatter_back; contact.quad_pack
     # also packs the pyramid's level-0 map inside build_residual_pyramid,
     # a few us, charged here in both). A part whose function the package
@@ -161,6 +164,7 @@ NESTED = (
     ("contact", "compact_indices_blocked", "contact stage-2 compaction"),
     ("contact", "compact_indices", "contact stage-3 compaction"),
     ("contact", "contact_certify", "contact certify"),
+    ("contact", "contact_certify_compact", "contact certify"),
     ("contact", "_stage2_certify", "contact certify"),
     ("contact", "gather_rows", "contact gather_rows"),
     ("contact", "contact_march", "contact march"),

@@ -1,11 +1,15 @@
 """The contact kernels K8 and K9 (funky_tpu_torch/csrc/contact.cu through
-ops/contact_cuda.py: contact_front, contact_certify, contact_march)
-against their plain twins (passes/contact.py::_contact_front_plain,
-_contact_certify_plain, _contact_march_plain), on the card. The inputs
-are a default frame's own (GltfConfig() at 256x144 on the multimesh
-scene, two chained frames, every dispatcher call recorded), cut and
-re-indexed for the cases no frame reaches, and for the front re-laid in
-memory (LAYOUTS). Every test here needs an
+ops/contact_cuda.py: contact_front, contact_certify,
+contact_certify_compact, contact_march) against their plain twins
+(passes/contact.py::_contact_front_plain, _contact_certify_plain,
+_contact_certify_compact_plain, _contact_march_plain), on the card. The
+inputs are a default frame's own (GltfConfig() at 256x144 on the
+multimesh scene, two chained frames, every dispatcher call recorded),
+cut and re-indexed for the cases no frame reaches, for the front re-laid
+in memory (LAYOUTS), and for the march also seeded rays drawn from the
+frame's payload (tests/torch_scenes.py::contact_rays) at every lane count
+of contact_cuda.LANES, the lane layouts also past LANES_LIVE_MAX. Every
+test here needs an
 NVIDIA GPU and skips without one. The module imports no jax:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_contact_cuda.py
@@ -23,7 +27,9 @@ import torch
 import chip_smoke
 from funky_tpu_torch import frame as tf
 from funky_tpu_torch.ops import contact_cuda
+from funky_tpu_torch.ops.compact import Compacted
 from funky_tpu_torch.passes import contact as tcontact
+from tests.torch_scenes import contact_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -40,7 +46,7 @@ def calls():
     params = chip_smoke.scene_params(gltf, dev)
     cfg = dataclasses.replace(chip_smoke.default_config(), width=256,
                               height=144)
-    out = {name: [] for name in ("contact_front", "contact_certify",
+    out = {name: [] for name in ("contact_front", "contact_certify_compact",
                                  "contact_march")}
     saved = {name: getattr(tcontact, name) for name in out}
 
@@ -264,17 +270,25 @@ def _count(v, dev):
     return torch.tensor(v, dtype=torch.int32, device=dev)
 
 
+def _certify_calls(calls):
+    """(pyr, payload, shape, idx, count) of the frames' certificates: the
+    compacting calls' stage-2 slots."""
+    for args, kwargs in calls["contact_certify_compact"]:
+        a = dict(zip(("pyr", "payload", "depth_shape", "comp2", "cap3"),
+                     args), **kwargs)
+        yield (a["pyr"], a["payload"], a["depth_shape"], a["comp2"].idx,
+               a["comp2"].count)
+
+
 @pytest.mark.parametrize("case", ["frame", "identity", "empty", "one",
                                   "odd", "at_capacity", "past_capacity",
                                   "no_count"])
 def test_certify_equal_to_plain(calls, case):
-    """K9's certificate == the twin bit for bit on the frames' stage-2
-    slots, over every payload row (the probe's identity index), and with
-    live counts of 0, 1, an odd split, the capacity, past it and none."""
-    for args, kwargs in calls["contact_certify"]:
-        pyr, payload, shape, idx, count = (list(args) + [None] * 5)[:5]
-        idx = kwargs.get("idx", idx)
-        count = kwargs.get("count", count)
+    """K9's certificate (its mask mode) == the twin bit for bit on the
+    frames' stage-2 slots, over every payload row (the probe's identity
+    index), and with live counts of 0, 1, an odd split, the capacity,
+    past it and none."""
+    for pyr, payload, shape, idx, count in _certify_calls(calls):
         dev = payload.device
         m = idx.shape[0]
         if case == "identity":
@@ -290,6 +304,106 @@ def test_certify_equal_to_plain(calls, case):
         assert same(got, want)
 
 
+def compact_both(pyr, payload, shape, comp2, cap3):
+    before = contact_cuda.CERTIFY_LAUNCHES
+    got = tcontact.contact_certify_compact(pyr, payload, shape, comp2, cap3)
+    assert contact_cuda.CERTIFY_LAUNCHES - before == 1
+    want = tcontact._contact_certify_compact_plain(pyr, payload, shape,
+                                                   comp2, cap3)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _comp2(payload, m, live, gen, valid="prefix"):
+    """Stage-2 slots over m random payload rows: slot_valid before
+    min(live, m) (or at random), count `live`."""
+    dev = payload.device
+    idx = torch.randint(0, payload.shape[0], (m,), generator=gen,
+                        dtype=torch.int32, device=dev)
+    slot_valid = (torch.arange(m, device=dev) < live if valid == "prefix"
+                  else torch.rand(m, generator=gen, device=dev) < 0.7)
+    return Compacted(idx=idx, slot_valid=slot_valid, count=_count(live, dev))
+
+
+# case -> (slots, live count, cap3); None: the frame's own
+COMPACT_CASES = {"frame": None, "overflow": (20_000, 20_000, 64),
+                 "no_live": (20_000, 0, 512), "all_live": (20_000, 20_000,
+                                                           20_000),
+                 "past_slots": (20_000, 20_007, 8_000),
+                 "inside_a_chunk": (20_000, 9_999, 4_096),
+                 "cap3_above_slots": (3_000, 2_500, 5_000),
+                 "one_slot": (1, 1, 1), "random_valid": (20_000, 15_000,
+                                                         8_000)}
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_certify_compact_equal_to_plain(calls, case):
+    """K9's compacting certificate == the twin bit for bit (idx, slot_valid
+    and the true count): on the frames' own calls, and on random stage-2
+    slots at capacities and live counts no frame takes (stage 3 past cap3,
+    no live slot, every slot live, a count past the slots, a count inside
+    a chunk, cap3 past the slots, one slot, slot_valid not a prefix)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for args, kwargs in calls["contact_certify_compact"]:
+        pyr, payload, shape, comp2, cap3 = (list(args) + [None] * 5)[:5]
+        comp2 = kwargs.get("comp2", comp2)
+        cap3 = kwargs.get("cap3", cap3)
+        if COMPACT_CASES[case] is not None:
+            m, live, cap3 = COMPACT_CASES[case]
+            comp2 = _comp2(payload, m, live, gen,
+                           "random" if case == "random_valid" else "prefix")
+        got, want = compact_both(pyr, payload, shape, comp2, cap3)
+        for g, w in zip(got, want):
+            assert same(g, w)
+
+
+def test_certify_compact_graph_replays(calls):
+    """The compacting certificate recorded as a CUDA graph after an eager
+    call, replayed twice in a row (the status words the last block resets
+    serve the second replay) and again after an eager call between, with
+    new stage-2 slots copied in before the third: == the twin each time."""
+    args, kwargs = calls["contact_certify_compact"][-1]
+    pyr, payload, shape, comp2, cap3 = args
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    comp2 = _comp2(payload, 20_000, 17_000, gen)
+    tcontact.contact_certify_compact(pyr, payload, shape, comp2, 1_024)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tcontact.contact_certify_compact(pyr, payload, shape, comp2,
+                                               1_024)
+    want = tcontact._contact_certify_compact_plain(pyr, payload, shape,
+                                                   comp2, 1_024)
+    for step in range(3):
+        if step == 2:
+            got, _ = compact_both(pyr, payload, shape,
+                                  _comp2(payload, 5_000, 4_000, gen), 900)
+            new = _comp2(payload, 20_000, 9_000, gen)
+            for dst, src in zip(comp2, new):
+                dst.copy_(src)
+            want = tcontact._contact_certify_compact_plain(
+                pyr, payload, shape, comp2, 1_024)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert same(g, w)
+
+
+def test_certify_compact_first_call_in_capture_raises(calls, monkeypatch):
+    """The status words are made at a device's first call, eagerly: a
+    first call inside a capture raises, naming the warm-up it needs."""
+    args, _ = calls["contact_certify_compact"][-1]
+    pyr, payload, shape, comp2, cap3 = args
+    monkeypatch.setattr(contact_cuda, "_SYNC", {})
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="eagerly before the capture"):
+        with torch.cuda.graph(graph):
+            tcontact.contact_certify_compact(pyr, payload, shape, comp2,
+                                             cap3)
+    assert contact_cuda._SYNC == {}
+
+
 def march_both(depth, payload, **kw):
     before = contact_cuda.MARCH_LAUNCHES
     got = tcontact.contact_march(depth, payload, **kw)
@@ -299,13 +413,27 @@ def march_both(depth, payload, **kw):
     return got, want
 
 
+@pytest.fixture(params=[(n, False) for n in contact_cuda.LANES]
+                + [(n, True) for n in contact_cuda.LANES if n > 1],
+                ids=lambda p: f"{p[0]}{'-always' if p[1] else ''}")
+def lanes(request, monkeypatch):
+    """Every lane count of the march, forced by replacing lanes_for; the
+    lane layouts also with no live count past which they run one thread a
+    slot (LANES_LIVE_MAX), so that each layout marches the seeded rays."""
+    n, always = request.param
+    monkeypatch.setattr(contact_cuda, "lanes_for", lambda m: n)
+    if always:
+        monkeypatch.setattr(contact_cuda, "LANES_LIVE_MAX", 2 ** 62)
+    return n
+
+
 @pytest.mark.parametrize("case", ["frame", "every_ray", "empty", "odd",
                                   "at_capacity"])
-def test_march_equal_to_plain(calls, case):
+def test_march_equal_to_plain(calls, case, lanes):
     """K9's march == the twin bit for bit on the frames' stage-3 slots,
     over every ray with the candidate mask (the dense path and the
     fallback), and with live counts of 0, an odd split and the
-    capacity."""
+    capacity, at every lane count."""
     for (args, kwargs), (fargs, fkw) in zip(calls["contact_march"],
                                             calls["contact_front"]):
         depth, payload = args[:2]
@@ -325,6 +453,35 @@ def test_march_equal_to_plain(calls, case):
             kw["count"] = _count(live, dev)
         got, want = march_both(depth, payload, **kw)
         assert same(got, want)
+
+
+@pytest.mark.parametrize("call", ["indexed", "masked", "windowed"])
+def test_march_seeded_rays(calls, call, lanes):
+    """K9's march == the twin bit for bit on rays drawn from the frame's
+    payload (contact_rays: first hits on every linear probe, hits after
+    an out-of-bounds probe, misses, NaN rows) at every lane count:
+    through an index with a live count inside a warp, every ray with a
+    random mask, and through a window."""
+    args, _ = calls["contact_march"][-1]
+    depth, payload = args[:2]
+    dev = payload.device
+    rows = torch.from_numpy(contact_rays(payload.cpu().numpy(), 3, 50_001)
+                            ).to(dev)
+    n = rows.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    if call == "indexed":
+        kw = dict(idx=torch.randperm(n, generator=gen, device=dev)[:40_000]
+                  .to(torch.int32), count=_count(39_989, dev))
+    elif call == "masked":
+        kw = dict(mask=torch.rand(n, generator=gen, device=dev) < 0.8)
+    else:
+        kw = dict(idx=torch.arange(n, dtype=torch.int32, device=dev),
+                  count=_count(n, dev), window=(torch.tensor(
+                      (depth.shape[0] // 4, depth.shape[1] // 5),
+                      dtype=torch.int32, device=dev), 96))
+    got, want = march_both(depth, rows, **kw)
+    assert same(got, want)
+    assert (want < 1.0).any()
 
 
 @pytest.mark.parametrize("origin", ["corner", "far_corner", "negative",
@@ -350,17 +507,21 @@ def test_march_window_equal_to_plain(calls, origin, cw):
 
 
 def test_graph_replay(calls):
-    """The frame's front, certify and march recorded as one CUDA graph
-    and replayed: == the eager kernels bit for bit, one launch each at
-    capture and none on a replay."""
+    """The frame's front, compacting certify and march recorded as one
+    CUDA graph and replayed twice: == the eager kernels bit for bit, one
+    launch each at capture and none on a replay."""
     (fa, fk), (ca, ck), (ma, mk) = (calls[n][-1] for n in (
-        "contact_front", "contact_certify", "contact_march"))
+        "contact_front", "contact_certify_compact", "contact_march"))
 
     def run():
         cand, stage2, payload = tcontact.contact_front(*fa, **fk)
-        cert = tcontact.contact_certify(ca[0], payload, *ca[2:], **ck)
-        return cand, stage2, payload, cert, tcontact.contact_march(
-            ma[0], payload, *ma[2:], **mk)
+        comp3 = tcontact.contact_certify_compact(ca[0], payload, *ca[2:],
+                                                 **ck)
+        # the frame's march: over stage 3's slots, or (its overflow
+        # fallback) every ray with its mask
+        slots = (comp3.idx, comp3.count) if len(ma) > 2 else ()
+        return (cand, stage2, payload, *comp3, tcontact.contact_march(
+            ma[0], payload, *slots, *ma[4:], **mk))
 
     eager = run()
     torch.cuda.synchronize()
@@ -372,7 +533,8 @@ def test_graph_replay(calls):
     after = (contact_cuda.FRONT_LAUNCHES, contact_cuda.CERTIFY_LAUNCHES,
              contact_cuda.MARCH_LAUNCHES)
     assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
-    graph.replay()
-    torch.cuda.synchronize()
-    for a, b in zip(out, eager):
-        assert same(a, b)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert same(a, b)

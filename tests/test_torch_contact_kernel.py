@@ -2,22 +2,29 @@
 
 passes/contact.py's dispatchers send CUDA tensors to the kernels K8 and K9
 (funky_tpu_torch/ops/contact_cuda.py: contact_front, contact_certify,
-contact_march) and CPU tensors to the plain twins _contact_front_plain,
-_contact_certify_plain and _contact_march_plain. Here the twins, with
-their slot index and live count, are held against the JAX package's
-_ray_setup + _jitter_at + contact_classify, _stage2_certify, and _march +
-_soft_term on the same numpy-seeded inputs (a ground of rays toward the
-light over a depth buffer with an occluder block); a live count below the
-capacity is shown to change no slot before it; each check_* is held to
-the calls its kernel takes and refuses; and every dispatcher call of a
-dense, a default and a tuned shipped frame passes its check_*, so that no
-frame call raises on the card. The kernels run on the card only
-(tests/test_torch_contact_cuda.py, chip_smoke.py).
+contact_certify_compact, contact_march) and CPU tensors to the plain twins
+_contact_front_plain, _contact_certify_plain,
+_contact_certify_compact_plain and _contact_march_plain. Here the twins,
+with their slot index and live count, are held against the JAX package's
+_ray_setup + _jitter_at + contact_classify, _stage2_certify, stage 3's
+compaction (contact.py:760-770) and _march + _soft_term on the same
+numpy-seeded inputs (a ground of rays toward the light over a depth
+buffer with an occluder block); a live count below the capacity is shown
+to change no slot before it; torch models of K9's lane decompositions (the
+certificate's probes on 8 lanes and its compaction by chunks, warps and
+look-back; the march's linear probes on 8 lanes and its bisection as a
+speculative tree on 8 or 16) are held to the twins bit for bit; each
+check_* is held to the calls its kernel takes and refuses; and every
+dispatcher call of a dense, a default and a tuned shipped frame passes
+its check_*, so that no frame call raises on the card. The kernels run on
+the card only (tests/test_torch_contact_cuda.py, chip_smoke.py).
 
 Tolerances and why:
-- the stage-2 certificate: bit-equal to JAX run op by op (the same f32
-  operations in the same order, no division by a host number but the
-  power-of-two cell size);
+- the stage-2 certificate and stage 3's compaction: bit-equal to JAX run
+  op by op (the same f32 operations in the same order, no division by a
+  host number but the power-of-two cell size);
+- the lane models: bit-equal to the twins (the same torch operations on
+  the same values, evaluated per probe or per tree node);
 - the front's payload within 2e-6 relative (JAX's einsum sums the clip
   products in its own order, the port as math3d.apply_rows does), its
   masks on at most 0.5% of pixels apart (a ray whose clip or certificate
@@ -34,13 +41,17 @@ import pytest
 import torch
 
 import funky_tpu_torch.frame as tf
+from funky_tpu.ops import compact as jcompact
 from funky_tpu.ops.sampling import quad_pack as jquad_pack
 from funky_tpu.passes import contact as jcontact
 from funky_tpu_torch.ops import contact_cuda as k9
+from funky_tpu_torch.ops.compact import Compacted
+from funky_tpu_torch.ops.sampling import quad_pack
 from funky_tpu_torch.passes import contact as tcontact
 
 from .test_taa_contact import _uniforms
 from .test_torch_gather import _shipped_config
+from .torch_scenes import contact_rays
 from .torch_parity import (multimesh_jax_scene, multimesh_params,
                            port_params, port_scene, port_uniforms, t2n)
 
@@ -278,6 +289,264 @@ def test_live_count_changes_no_slot_before_it(live):
 
 
 # ---------------------------------------------------------------------------
+# Stage 3's compaction (contact_certify_compact) against JAX
+# ---------------------------------------------------------------------------
+
+def stage2_slots(seed, payload_rows, m, count):
+    """comp2 as the frame makes one over m slots: sorted candidate rows,
+    -1 padding past min(count, m), slot_valid where the slot is before
+    it."""
+    rng = np.random.default_rng(seed)
+    live = min(count, m)
+    idx = np.full((m,), -1, np.int32)
+    idx[:live] = np.sort(rng.choice(payload_rows, size=live, replace=False))
+    return idx, np.arange(m) < live, np.asarray(count, np.int32)
+
+
+def jax_stage3(tpyr, payload, idx, slot_valid, cap3):
+    """JAX's contact.py:760-770 on the payload rows at idx."""
+    rows = t2n(payload)[np.maximum(idx, 0)]
+    with jax.disable_jit():
+        cert2 = jcontact._stage2_certify(
+            jax_pyramid(tpyr), jnp.asarray(rows[:, 0:3]),
+            jnp.asarray(rows[:, 3:6]), jnp.asarray(rows[:, 6]),
+            jnp.asarray([W, H], jnp.float32))
+        stage3 = jnp.asarray(slot_valid) & ~cert2
+        local = jcompact.compact_indices(stage3, cap3)
+        idx3 = jnp.where(local.slot_valid,
+                         jnp.asarray(idx)[jnp.maximum(local.idx, 0)], -1)
+    return np.asarray(idx3), np.asarray(local.slot_valid), int(local.count)
+
+
+# case -> (slots, count, cap3)
+STAGE3_CASES = {"fits": (512, 333, 256), "overflow": (512, 512, 16),
+                "no_survivor": (512, 0, 128),
+                "count_above_cap2": (512, 512 + 9, 512),
+                "cap3_above_slots": (512, 400, 700)}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE3_CASES))
+def test_certify_compact_twin_matches_jax(case):
+    """_contact_certify_compact_plain (the dispatcher on CPU tensors) ==
+    JAX's stage 3 (contact.py:760-770: the certificate, slot_valid & ~cert,
+    compact_indices, comp2's indices gathered) bit for bit: idx,
+    slot_valid and the true count, with survivors that fit cap3,
+    overflow it, none, a stage-2 count above the slots, and cap3 above
+    the slots (min(cap3, m) slots out)."""
+    m, count, cap3 = STAGE3_CASES[case]
+    *_, depth, _, tpyr, (cand, stage2, payload) = front(4)
+    idx, slot_valid, cnt = stage2_slots(6, payload.shape[0], m, count)
+    before = k9.CERTIFY_LAUNCHES
+    got = tcontact.contact_certify_compact(
+        tpyr, payload, depth.shape,
+        Compacted(idx=T(idx), slot_valid=T(slot_valid), count=T(cnt)), cap3)
+    assert k9.CERTIFY_LAUNCHES == before
+    want_idx, want_valid, want_count = jax_stage3(tpyr, payload, idx,
+                                                  slot_valid, cap3)
+    np.testing.assert_array_equal(t2n(got.idx), want_idx)
+    np.testing.assert_array_equal(t2n(got.slot_valid), want_valid)
+    assert t2n(got.count).shape == () and int(got.count) == want_count
+    assert got.idx.dtype == torch.int32 and got.count.dtype == torch.int32
+    if case == "overflow":
+        assert want_count > cap3
+    elif case == "no_survivor":
+        assert want_count == 0
+    else:
+        assert 0 < want_count <= min(cap3, m)
+
+
+# ---------------------------------------------------------------------------
+# Torch models of K9's lane decompositions
+# ---------------------------------------------------------------------------
+
+def certify_lanes(pyr, rows, size):
+    """The certificate as K9 splits it: lane k of a slot's 8 evaluates
+    probe k alone; the slot is certified where the ballot of the lanes'
+    failures is 0."""
+    fails = torch.zeros(rows.shape[0], dtype=torch.int64)
+    for k in range(tcontact.LINEAR_STEPS):
+        t = (k + rows[:, 6]) / tcontact.LINEAR_STEPS
+        cs = rows[:, 0:3] + rows[:, 3:6] * t[:, None]
+        uv = cs[:, :2] * 0.5 + 0.5
+        inb = ((uv[:, 0] >= 0.0) & (uv[:, 0] <= 1.0)
+               & (uv[:, 1] >= 0.0) & (uv[:, 1] <= 1.0))
+        q = uv * size
+        ok = (cs[:, 2] <= tcontact._probe_bound(pyr, q, size)
+              + tcontact._point_min_l0(pyr, q) - pyr.eps)
+        fails |= (inb & ~ok).to(torch.int64) << k
+    return fails == 0
+
+
+def look_back(aggregates, rng):
+    """Each chunk's exclusive prefix as the kernel's look-back reads it:
+    predecessors' status words in windows of 32, nearest first, summed up
+    to the nearest inclusive one; which predecessors have published an
+    inclusive prefix (and not only their aggregate) is drawn at random,
+    chunk 0 always."""
+    inclusive = np.cumsum(aggregates)
+    published = rng.random(len(aggregates)) < 0.3
+    published[0] = True
+    out = []
+    for c in range(len(aggregates)):
+        prefix, top = 0, c - 1
+        while c > 0:
+            window = [top - lane for lane in range(32)]
+            incl = [q < 0 or published[q] for q in window]
+            stop = incl.index(True) if any(incl) else 31
+            prefix += sum(0 if q < 0 else (inclusive[q] if published[q]
+                                           else aggregates[q])
+                          for q in window[:stop + 1])
+            if any(incl):
+                break
+            top -= 32
+        out.append(prefix)
+    return np.asarray(out)
+
+
+def compact_lanes(comp2, cert, cap3, rng):
+    """Stage 3 as K9's compact mode places it: thread t of a block owns
+    slot t of its chunk of CHUNK; a survivor's place is the chunk's
+    look-back prefix, its warp's prefix of the block's warp counts and
+    the popcount of the lower lanes' ballot."""
+    m = comp2.idx.shape[0]
+    live = min(max(int(comp2.count), 0), m)
+    flags = np.zeros(-(-m // k9.CHUNK) * k9.CHUNK, bool)
+    flags[:live] = t2n(comp2.slot_valid)[:live] & ~t2n(cert)[:live]
+    used = -(-live // k9.CHUNK) * k9.CHUNK
+    chunks = flags[:used].reshape(-1, k9.CHUNK // 32, 32)
+    warp_counts = chunks.sum(-1)
+    warp_off = np.cumsum(warp_counts, -1) - warp_counts
+    lane_off = np.cumsum(chunks, -1) - chunks
+    pos = (look_back(warp_counts.sum(-1), rng)[:, None, None]
+           + warp_off[..., None] + lane_off).reshape(-1)
+    cap = min(cap3, m)
+    idx = np.full((cap,), -1, np.int32)
+    valid = np.zeros((cap,), bool)
+    for s in np.flatnonzero(chunks.reshape(-1)):
+        if pos[s] < cap:
+            idx[pos[s]] = t2n(comp2.idx)[s]
+            valid[pos[s]] = True
+    return idx, valid, int(chunks.sum())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_certify_lane_model(seed):
+    """K9's certificate split over lanes == _contact_certify_plain bit for
+    bit on seeded rays (NaN rows among them), and its compaction (each
+    chunk's slots placed by warp counts, lane ballots and the look-back)
+    == _contact_certify_compact_plain at a live count that ends inside a
+    chunk, with cap3 below and above the survivors; the certificate's
+    probe layout (slot p * 32 + warp * 4 + group of a chunk) gives each
+    slot one group of 8 lanes."""
+    rng = np.random.default_rng(seed)
+    *_, depth, _, tpyr, (cand, stage2, payload) = front(seed)
+    rows = T(contact_rays(t2n(payload), seed, 3000))
+    cert = tcontact._contact_certify_plain(tpyr, rows, depth.shape)
+    np.testing.assert_array_equal(
+        t2n(certify_lanes(tpyr, rows, tcontact._size(depth.shape, "cpu"))),
+        t2n(cert))
+    assert 0.0 < float(cert.float().mean()) < 1.0
+    layout = [p * 32 + w * 4 + g for p in range(8) for w in range(8)
+              for g in range(4)]
+    assert sorted(layout) == list(range(k9.CHUNK))
+    m = rows.shape[0]
+    idx = np.arange(m, dtype=np.int32)
+    for count, cap3 in ((2900, 50), (2900, 3000), (m + 4, 1000)):
+        comp2 = Compacted(idx=T(idx), slot_valid=T(np.arange(m) < count),
+                          count=T(np.asarray(count, np.int32)))
+        want = tcontact._contact_certify_compact_plain(
+            tpyr, rows, depth.shape, comp2, cap3)
+        c2 = tcontact._contact_certify_plain(tpyr, rows, depth.shape,
+                                             comp2.idx, comp2.count)
+        got = compact_lanes(comp2, c2, cap3, rng)
+        np.testing.assert_array_equal(got[0], t2n(want.idx))
+        np.testing.assert_array_equal(got[1], t2n(want.slot_valid))
+        assert got[2] == int(want.count)
+
+
+def march_probe(packed, rows, t):
+    """One probe of passes/contact.py::_march at t (n,): (hit, pen,
+    in bounds)."""
+    cs = rows[:, 0:3] + rows[:, 3:6] * t[:, None]
+    uv = cs[:, :2] * 0.5 + 0.5
+    inb = ((uv[:, 0] >= 0.0) & (uv[:, 0] <= 1.0)
+           & (uv[:, 1] >= 0.0) & (uv[:, 1] <= 1.0))
+    d_max, d_min = tcontact._sample_depth_dual(packed, uv)
+    ray = tcontact._linearize(cs[:, 2])
+    pen = ray - d_min
+    return (d_max - ray < 0.0) & (pen < tcontact.DEPTH_THICKNESS), pen, inb
+
+
+def march_lanes(depth, rows, lanes):
+    """The march as K9 splits it over `lanes` lanes a ray: the 8 linear
+    probes side by side, the first in-bounds hit and the last in-bounds
+    miss before it found by index; the bisection's midpoints as a tree in
+    heap order (node n's hit child 2n + 1, its miss child 2n + 2), each
+    node's interval from (min_t, max_t) along its path bits, all 15
+    probed (16 lanes) or the 7 of depths 0-2 and then the one of depth 3
+    on the path (8 lanes); a walk down the path. Returns the terms and
+    each ray's first hit (-1: none) and whether an out-of-bounds probe
+    came before it."""
+    packed = quad_pack(depth)
+    n = rows.shape[0]
+    col = torch.arange(n)
+    k = torch.arange(tcontact.LINEAR_STEPS)[:, None]
+    t = (k + rows[None, :, 6]) / tcontact.LINEAR_STEPS
+    hit, pen, inb = (torch.stack(x) for x in zip(
+        *[march_probe(packed, rows, t[j]) for j in range(t.shape[0])]))
+    hits = hit & inb
+    inter = hits.any(0)
+    first = torch.argmax(hits.to(torch.int32), 0)
+    max_t = torch.where(inter, t[first, col], 1.0)
+    last_pen = torch.where(inter, pen[first, col], 0.0)
+    miss = torch.where(inb & ~hit & (k < first), k, -1).amax(0)
+    min_t = torch.where(inter & (miss >= 0), t[miss.clamp(min=0), col], 0.0)
+    probed = []
+    for node in range(15 if lanes == 16 else 7):
+        lo, hi = min_t, max_t
+        path = node + 1
+        for d in range(path.bit_length() - 2, -1, -1):
+            mid = 0.5 * (lo + hi)
+            lo, hi = (mid, hi) if (path >> d) & 1 else (lo, mid)
+        probed.append(march_probe(packed, rows, 0.5 * (lo + hi))[:2])
+    node_hit = torch.stack([h for h, _ in probed])
+    node_pen = torch.stack([p for _, p in probed])
+    node = torch.zeros(n, dtype=torch.long)
+    for _ in range(4 if lanes == 16 else 3):
+        mid = 0.5 * (min_t + max_t)
+        h = node_hit[node, col]
+        max_t = torch.where(h, mid, max_t)
+        last_pen = torch.where(h, node_pen[node, col], last_pen)
+        min_t = torch.where(h, min_t, mid)
+        node = 2 * node + torch.where(h, 1, 2)
+    if lanes == 8:
+        mid = 0.5 * (min_t + max_t)
+        h, p, _ = march_probe(packed, rows, mid)
+        max_t = torch.where(h, mid, max_t)
+        last_pen = torch.where(h, p, last_pen)
+    oob_first = inter & (~inb & (k < first)).any(0)
+    return (tcontact._soft_term(inter, max_t, last_pen),
+            torch.where(inter, first, -1), oob_first)
+
+
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_march_lane_model(lanes):
+    """K9's march split over 8 or 16 lanes a ray == _contact_march_plain
+    bit for bit on seeded rays whose first hits fall on every linear
+    probe (0 and 7 among them), some after an out-of-bounds probe, some
+    missing every probe, and NaN rows."""
+    *_, depth, _, tpyr, (cand, stage2, payload) = front(0)
+    rows = T(contact_rays(t2n(payload), 0, 2048))
+    term, first, oob_first = march_lanes(T(depth), rows, lanes)
+    want = tcontact._contact_march_plain(T(depth), rows)
+    assert torch.equal(term.view(torch.int32), want.view(torch.int32))
+    hist = np.bincount(t2n(first) + 1, minlength=9)
+    assert (hist > 0).all(), hist      # no hit, and a first hit on each probe
+    assert int(oob_first.sum()) > 0
+    assert bool(rows.isnan().any(dim=1).any())
+
+
+# ---------------------------------------------------------------------------
 # check_front / check_certify / check_march
 # ---------------------------------------------------------------------------
 
@@ -410,6 +679,52 @@ def test_certify_refuses_a_bad_pyramid():
             k9.check_certify(bad, torch.zeros((8, 7)), (16, 16))
 
 
+def _comp2(m=16):
+    return Compacted(idx=torch.zeros((m,), dtype=torch.int32),
+                     slot_valid=torch.zeros((m,), dtype=torch.bool),
+                     count=torch.zeros((), dtype=torch.int32))
+
+
+def _compact_refused():
+    comp2 = _comp2()
+    idx = comp2.idx
+    return {
+        "comp2 a tuple": ("comp2", dict(comp2=tuple(comp2))),
+        "comp2 without a count": ("comp2", dict(comp2=comp2._replace(
+            count=None))),
+        "int64 comp2 idx": ("idx", dict(comp2=comp2._replace(
+            idx=idx.long()))),
+        "int64 comp2 count": ("count", dict(comp2=comp2._replace(
+            count=comp2.count.long()))),
+        "slot_valid of another length": ("comp2.slot_valid", dict(
+            comp2=comp2._replace(slot_valid=torch.zeros(
+                (15,), dtype=torch.bool)))),
+        "int slot_valid": ("comp2.slot_valid", dict(comp2=comp2._replace(
+            slot_valid=torch.zeros((16,), dtype=torch.int32)))),
+        "strided slot_valid": ("comp2.slot_valid", dict(comp2=comp2._replace(
+            slot_valid=torch.zeros((32,), dtype=torch.bool)[::2]))),
+        "slot_valid on another device": ("comp2.slot_valid", dict(
+            comp2=comp2._replace(slot_valid=torch.zeros(
+                (16,), dtype=torch.bool, device="meta")))),
+        "negative cap3": ("cap3", dict(cap3=-1)),
+        "float cap3": ("cap3", dict(cap3=8.0)),
+        "bool cap3": ("cap3", dict(cap3=True)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_compact_refused()))
+def test_check_certify_compact_refuses(case):
+    name, change = _compact_refused()[case]
+    args = dict(pyr=port_pyramid(np.zeros((16, 16), F32),
+                                 np.zeros((3,), F32)),
+                payload=torch.zeros((64, 7)), depth_shape=(16, 16),
+                comp2=_comp2(), cap3=8)
+    k9.check_certify_compact(**args)
+    args.update(change)
+    with pytest.raises((TypeError, ValueError), match=f"^{name}:"):
+        k9.check_certify_compact(**args)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """Each wrapper launches its kernel or raises: CPU tensors are refused
     by name (the pass above takes the twins for them)."""
@@ -420,6 +735,9 @@ def test_wrappers_refuse_cpu_tensors():
         k9.contact_certify(a["pyr"], torch.zeros((8, 7)), (16, 16))
     with pytest.raises(ValueError, match="^prev_depth:"):
         k9.contact_march(torch.zeros((16, 16)), torch.zeros((8, 7)))
+    with pytest.raises(ValueError, match="^payload:"):
+        k9.contact_certify_compact(a["pyr"], torch.zeros((8, 7)), (16, 16),
+                                   _comp2(4), 4)
 
 
 # ---------------------------------------------------------------------------
@@ -427,11 +745,12 @@ def test_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 def _record_contact(monkeypatch):
-    """Replace the three twins by recorders that pass each call through
+    """Replace the four twins by recorders that pass each call through
     its kernel's check first; returns the list of (kernel, sizes)."""
     calls = []
     front_plain = tcontact._contact_front_plain
     certify_plain = tcontact._contact_certify_plain
+    compact_plain = tcontact._contact_certify_compact_plain
     march_plain = tcontact._contact_march_plain
 
     def front_rec(world, normal, uni, depth_shape, valid=None, y0=0,
@@ -447,6 +766,11 @@ def _record_contact(monkeypatch):
         calls.append(("certify", tuple(payload.shape), idx is not None))
         return certify_plain(pyr, payload, depth_shape, idx, count)
 
+    def compact_rec(pyr, payload, depth_shape, comp2, cap3):
+        k9.check_certify_compact(pyr, payload, depth_shape, comp2, cap3)
+        calls.append(("certify_compact", tuple(payload.shape), True))
+        return compact_plain(pyr, payload, depth_shape, comp2, cap3)
+
     def march_rec(prev_depth, payload, idx=None, count=None, mask=None,
                   window=None):
         k9.check_march(prev_depth, payload, idx, count, mask, window)
@@ -455,6 +779,8 @@ def _record_contact(monkeypatch):
 
     monkeypatch.setattr(tcontact, "_contact_front_plain", front_rec)
     monkeypatch.setattr(tcontact, "_contact_certify_plain", certify_rec)
+    monkeypatch.setattr(tcontact, "_contact_certify_compact_plain",
+                        compact_rec)
     monkeypatch.setattr(tcontact, "_contact_march_plain", march_rec)
     return calls
 
@@ -464,8 +790,9 @@ def test_frame_contact_calls_pass_checks(path, monkeypatch):
     """Every contact dispatcher call of two chained frames (parked, orbit
     pose 1) on the multimesh scene passes its kernel's check: the dense
     frame (front without the pyramid, march over every ray), GltfConfig()
-    at 256x144 (front, certify over the stage-2 slots, march over the
-    stage-3 slots) and the tuned shipped configuration at 480x272 (the
+    at 256x144 (front, the compacting certify over the stage-2 slots,
+    whose twin runs the certify over them, march over the stage-3 slots)
+    and the tuned shipped configuration at 480x272 (the
     same, the march through its window where the tune set one); and the
     probe the autotune and the retune read (contact_occupancy: front and
     certify over every pixel)."""
@@ -487,10 +814,10 @@ def test_frame_contact_calls_pass_checks(path, monkeypatch):
         assert kinds == ["front", "march"] * 2
         assert not any(c[2] for c in calls)
     else:
-        assert kinds == ["front", "certify", "march"] * 2
-        assert all(c[2] for c in calls if c[0] in ("front", "certify"))
+        assert kinds == ["front", "certify_compact", "certify", "march"] * 2
+        assert all(c[2] for c in calls if c[0] != "march")
     if path == "shipped":
-        assert calls[2][2] == (cfg.contact_window is not None
+        assert calls[3][2] == (cfg.contact_window is not None
                                and cfg.contact_window < min(cfg.height,
                                                             cfg.width))
         del calls[:]

@@ -516,3 +516,23 @@ def random_planes(seed, l):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((l, 3)) * np.asarray([0.05, 0.05, 0.4])
             + np.asarray([0.0, 0.0, 0.5])).astype(np.float32)
+
+
+def contact_rays(payload, seed: int, n: int, nan_share: float = 0.02):
+    """(n, 7) f32 contact payload rows [march start, march dir, jitter]
+    drawn from a frame's own `payload` rows (n0, 7): each a row moved
+    along its direction by s in [-1.5, 1) of its length, its direction
+    scaled by [0.5, 2) and a new jitter, so that the first hit falls on
+    every linear probe, rays start off screen and enter it, and some miss;
+    a `nan_share` of the rows hold a NaN in one column."""
+    rng = np.random.default_rng(seed)
+    rows = np.asarray(payload, np.float32)
+    rows = rows[rng.integers(0, rows.shape[0], n)].astype(np.float64)
+    s = rng.uniform(-1.5, 1.0, (n, 1))
+    scale = rng.uniform(0.5, 2.0, (n, 1))
+    out = np.concatenate([rows[:, 0:3] + rows[:, 3:6] * s,
+                          rows[:, 3:6] * scale,
+                          rng.uniform(0.0, 1.0, (n, 1))], -1)
+    bad = np.flatnonzero(rng.random(n) < nan_share)
+    out[bad, rng.integers(0, 7, bad.shape[0])] = np.nan
+    return out.astype(np.float32)

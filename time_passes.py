@@ -40,12 +40,19 @@ on chip_smoke.py's multimesh scene:
   and replayed by device ms behind a sleep: K10 and K8 + K9 with the
   torch around them where the checkout has them (contact.contact_front),
   the jnp ports before; and there each kernel's dispatcher (K8
-  contact_front, K9 contact_certify and contact_march, K10
-  shadow_classify._class_rows) on its recorded calls alone; K10's calls
-  also at coarse 16 and 8 at every tile of K10_TILES the checkout's
-  block takes (tile_cells replaced);
+  contact_front, K9 contact_certify or, where the checkout's frame calls
+  it, contact_certify_compact (the certificate with stage 3's
+  compaction), and contact_march, K10 shadow_classify._class_rows) on
+  its recorded calls alone; K10's calls also at coarse 16 and 8 at every
+  tile of K10_TILES the checkout's block takes (tile_cells replaced); the
+  march's also at every lane count of contact_cuda.LANES where the
+  checkout's wrapper picks one (lanes_for replaced; the indexed calls
+  also with their live count cut to each of LIVE_CUTS), the compacting
+  certificate's at every grid cap of BLOCKS_PER_SM
+  (CERTIFY_BLOCKS_PER_SM patched);
 - the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
-  calls of one frame, timed as above, and, where the checkout picks a
+  calls and its K9 march (every ray, at every lane count as above) of
+  one frame, timed as above, and, where the checkout picks a
   lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
   dense frame's first call and from the shipped frame's largest pair
   group (its live entries, evenly spaced or repeated);
@@ -84,6 +91,7 @@ TILES = ((16, 16, 16), (16, 16, 8), (32, 8, 32), (32, 8, 8), (16, 8, 16),
          (16, 8, 8), (8, 8, 8), (64, 4, 32))
 # K7's grid caps swept: 256-thread blocks per SM
 BLOCKS_PER_SM = (1, 2, 4, 8)
+LIVE_CUTS = (1024, 4096, 16384, 32768, 65536)   # a cut march's live slots
 # K10's tiles swept: cells a side
 K10_TILES = (1, 2, 3, 4, 6, 8, 12, 16)
 
@@ -303,14 +311,88 @@ def stages_report(cs, one_frame, cfg) -> dict:
     for key, module, name in (
             ("K8 contact_front", contact, "contact_front"),
             ("K9 contact_certify", contact, "contact_certify"),
+            ("K9 contact_certify_compact", contact,
+             "contact_certify_compact"),
             ("K9 contact_march", contact, "contact_march"),
             ("K10 class_maps", shadow_classify, "_class_rows")):
         if hasattr(module, name):
             calls = one_frame(cfg, module, name)
+            if not calls:   # the frame calls the other mode
+                continue
             out[key] = {"calls": len(calls),
                         "ms": timed(calls, getattr(module, name))}
             if name == "_class_rows":
                 out["k10_tiles"] = k10_report(cs, calls)
+            if name == "contact_march":
+                out["k9_march_lanes"] = march_lanes_report(cs, calls)
+            if name == "contact_certify_compact":
+                out["k9_certify_blocks"] = certify_blocks_report(cs, calls)
+    return out
+
+
+def certify_blocks_report(cs, calls) -> dict:
+    """K9's compacting certificate on a frame's recorded calls at every
+    grid cap of BLOCKS_PER_SM (contact_cuda.CERTIFY_BLOCKS_PER_SM patched
+    into the module): device ms behind a sleep."""
+    from funky_tpu_torch.ops import contact_cuda
+    from funky_tpu_torch.passes import contact
+
+    def run():
+        for a, kw in calls:
+            contact.contact_certify_compact(*a, **kw)
+
+    out = {"blocks_per_sm": contact_cuda.CERTIFY_BLOCKS_PER_SM}
+    for b in BLOCKS_PER_SM:
+        with patched(contact_cuda, "CERTIFY_BLOCKS_PER_SM", b):
+            out[f"blocks_{b}_ms"] = cs.device_ms(run, iters=20,
+                                                 sleep_cycles=SLEEP)
+    return out
+
+
+def march_lanes_report(cs, calls) -> dict:
+    """K9's march on a frame's recorded calls through its dispatcher, at
+    the checkout's lanes a slot and, where its wrapper picks them
+    (contact_cuda.lanes_for), at every count of LANES, forced, the lane
+    layouts also with no live count past which they run one thread a slot
+    (LANES_LIVE_MAX lifted, "_always"), and there the indexed calls with
+    their live count cut to each of LIVE_CUTS: device ms behind a
+    sleep."""
+    import torch
+
+    from funky_tpu_torch.ops import contact_cuda
+    from funky_tpu_torch.passes import contact
+
+    def run():
+        for a, kw in calls:
+            contact.contact_march(*a, **kw)
+
+    def slots(a, kw):
+        idx = kw.get("idx", a[2] if len(a) > 2 else None)
+        return (a[1] if idx is None else idx).shape[0]
+
+    out = {"slots": [slots(a, kw) for a, kw in calls],
+           "ms": cs.device_ms(run, iters=20, sleep_cycles=SLEEP)}
+    if hasattr(contact_cuda, "lanes_for"):
+        out["lanes"] = [contact_cuda.lanes_for(m) for m in out["slots"]]
+        layouts = [(n, "") for n in contact_cuda.LANES] + [
+            (n, "_always") for n in contact_cuda.LANES if n > 1]
+        for lanes, tag in layouts:
+            live_max = 2 ** 62 if tag else contact_cuda.LANES_LIVE_MAX
+            with forced(contact_cuda, "lanes_for", lanes), patched(
+                    contact_cuda, "LANES_LIVE_MAX", live_max):
+                key = f"lanes_{lanes}{tag}"
+                out[f"{key}_ms"] = cs.device_ms(run, iters=20,
+                                                sleep_cycles=SLEEP)
+                # the same slots cut to fewer live ones
+                for live in LIVE_CUTS:
+                    cut = [(a[:3] + (torch.full_like(a[3], live),) + a[4:],
+                            kw) for a, kw in calls if len(a) > 3
+                           and a[2].shape[0] >= live]
+                    if cut:
+                        out[f"{key}_live_{live}_ms"] = cs.device_ms(
+                            lambda cut=cut: [contact.contact_march(*a, **kw)
+                                             for a, kw in cut],
+                            iters=20, sleep_cycles=SLEEP)
     return out
 
 
@@ -330,7 +412,7 @@ def main() -> None:
     from funky_tpu_torch.app import ui
     from funky_tpu_torch.ops import (group_counts_cuda, lightmap_cuda,
                                      pair_taps_cuda)
-    from funky_tpu_torch.passes import shadow_lightspace
+    from funky_tpu_torch.passes import contact, shadow_lightspace
 
     if not torch.cuda.is_available():
         cs.fail("no CUDA device: time_passes.py measures on the card")
@@ -390,10 +472,12 @@ def main() -> None:
                                                 "group_counts"))
     out["stages_shipped"] = stages_report(cs, one_frame, cfg)
 
-    # the dense frame's K6 calls
+    # the dense frame's K6 calls and its K9 march (every ray)
     dense = cs.dense_config(cs.WIDTH, cs.HEIGHT, cs.SHADOW, "auto")
     dense_calls = one_frame(dense, pair_taps_cuda, "pair_taps")
     out["k6_dense"] = taps_report(cs, dense_calls)
+    out["k9_march_dense"] = march_lanes_report(
+        cs, one_frame(dense, contact, "contact_march"))
     if hasattr(pair_taps_cuda, "lanes_for"):
         live = out["k6_shipped"]["live"]
         g = live.index(max(live))
