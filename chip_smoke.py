@@ -2764,6 +2764,12 @@ def phase_stage_cases(dev, calls) -> None:
         f"on {n} pixels laid out as {list(layouts)}")
 
 
+# K9's march layouts by the live count past which it runs one thread a
+# slot (contact_cuda.LANES_LIVE_MAX; None: the module's own).
+MARCH_LAYOUTS = {"the shipped switch": None, "a thread a slot": -1,
+                 "8 lanes a slot": 2 ** 62}
+
+
 def phase_k9_cases(dev, calls) -> None:
     """K9 against its twins bit for bit where the frames do not take it
     (these launches are the script's own, outside the main paths' counts):
@@ -2772,13 +2778,13 @@ def phase_k9_cases(dev, calls) -> None:
     slot live, a count past the stage-2 slots and cap3 past them; the
     march on rays drawn from the frame's payload (tests/torch_scenes.py::
     contact_rays: first hits on every linear probe, probe 0 and 7 among
-    them, hits after an out-of-bounds probe, misses, NaN rows) at every
-    lane count of contact_cuda.LANES (lanes_for replaced), the lane
-    layouts also with LANES_LIVE_MAX lifted (so that they, not one thread
-    a slot, march all the live rays), through an index with a live count
-    inside a warp, a mask and a window; and a CUDA
-    graph holding the frame's own compacting call, replayed twice in a row
-    (the status words its last block resets), == the twin both times."""
+    them, hits after an out-of-bounds probe, misses, NaN rows) at each
+    live-count switch of MARCH_LAYOUTS (contact_cuda.LANES_LIVE_MAX
+    patched: the shipped one, and each layout for every live count),
+    through an index with a live count inside a warp, a mask and a window;
+    and a CUDA graph holding the frame's own compacting call, replayed
+    twice in a row (the status words its last block resets), == the twin
+    both times."""
     import torch
 
     from funky_tpu_torch.ops import contact_cuda
@@ -2837,24 +2843,21 @@ def phase_k9_cases(dev, calls) -> None:
                                               dtype=torch.int32, device=dev),
                                  cw))}
     lit = {}
-    inner = contact_cuda.lanes_for, contact_cuda.LANES_LIVE_MAX
-    layouts = [(n, inner[1]) for n in contact_cuda.LANES] + [
-        (n, 2 ** 62) for n in contact_cuda.LANES if n > 1]
-    for lanes, live_max in layouts:
-        contact_cuda.lanes_for = lambda _m, lanes=lanes: lanes
-        contact_cuda.LANES_LIVE_MAX = live_max
+    shipped = contact_cuda.LANES_LIVE_MAX
+    for layout, live_max in MARCH_LAYOUTS.items():
+        contact_cuda.LANES_LIVE_MAX = (shipped if live_max is None
+                                       else live_max)
         try:
             for label, kw in marches.items():
                 got = contact.contact_march(depth, rows, **kw)
                 with plain_gathers():
                     want = contact._contact_march_plain(depth, rows, **kw)
                 ok, _ = _stage_equal(got, want)
-                check(ok, f"K9's march at {lanes} lanes a ray (one a slot "
-                      f"past {live_max} live), {label} seeded rays: "
+                check(ok, f"K9's march, {layout}, {label} seeded rays: "
                       f"differs from its plain twin")
                 lit[label] = int((want < 1.0).sum())
         finally:
-            contact_cuda.lanes_for, contact_cuda.LANES_LIVE_MAX = inner
+            contact_cuda.LANES_LIVE_MAX = shipped
     check(all(v > 0 for v in lit.values()),
           f"K9's seeded rays shadow nothing: {lit}")
 
@@ -2872,8 +2875,8 @@ def phase_k9_cases(dev, calls) -> None:
         check(ok, f"K9's compacting certificate, graph replay {replay} in "
               f"a row: differs from its plain twin")
     say(f"K9 == its plain twins bit for bit on {len(cases)} compacting "
-        f"cases ({list(cases)}), on {n} seeded rays at lanes and live "
-        f"limits {layouts} ({list(marches)}; shadowed {lit}), and on 2 "
+        f"cases ({list(cases)}), on {n} seeded rays by {list(MARCH_LAYOUTS)}"
+        f" ({list(marches)}; shadowed {lit}), and on 2 "
         f"graph replays in a row of the shipped frame's compacting call")
 
 

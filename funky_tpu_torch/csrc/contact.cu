@@ -73,17 +73,16 @@
 // itself (a ballot and prefix in the block, a decoupled look-back across
 // blocks in ticket order; the twin sorts all the stage-2 slots); the
 // march's 8 linear probes over 8 lanes and its 4
-// bisection steps as a speculative tree of 15 midpoints (8 lanes: 7, then
-// 1; 16 lanes: 15 at once), so a marched ray waits for 3 or 2 rounds of
-// reads where one thread a slot waits for a chain of up to 12. The tree
-// probes more midpoints than the chain, and with many live rays the march
-// is bound by its instruction count, not by that wait: one thread a
-// slot runs past LANES_LIVE_MAX live slots (read on the card) and on
-// launches past LANES_MAX slots (ops/contact_cuda.py). Slots past the live
-// count, read on the card, cost no block of the compact certificate (its
-// blocks take chunks by a ticket and stop) and no probe of the march
-// (its warps stride up to the count), and a ray masked off probes
-// nothing.
+// bisection steps as a speculative tree (the 7 midpoints of its first 3
+// steps at once, then the one of the 4th), so a marched ray waits for 3
+// rounds of reads where one thread a slot waits for a chain of up to 12.
+// The tree probes more midpoints than the chain, and with many live rays
+// the march is bound by its instruction count, not by that wait: past
+// LANES_LIVE_MAX live slots (ops/contact_cuda.py, read on the card) the
+// same kernel runs one thread a slot, its grid a thread a slot or more.
+// Slots past the live count, read on the card, cost no block of the
+// compact certificate (its blocks take chunks by a ticket and stop) and
+// no probe of the march, and a ray masked off probes nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -847,39 +846,28 @@ __device__ void march_chain(const Slots& sl, const Depth& dp,
   put_term(sl, s, inter ? soft_term(max_t, last_pen) : 1.0f, out);
 }
 
-// The march, one thread a slot, a grid sized by the slots.
+// The march, 8 lanes a slot (lane k < 8 takes linear probe k). The
+// linear probes are independent: a ballot gives the first in-bounds hit
+// (max_t and last_pen from its lane) and the last in-bounds miss before
+// it (min_t, else 0), which is what the chain computes. The 4 bisection
+// steps form a tree of 15 midpoints (heap order: node n's hit child
+// 2n + 1, its miss child 2n + 2), each node's interval following from
+// (min_t, max_t) and its path alone, every mid computed as the chain
+// computes it; so lane k < 7 probes node k of depths 0-2 speculatively, a
+// walk down the path (hit bits by ballot, pens by shuffles) takes those
+// three steps, and every lane then probes the one node of depth 3 on the
+// path. Slots past the live count and rays masked off probe nothing; the
+// warps stride over the slots up to the live count. Past `chain_above`
+// live slots, where the tree's extra probes cost more instructions than
+// the chain's wait saves, each thread takes a slot of its own
+// (march_chain); the launch gives at least a thread a slot, so it takes
+// at most one.
 __global__ void __launch_bounds__(MARCH_THREADS)
 contact_march_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
-                     float* __restrict__ out) {
-  const long long s = (long long)blockIdx.x * MARCH_THREADS + threadIdx.x;
-  if (s >= live_of(sl)) return;
-  int sy, sx, oy, ox;
-  window_start(dp, &sy, &sx, &oy, &ox);
-  march_chain(sl, dp, mask, sy, sx, oy, ox, s, out);
-}
-
-// The march, LANES (8 or 16) lanes a slot. The linear probes are
-// independent: lane k < 8 takes probe k, and a ballot gives the first
-// in-bounds hit (max_t and last_pen from its lane) and the last in-bounds
-// miss before it (min_t, else 0), which is what the chain computes. The 4
-// bisection steps form a tree of 15 midpoints (heap order: node n's hit
-// child 2n + 1, its miss child 2n + 2), each node's interval following
-// from (min_t, max_t) and its path alone, every mid computed as the chain
-// computes it; so they are probed speculatively: with 16 lanes all 15 at
-// once, with 8 the 7 of depths 0-2, then the one node of depth 3 on the
-// path. A walk down the path (hit bits by ballot, pens by shuffles) gives
-// max_t and last_pen. Slots past the live count and rays masked off probe
-// nothing; the warps stride over the slots up to the live count, so a
-// grid sized to the card costs what the count needs. Past `chain_above`
-// live slots, where the tree's extra probes cost more instructions than
-// the chain's wait saves, every thread takes a slot of its own (march_chain).
-template <int LANES>
-__global__ void __launch_bounds__(MARCH_THREADS)
-contact_march_lanes_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
-                           long long chain_above, float* __restrict__ out) {
+                     long long chain_above, float* __restrict__ out) {
+  constexpr int LANES = LINEAR_STEPS;
   constexpr int PER_WARP = 32 / LANES;
-  constexpr unsigned GROUP = LANES == 32 ? FULL : (1u << LANES) - 1u;
-  constexpr int SPECULATIVE = LANES >= 15 ? 15 : 7;   // depths 0-3 or 0-2
+  constexpr int SPECULATIVE = 7;   // the nodes of depths 0-2
   const int lane = threadIdx.x & 31;
   const int k = lane % LANES, g0 = lane - k;
   const long long live = live_of(sl);
@@ -907,7 +895,7 @@ contact_march_lanes_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
     // the linear probes
     bool hit = false, inb = false;
     float pen = 0.0f;
-    if (act && k < LINEAR_STEPS) {
+    if (act) {
       hit = probe(dp, sy, sx, oy, ox, ms, md,
                   __fmul_rn(__fadd_rn((float)k, jit), 0.125f), &pen, &inb);
     }
@@ -942,10 +930,10 @@ contact_march_lanes_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
       bhit = probe(dp, sy, sx, oy, ox, ms, md,
                    __fmul_rn(0.5f, __fadd_rn(lo, hi)), &bpen, &unused);
     }
-    const unsigned bhits = (__ballot_sync(FULL, bhit) >> g0) & GROUP;
+    const unsigned bhits = (__ballot_sync(FULL, bhit) >> g0) & 0xffu;
     int node = 0;
 #pragma unroll
-    for (int d = 0; d < (SPECULATIVE == 15 ? 4 : 3); ++d) {
+    for (int d = 0; d < 3; ++d) {
       const float p = __shfl_sync(FULL, bpen, g0 + node);
       const float mid = __fmul_rn(0.5f, __fadd_rn(min_t, max_t));
       const bool h = (bhits >> node) & 1u;
@@ -957,7 +945,7 @@ contact_march_lanes_kernel(Slots sl, Depth dp, const bool* __restrict__ mask,
       }
       node = 2 * node + (h ? 1 : 2);
     }
-    if (SPECULATIVE == 7 && act && inter) {   // depth 3, on every lane
+    if (act && inter) {   // depth 3, on every lane
       const float mid = __fmul_rn(0.5f, __fadd_rn(min_t, max_t));
       float p;
       bool unused;
@@ -1077,33 +1065,23 @@ int contact_certify_compact_launch(
   return (int)cudaGetLastError();
 }
 
-// The march over m slots at `lanes` (1, 8 or 16) lanes a slot; the lane
-// layouts take at most max_blocks blocks and one thread a slot past
+// The march over m slots: at least a thread a slot, and at least the
+// lesser of max_blocks and 8 lanes a slot; one thread a slot past
 // chain_above live slots.
 int contact_march_launch(const float* depth, int h, int w,
                          const float* payload, long long n, const int* idx,
                          long long m, const int* count, const bool* mask,
-                         const int* origin, int cw, float* out, int lanes,
+                         const int* origin, int cw, float* out,
                          long long chain_above, int max_blocks,
                          void* stream) {
   Slots sl{payload, n, idx, m, count};
   Depth dp{depth, h, w, origin, cw};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 1) {
-    contact_march_kernel<<<grid_of(m, MARCH_THREADS), MARCH_THREADS, 0,
-                           st>>>(sl, dp, mask, out);
-  } else if (lanes == 8 || lanes == 16) {
-    const int blocks = capped(grid_of(m * lanes, MARCH_THREADS), max_blocks);
-    if (lanes == 8) {
-      contact_march_lanes_kernel<8><<<blocks, MARCH_THREADS, 0, st>>>(
-          sl, dp, mask, chain_above, out);
-    } else {
-      contact_march_lanes_kernel<16><<<blocks, MARCH_THREADS, 0, st>>>(
-          sl, dp, mask, chain_above, out);
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int chain = grid_of(m, MARCH_THREADS);
+  const int lanes = capped(grid_of(m * LINEAR_STEPS, MARCH_THREADS),
+                           max_blocks);
+  contact_march_kernel<<<chain > lanes ? chain : lanes, MARCH_THREADS, 0,
+                         (cudaStream_t)stream>>>(sl, dp, mask, chain_above,
+                                                 out);
   return (int)cudaGetLastError();
 }
 

@@ -14,12 +14,12 @@ compaction :760-770, `contact_certify_compact`) and _march / _soft_term
 over 8 lanes; its compact mode writes stage 3's Compacted itself, its
 blocks taking chunks of slots in order by a ticket and stopping at the
 live count, each survivor placed by a prefix in the block and a
-decoupled look-back across blocks. The march takes LANES lanes a slot
-(`lanes_for`): the linear probes on 8 lanes, the bisection as a
-speculative tree of midpoints, or one thread a slot; it reads prev_depth
-directly (the quad of quad_pack, edge-clamped) or through a window at a
-device origin, and writes each term into a ones-filled output at its
-pixel. Uniforms, counts and origins stay in device memory, so no value
+decoupled look-back across blocks. The march takes 8 lanes a slot (the
+linear probes side by side, the bisection as a speculative tree of
+midpoints), or one thread a slot past LANES_LIVE_MAX live slots; it
+reads prev_depth directly (the quad of quad_pack, edge-clamped) or
+through a window at a device origin, and writes each term into a
+ones-filled output at its pixel. Uniforms, counts and origins stay in device memory, so no value
 is read on the host and a committed frame still records as a CUDA
 graph. Each wrapper launches its kernel or raises (its `check_*` names
 the argument); the pass above takes the plain twins for CPU tensors.
@@ -45,27 +45,22 @@ ROW = 7   # payload floats per ray: march start (3), march dir (3), jitter
 CHUNK = 256   # slots a block of the certificate takes (csrc/contact.cu)
 
 # The compact certificate's blocks per SM (they take chunks by a ticket;
-# 3 fit its registers), and the lane layouts' of the march (their warps
-# stride over the slots). On an H100 80GB HBM3 (700 W; time_passes.py on
-# the shipped frame's call) the certificate at 4 ran 8-9% faster than at
-# 2 or 8.
+# 3 fit its registers), and the march's with 8 lanes a slot (its warps
+# stride over the slots; its grid is never under a thread a slot). On an
+# H100 80GB HBM3 (700 W; time_passes.py on the shipped frame's call) the
+# certificate at 4 ran 8-9% faster than at 2 or 8.
 CERTIFY_BLOCKS_PER_SM = 4
 MARCH_BLOCKS_PER_SM = 8
 
-# Lanes a slot of the march: 1 (a thread a slot, the probes in a chain),
-# 8 (the linear probes on 8 lanes, the bisection as 7 speculative
-# midpoints, then 1) or 16 (all 15 midpoints at once). The tree probes 7
-# or 15 midpoints where the chain probes 4, and where many rays are live
-# the march is bound by its instruction count: on the H100 above
-# (time_passes.py, the shipped frame's call cut to fewer live slots) 8
-# lanes ran 1.4x faster than 1 at 1-4 K live slots and 1.2x at 16 K, 4%
-# slower at 32 K and 1.5x slower at 64 K; 16 lanes as fast as 8 up to 4 K
-# and slower past it; on the dense frame's 2,073,600 rays 1 lane ran 2.5x
-# faster than 8.
-LANES = (1, 8, 16)
-LANES_MAX = 1 << 18   # launches of more slots take one lane a slot
-# Past this many live slots (read on the card) the lane layouts run one
-# thread a slot too.
+# Past this many live slots (read on the card) the march runs one thread
+# a slot (the probes in a chain) where it else takes 8 lanes a slot (the
+# linear probes on 8 lanes, the bisection as 7 speculative midpoints, then
+# 1). The tree probes 8 midpoints where the chain probes 4, and where many
+# rays are live the march is bound by its instruction count: on the H100
+# above (time_passes.py, the shipped frame's call cut to fewer live
+# slots) 8 lanes ran 1.4x faster than a thread a slot at 1-4 K live slots
+# and 1.2x at 16 K, 4% slower at 32 K and 1.5x slower at 64 K, and 2.3x
+# slower on the dense frame's call.
 LANES_LIVE_MAX = 1 << 15
 
 _FNS: dict = {}
@@ -93,17 +88,11 @@ def _launcher(name: str):
             "certify": [p, ll, p, ll, p, p, i, i, f, p, p, f, f, p, p],
             "certify_compact": [p, ll, p, ll, p, p, i, i, f, p, p, f, f,
                                 p, p, p, p, ll, p, i, p],
-            "march": [p, i, i, p, ll, p, ll, p, p, p, i, p, i, ll, i, p],
+            "march": [p, i, i, p, ll, p, ll, p, p, p, i, p, ll, i, p],
         }[name]
         fn.restype = i
         _FNS[name] = fn
     return _FNS[name]
-
-
-def lanes_for(m: int) -> int:
-    """Lanes a slot for a march over m slots: 8 up to LANES_MAX, where
-    the chain of probes' reads is the longer wait, else 1."""
-    return 8 if m <= LANES_MAX else 1
 
 
 def _sms(dev: torch.device) -> int:
@@ -494,7 +483,7 @@ def contact_march(prev_depth, payload, idx=None, count=None, mask=None,
             None if count is None else count.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if origin is None else origin.data_ptr(), cw,
-            out.data_ptr(), lanes_for(m), LANES_LIVE_MAX,
+            out.data_ptr(), LANES_LIVE_MAX,
             MARCH_BLOCKS_PER_SM * _sms(dev), stream)
     if status != 0:
         raise RuntimeError(f"contact march launch failed: CUDA error "

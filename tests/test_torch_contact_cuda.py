@@ -7,10 +7,9 @@ inputs are a default frame's own (GltfConfig() at 256x144 on the
 multimesh scene, two chained frames, every dispatcher call recorded),
 cut and re-indexed for the cases no frame reaches, for the front re-laid
 in memory (LAYOUTS), and for the march also seeded rays drawn from the
-frame's payload (tests/torch_scenes.py::contact_rays) at every lane count
-of contact_cuda.LANES, the lane layouts also past LANES_LIVE_MAX. Every
-test here needs an
-NVIDIA GPU and skips without one. The module imports no jax:
+frame's payload (tests/torch_scenes.py::contact_rays) at each layout of
+chip_smoke.MARCH_LAYOUTS (contact_cuda.LANES_LIVE_MAX patched). Every
+test here needs an NVIDIA GPU and skips without one. The module imports no jax:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_contact_cuda.py
 
@@ -413,27 +412,24 @@ def march_both(depth, payload, **kw):
     return got, want
 
 
-@pytest.fixture(params=[(n, False) for n in contact_cuda.LANES]
-                + [(n, True) for n in contact_cuda.LANES if n > 1],
-                ids=lambda p: f"{p[0]}{'-always' if p[1] else ''}")
-def lanes(request, monkeypatch):
-    """Every lane count of the march, forced by replacing lanes_for; the
-    lane layouts also with no live count past which they run one thread a
-    slot (LANES_LIVE_MAX), so that each layout marches the seeded rays."""
-    n, always = request.param
-    monkeypatch.setattr(contact_cuda, "lanes_for", lambda m: n)
-    if always:
-        monkeypatch.setattr(contact_cuda, "LANES_LIVE_MAX", 2 ** 62)
-    return n
+@pytest.fixture(params=list(chip_smoke.MARCH_LAYOUTS))
+def layout(request, monkeypatch):
+    """Each layout of the march: the shipped live-count switch, one thread
+    a slot and 8 lanes a slot at every live count (LANES_LIVE_MAX
+    patched), so that each layout marches the seeded rays."""
+    live_max = chip_smoke.MARCH_LAYOUTS[request.param]
+    if live_max is not None:
+        monkeypatch.setattr(contact_cuda, "LANES_LIVE_MAX", live_max)
+    return request.param
 
 
 @pytest.mark.parametrize("case", ["frame", "every_ray", "empty", "odd",
                                   "at_capacity"])
-def test_march_equal_to_plain(calls, case, lanes):
+def test_march_equal_to_plain(calls, case, layout):
     """K9's march == the twin bit for bit on the frames' stage-3 slots,
     over every ray with the candidate mask (the dense path and the
     fallback), and with live counts of 0, an odd split and the
-    capacity, at every lane count."""
+    capacity, in every layout."""
     for (args, kwargs), (fargs, fkw) in zip(calls["contact_march"],
                                             calls["contact_front"]):
         depth, payload = args[:2]
@@ -456,10 +452,10 @@ def test_march_equal_to_plain(calls, case, lanes):
 
 
 @pytest.mark.parametrize("call", ["indexed", "masked", "windowed"])
-def test_march_seeded_rays(calls, call, lanes):
+def test_march_seeded_rays(calls, call, layout):
     """K9's march == the twin bit for bit on rays drawn from the frame's
     payload (contact_rays: first hits on every linear probe, hits after
-    an out-of-bounds probe, misses, NaN rows) at every lane count:
+    an out-of-bounds probe, misses, NaN rows) in every layout:
     through an index with a live count inside a warp, every ray with a
     random mask, and through a window."""
     args, _ = calls["contact_march"][-1]

@@ -13,7 +13,7 @@ buffer with an occluder block); a live count below the capacity is shown
 to change no slot before it; torch models of K9's lane decompositions (the
 certificate's probes on 8 lanes and its compaction by chunks, warps and
 look-back; the march's linear probes on 8 lanes and its bisection as a
-speculative tree on 8 or 16) are held to the twins bit for bit; each
+speculative tree) are held to the twins bit for bit; each
 check_* is held to the calls its kernel takes and refuses; and every
 dispatcher call of a dense, a default and a tuned shipped frame passes
 its check_*, so that no frame call raises on the card. The kernels run on
@@ -477,14 +477,14 @@ def march_probe(packed, rows, t):
     return (d_max - ray < 0.0) & (pen < tcontact.DEPTH_THICKNESS), pen, inb
 
 
-def march_lanes(depth, rows, lanes):
-    """The march as K9 splits it over `lanes` lanes a ray: the 8 linear
-    probes side by side, the first in-bounds hit and the last in-bounds
-    miss before it found by index; the bisection's midpoints as a tree in
-    heap order (node n's hit child 2n + 1, its miss child 2n + 2), each
-    node's interval from (min_t, max_t) along its path bits, all 15
-    probed (16 lanes) or the 7 of depths 0-2 and then the one of depth 3
-    on the path (8 lanes); a walk down the path. Returns the terms and
+def march_lanes(depth, rows):
+    """The march as K9 splits it over 8 lanes a ray: the 8 linear probes
+    side by side, the first in-bounds hit and the last in-bounds miss
+    before it found by index; the bisection's midpoints as a tree in heap
+    order (node n's hit child 2n + 1, its miss child 2n + 2), each node's
+    interval from (min_t, max_t) along its path bits, the 7 of depths 0-2
+    probed, a walk down the path, then the one node of depth 3 on the
+    path. Returns the terms and
     each ray's first hit (-1: none) and whether an out-of-bounds probe
     came before it."""
     packed = quad_pack(depth)
@@ -502,7 +502,7 @@ def march_lanes(depth, rows, lanes):
     miss = torch.where(inb & ~hit & (k < first), k, -1).amax(0)
     min_t = torch.where(inter & (miss >= 0), t[miss.clamp(min=0), col], 0.0)
     probed = []
-    for node in range(15 if lanes == 16 else 7):
+    for node in range(7):
         lo, hi = min_t, max_t
         path = node + 1
         for d in range(path.bit_length() - 2, -1, -1):
@@ -512,32 +512,31 @@ def march_lanes(depth, rows, lanes):
     node_hit = torch.stack([h for h, _ in probed])
     node_pen = torch.stack([p for _, p in probed])
     node = torch.zeros(n, dtype=torch.long)
-    for _ in range(4 if lanes == 16 else 3):
+    for _ in range(3):
         mid = 0.5 * (min_t + max_t)
         h = node_hit[node, col]
         max_t = torch.where(h, mid, max_t)
         last_pen = torch.where(h, node_pen[node, col], last_pen)
         min_t = torch.where(h, min_t, mid)
         node = 2 * node + torch.where(h, 1, 2)
-    if lanes == 8:
-        mid = 0.5 * (min_t + max_t)
-        h, p, _ = march_probe(packed, rows, mid)
-        max_t = torch.where(h, mid, max_t)
-        last_pen = torch.where(h, p, last_pen)
+    mid = 0.5 * (min_t + max_t)
+    h, p, _ = march_probe(packed, rows, mid)
+    max_t = torch.where(h, mid, max_t)
+    last_pen = torch.where(h, p, last_pen)
     oob_first = inter & (~inb & (k < first)).any(0)
     return (tcontact._soft_term(inter, max_t, last_pen),
             torch.where(inter, first, -1), oob_first)
 
 
-@pytest.mark.parametrize("lanes", [8, 16])
-def test_march_lane_model(lanes):
-    """K9's march split over 8 or 16 lanes a ray == _contact_march_plain
-    bit for bit on seeded rays whose first hits fall on every linear
-    probe (0 and 7 among them), some after an out-of-bounds probe, some
-    missing every probe, and NaN rows."""
+@pytest.mark.parametrize("seed", [0, 1])
+def test_march_lane_model(seed):
+    """K9's march split over 8 lanes a ray == _contact_march_plain bit
+    for bit on seeded rays (two draws) whose first hits fall on every
+    linear probe (0 and 7 among them), some after an out-of-bounds probe,
+    some missing every probe, and NaN rows."""
     *_, depth, _, tpyr, (cand, stage2, payload) = front(0)
-    rows = T(contact_rays(t2n(payload), 0, 2048))
-    term, first, oob_first = march_lanes(T(depth), rows, lanes)
+    rows = T(contact_rays(t2n(payload), seed, 2048))
+    term, first, oob_first = march_lanes(T(depth), rows)
     want = tcontact._contact_march_plain(T(depth), rows)
     assert torch.equal(term.view(torch.int32), want.view(torch.int32))
     hist = np.bincount(t2n(first) + 1, minlength=9)

@@ -45,14 +45,16 @@ on chip_smoke.py's multimesh scene:
   compaction), and contact_march, K10 shadow_classify._class_rows) on
   its recorded calls alone; K10's calls also at coarse 16 and 8 at every
   tile of K10_TILES the checkout's block takes (tile_cells replaced); the
-  march's also at every lane count of contact_cuda.LANES where the
-  checkout's wrapper picks one (lanes_for replaced; the indexed calls
-  also with their live count cut to each of LIVE_CUTS), the compacting
+  march's with each call's live slots (the count, or the rays its mask
+  keeps) and its bound and, where the checkout's march switches its layout by the live
+  count (contact_cuda.LANES_LIVE_MAX), also in each layout for every
+  live count (a thread a slot, 8 lanes a slot; the indexed calls also
+  with their live count cut to each of LIVE_CUTS), the compacting
   certificate's at every grid cap of BLOCKS_PER_SM
   (CERTIFY_BLOCKS_PER_SM patched);
 - the dense frame (every pixel filtered, chip_smoke.dense_config): its K6
-  calls and its K9 march (every ray, at every lane count as above) of
-  one frame, timed as above, and, where the checkout picks a
+  calls and its K9 march (every ray its mask keeps, in each layout as
+  above) of one frame, timed as above, and, where the checkout picks a
   lane width, n = 2^14 .. 2^21 entries at every width, drawn from the
   dense frame's first call and from the shipped frame's largest pair
   group (its live entries, evenly spaced or repeated);
@@ -349,14 +351,20 @@ def certify_blocks_report(cs, calls) -> dict:
     return out
 
 
+# K9's march layouts swept: the live count past which it runs one thread
+# a slot (contact_cuda.LANES_LIVE_MAX patched)
+MARCH_LAYOUTS = (("chain", -1), ("lanes", 2 ** 62))
+
+
 def march_lanes_report(cs, calls) -> dict:
-    """K9's march on a frame's recorded calls through its dispatcher, at
-    the checkout's lanes a slot and, where its wrapper picks them
-    (contact_cuda.lanes_for), at every count of LANES, forced, the lane
-    layouts also with no live count past which they run one thread a slot
-    (LANES_LIVE_MAX lifted, "_always"), and there the indexed calls with
-    their live count cut to each of LIVE_CUTS: device ms behind a
-    sleep."""
+    """K9's march on a frame's recorded calls through its dispatcher, with
+    each call's slots and live slots (before its count, and kept by its
+    mask) and the calls' bound (chip_smoke.stage_work), and, where the checkout switches the march's layout by the live
+    count (contact_cuda.LANES_LIVE_MAX), in each layout of MARCH_LAYOUTS
+    for every live count, there also the indexed calls with their live
+    count cut to each of LIVE_CUTS: device ms behind a sleep."""
+    import inspect
+
     import torch
 
     from funky_tpu_torch.ops import contact_cuda
@@ -367,20 +375,27 @@ def march_lanes_report(cs, calls) -> dict:
             contact.contact_march(*a, **kw)
 
     def slots(a, kw):
-        idx = kw.get("idx", a[2] if len(a) > 2 else None)
-        return (a[1] if idx is None else idx).shape[0]
+        b = inspect.signature(contact.contact_march).bind(*a, **kw)
+        b.apply_defaults()
+        g = b.arguments
+        m = (g["payload"] if g["idx"] is None else g["idx"]).shape[0]
+        need = torch.arange(m, device=g["payload"].device) < (
+            m if g["count"] is None else int(g["count"]))
+        if g["mask"] is not None:
+            need &= g["mask"]
+        return m, int(need.sum())
 
-    out = {"slots": [slots(a, kw) for a, kw in calls],
+    counts = [slots(a, kw) for a, kw in calls]
+    out = {"slots": [c[0] for c in counts], "live": [c[1] for c in counts],
            "ms": cs.device_ms(run, iters=20, sleep_cycles=SLEEP)}
-    if hasattr(contact_cuda, "lanes_for"):
-        out["lanes"] = [contact_cuda.lanes_for(m) for m in out["slots"]]
-        layouts = [(n, "") for n in contact_cuda.LANES] + [
-            (n, "_always") for n in contact_cuda.LANES if n > 1]
-        for lanes, tag in layouts:
-            live_max = 2 ** 62 if tag else contact_cuda.LANES_LIVE_MAX
-            with forced(contact_cuda, "lanes_for", lanes), patched(
-                    contact_cuda, "LANES_LIVE_MAX", live_max):
-                key = f"lanes_{lanes}{tag}"
+    # the calls' bound, as the checkout's chip_smoke.py reckons it
+    work = [cs.stage_work("contact_march", a, kw) for a, kw in calls]
+    out["bound_ms"] = max(sum(w[0] for w in work) / cs.HBM_BPS,
+                          sum(w[1] for w in work) / cs.FP32_OPS) * 1e3
+    if hasattr(contact_cuda, "LANES_LIVE_MAX"):
+        out["live_max"] = contact_cuda.LANES_LIVE_MAX
+        for key, live_max in MARCH_LAYOUTS:
+            with patched(contact_cuda, "LANES_LIVE_MAX", live_max):
                 out[f"{key}_ms"] = cs.device_ms(run, iters=20,
                                                 sleep_cycles=SLEEP)
                 # the same slots cut to fewer live ones
