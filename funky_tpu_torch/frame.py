@@ -54,6 +54,8 @@ from .ops.sampling import (dynamic_slice, dynamic_update_slice, quad_pack,
 from .passes import (contact, deferred, geometry, shading, shadow,
                      shadow_filter, shadow_lightspace, taa, uniforms)
 from .passes.shadow_classify import build_class_maps, light_ground_planes
+from .utils import profiling
+from .utils.profiling import span
 
 CUBE_CLEAR = (0.39, 0.58, 0.93)    # frame.py:28
 GLTF_CLEAR = (0.53, 0.81, 0.92)    # frame.py:29
@@ -399,11 +401,12 @@ def shade_slab(scene: DeviceScene, uni, state: FrameState, shadow_maps,
             blocks, cfg, y0, class_maps, tri_flags)
     maps = (light_maps, tap_routes)
     kind, size, _ = back_half(cfg, h, w)
-    if kind == "rows":
-        return _shade_slab_rows(*args, size, *maps)
-    if kind == "blocks":
-        return _shade_slab_blocked(*args, size, *maps)
-    return _shade_slab_dense(*args, *maps)
+    with span("back_half"):
+        if kind == "rows":
+            return _shade_slab_rows(*args, size, *maps)
+        if kind == "blocks":
+            return _shade_slab_blocked(*args, size, *maps)
+        return _shade_slab_dense(*args, *maps)
 
 
 def back_half(cfg: GltfConfig, h: int, w: int) -> tuple:
@@ -460,78 +463,83 @@ def _shade_core(scene: DeviceScene, uni, state: FrameState, shadow_maps,
     def up(a):
         return resize_linear(a, *shape) if scale > 1 else a
 
-    if flags.enable_shadows:
-        args = (gbuf.world, normal, n_dot_l, view_depth, frag)
-        if class_maps is not None:
-            sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
-                uni, shadow_maps, class_maps,
-                *(at_rate(a) for a in args), flags.use_pcss,
-                at_rate(gbuf.valid), cfg.shadow_pen_capacity,
-                cfg.shadow_pen_cascade_caps, cfg.shadow_pen_block_capacity,
-                cfg.shadow_tap_windows, light_maps,
-                flags.skip_backfacing_shadows, flags.committed,
-                cfg.shadow_lit_cascade_caps, tap_routes,
-                cfg.shadow_route_caps)
+    with span("shadow_filter"):
+        if flags.enable_shadows:
+            args = (gbuf.world, normal, n_dot_l, view_depth, frag)
+            if class_maps is not None:
+                sres, c0, c1, ct = shadow_filter.cascaded_shadow_sparse(
+                    uni, shadow_maps, class_maps,
+                    *(at_rate(a) for a in args), flags.use_pcss,
+                    at_rate(gbuf.valid), cfg.shadow_pen_capacity,
+                    cfg.shadow_pen_cascade_caps,
+                    cfg.shadow_pen_block_capacity, cfg.shadow_tap_windows,
+                    light_maps, flags.skip_backfacing_shadows,
+                    flags.committed, cfg.shadow_lit_cascade_caps,
+                    tap_routes, cfg.shadow_route_caps)
+            else:
+                sres, c0, c1, ct = shadow_filter.cascaded_shadow(
+                    uni, shadow_maps, *(at_rate(a) for a in args),
+                    flags.use_pcss)
+            if scale > 1:
+                sres = shadow_filter.ShadowResult(*(up(f) for f in sres))
+                c0, c1, ct = shadow_filter.select_cascade_blend(
+                    view_depth, uni.cascade_splits)
         else:
-            sres, c0, c1, ct = shadow_filter.cascaded_shadow(
-                uni, shadow_maps, *(at_rate(a) for a in args),
-                flags.use_pcss)
-        if scale > 1:
-            sres = shadow_filter.ShadowResult(*(up(f) for f in sres))
-            c0, c1, ct = shadow_filter.select_cascade_blend(
-                view_depth, uni.cascade_splits)
-    else:
-        one = torch.ones(shape, dtype=torch.float32, device=dev)
-        sres = shadow_filter.ShadowResult(one, one, one,
-                                          torch.zeros_like(one))
-        c0 = torch.zeros(shape, dtype=torch.int32, device=dev)
-        c1 = c0
-        ct = torch.zeros_like(one)
+            one = torch.ones(shape, dtype=torch.float32, device=dev)
+            sres = shadow_filter.ShadowResult(one, one, one,
+                                              torch.zeros_like(one))
+            c0 = torch.zeros(shape, dtype=torch.int32, device=dev)
+            c1 = c0
+            ct = torch.zeros_like(one)
 
     taa_domain = (dict(y0=y0) if y0 is not None
                   else dict(frag=frag, full_width=cfg.width))
-    shadow_term, new_history = taa.apply_shadow_taa(
-        sres, gbuf.world, uni, state.shadow_history, flags.use_shadow_taa,
-        full_height=cfg.height, need_capacity=cfg.taa_need_capacity,
-        committed=flags.committed, **taa_domain)
+    with span("taa"):
+        shadow_term, new_history = taa.apply_shadow_taa(
+            sres, gbuf.world, uni, state.shadow_history,
+            flags.use_shadow_taa, full_height=cfg.height,
+            need_capacity=cfg.taa_need_capacity, committed=flags.committed,
+            **taa_domain)
 
-    if flags.enable_contact_shadows:
-        # A back-facing pixel shows no contact shadow either: the perf
-        # mode skips its march (frame.py:601-604).
-        cvalid = (gbuf.valid & (n_dot_l > 0.0)
-                  if flags.skip_backfacing_shadows else gbuf.valid)
-        if flags.sparse_contact:
-            contact_term = contact.compute_contact_shadow_sparse(
-                at_rate(gbuf.world), at_rate(normal), uni, state.prev_depth,
-                capacity=cfg.contact_capacity,
-                march_capacity=cfg.contact_march_capacity,
-                valid=at_rate(cvalid),
-                block_capacity=cfg.contact_block_capacity,
-                frag=at_rate(frag),
-                plane=contact.reference_plane(
-                    scene.positions, scene.tri_indices, uni.prev_view_proj,
-                    cfg.width, cfg.height),
-                committed=flags.committed, march_window=cfg.contact_window)
+    with span("contact"):
+        if flags.enable_contact_shadows:
+            # A back-facing pixel shows no contact shadow either: the perf
+            # mode skips its march (frame.py:601-604).
+            cvalid = (gbuf.valid & (n_dot_l > 0.0)
+                      if flags.skip_backfacing_shadows else gbuf.valid)
+            if flags.sparse_contact:
+                contact_term = contact.compute_contact_shadow_sparse(
+                    at_rate(gbuf.world), at_rate(normal), uni,
+                    state.prev_depth, capacity=cfg.contact_capacity,
+                    march_capacity=cfg.contact_march_capacity,
+                    valid=at_rate(cvalid),
+                    block_capacity=cfg.contact_block_capacity,
+                    frag=at_rate(frag),
+                    plane=contact.reference_plane(
+                        scene.positions, scene.tri_indices,
+                        uni.prev_view_proj, cfg.width, cfg.height),
+                    committed=flags.committed,
+                    march_window=cfg.contact_window)
+            else:
+                contact_term = contact.compute_contact_shadow(
+                    at_rate(gbuf.world), at_rate(normal), uni,
+                    state.prev_depth, frag=at_rate(frag))
+            shadow_term = torch.minimum(shadow_term, up(contact_term))
+
+    with span("shading"):
+        # History only updates where fragments shaded (frame.py:623-626).
+        new_history = torch.where(gbuf.valid[..., None], new_history,
+                                  old_history)
+
+        background = _background(dev)
+        if flags.debug_cascades:
+            rgba = shading.cascade_debug_color(gbuf, c0, c1, ct,
+                                               shadow_term, background)
         else:
-            contact_term = contact.compute_contact_shadow(
-                at_rate(gbuf.world), at_rate(normal), uni, state.prev_depth,
-                frag=at_rate(frag))
-        shadow_term = torch.minimum(shadow_term, up(contact_term))
-
-    # History only updates where fragments shaded (frame.py:623-626).
-    new_history = torch.where(gbuf.valid[..., None], new_history,
-                              old_history)
-
-    background = _background(dev)
-    if flags.debug_cascades:
-        rgba = shading.cascade_debug_color(gbuf, c0, c1, ct, shadow_term,
-                                           background)
-    else:
-        rgba = shading.shade_gltf(gbuf, scene.texture, scene.texture_sizes,
-                                  uni.camera_pos, uni.light_dir,
-                                  shadow_term, background,
-                                  cfg.effective_texture_blocks,
-                                  committed=flags.committed)
+            rgba = shading.shade_gltf(
+                gbuf, scene.texture, scene.texture_sizes, uni.camera_pos,
+                uni.light_dir, shadow_term, background,
+                cfg.effective_texture_blocks, committed=flags.committed)
     return rgba, new_history
 
 
@@ -620,8 +628,9 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
     pyf = py.to(torch.float32) + 0.5 + float(y0)
     frag = torch.stack([pxf, pyf], dim=-1)
 
-    gbuf = deferred.interpolate_at(tri_e, depth_e, setup_data, blocks,
-                                   tri_flags, pxf, pyf)
+    with span("deferred"):
+        gbuf = deferred.interpolate_at(tri_e, depth_e, setup_data, blocks,
+                                       tri_flags, pxf, pyf)
     rgba_e, hist_e = _shade_core(scene, uni, state, shadow_maps, gbuf,
                                  frag, cfg, class_maps, old_hist_e,
                                  light_maps=light_maps,
@@ -644,8 +653,9 @@ def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
     Returns (rgba (h, W, 4), history slab (h, W, 2))."""
     if tri_flags is None:
         tri_flags = scene.tri_flags
-    gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
-                                tri_flags, y0)
+    with span("deferred"):
+        gbuf = deferred.interpolate(tri_id, depth, setup_data, blocks,
+                                    tri_flags, y0)
     h, w = tri_id.shape
     frag = torch.stack(deferred.pixel_centers(h, w, y0, tri_id.device),
                        dim=-1)
@@ -702,11 +712,14 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
     buffer: (rgba (H, W, 4), new FrameState, tri_id (H, W) int32). The
     main depth is the new state's prev_depth."""
     flags = cfg.flags
-    uni = compute_frame_uniforms(params, state, cfg)
+    with span("uniforms"):
+        uni = compute_frame_uniforms(params, state, cfg)
 
-    world_v, clip, normals_v = geometry.transform_vertices(
-        scene, uni.models, uni.view_proj)
-    blocks = geometry.build_shade_blocks(scene, world_v, clip, normals_v)
+    with span("vertices"):
+        world_v, clip, normals_v = geometry.transform_vertices(
+            scene, uni.models, uni.view_proj)
+        blocks = geometry.build_shade_blocks(scene, world_v, clip,
+                                             normals_v)
 
     shadow_maps = None
     class_maps = None
@@ -717,45 +730,53 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
         # light-space ground evaluation, planned once (frame.py:920-927).
         sizes = cfg.effective_light_windows()
         origins = None
-        if sizes is not None and any(sizes):
-            origins, _ = shadow_lightspace.plan_windows(
-                uni, world_v, scene.vert_object, sizes, cfg.shadow_map_size,
-                cfg.max_softness, cfg.class_coarse)
-        raw_maps = _cascade_maps(scene, uni, world_v, cfg, origins)
-        if flags.sparse_shadows:
-            class_maps = build_class_maps(
-                raw_maps, cfg.class_coarse, cfg.max_softness,
-                light_ground_planes(uni.light_view_proj))
-        shadow_maps = quad_pack(raw_maps)              # (4, S, S, 4)
-        if (flags.light_space_ground_shadows and class_maps is not None
-                and origins is not None):
-            light_maps = _light_maps(raw_maps, uni, cfg, origins)
+        with span("window_plans"):
+            if sizes is not None and any(sizes):
+                origins, _ = shadow_lightspace.plan_windows(
+                    uni, world_v, scene.vert_object, sizes,
+                    cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
+        with span("cascade_maps"):
+            raw_maps = _cascade_maps(scene, uni, world_v, cfg, origins)
+        with span("class_maps"):
+            if flags.sparse_shadows:
+                class_maps = build_class_maps(
+                    raw_maps, cfg.class_coarse, cfg.max_softness,
+                    light_ground_planes(uni.light_view_proj))
+        with span("quad_pack"):
+            shadow_maps = quad_pack(raw_maps)          # (4, S, S, 4)
+        with span("light_maps"):
+            if (flags.light_space_ground_shadows and class_maps is not None
+                    and origins is not None):
+                light_maps = _light_maps(raw_maps, uni, cfg, origins)
         routes = cfg.shadow_route_windows
         if flags.sparse_shadows and routes is not None and any(routes) \
                 and cfg.shadow_route_caps is not None:
             # Routed tap groups on the footprint windows at the route
             # sizes (frame.py:990-1003).
-            r_origins, _ = shadow_lightspace.plan_windows(
-                uni, world_v, scene.vert_object, routes,
-                cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
+            with span("window_plans"):
+                r_origins, _ = shadow_lightspace.plan_windows(
+                    uni, world_v, scene.vert_object, routes,
+                    cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
             tap_routes = (r_origins, tuple(routes))
 
-    tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
-        scene, clip, blocks, cfg.clip_capacity)
-    tri_id, depth, setup = raster_corners(
-        tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
+    with span("main_raster"):
+        tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
+            scene, clip, blocks, cfg.clip_capacity)
+        tri_id, depth, setup = raster_corners(
+            tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
 
     rgba, new_history = shade_slab(
         scene, uni, state, shadow_maps, tri_id, depth, setup.data, blocks_m,
         cfg, 0, class_maps, tri_flags_m, light_maps, tap_routes)
 
-    new_state = FrameState(
-        shadow_history=new_history,
-        prev_depth=depth,
-        prev_view_proj=uni.view_proj,
-        has_prev=torch.ones((), dtype=torch.bool, device=depth.device),
-        frame_index=state.frame_index + 1,
-    )
+    with span("state"):
+        new_state = FrameState(
+            shadow_history=new_history,
+            prev_depth=depth,
+            prev_view_proj=uni.view_proj,
+            has_prev=torch.ones((), dtype=torch.bool, device=depth.device),
+            frame_index=state.frame_index + 1,
+        )
     return rgba, new_state, tri_id
 
 
@@ -795,18 +816,34 @@ def _launch_counts() -> dict:
             "class_maps": class_maps_cuda.LAUNCHES}
 
 
-def _copy_in(dst: torch.Tensor, src) -> None:
+def _copy_in(dst: torch.Tensor, src) -> int:
     """One input into its static buffer: a host number is filled in on the
     card (no copy from host memory), a tensor copied unless it already is
-    the buffer (the graph's own state, handed back)."""
+    the buffer (the graph's own state, handed back). Returns the device
+    operations enqueued (0 or 1)."""
     if not isinstance(src, torch.Tensor):
         dst.fill_(src)
-    elif src is not dst:
+    elif src is dst:
+        return 0
+    else:
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"graph input {tuple(src.shape)} {src.dtype} "
                              f"does not match the recorded "
                              f"{tuple(dst.shape)} {dst.dtype}")
         dst.copy_(src)
+    return 1
+
+
+def _record(fn, static: list, donate, count=None):
+    """The body GraphFrame records: fn on the static inputs, then the
+    donated outputs copied into their inputs' buffers (the `handoff`
+    span), under a capture table. Returns (outputs, GraphLayout)."""
+    with profiling.capture_table(count) as table:
+        outputs = tuple(fn(*static))
+        with span("handoff"):
+            for o, i in (donate or {}).items():
+                static[i].copy_(outputs[o])
+    return outputs, table.layout
 
 
 class GraphFrame:
@@ -822,9 +859,12 @@ class GraphFrame:
     input's buffer at its end, which is JAX's donation (frame.py:1053) made
     literal. A failed capture or replay raises. `launches` counts the
     kernel launches the capture recorded: the wrappers' counters do not
-    move on replay."""
+    move on replay. `layout` (utils/profiling.GraphLayout) places the
+    frame's layer spans among the graph's device operations, and counts
+    the operations a call enqueues around its replay; with a `key` it is
+    published for profiling.graph_layout(key)."""
 
-    def __init__(self, fn, inputs, donate=None):
+    def __init__(self, fn, inputs, donate=None, key=None):
         dev = next(x.device for x in inputs if isinstance(x, torch.Tensor))
         self.static = [x.detach().clone() if isinstance(x, torch.Tensor)
                        else torch.full((), x, dtype=torch.float32,
@@ -845,19 +885,21 @@ class GraphFrame:
             self.graph = torch.cuda.CUDAGraph()
             before = _launch_counts()
             with torch.cuda.graph(self.graph):
-                self.outputs = tuple(fn(*self.static))
-                for o, i in (donate or {}).items():
-                    self.static[i].copy_(self.outputs[o])
+                self.outputs, self.layout = _record(fn, self.static, donate)
             after = _launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
+        if key is not None:
+            profiling.publish_layout(key, self.layout)
 
     def __call__(self, inputs) -> tuple:
         self.replaying = True
+        copies = 0
         for dst, src in zip(self.static, inputs):
-            _copy_in(dst, src)
+            copies += _copy_in(dst, src)
         self.graph.replay()
         self.replaying = False
         self.replays += 1
+        self.layout.before = copies
         return self.outputs
 
 
@@ -867,9 +909,10 @@ class CompiledFrame:
     holds them; `last` is the one the last call replayed (None after an
     eager call)."""
 
-    def __init__(self, eager, graphable: bool):
+    def __init__(self, eager, graphable: bool, key=None):
         self.eager = eager
         self.graphable = graphable
+        self.key = key
         self.captures: dict = {}
         self.last = None
 
@@ -882,7 +925,7 @@ class CompiledFrame:
         if entry is None or entry[0] is not scene:
             # the entry holds the scene, whose tensors the graph reads by
             # address, so an id is never reused while its graph lives
-            entry = (scene, GraphFrame(fn, inputs, donate))
+            entry = (scene, GraphFrame(fn, inputs, donate, self.key))
             self.captures[key] = entry
         self.last = entry[1]
         return entry[1]
@@ -915,6 +958,22 @@ class _CompiledGltf(CompiledFrame):
         if not self.uses_graph(dev):
             self.last = None
             return self.eager(scene, params, state)
+        # The rgba is cloned, so a frame the caller keeps does not change
+        # under the next replay.
+        fn, inputs, donate = self.recordable(scene, params, state)
+        g = self._graph(scene, dev, fn, inputs, donate)
+        outs = g(inputs)
+        g.layout.after = 1          # the clone below
+        return outs[0].clone(), FrameState(*g.static[len(_PARAM_FIELDS):])
+
+    def recordable(self, scene: DeviceScene, params: GltfParams,
+                   state: FrameState):
+        """(fn, inputs, donate) of the graph a call records: fn(*inputs)
+        is the frame's (rgba, *new_state). The new state is written into
+        the state's static buffers at the graph's end: the state is
+        donated and updated in place, as JAX donates it (frame.py:1053).
+        The FrameState a call returns is those buffers; the next call
+        overwrites it."""
         n = len(_PARAM_FIELDS)
         inputs = [getattr(params, f) for f in _PARAM_FIELDS] + list(state)
 
@@ -923,15 +982,7 @@ class _CompiledGltf(CompiledFrame):
                                    FrameState(*xs[n:]))
             return (rgba,) + tuple(new)
 
-        # The new state is written into the state's static buffers at the
-        # graph's end: the state is donated and updated in place, as JAX
-        # donates it (frame.py:1053). The FrameState returned is those
-        # buffers; the next call overwrites it. The rgba is cloned, so a
-        # frame the caller keeps does not change under the next replay.
-        g = self._graph(scene, dev, frame, inputs,
-                        donate={1 + k: n + k for k in range(len(state))})
-        outs = g(inputs)
-        return outs[0].clone(), FrameState(*g.static[n:])
+        return frame, inputs, {1 + k: n + k for k in range(len(state))}
 
 
 _CUBE_FIELDS = tuple(f.name for f in dataclasses.fields(CubeParams))
@@ -956,6 +1007,9 @@ def compiled_gltf_frame(cfg: GltfConfig) -> CompiledFrame:
         # A committed frame takes no host branch (host_cond) and reads no
         # device value on the host: it can be recorded whole. The cond'd
         # and default frames branch on the host 5-7 times per frame.
+        # Its graph's layout is published under cfg (profiling.
+        # graph_layout(cfg)).
         _CACHE[key] = _CompiledGltf(
-            functools.partial(render_gltf_frame, cfg=cfg), cfg.flags.committed)
+            functools.partial(render_gltf_frame, cfg=cfg), cfg.flags.committed,
+            key=cfg)
     return _CACHE[key]

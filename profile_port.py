@@ -14,23 +14,29 @@ valid-block back half, block-sparse texture sampling), bench.py's
 shipped configuration (`shipped`: committed mode with synthesized
 cascade maps, autotuned over frame.tuning_poses first), or the shipped
 configuration with a perf mode on, autotuned on its own (`half_res`:
-half-rate shadow evaluation, whose upsample `resize_linear` is a stage;
+half-rate shadow evaluation, whose upsample `resize_linear` is a part;
 `lightspace`: the light-space ground evaluation with the back-face skip,
-whose light maps `build_light_shadow_map`, fetch split and fetch groups
-are stages), on the multimesh or the large scene. 8 chained frames (2 parked, 6 orbit poses) with a
-synchronize around every stage (per-stage host-clock medians), 8 more
-without (frame time), then one frame under torch.profiler (device time
-by kernel, device busy and idle share, the device time of the row-gather
-kernel K3 and of torch indexing `aten::index`, and the launch geometry of
-the frame's largest gather kernels). In that frame every stage runs under
-a `record_function` range, and each kernel, copy and memset is charged
-to the ranges that were open on the host when it was launched: each
-stage's device ms with the stages nested in it and without them. The
-shadow filter's parts are stages nested in it: its tap sets (`_pcss_taps`,
-`_pcf_taps`), its per-group pair histogram (`_group_counts`), and its
-pair gathers and scatters (`gather_rows`, `scatter_back`). So are the
+whose light maps are the `light_maps` span and whose fetch split and
+fetch groups are parts), on the multimesh or the large scene. 8 chained
+frames (2 parked, 6 orbit poses) with a synchronize around every part
+of the shadow filter and the contact stage (NESTED and MODE_PARTS:
+per-part host-clock medians), 8 more without (frame time), then one frame under
+torch.profiler (device time by kernel, device busy and idle share, the
+device time of the row-gather kernel K3 and of torch indexing
+`aten::index`, and the launch geometry of the frame's largest gather
+kernels). In that frame each layer is the program's own span
+(utils/profiling.py::FRAME_SPANS, a `record_function` range "span:
+<name>" under the profiler) and each part a range of this script's
+wrappers, and each kernel, copy and memset is charged to the ranges that
+were open on the host when it was launched: each layer's and part's
+device ms with the ranges nested in it and without them. The shadow
+filter's parts: its tap sets (`_pcss_taps`, `_pcf_taps`), its per-group
+pair histogram (`_group_counts`), its pair gathers and scatters
+(`gather_rows`, `scatter_back`), and in the perf modes the upsample
+(`resize_linear`) and the light-space fetch split and groups. The
 contact stage's: its residual pyramid, front, stage-2 compaction,
-certificate, stage-3 compaction, payload gathers and march (NESTED).
+certificate, stage-3 compaction, payload gathers and march. A checkout
+given by `--tree` whose package has no spans shows the parts alone.
 Writes the profiler's chrome trace to the path given, if any. With `--graph` (a committed configuration,
 whose frame frame.compiled_gltf_frame records as a CUDA graph)
 it then times 8 chained replays and profiles one: the device's own kernel
@@ -77,59 +83,16 @@ from chip_smoke import (HEIGHT, PERF_MODES, SHADOW, WIDTH, autotune_shipped,
                         fail, gpu_line, load_scene, poses_for, scene_params,
                         trace_kernels)
 
-# (module, attribute, label) of each stage render_gltf_frame calls: the
-# common stages, then each configuration's own. No stage calls another.
-COMMON = (
-    ("frame", "compute_frame_uniforms", "uniforms"),
-    ("geometry", "transform_vertices", "geometry"),
-    ("shadow", "render_shadow_maps", "shadow rasters x4"),
-    ("frame", "quad_pack", "quad_pack"),
-    ("frame", "_main_raster_inputs", "near clip"),
-    ("frame", "raster_corners", "main raster"),
-    ("taa", "apply_shadow_taa", "taa"),
-    ("shading", "shade_gltf", "shading"),
-)
-STAGES = {
-    "dense": COMMON + (
-        ("deferred", "interpolate", "deferred"),
-        ("shadow_filter", "cascaded_shadow", "shadow filter"),
-        ("contact", "compute_contact_shadow", "contact"),
-    ),
-    "default": COMMON + (
-        ("frame", "light_ground_planes", "class planes"),
-        ("frame", "build_class_maps", "class maps"),
-        ("frame", "compact_valid_blocks", "valid-block compaction"),
-        ("frame", "gather_blocks", "valid-block gather"),
-        ("deferred", "interpolate_at", "deferred"),
-        ("shadow_filter", "cascaded_shadow_sparse", "shadow filter (sparse)"),
-        ("contact", "reference_plane", "contact plane"),
-        ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
-        ("frame", "scatter_blocks", "valid-block scatter"),
-    ),
-    "shipped": COMMON + (
-        ("shadow_lightspace", "plan_windows", "window plans"),
-        ("shadow", "synthesize_shadow_maps", "synthesized maps"),
-        ("frame", "light_ground_planes", "class planes"),
-        ("frame", "build_class_maps", "class maps"),
-        ("deferred", "interpolate", "deferred (row slab)"),
-        ("shadow_filter", "cascaded_shadow_sparse", "shadow filter (sparse)"),
-        ("contact", "reference_plane", "contact plane"),
-        ("contact", "compute_contact_shadow_sparse", "contact (sparse)"),
-    ),
+CONFIGS = ("dense", "default", "shipped", "half_res", "lightspace")
+# The perf modes' own parts: resize_linear runs inside the shadow_filter
+# and contact spans, the fetch split and groups inside the shadow filter.
+MODE_PARTS = {
+    "half_res": (("frame", "resize_linear", "resize_linear (upsample)"),),
+    "lightspace": (("shadow_filter", "_fetchable", "fetch split"),
+                   ("shadow_filter", "_fetch_rows", "fetch groups")),
 }
-# The perf modes run the shipped stages and their own: build_light_shadow_map
-# is a stage of its own; resize_linear runs inside the shadow filter and
-# contact stages, the fetch split and groups inside the shadow filter, and
-# those stages' times include them.
-STAGES["half_res"] = STAGES["shipped"] + (
-    ("frame", "resize_linear", "resize_linear (upsample)"),
-)
-STAGES["lightspace"] = STAGES["shipped"] + (
-    ("shadow_lightspace", "build_light_shadow_map", "light maps"),
-    ("shadow_filter", "_fetchable", "fetch split"),
-    ("shadow_filter", "_fetch_rows", "fetch groups"),
-)
-# Parts of the shadow filter, timed and charged as stages nested in it:
+# (module, attribute, label) of the parts of the shadow filter, timed and
+# charged as ranges nested in its span:
 # the tap sets (the dense filter's, or the sparse filter's pair groups'),
 # the per-group pair histogram, and the filter's own compaction gathers and
 # scatters (the pair groups' payload, the band's classification).
@@ -173,8 +136,8 @@ NESTED = (
     ("contact", "_soft_term", "contact march"),
     ("contact", "scatter_back", "contact march"),
 )
-NESTED_LABELS = {label for _, _, label in NESTED}
 RANGE = "stage: "
+SPAN = "span: "             # utils/profiling.py::RANGE
 
 
 def chain(scene, poses, cfg, dev):
@@ -220,7 +183,7 @@ def wrapped_stages(stages, wrap):
 
 
 def stage_times(scene, poses, cfg, dev, stages):
-    """Per-stage ms: each stage function wrapped in synchronizes for the
+    """Per-part ms: each part's function wrapped in synchronizes for the
     length of one chain."""
     times = {label: [] for _, _, label in stages}
 
@@ -240,7 +203,7 @@ def stage_times(scene, poses, cfg, dev, stages):
 
 
 def ranged(fn, label):
-    """fn under a record_function range named for its stage."""
+    """fn under a record_function range named for its part."""
     def run(*args, **kwargs):
         with torch.profiler.record_function(RANGE + label):
             return fn(*args, **kwargs)
@@ -257,15 +220,16 @@ def trace_events(prof, path=None) -> list:
 
 
 def stage_device_ms(events):
-    """{stage: (calls, device ms with its nested stages, device ms without
-    them)} of one profiled run's trace events whose stages ran under
-    `ranged`: each kernel, copy and memset is charged to every stage range
-    open on the host when it was launched (its launch call's correlation
-    id), and its own share to the innermost one; "(no stage)" holds the
-    rest."""
-    ranges = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"][len(RANGE):])
+    """{layer or part: (calls, device ms with the ranges nested in it,
+    device ms without them)} of one profiled run's trace events, the
+    layers under the program's spans and the parts under `ranged`: each
+    kernel, copy and memset is charged to every range open on the host
+    when it was launched (its launch call's correlation id), and its own
+    share to the innermost one; "(no stage)" holds the rest."""
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0),
+               e["name"].split(": ", 1)[1])
               for e in events if e.get("cat") == "user_annotation"
-              and e.get("name", "").startswith(RANGE)]
+              and e.get("name", "").startswith((RANGE, SPAN))]
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -290,7 +254,7 @@ def stage_device_ms(events):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=sorted(STAGES), default="dense")
+    ap.add_argument("--config", choices=CONFIGS, default="dense")
     ap.add_argument("--scene", choices=("multimesh", "large"),
                     default="multimesh")
     ap.add_argument("--trace", help="write the profiler's chrome trace here")
@@ -341,26 +305,21 @@ def main() -> None:
     print(f"{args.config} configuration, {args.scene} scene, package "
           f"{TREE}", flush=True)
 
-    stages = STAGES[args.config] + NESTED
+    stages = NESTED + MODE_PARTS.get(args.config, ())
     times = stage_times(scene, poses, cfg, dev, stages)
-    total = sum(statistics.median(v[1:]) for label, v in times.items()
-                if v[1:] and label not in NESTED_LABELS)
     for label, v in times.items():
         if not v[1:]:
-            print(f"stage {label:24s} not run", flush=True)
+            print(f"part {label:24s} not run", flush=True)
             continue
-        m = statistics.median(v[1:])
-        nest = "  (nested in the shadow filter or contact)" \
-            if label in NESTED_LABELS else ""
-        print(f"stage {label:24s} {m:10.3f} ms  {m / total:6.1%}  "
-              f"({len(v)} calls){nest}", flush=True)
+        print(f"part {label:24s} {statistics.median(v[1:]):10.3f} ms  "
+              f"({len(v)} calls, nested in the shadow filter or contact)",
+              flush=True)
     compact.reset_host_syncs()
     ms, state = chain(scene, poses, cfg, dev)
     frame_ms = statistics.median(ms[1:])
     print(f"frame {WIDTH}x{HEIGHT}: median {frame_ms:.3f} ms host clock "
-          f"without stage syncs, stages summed {total:.3f} ms; host branches "
-          f"over {len(poses)} frames {dict(compact.BRANCHES)} [{gpu}]",
-          flush=True)
+          f"without part syncs; host branches over {len(poses)} frames "
+          f"{dict(compact.BRANCHES)} [{gpu}]", flush=True)
 
     with wrapped_stages(stages, ranged), \
             profile(activities=[ProfilerActivity.CPU,
@@ -372,7 +331,7 @@ def main() -> None:
     # Kernels and copies only: an aten op's row repeats its kernels' time.
     dev_rows = [e for e in ka
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith(RANGE)]
+                and not e.key.startswith((RANGE, SPAN))]
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
     print(f"profiled frame: {sum(e.count for e in dev_rows)} device "
           f"launches, device busy {busy:.3f} ms; idle share against the "
@@ -397,9 +356,9 @@ def main() -> None:
     events = trace_events(prof, args.trace)
     by_stage = stage_device_ms(events)
     for label, (n_calls, incl, own) in by_stage.items():
-        print(f"profiled frame device ms: stage {label:24s} {incl:9.3f} ms "
-              f"{incl / busy:6.1%} of busy, without nested stages {own:9.3f}"
-              f" ms ({n_calls} calls) [{gpu}]", flush=True)
+        print(f"profiled frame device ms: {label:24s} {incl:9.3f} ms "
+              f"{incl / busy:6.1%} of busy, without nested ranges "
+              f"{own:9.3f} ms ({n_calls} calls) [{gpu}]", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
     gathers = sorted(((e["name"], e.get("dur", 0) / 1e3,
                        e.get("args", {}).get("grid"),

@@ -377,13 +377,6 @@ def test_profiling(tmp_path):
     fps.tick()
     fps.tick()
     assert fps.fps > 0 and fps.frame_time_ms > 0
-    timer = profiling.PassTimer()
-    out = timer.time_fn("add", torch.add, torch.ones(3), torch.ones(3),
-                        iters=2)
-    with timer.measure("mul", result=out):
-        out = out * 2
-    assert set(timer.summary()) == {"add", "mul"}
-    assert "add" in timer.report()
     with profiling.trace(str(tmp_path)):
         torch.ones(8).sum()
     assert (tmp_path / "trace.json").exists()

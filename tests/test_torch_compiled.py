@@ -141,15 +141,16 @@ def test_cache_keys():
 
 def test_static_input_copy():
     """GraphFrame's input copy: a tensor is copied into its buffer, the
-    buffer itself is left alone, a host number is filled in, and a shape
-    or dtype that does not match the recorded one raises."""
+    buffer itself is left alone, a host number is filled in (each copy and
+    fill one device operation, counted for the replay's layout), and a
+    shape or dtype that does not match the recorded one raises."""
     buf = torch.zeros(3)
-    frame._copy_in(buf, torch.tensor([1.0, 2.0, 3.0]))
+    assert frame._copy_in(buf, torch.tensor([1.0, 2.0, 3.0])) == 1
     assert buf.tolist() == [1.0, 2.0, 3.0]
-    frame._copy_in(buf, buf)
+    assert frame._copy_in(buf, buf) == 0
     assert buf.tolist() == [1.0, 2.0, 3.0]
     t = torch.zeros(())
-    frame._copy_in(t, 1.5)
+    assert frame._copy_in(t, 1.5) == 1
     assert float(t) == 1.5
     with pytest.raises(ValueError, match="does not match"):
         frame._copy_in(buf, torch.zeros(4))
@@ -226,6 +227,56 @@ def test_card_committed_gltf_graph_equals_eager(dev):
     _, s2 = fn(scene, params, s1)
     assert all(a is b for a, b in zip(s1, s2))     # donated, in place
     assert int(s2.frame_index) == 2
+
+
+@pytest.mark.cuda
+def test_card_graph_layout(dev, monkeypatch, tmp_path):
+    """The committed frame's layout (utils/profiling.GraphLayout): its
+    top-level spans tile the graph's operations; a profiled replay runs
+    before + G + after device operations (the parameter copies, the graph,
+    the RGBA clone); a graph recorded without spans has the same nodes; the
+    layout is published under the config and outlives the frame cache."""
+    import contextlib
+    import functools
+    import json
+
+    from funky_tpu_torch.utils import profiling
+
+    scene, params = multimesh(dev)
+    cfg = committed_config()
+    frame._CACHE.clear()
+    fn = frame.compiled_gltf_frame(cfg)
+    _, state = fn(scene, params, frame.init_frame_state(cfg, dev))
+    _, state = fn(scene, params, state)          # the state handed back
+    lay = fn.last.layout
+    assert profiling.graph_layout(cfg) is lay
+    assert (lay.before, lay.after) == (len(frame._PARAM_FIELDS), 1)
+    edge = 0
+    for name, parent, first, end in lay.spans:
+        if parent is None:
+            assert first == edge and end >= first, name
+            edge = end
+    assert edge == lay.ops > 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(scene, params, state)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    evs = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ops = [e for e in evs
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(ops) == lay.before + lay.ops + lay.after, lay.node_types
+    monkeypatch.setattr(frame, "span", lambda name: contextlib.nullcontext())
+    bare = frame._CompiledGltf(functools.partial(frame.render_gltf_frame,
+                                                 cfg=cfg), True)
+    bare(scene, params, frame.init_frame_state(cfg, dev))
+    plain = bare.last.layout
+    assert plain.spans == ()
+    assert (plain.ops, plain.nodes, plain.node_types) == \
+        (lay.ops, lay.nodes, lay.node_types)
+    frame._CACHE.clear()
+    assert profiling.graph_layout(cfg) is lay
 
 
 @pytest.mark.cuda
