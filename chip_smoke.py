@@ -7,11 +7,17 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 torch. It imports nothing of jax or of the JAX package. Phases (any
 failure raises and the script exits non-zero):
 
-1. build the eight kernel sources (csrc/raster.cu: K1 and K2;
+1. build the nine kernel sources (csrc/raster.cu: K1 and K2;
    csrc/gather.cu: K3; csrc/overlay.cu: K4; csrc/lightmap.cu: K5;
    csrc/pair_taps.cu: K6; csrc/group_counts.cu: K7; csrc/class_maps.cu:
-   K10; csrc/contact.cu: K8 and K9) with one nvcc each, started
-   together, and print the ptxas lines;
+   K10; csrc/contact.cu: K8 and K9; csrc/quad_pack.cu: K11) with one nvcc
+   each, started together, and print the ptxas lines;
+1a. K11, the cascade maps' quad packing, vs its plain twin
+   (sampling.quad_pack_plain) bit for bit as int32 at the shipped maps'
+   4 x 2048^2 and the contact pyramid's (135, 240), with NaN payloads,
+   +/-inf and -0.0 along the clamped last row and column; one kernel node
+   in a graph; timed by CUDA events behind a sleep beside its byte bound
+   and the twin's three cats and a stack (phase_quad_pack);
 1b. K3, the frame's row gather, vs its plain twin (take_rows_plain) bit
    for bit on unit cases: f32 rows of 1, 2, 4, 7, 8, 16 and 46, 1-D f32,
    int32, bool and f16 tables, f64 rows, tables 4 and 2 bytes past a
@@ -383,16 +389,18 @@ def device_ms(fn, iters: int = 20, sleep_cycles: int = 10_000_000) -> float:
 
 @contextlib.contextmanager
 def plain_gathers():
-    """take_rows runs its plain twin on the card (0 K3 launches) inside the
-    block: the script's own reference run, never the port's path."""
-    from funky_tpu_torch.ops import gather_cuda, sampling
+    """take_rows and quad_pack run their plain twins on the card (0 K3 and
+    0 K11 launches) inside the block: the script's own reference run,
+    never the port's path."""
+    from funky_tpu_torch.ops import gather_cuda, quad_pack_cuda, sampling
 
-    kernel = gather_cuda.row_gather
+    kernels = gather_cuda.row_gather, quad_pack_cuda.quad_pack
     gather_cuda.row_gather = sampling.take_rows_plain
+    quad_pack_cuda.quad_pack = sampling.quad_pack_plain
     try:
         yield
     finally:
-        gather_cuda.row_gather = kernel
+        gather_cuda.row_gather, quad_pack_cuda.quad_pack = kernels
 
 
 @contextlib.contextmanager
@@ -415,7 +423,8 @@ def reset_counts() -> None:
     from funky_tpu_torch.ops import (class_maps_cuda, compact, contact_cuda,
                                      gather_cuda, group_counts_cuda,
                                      lightmap_cuda, overlay_cuda,
-                                     pair_taps_cuda, raster_cuda)
+                                     pair_taps_cuda, quad_pack_cuda,
+                                     raster_cuda)
 
     class_maps_cuda.reset_launches()
     contact_cuda.reset_launches()
@@ -425,6 +434,7 @@ def reset_counts() -> None:
     overlay_cuda.reset_launches()
     pair_taps_cuda.reset_launches()
     group_counts_cuda.reset_launches()
+    quad_pack_cuda.reset_launches()
     compact.reset_host_syncs()
 
 
@@ -443,7 +453,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap",
                                  "pair_taps", "group_counts", "class_maps",
-                                 "contact"])
+                                 "contact", "quad_pack"])
     say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
         f" [{_GPU}]")
@@ -452,6 +462,50 @@ def phase_build() -> None:
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line):
                 say(f"  ptxas {name}.cu: {line.strip()}")
+
+
+# K11's shapes on the main path: the shipped frame's four 2048^2 cascade
+# maps, and the contact pyramid's level 0 at 1080p (the depth's 8x8 cells).
+QUAD_PACK_SHAPES = ((4, 2048, 2048), (135, 240))
+
+
+def phase_quad_pack(dev) -> dict:
+    """K11 against its plain twin at QUAD_PACK_SHAPES, bit for bit as
+    int32 (tests/torch_scenes.quad_pack_maps: NaN payloads, +/-inf and
+    -0.0, all along the clamped last row and column), one launch and one
+    kernel node a call; then each shape timed behind a sleep (device_ms):
+    K11, and the twin's three cats and a stack, beside the byte bound
+    (every texel read once, its 16-byte quad written)."""
+    import torch
+
+    from funky_tpu_torch.ops import quad_pack_cuda, sampling
+    from tests.torch_scenes import quad_pack_maps
+
+    times = {}
+    for shape in QUAD_PACK_SHAPES:
+        img = torch.from_numpy(quad_pack_maps(sum(shape), shape)).to(dev)
+        before = quad_pack_cuda.LAUNCHES
+        got = sampling.quad_pack(img)
+        sync(dev)
+        check(quad_pack_cuda.LAUNCHES - before == 1,
+              f"K11 {shape}: {quad_pack_cuda.LAUNCHES - before} launches")
+        want = sampling.quad_pack_plain(img)
+        check(got.shape == want.shape and torch.equal(
+                  got.view(torch.int32), want.view(torch.int32)),
+              f"K11 {shape}: not bit-equal to the plain twin")
+        nodes = graph_node_kinds(lambda: sampling.quad_pack(img))
+        check(nodes == {"kernel": 1}, f"K11 {shape}: graph nodes {nodes}")
+        nbytes = img.numel() * 4 * 5
+        t = dict(ms=device_ms(lambda: sampling.quad_pack(img)),
+                 plain_ms=device_ms(lambda: sampling.quad_pack_plain(img)),
+                 bound_ms=nbytes / HBM_BPS * 1e3, bytes=nbytes)
+        times[shape] = t
+        say(f"K11 {shape}: == the plain twin bit for bit (NaN payloads, "
+            f"+/-inf, -0.0), one kernel node; kernel {t['ms']:.4f} ms, "
+            f"the twin's cats and stack {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms (bytes: {nbytes} B), "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it [{_GPU}]")
+    return times
 
 
 def phase_kernel_cases(dev, padded: bool) -> float:
@@ -692,7 +746,7 @@ def run_frames(scene, poses, cfg, dev):
     """Chained frames. Returns per-frame host copies (tri_id, depth, rgba,
     history), CUDA-event ms from the first enqueued op to the last, host
     ms up to the frame's synchronize, host syncs, K1, K3, K5, K6, K7 and
-    K8-K10 (keyed as frame._launch_counts) launches per frame, and the
+    K8-K11 (keyed as frame._launch_counts) launches per frame, and the
     peak device memory (GiB)."""
     import torch
 
@@ -703,7 +757,8 @@ def run_frames(scene, poses, cfg, dev):
 
     state = frame.init_frame_state(cfg, dev)
     out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[],
-               k6=[], k7=[], **{k: [] for k in STAGE_KERNELS})
+               k6=[], k7=[],
+               **{k: [] for k in STAGE_KERNELS + ("quad_pack",)})
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
@@ -734,7 +789,7 @@ def run_frames(scene, poses, cfg, dev):
         out["k6"].append(pair_taps_cuda.LAUNCHES - k6_0)
         out["k7"].append(group_counts_cuda.LAUNCHES - k7_0)
         stages1 = frame._launch_counts()
-        for k in STAGE_KERNELS:
+        for k in STAGE_KERNELS + ("quad_pack",):
             out[k].append(stages1[k] - stages0[k])
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
@@ -1781,8 +1836,10 @@ def phase_compiled_shipped(dev, scene, params, cfg):
           f"{label}: capture launches {g.launches} != the eager frame's "
           f"{per_frame}")
     check(g.launches["raster_table"] > 0 and g.launches["row_gather"] > 0
-          and g.launches["pair_taps"] > 0 and g.launches["group_counts"] == 1,
-          f"{label}: K1, K3, K6 or K7 missing at capture")
+          and g.launches["pair_taps"] > 0 and g.launches["group_counts"] == 1
+          and g.launches["quad_pack"] == 2,
+          f"{label}: K1, K3, K6 or K7 missing at capture, or K11 not twice "
+          f"(the cascade maps, the contact pyramid)")
     for i, (fe, fg) in enumerate(zip(erun["frames"], grun["frames"])):
         for name, a, b in zip(names, fe, fg):
             check(bits_equal(a, b), f"{label}: frame {i} {name} differs "
@@ -2978,7 +3035,7 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     first = {"raster_table": crun["k1"][0], "raster_padded": 0,
              "row_gather": crun["k3"][0], "light_map": crun["k5"][0],
              "pair_taps": crun["k6"][0], "group_counts": crun["k7"][0],
-             **{k: crun[k][0] for k in STAGE_KERNELS}}
+             **{k: crun[k][0] for k in STAGE_KERNELS + ("quad_pack",)}}
     check(g.launches == first, f"{label}: capture launches {g.launches} "
           f"!= the first eager frame's {first}")
     say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
@@ -4018,6 +4075,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
+    k11 = phase_quad_pack(dev)
     phase_gather_cases(dev)
     phase_filter_cases(dev)
     err_k1 = phase_kernel_cases(dev, padded=False)
@@ -4045,7 +4103,8 @@ def main() -> None:
     k3_per_frame = {"dense": dense_run["k3"], "default": default_run["k3"],
                     "shipped": k3_shipped, "large": k3_large}
     cube_counts, _, _ = phase_cube(dev)
-    comp_counts, _ = phase_compiled_shipped(dev, scene, params, shipped_cfg)
+    comp_counts, comp_capture = phase_compiled_shipped(dev, scene, params,
+                                                       shipped_cfg)
     from funky_tpu_torch import frame
 
     perf_counts, perf_cfgs, k5_info = {}, {}, None
@@ -4222,6 +4281,19 @@ def main() -> None:
              graph_nodes=hist["graph_nodes"],
              checked_calls=FILTER_CHECKED["group_counts"][0],
              launches_per_frame=filter_per_frame[1]),
+        dict(name="quad_pack", route="cuda",
+             source="funky_tpu_torch/csrc/quad_pack.cu",
+             replaces="funky_tpu/ops/sampling.py:192",
+             launches=app_counts["quad_pack"] + shell_counts["quad_pack"],
+             launches_at_capture=comp_capture["quad_pack"],
+             max_abs_err=0.0, ms=k11[QUAD_PACK_SHAPES[0]]["ms"],
+             plain_ms=k11[QUAD_PACK_SHAPES[0]]["plain_ms"],
+             bound_ms=k11[QUAD_PACK_SHAPES[0]]["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             timed_on="the shipped frame's 4 x 2048^2 cascade maps (ms: "
+                      "behind a sleep; plain_ms: the twin's cats and "
+                      "stack)",
+             shapes={str(k): v for k, v in k11.items()}),
     ]
     stage_sources = {
         "contact_front": ("funky_tpu_torch/csrc/contact.cu",

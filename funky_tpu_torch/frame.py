@@ -802,7 +802,7 @@ _CACHE: dict = {}
 def _launch_counts() -> dict:
     from .ops import (class_maps_cuda, contact_cuda, gather_cuda,
                       group_counts_cuda, lightmap_cuda, pair_taps_cuda,
-                      raster_cuda)
+                      quad_pack_cuda, raster_cuda)
 
     return {"raster_table": raster_cuda.LAUNCHES,
             "raster_padded": raster_cuda.PADDED_LAUNCHES,
@@ -813,7 +813,8 @@ def _launch_counts() -> dict:
             "contact_front": contact_cuda.FRONT_LAUNCHES,
             "contact_certify": contact_cuda.CERTIFY_LAUNCHES,
             "contact_march": contact_cuda.MARCH_LAUNCHES,
-            "class_maps": class_maps_cuda.LAUNCHES}
+            "class_maps": class_maps_cuda.LAUNCHES,
+            "quad_pack": quad_pack_cuda.LAUNCHES}
 
 
 def _copy_in(dst: torch.Tensor, src) -> int:

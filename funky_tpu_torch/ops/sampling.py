@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import quad_pack_cuda
+
 _I32_MAX = 2147483647
 
 
@@ -243,7 +245,19 @@ def sample_bilinear_border_array(maps: torch.Tensor, layer: torch.Tensor,
 
 def quad_pack(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W) -> (..., H, W, 4) edge-clamped 2x2 neighbourhoods
-    [d(y,x), d(y,x+1), d(y+1,x), d(y+1,x+1)] (sampling.py:192-199)."""
+    [d(y,x), d(y,x+1), d(y+1,x), d(y+1,x+1)] (sampling.py:192-199). A CUDA
+    tensor goes to the quad-packing kernel K11
+    (ops/quad_pack_cuda.py::quad_pack), which takes a contiguous float32
+    (..., H, W) and raises on anything else; a CPU tensor to the plain
+    twin."""
+    if img.device.type == "cuda":
+        return quad_pack_cuda.quad_pack(img)
+    return quad_pack_plain(img)
+
+
+def quad_pack_plain(img: torch.Tensor) -> torch.Tensor:
+    """quad_pack as three cats and a stack: the CPU path and the kernel's
+    test oracle."""
     right = torch.cat([img[..., :, 1:], img[..., :, -1:]], dim=-1)
     down = torch.cat([img[..., 1:, :], img[..., -1:, :]], dim=-2)
     down_right = torch.cat([down[..., :, 1:], down[..., :, -1:]], dim=-1)

@@ -193,7 +193,8 @@ def test_dryrun_multichip_over_gloo(dryruns, n):
                                "row_gather": 0, "light_map": 0,
                                "pair_taps": 0, "group_counts": 0,
                                "contact_front": 0, "contact_certify": 0,
-                               "contact_march": 0, "class_maps": 0}
+                               "contact_march": 0, "class_maps": 0,
+                               "quad_pack": 0}
 
 
 def gate_frac(got, want) -> float:

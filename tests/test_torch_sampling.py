@@ -67,10 +67,12 @@ def test_take_rows_clamps_like_jax_gather():
 
 
 def test_quad_packs_match():
+    """quad_pack (a CPU tensor: its plain twin) and the twin by name, which
+    is K11's oracle on the card, == JAX's, one map at a time."""
     img = rng().normal(size=(3, 9, 13)).astype(np.float32)
-    np.testing.assert_array_equal(
-        t2n(ts.quad_pack(T(img))),
-        np.stack([np.asarray(js.quad_pack(jnp.asarray(m))) for m in img]))
+    want = np.stack([np.asarray(js.quad_pack(jnp.asarray(m))) for m in img])
+    np.testing.assert_array_equal(t2n(ts.quad_pack(T(img))), want)
+    np.testing.assert_array_equal(t2n(ts.quad_pack_plain(T(img))), want)
     tex = rng(1).normal(size=(2, 6, 5, 4)).astype(np.float32)
     np.testing.assert_array_equal(
         t2n(ts.quad_pack_nhwc(T(tex))),

@@ -511,6 +511,27 @@ def special_maps(seed, l, s):
     return maps
 
 
+# 32-bit words a copy must carry bit for bit: +inf, -inf, -0.0, 0.0, quiet
+# and signalling NaNs with payloads, a negative NaN, the largest NaN.
+SPECIAL_WORDS = (0x7F800000, 0xFF800000, 0x80000000, 0x00000000, 0x7FC00001,
+                 0x7F800001, 0xFFC12345, 0x7FFFFFFF)
+
+
+def quad_pack_maps(seed, shape):
+    """(..., H, W) f32 random maps whose words hold SPECIAL_WORDS at up to
+    1,000 random texels and all along the last row and column (where the
+    +1 neighbours clamp)."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal(shape).astype(np.float32)
+    words = img.reshape((-1,) + img.shape[-2:]).view(np.uint32)
+    specials = np.asarray(SPECIAL_WORDS, np.uint32)
+    hits = rng.choice(words.size, size=min(words.size, 1000), replace=False)
+    words.reshape(-1)[hits] = rng.choice(specials, size=hits.size)
+    words[:, -1, :] = rng.choice(specials, size=words[:, -1, :].shape)
+    words[:, :, -1] = rng.choice(specials, size=words[:, :, -1].shape)
+    return img
+
+
 def random_planes(seed, l):
     """(L, 3) f32 uv-space depth planes: small slopes about 0.5."""
     rng = np.random.default_rng(seed)
