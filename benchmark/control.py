@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The control of the output check: the plain reference with every buffer
-a stage hands on rounded to bfloat16 (reference/render.py's `store`), put
-in the program's place. It has to come out as not correct.
+"""The control of the output check: the cell's plain reference with every
+buffer a stage hands on rounded to bfloat16 (its `store`), put in the
+program's place. It has to come out as not correct.
 
     python3 benchmark/control.py --workload <name> --seeds <n> [<n> ...]
                                  [--frames 48]
@@ -28,7 +28,6 @@ import torch  # noqa: E402
 from harness import compare, manifest, traffic  # noqa: E402
 from harness import scene as scenes  # noqa: E402
 from harness.main import sample_frames  # noqa: E402
-from reference import render as rr  # noqa: E402
 from reference import scene as rs  # noqa: E402
 
 
@@ -36,15 +35,11 @@ def control_run(cell, seed: int, frames: int, device,
                 size: dict | None = None) -> dict:
     """The numbers of the control on one seed."""
     tr = cell.traffic
-    frame_cfg = dict(cell.config["frame"], **(size or {}))
-    opt = rr.Options(frame_cfg["width"], frame_cfg["height"],
-                     frame_cfg["shadow_map_size"],
-                     **{k: cell.config["flags"][k] for k in
-                        ("use_pcss", "use_shadow_taa",
-                         "enable_contact_shadows")})
-    spec = scenes.build(tr["scene"])
+    rr = cell.reference
+    opt = rr.options(cell.config, dict(cell.config["frame"], **(size or {})))
+    spec = scenes.build(tr["scene"], cell.bench_dir)
     base = traffic.base_pose(tr, float(spec.bounds_min[1]) if spec else 0.0)
-    poses = [compare.ref_pose(traffic.orbit_pose(base, tr, i), device)
+    poses = [compare.ref_pose(traffic.orbit_pose(base, tr, i), device, rr)
              for i in traffic.arc(tr)]
     scene = rs.pack(spec, device)
     keep = sample_frames(seed, int(tr["check_frames"]), int(frames / 0.8))
@@ -61,7 +56,7 @@ def control_run(cell, seed: int, frames: int, device,
                 kept.append(compare.Kept(f, pose, pre, rgba,
                                          state.shadow_history,
                                          state.prev_depth))
-    worst, _ = compare.check(kept, scene, poses, opt, device)
+    worst, _ = compare.check(kept, scene, poses, opt, device, rr)
     return {"seed": seed, "frames_checked": sorted(k.frame for k in kept),
             "correct": all(worst[k] <= cell.limits[k] for k in worst),
             "checks": {k: {"value": worst[k], "limit": cell.limits[k]}

@@ -1,5 +1,6 @@
 """The output check: what the window's frames produced, against the plain
-reference (reference/render.py) on the same scene and poses.
+reference that the cell's configuration names (reference/render.py unless
+it names another) on the same scene and poses.
 
 A frame is judged on what it hands on: its RGBA, and the state the next
 frame reads, the shadow history and the depth (`prev_depth`). The
@@ -54,10 +55,10 @@ def numbers(rgba, history, depth, ref_rgba, ref_history,
     }
 
 
-def check(kept: List[Kept], ref_scene, ref_poses, opt, device) -> tuple:
-    """(worst of each number over the kept frames, [per-frame numbers])."""
-    from reference import render as rr
-
+def check(kept: List[Kept], ref_scene, ref_poses, opt, device,
+          rr) -> tuple:
+    """(worst of each number over the kept frames, [per-frame numbers]),
+    against the reference module `rr`."""
     worst = {k: 0.0 for k in NUMBERS}
     per = []
     with torch.no_grad():
@@ -74,9 +75,8 @@ def check(kept: List[Kept], ref_scene, ref_poses, opt, device) -> tuple:
     return worst, per
 
 
-def ref_pose(pose, device):
-    from reference import render as rr
-
+def ref_pose(pose, device, rr):
+    """The reference module `rr`'s Pose of a traffic pose."""
     return rr.Pose(*(torch.as_tensor(getattr(pose, f), dtype=torch.float32)
                      .to(device) for f in rr.Pose._fields))
 

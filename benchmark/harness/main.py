@@ -41,6 +41,10 @@ def parse(argv):
 
 
 def _p95(values) -> float:
+    """The 95th percentile of the frame intervals; a window of one frame
+    has one interval, which is its own percentile."""
+    if len(values) < 2:
+        return float(values[0])
     return statistics.quantiles(values, n=100, method="inclusive")[94]
 
 
@@ -61,16 +65,17 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace_on: bool,
     """Everything but the device check and the import check. `size`
     replaces the frame size and `frame_fn` wraps the compiled frame: the
     CPU tests use both, the benchmark neither."""
-    from reference import render as rr
     from reference import scene as rs
 
+    rr = cell.reference
     cuda = torch.device(device).type == "cuda"
     tr = cell.traffic
     frame_cfg = dict(cell.config["frame"], **(size or {}))
     if cuda:
         program.build_kernels()
         torch.cuda.reset_peak_memory_stats()
-    spec = scenes.build(tr["scene"])
+    opt = rr.options(cell.config, frame_cfg)
+    spec = scenes.build(tr["scene"], cell.bench_dir)
     gltf_min_y = float(spec.bounds_min[1]) if spec is not None else 0.0
     base = traffic.base_pose(tr, gltf_min_y)
     poses = [traffic.orbit_pose(base, tr, i) for i in traffic.arc(tr)]
@@ -147,15 +152,10 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace_on: bool,
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    opt = rr.Options(frame_cfg["width"], frame_cfg["height"],
-                     frame_cfg["shadow_map_size"],
-                     **{k: cell.config["flags"][k] for k in
-                        ("use_pcss", "use_shadow_taa",
-                         "enable_contact_shadows")})
     ref_scene = rs.pack(spec, device)
-    ref_poses = [compare.ref_pose(p, device) for p in poses]
+    ref_poses = [compare.ref_pose(p, device, rr) for p in poses]
     t_check = time.perf_counter()
-    worst, per = compare.check(w.kept, ref_scene, ref_poses, opt, device)
+    worst, per = compare.check(w.kept, ref_scene, ref_poses, opt, device, rr)
     check_s = time.perf_counter() - t_check
     checks = {k: {"value": worst[k], "limit": cell.limits[k]}
               for k in compare.NUMBERS}

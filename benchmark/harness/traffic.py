@@ -1,6 +1,6 @@
 """The camera path a traffic mix describes, made from the seed.
 
-A traffic file names a scene (harness/scene.py) and an orbit:
+A traffic file names a scene (scenes/<scene>.py) and an orbit:
 
     {"scene": "multimesh", "model_scale": 1.0, "shadow_softness": 2.5,
      "fov_deg": 45.0, "rad_per_frame": 0.02, "slide": 0.3,

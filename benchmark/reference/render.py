@@ -25,6 +25,14 @@ math3d.py.
 next (the cascade maps, the depth, the G-buffer, the history, the colour):
 identity for the reference, a rounding to a lower precision for the
 control.
+
+A configuration names its plain reference module (`"reference"` in its
+file, this one by default). Each provides `Options`, `options(config_file,
+frame)`, `Pose`, `State`, `init_state` and `render`. The frame is cut into
+stages so that another module can import them and replace one: `front`
+(uniforms, cascade maps, main raster, G-buffer), the shadow filter
+(`cascaded_shadow`, from `project`, `filter_one`, `shadow_phi` and
+`blend`), and `finish` (TAA, contact, shading, the next state).
 """
 
 from __future__ import annotations
@@ -62,6 +70,35 @@ class Options(NamedTuple):
     use_pcss: bool = True
     use_shadow_taa: bool = True
     enable_contact_shadows: bool = True
+
+
+# Flags of a configuration that change the frame, with the value this
+# reference follows: a configuration that sets another needs a reference
+# of its own.
+FOLLOWS = {"light_space_ground_shadows": False,
+           "skip_backfacing_shadows": False, "half_res_shadows": False,
+           "shadow_eval_scale": 1, "debug_cascades": False,
+           "enable_shadows": True}
+
+
+def check_flags(flags: dict, follows: dict) -> None:
+    """Raise where the configuration's flags leave what `follows` holds."""
+    off = {k: flags[k] for k, v in follows.items()
+           if k in flags and flags[k] != v}
+    if off:
+        raise ValueError(f"the plain reference does not follow {off}")
+
+
+def options(config_file: dict, frame: dict, follows: dict = FOLLOWS
+            ) -> Options:
+    """The Options of a configuration file's flags at the frame size
+    `frame` (its "frame" entry, or a smaller one), refusing flags that
+    leave `follows` (a reference module's FOLLOWS)."""
+    flags = config_file["flags"]
+    check_flags(flags, follows)
+    return Options(frame["width"], frame["height"], frame["shadow_map_size"],
+                   **{k: flags[k] for k in ("use_pcss", "use_shadow_taa",
+                                            "enable_contact_shadows")})
 
 
 class Pose(NamedTuple):
@@ -550,7 +587,7 @@ def _vogel(count: int, phi):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def _cascade_blend(view_depth, splits):
+def cascade_blend(view_depth, splits):
     s0, s1, s2 = splits[0], splits[1], splits[2]
     f0 = torch.clamp(0.10 * s0, min=0.5)
     f1 = torch.clamp(0.10 * s1, min=0.5)
@@ -575,9 +612,9 @@ def _cascade_blend(view_depth, splits):
     return c0.to(torch.int32), c1.to(torch.int32), t
 
 
-def _filter_one(uni: Uniforms, maps, cascade, world, normal, n_dot_l, phi,
-                use_pcss: bool):
-    """One cascade's PCSS or PCF: (v, m1, m2, kernel radius)."""
+def project(uni: Uniforms, cascade, world, normal, n_dot_l):
+    """The normal-offset point in each pixel's cascade: (uv, receiver depth
+    less the slope bias, uv inside the map)."""
     biased = world + normal * (0.02 * (1.0 - n_dot_l))[..., None]
     ones = torch.ones(biased.shape[:-1] + (1,), dtype=F32,
                       device=biased.device)
@@ -590,6 +627,13 @@ def _filter_one(uni: Uniforms, maps, cascade, world, normal, n_dot_l, phi,
     receiver = proj[..., 2] - (0.0008 + 0.0025 * (1.0 - n_dot_l))
     in_bounds = ((uv[..., 0] >= 0.0) & (uv[..., 0] <= 1.0)
                  & (uv[..., 1] >= 0.0) & (uv[..., 1] <= 1.0))
+    return uv, receiver, in_bounds
+
+
+def filter_one(uni: Uniforms, maps, cascade, world, normal, n_dot_l, phi,
+               use_pcss: bool):
+    """One cascade's PCSS or PCF: (v, m1, m2, kernel radius)."""
+    uv, receiver, in_bounds = project(uni, cascade, world, normal, n_dot_l)
     texel = uni.texel
     one = torch.ones_like(receiver)
     if use_pcss:
@@ -633,15 +677,25 @@ def _filter_one(uni: Uniforms, maps, cascade, world, normal, n_dot_l, phi,
             torch.where(in_bounds, kernel, 0.0))
 
 
-def cascaded_shadow(uni: Uniforms, maps, world, normal, n_dot_l, view_depth,
-                    frag, use_pcss: bool, use_taa: bool):
-    c0, c1, t = _cascade_blend(view_depth, uni.splits)
+def shadow_phi(uni: Uniforms, frag, use_taa: bool):
+    """The Vogel rotation at screen points `frag`, animated with TAA."""
     offset = torch.stack([uni.frame * 13.37, uni.frame * 17.17])
     p = frag + offset if use_taa else frag
-    phi = _ign(p) * 6.2831853
-    a = _filter_one(uni, maps, c0, world, normal, n_dot_l, phi, use_pcss)
-    b = _filter_one(uni, maps, c1, world, normal, n_dot_l, phi, use_pcss)
+    return _ign(p) * 6.2831853
+
+
+def blend(a, b, t):
+    """The two cascades' results, blended by t."""
     return tuple(x + (y - x) * t for x, y in zip(a, b))
+
+
+def cascaded_shadow(uni: Uniforms, maps, world, normal, n_dot_l, view_depth,
+                    frag, use_pcss: bool, use_taa: bool):
+    c0, c1, t = cascade_blend(view_depth, uni.splits)
+    phi = shadow_phi(uni, frag, use_taa)
+    a = filter_one(uni, maps, c0, world, normal, n_dot_l, phi, use_pcss)
+    b = filter_one(uni, maps, c1, world, normal, n_dot_l, phi, use_pcss)
+    return blend(a, b, t)
 
 
 # --- shadow TAA (taa.py:30-133) ----------------------------------------------
@@ -828,13 +882,26 @@ def shade(g: GBuffer, scene: Scene, uni: Uniforms, shadow):
 
 # --- the frame ---------------------------------------------------------------------
 
-def render(scene: Scene, pose: Pose, state: State, opt: Options,
-           store: Optional[Callable] = None):
-    """One frame: (rgba (H, W, 4), the next State)."""
+class Front(NamedTuple):
+    """What the shadow stages read: the uniforms, the cascade maps, the
+    G-buffer and its per-pixel terms, and the main depth."""
+    uni: Uniforms
+    maps: torch.Tensor
+    g: GBuffer
+    depth: torch.Tensor
+    normal: torch.Tensor
+    n_dot_l: torch.Tensor
+    view_depth: torch.Tensor
+    frag: torch.Tensor
+
+
+def front(scene: Scene, pose: Pose, state: State, opt: Options,
+          q: Callable) -> Front:
+    """Uniforms, cascade maps, near clipping, the main raster and the
+    G-buffer, each buffer handed on through `q`."""
     # float32 products: no TF32 in the matrix products of the vertex stage
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    q = store or (lambda x: x)
     uni = uniforms(pose, state, opt)
     world_v, clip, normals_v = transform(scene, uni.models, uni.view_proj)
     inv_w = 1.0 / torch.clamp(clip[:, 3:4], min=1e-12)
@@ -861,17 +928,38 @@ def render(scene: Scene, pose: Pose, state: State, opt: Options,
         (torch.arange(w, dtype=F32, device=dev)[None, :] + 0.5).expand(h, w),
         (torch.arange(h, dtype=F32, device=dev)[:, None] + 0.5).expand(h, w)],
         dim=-1)
-    cur = cascaded_shadow(uni, maps, g.world, normal, n_dot_l, view_depth,
-                          frag, opt.use_pcss, opt.use_shadow_taa)
-    term, hist = shadow_taa(cur, g.world, uni, state.shadow_history,
+    return Front(uni, maps, g, depth, normal, n_dot_l, view_depth, frag)
+
+
+def finish(scene: Scene, state: State, opt: Options, q: Callable, f: Front,
+           cur, contact_valid):
+    """TAA of the filter's result `cur`, the contact shadows of the pixels
+    in `contact_valid`, the shading: (rgba, the next State)."""
+    term, hist = shadow_taa(cur, f.g.world, f.uni, state.shadow_history,
                             opt.use_shadow_taa, opt.width, opt.height)
     if opt.enable_contact_shadows:
-        term = torch.minimum(term, contact_shadow(g.world, normal, uni,
-                                                  state.prev_depth, g.valid))
-    hist = q(torch.where(g.valid[..., None], hist, state.shadow_history))
-    rgba = q(shade(g, scene, uni, term))
+        term = torch.minimum(term, contact_shadow(f.g.world, f.normal, f.uni,
+                                                  state.prev_depth,
+                                                  contact_valid))
+    hist = q(torch.where(f.g.valid[..., None], hist, state.shadow_history))
+    rgba = q(shade(f.g, scene, f.uni, term))
     return rgba, State(
-        shadow_history=hist, prev_depth=depth,
-        prev_view_proj=uni.view_proj,
-        has_prev=torch.ones((), dtype=torch.bool, device=dev),
+        shadow_history=hist, prev_depth=f.depth,
+        prev_view_proj=f.uni.view_proj,
+        has_prev=torch.ones((), dtype=torch.bool, device=f.depth.device),
         frame_index=state.frame_index + 1)
+
+
+def identity(x):
+    return x
+
+
+def render(scene: Scene, pose: Pose, state: State, opt: Options,
+           store: Optional[Callable] = None):
+    """One frame: (rgba (H, W, 4), the next State)."""
+    q = store or identity
+    f = front(scene, pose, state, opt, q)
+    cur = cascaded_shadow(f.uni, f.maps, f.g.world, f.normal, f.n_dot_l,
+                          f.view_depth, f.frag, opt.use_pcss,
+                          opt.use_shadow_taa)
+    return finish(scene, state, opt, q, f, cur, f.g.valid)

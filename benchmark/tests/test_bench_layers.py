@@ -1,7 +1,7 @@
-"""The replay layer readers (metrics/_layers.py and the six
+"""The replay layer readers (metrics/_layers.py and the seven
 *_replay_ms readers) on synthetic replays: the graph's operations cut by
 the layout the program publishes, each span charged from the end of the
-node before it, the six tiling the graph's replay from its first node."""
+node before it, the seven tiling the graph's replay from its first node."""
 
 import pytest
 
@@ -9,29 +9,32 @@ from bench_tiny import ROOT
 
 READERS = ("cascade_maps_replay_ms", "class_maps_replay_ms",
            "shadow_filter_replay_ms", "contact_replay_ms",
-           "back_half_replay_ms", "rest_replay_ms")
+           "back_half_replay_ms", "rest_replay_ms", "light_maps_replay_ms")
 
 # One span a top-level layer, back_half with its five nested spans, in
-# frame order; (name, parent, first, end) over a graph of 19 operations.
+# frame order; (name, parent, first, end) over a graph of 20 operations.
 SPANS = (
     ("uniforms", None, 0, 1), ("vertices", None, 1, 2),
     ("window_plans", None, 2, 3), ("cascade_maps", None, 3, 5),
     ("class_maps", None, 5, 6), ("quad_pack", None, 6, 7),
-    ("light_maps", None, 7, 7), ("window_plans", None, 7, 8),
-    ("main_raster", None, 8, 9), ("back_half", None, 9, 16),
-    ("deferred", "back_half", 10, 11), ("shadow_filter", "back_half", 11, 13),
-    ("taa", "back_half", 13, 14), ("contact", "back_half", 14, 15),
-    ("shading", "back_half", 15, 16), ("state", None, 16, 17),
-    ("handoff", None, 17, 19))
-G = 19
+    ("light_maps", None, 7, 8), ("window_plans", None, 8, 9),
+    ("main_raster", None, 9, 10), ("back_half", None, 10, 17),
+    ("deferred", "back_half", 11, 12), ("shadow_filter", "back_half", 12, 14),
+    ("taa", "back_half", 14, 15), ("contact", "back_half", 15, 16),
+    ("shading", "back_half", 16, 17), ("state", None, 17, 18),
+    ("handoff", None, 18, 20))
+G = 20
+# A frame without the light-space mode: its light_maps span holds nothing.
+NO_LIGHT = tuple((n, p, f - (f > 7), e - (e > 7)) for n, p, f, e in SPANS)
 
 
 class Cfg:
     """A key of its own for each test's layout."""
 
 
-def _ctx(before=2, after=1, replays=3, gap=None, spans=SPANS, extra=0):
-    """Replays of `before` copies, the G graph operations and `after`
+def _ctx(before=2, after=1, replays=3, gap=None, spans=SPANS, extra=0,
+         g=G):
+    """Replays of `before` copies, the g graph operations and `after`
     clones, each operation 10 us long and 1 us after the one before,
     `gap` = {node: us} waits in front of graph nodes; `extra` operations
     appended."""
@@ -39,13 +42,13 @@ def _ctx(before=2, after=1, replays=3, gap=None, spans=SPANS, extra=0):
 
     cfg = Cfg()
     profiling.publish_layout(cfg, profiling.GraphLayout(
-        ops=G, nodes=G, node_types={0: G}, spans=spans, before=before,
+        ops=g, nodes=g, node_types={0: g}, spans=spans, before=before,
         after=after))
     ops, t = [], 0.0
     for _ in range(replays):
-        for k in range(before + G + after):
+        for k in range(before + g + after):
             node = k - before
-            t += 1.0 + (gap or {}).get(node, 0.0) if 0 <= node < G else 1.0
+            t += 1.0 + (gap or {}).get(node, 0.0) if 0 <= node < g else 1.0
             ops.append((f"op{k}", t, 10.0, "kernel"))
             t += 10.0
     for _ in range(extra):
@@ -61,9 +64,9 @@ def _read(name, ctx):
 
 
 def test_the_six_tile_the_graphs_replay():
-    """Per frame the six readers sum to the graph's replay, from the start
-    of its first node to the end of its last: G operations of 10 us, each
-    1 us after the one before."""
+    """Per frame the seven readers sum to the graph's replay, from the
+    start of its first node to the end of its last: G operations of 10 us,
+    each 1 us after the one before."""
     ctx = _ctx(gap={3: 50.0, 12: 7.0})
     got = {n: _read(n, ctx) for n in READERS}
     assert sum(got.values()) == pytest.approx((G * 11 - 1 + 57) / 1e3)
@@ -74,9 +77,21 @@ def test_the_six_tile_the_graphs_replay():
     assert got["contact_replay_ms"] == pytest.approx(11e-3)
     # back_half's 7 operations less the filter's 2 and contact's 1
     assert got["back_half_replay_ms"] == pytest.approx(4 * 11e-3)
+    assert got["light_maps_replay_ms"] == pytest.approx(11e-3)
     # uniforms (10 us: the replay starts at its node), vertices, two window
-    # plans, the light maps (empty), main raster, state and the two
-    # hand-off copies
+    # plans, main raster, state and the two hand-off copies
+    assert got["rest_replay_ms"] == pytest.approx((8 * 11 - 1) / 1e3)
+
+
+def test_a_frame_without_light_maps_reads_none_there():
+    """Where the light_maps span holds no operation (the cells without the
+    light-space mode) its reader returns None, the six others still tile
+    the replay, and rest_replay_ms reads what it read with light_maps
+    among its spans."""
+    ctx = _ctx(gap={3: 50.0}, spans=NO_LIGHT, g=G - 1)
+    got = {n: _read(n, ctx) for n in READERS}
+    assert got.pop("light_maps_replay_ms") is None
+    assert sum(got.values()) == pytest.approx(((G - 1) * 11 - 1 + 50) / 1e3)
     assert got["rest_replay_ms"] == pytest.approx((8 * 11 - 1) / 1e3)
 
 
@@ -93,7 +108,7 @@ def test_the_gap_in_front_of_a_layer_is_that_layers():
     assert waited["cascade_maps"] == pytest.approx(quiet["cascade_maps"])
     assert waited["(graph)"][0] == pytest.approx(quiet["(graph)"][0] + 40e-3)
     # the nested spans' gaps stay inside back_half
-    inner = span_times(_ctx(gap={11: 20.0}))
+    inner = span_times(_ctx(gap={12: 20.0}))
     assert inner["shadow_filter"][0] == pytest.approx(
         quiet["shadow_filter"][0] + 20e-3)
     assert inner["back_half"][0] == pytest.approx(quiet["back_half"][0]
@@ -173,7 +188,7 @@ def test_layout_tiling():
 
 def test_each_listed_metric_has_a_reader_and_every_span_exists():
     """Every per-layer metric BENCHMARK.json lists has a reader; the spans
-    the replay readers use are in FRAME_SPANS, and the six read each
+    the replay readers use are in FRAME_SPANS, and the seven read each
     top-level span once (so they sum to the graph's replay)."""
     from harness import manifest
     from funky_tpu_torch.utils import profiling

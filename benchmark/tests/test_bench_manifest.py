@@ -103,3 +103,91 @@ def test_a_cell_added_as_new_files_alone(tmp_path):
     assert "fixture_count" not in [p.name for p in old.per_layer]
     for p, data in before.items():
         assert p.read_bytes() == data, p
+
+
+SCENE = '''"""A fixture scene: multimesh's right cube alone on the ground."""
+
+from harness.scene import Material, Mesh, SceneSpec
+
+BUILT = []
+
+
+def build():
+    from scenes import multimesh
+
+    full = multimesh.build()
+    BUILT.append(1)
+    cube = full.meshes[1]
+    return SceneSpec(meshes=[Mesh(cube.positions, cube.indices, None, 0)],
+                     materials=[Material((0.1, 0.8, 0.1, 1.0), 0.0, 0.9,
+                                         None)],
+                     textures=[])
+'''
+
+REFERENCE = '''"""A fixture reference: render.py's stages, frames counted."""
+
+from . import render as rr
+from .render import Options, Pose, State, init_state, options  # noqa: F401
+
+FRAMES = []
+
+
+def render(scene, pose, state, opt, store=None):
+    FRAMES.append(1)
+    q = store or rr.identity
+    f = rr.front(scene, pose, state, opt, q)
+    cur = rr.cascaded_shadow(f.uni, f.maps, f.g.world, f.normal, f.n_dot_l,
+                             f.view_depth, f.frag, opt.use_pcss,
+                             opt.use_shadow_taa)
+    return rr.finish(scene, state, opt, q, f, cur, f.g.valid)
+'''
+
+
+def test_a_scene_and_a_reference_added_as_files_alone(tmp_path):
+    """A copy of the benchmark gains a scene module, a plain reference
+    module, a traffic mix naming the scene, a configuration naming the
+    reference and a cell: new files and manifest entries alone. A tiny run
+    of the cell builds that scene, is judged by that reference, and is
+    correct; no file of the copy is edited."""
+    import time
+
+    from bench_tiny import SEED, SIZE
+    from harness import main as hm
+    from harness import manifest
+
+    root = tmp_path / "checkout"
+    bench = root / "benchmark"
+    shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns(
+        "__pycache__", ".work"))
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    m = json.loads((ROOT / "BENCHMARK.json").read_text())
+    (bench / "scenes" / "fixture_cube.py").write_text(SCENE)
+    (bench / "reference" / "fixture_ref.py").write_text(REFERENCE)
+    cfg = json.loads((bench / "configs" / "shipped.json").read_text())
+    cfg["name"] = "fixture"
+    cfg["reference"] = "fixture_ref"
+    (bench / "configs" / "fixture.json").write_text(json.dumps(cfg))
+    tr = json.loads((bench / "traffic" / "multimesh-orbit.json").read_text())
+    tr["scene"] = "fixture_cube"
+    tr["poses"] = 4
+    (bench / "traffic" / "cube-orbit.json").write_text(json.dumps(tr))
+    (bench / "limits" / "fixture-cube-orbit.json").write_text(
+        (bench / "limits" / "shipped-multimesh-orbit.json").read_text())
+    m["configs"].append({"name": "fixture", "source": "https://example.org",
+                         "file": "benchmark/configs/fixture.json",
+                         "reduced": [], "why": "a test fixture"})
+    m["workloads"].append({"name": "fixture-cube-orbit", "config": "fixture",
+                           "traffic": "cube-orbit", "chips": 1,
+                           "why": "a test fixture"})
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+
+    cell = manifest.cell(manifest.load(root), "fixture-cube-orbit", root,
+                         bench)
+    out = hm.run_cell(cell, SEED, 1.0, False, "cpu", time.perf_counter(),
+                      SIZE)["result"]
+    assert out["correct"] and out["failed"] == 0, out["checks"]
+    assert manifest.load_module("scenes", "fixture_cube", bench).BUILT
+    assert cell.reference.__name__ == "reference.fixture_ref"
+    assert cell.reference.FRAMES
+    for p, data in before.items():
+        assert p.read_bytes() == data, p

@@ -157,6 +157,52 @@ def test_k10_bytes_from_shapes():
             maps.numel() * 4 + cells * 8 * 4 + 4 * 16
 
 
+def test_k5_bytes_from_shapes():
+    """The light maps' bytes, worked out from the tuned configuration, are
+    what chip_smoke.py::light_map_work counts: each haloed window read
+    once, the packed parameters (ops/lightmap_cuda.py::param_sizes) and
+    the rows written; 0.0065 ms at the shipped window sizes."""
+    from harness import manifest
+    from funky_tpu_torch.ops import lightmap_cuda
+    from funky_tpu_torch.passes import shadow_lightspace
+
+    roof = manifest.reader("light_maps_roofline")
+    for pcss, rungs in ((True, 6), (True, 2), (False, 6)):
+        assert roof.param_words(pcss, rungs) == sum(
+            lightmap_cuda.param_sizes(pcss, rungs, shadow_lightspace.PHASES))
+    assert roof.halo_texels(4.0) == shadow_lightspace.halo_texels(4.0)
+    sizes = (768, 512, 384, 256)
+    want = sum(4 * (wc + 36) ** 2 + 4 * roof.param_words(True, 6)
+               + 16 * wc * wc for wc in sizes)
+    got = roof.light_map_bytes(sizes, 2048, 4.0, True, 6)
+    assert got == want
+    assert got / 3.35e12 == pytest.approx(6.537e-6, rel=1e-3)
+    # a window is never wider than the map; a cascade without one reads
+    # nothing
+    assert roof.light_map_bytes((512, 0), 256, 4.0, True, 6) == \
+        4 * 292 ** 2 + 4 * roof.param_words(True, 6) + 16 * 256 ** 2
+
+    class Flags:
+        use_pcss = True
+
+    class Cfg:
+        shadow_map_size = 2048
+        light_window_sizes = sizes
+        max_softness = 4.0
+        light_pcf_rungs = 6
+        flags = Flags()
+
+    ops = [("void light_map_kernel(float const*)", 0.0, 30.0, "kernel"),
+           ("other", 40.0, 50.0, "kernel"),
+           ("void light_map_kernel(float const*)", 100.0, 35.0, "kernel")]
+    ctx = {"replay_ops": ops, "replays": 1, "cfg": Cfg()}
+    assert roof.read(ctx) == pytest.approx(100.0 * got / 3.35e12 / 65e-6)
+    Cfg.light_window_sizes = None
+    assert roof.read(ctx) is None
+    assert roof.read({"replay_ops": ops[1:2], "replays": 1,
+                      "cfg": Cfg()}) is None
+
+
 def test_stage_readers_sum_their_stages():
     from harness import manifest
 

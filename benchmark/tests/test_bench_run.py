@@ -43,6 +43,15 @@ def test_program_matches_reference_at_small_size(run):
     assert all(c["value"] <= c["limit"] for c in out["checks"].values())
 
 
+def test_p95_of_a_short_window():
+    """A window of one frame has one interval: its p95 is that interval,
+    where statistics.quantiles would raise."""
+    from harness.main import _p95
+
+    assert _p95([12.5]) == 12.5
+    assert _p95([float(i) for i in range(1, 101)]) == pytest.approx(95.05)
+
+
 def test_traced_run_reports_per_layer_metrics():
     out = tiny_run(seconds=0.5, trace_on=True)["result"]
     assert out["correct"]
@@ -75,21 +84,26 @@ def test_forbidden_names_compare_whole_top_level_names(monkeypatch):
 
 
 def test_entry_modules_import_no_jax():
-    """The modules the entry point runs, and the reference, imported in a
-    fresh process: nothing of JAX or the JAX package is loaded."""
+    """The modules the entry point runs, and each cell's reference and
+    scene, imported in a fresh process: nothing of JAX or the JAX package
+    is loaded."""
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
         "import harness.main, harness.window, harness.compare, control\n"
-        "import reference.render, reference.scene\n"
+        "import reference.render, reference.lightspace, reference.scene\n"
         "import funky_tpu_torch.frame, funky_tpu_torch.entry\n"
         "from funky_tpu_torch.utils import autotune, diagnostics\n"
-        "from harness import manifest\n"
-        "import json\n"
-        "m = json.load(open(%r))\n"
+        "from harness import manifest, scene\n"
+        "import pathlib\n"
+        "root = pathlib.Path(%r)\n"
+        "m = manifest.load(root)\n"
         "[manifest.reader(p['name']) for p in m['per_layer']]\n"
+        "for w in m['workloads']:\n"
+        "    cell = manifest.cell(m, w['name'], root)\n"
+        "    cell.reference, scene.build(cell.traffic['scene'])\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'funky_tpu')))\n"
-        % (str(ROOT), str(BENCH), str(ROOT / "BENCHMARK.json")))
+        % (str(ROOT), str(BENCH), str(ROOT)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -98,7 +112,8 @@ def test_entry_modules_import_no_jax():
 
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys; sys.path[:0] = [%r]\n"
-            "import reference.render, reference.scene\n"
+            "import reference.render, reference.lightspace, "
+            "reference.scene\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('funky_tpu_torch', 'harness', 'jax', 'funky_tpu')))\n"
             % str(BENCH))

@@ -88,7 +88,7 @@ def test_scene_glb_loads_as_the_sample_scene(tmp_path):
     (tmp_path / "a").mkdir()
     (tmp_path / "b").mkdir()
     mine = build_device_scene(GltfScene.load(scene.write_glb(
-        scene.multimesh(), tmp_path / "a" / "s.glb")), device="cpu")
+        scene.build("multimesh"), tmp_path / "a" / "s.glb")), device="cpu")
     theirs = build_device_scene(GltfScene.load(build_multimesh_glb(
         tmp_path / "b" / "s.glb", two_textures=True)), device="cpu")
     for f in ("positions", "normals", "uvs", "colors", "vert_object",
