@@ -1076,31 +1076,40 @@ def check_tuned_and_chained(dev, scene, params, cfg, label) -> None:
 
 
 def check_rasters_bitwise(calls, label) -> float:
-    """K1 against the plain raster on every recorded raster's inputs (these
-    launches are comparisons, not the main path's). Returns the max |depth|
+    """The kernel each recorded raster's route takes (K1 on a setup table
+    within ops/raster.py's TABLE_LIMIT_BYTES, K2 on its pre-gathered bins
+    past it) against the plain raster on the same inputs (these launches
+    are comparisons, not the main path's). Returns the max |depth|
     difference."""
     import torch
 
+    from funky_tpu_torch.ops import raster
     from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
     from funky_tpu_torch.ops.raster import RasterConfig, _rasterize_torch
-    from funky_tpu_torch.ops.raster_cuda import raster_table_cuda
+    from funky_tpu_torch.ops.raster_cuda import (raster_padded_cuda,
+                                                 raster_table_cuda)
 
     err = 0.0
     for i, c in enumerate(calls):
         args = (c["w"], c["h"], c["th"], c["tw"], c["y0"])
-        tri_k, dep_k = raster_table_cuda(c["table"], c["bins"], c["counts"],
-                                         *args)
+        bin_data = gather_bin_data(TriangleSetup(data=c["table"], valid=None),
+                                   c["bins"])
+        if c["table"].shape[0] * 64 <= raster.TABLE_LIMIT_BYTES:
+            name = "K1"
+            tri_k, dep_k = raster_table_cuda(c["table"], c["bins"],
+                                             c["counts"], *args)
+        else:
+            name = "K2"
+            tri_k, dep_k = raster_padded_cuda(bin_data, c["counts"], *args)
         tri_p, dep_p = _rasterize_torch(
-            gather_bin_data(TriangleSetup(data=c["table"], valid=None),
-                            c["bins"]), c["bins"], c["counts"], c["y0"],
-            c["w"], c["h"], RasterConfig(tile_h=c["th"], tile_w=c["tw"],
-                                         backend="torch"))
+            bin_data, c["bins"], c["counts"], c["y0"], c["w"], c["h"],
+            RasterConfig(tile_h=c["th"], tile_w=c["tw"], backend="torch"))
         err = max(err, float((dep_k - dep_p).abs().max()))
         check(torch.equal(tri_k, tri_p)
               and torch.equal(dep_k.view(torch.int32),
                               dep_p.view(torch.int32)),
               f"{label}: raster {i} ({c['w']}x{c['h']}, tiles {c['th']}x"
-              f"{c['tw']}): K1 differs from the plain raster")
+              f"{c['tw']}): {name} differs from the plain raster")
     return err
 
 
@@ -1268,9 +1277,10 @@ def record_raster_calls(fn):
     calls = []
     bin_triangles = raster.bin_triangles
 
-    def record(setup, width, height, tile_h, tile_w, capacity, y_offset=0):
+    def record(setup, width, height, tile_h, tile_w, capacity, y_offset=0,
+               drops=None):
         bins, counts = bin_triangles(setup, width, height, tile_h, tile_w,
-                                     capacity, y_offset)
+                                     capacity, y_offset, drops)
         calls.append(dict(table=setup.data, bins=bins, counts=counts,
                           w=width, h=height, th=tile_h, tw=tile_w,
                           y0=y_offset))
@@ -1469,6 +1479,7 @@ def phase_large(dev):
     say(f"large scene, plain raster frame: {prun['ms'][0]:.3f} ms [{_GPU}]")
     verify_filter("large scene", lambda: run_frames(scene, poses,
                                                     default_config(), dev))
+    phase_large_committed(dev, scene, params)
 
     cfg = default_config()
     calls = record_raster_calls(lambda: frame.render_gltf_frame(
@@ -1482,6 +1493,146 @@ def phase_large(dev):
     return (counts, sum(r["K2"] for r in rows),
             sum(r["plain"] for r in rows), sum(b[0] for b in bounds), by,
             sum(r["K1"] for r in rows), sum(b[3] for b in bounds), krun["k3"])
+
+
+def ids_graph(scene, cfg, params, state):
+    """(GraphFrame, inputs) of render_gltf_frame_ids on `cfg`, recorded as
+    compiled_gltf_frame records the frame (the state donated), with the
+    main pass's tri_id as its last output."""
+    from funky_tpu_torch import frame
+
+    n = len(frame._PARAM_FIELDS)
+    inputs = [getattr(params, f) for f in frame._PARAM_FIELDS] + list(state)
+
+    def fn(*xs):
+        rgba, new, tri_id = frame.render_gltf_frame_ids(
+            scene, frame.GltfParams(*xs[:n]), frame.FrameState(*xs[n:]),
+            cfg)
+        return (rgba,) + tuple(new) + (tri_id,)
+
+    return frame.GraphFrame(fn, inputs,
+                            {1 + k: n + k for k in range(len(state))}), n
+
+
+def graph_frames(scene, cfg, poses, dev):
+    """run_frames's per-frame (tri_id, depth, rgba, history) host copies
+    through ids_graph's replays, chained from the initial state, and the
+    GraphFrame."""
+    from funky_tpu_torch import frame
+
+    g, n = ids_graph(scene, cfg, poses[0], frame.init_frame_state(cfg, dev))
+    out = dict(frames=[], ms=[])
+    for p in poses:
+        inputs = [getattr(p, f) for f in frame._PARAM_FIELDS] + g.static[n:]
+        outs, _, ev = timed(lambda: g(inputs), dev)
+        out["ms"].append(ev)
+        state = frame.FrameState(*g.static[n:])
+        out["frames"].append(tuple(x.cpu().numpy() for x in (
+            outs[-1], state.prev_depth, outs[0], state.shadow_history)))
+    return out, g
+
+
+def phase_large_committed(dev, scene, params):
+    """The rastered deployment (benchmark/configs/rastered.json) on the
+    large scene: committed, synthesized maps off, autotuned over
+    frame.tuning_poses. Its CUDA graph (K2 and the pre-gather captured)
+    == the eager frames, tri_id, depth, rgba and history bit for bit, over
+    parked and orbit poses; compiled_gltf_frame (the benchmark's path)
+    == eager on rgba and every state field; at the tuned shapes K2 == the
+    plain raster, K3 and K11 == the plain gathers, K6-K10 == their twins;
+    the drop counters read 0 over the replays; with each raster's bin
+    capacity and the clip capacity
+    halved, the replays add what the eager frame drops."""
+    import dataclasses
+    import functools
+
+    from funky_tpu_torch import frame
+    from funky_tpu_torch.utils import profiling
+
+    label = "large scene, rastered committed frame"
+    _, cfg, occ, tune_s = autotune_shipped(
+        dev, scene, frame.tuning_poses(params, N_TUNE),
+        synth_shadow_maps=False)
+    say(f"{label}: tuned in {tune_s:.1f} s: clip {cfg.clip_capacity}, main "
+        f"bins {cfg.raster.capacity}, cascade bins "
+        f"{cfg.shadow_raster.capacity}; occupancy drops {occ.get('drops')}")
+    poses = poses_for(params, N_PARKED, N_ORBIT)
+    reset_counts()
+    erun = run_frames(scene, poses, cfg, dev)
+    e_counts = read_counts()
+    check(e_counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
+          and e_counts["raster_table"] == 0,
+          f"{label}: expected 5 K2 launches a frame and no K1: {e_counts}")
+    drops0 = profiling.drop_counts(dev)
+    grun, g = graph_frames(scene, cfg, poses, dev)
+    drops1 = profiling.drop_counts(dev)
+    check(g.launches["raster_padded"] == RASTERS_PER_FRAME
+          and g.launches["raster_table"] == 0,
+          f"{label}: capture launches {g.launches}")
+    frames_equal(erun, grun, f"{label}: graph vs eager")
+    check(drops1 == drops0, f"{label}: the replays dropped entries: "
+          f"{drops0} -> {drops1}")
+    say(f"{label}: graph == eager, tri_id, depth, rgba and history of all "
+        f"{len(poses)} frames bit for bit; drop counters unchanged over "
+        f"the replays ({drops1}); eager ms {[round(x, 3) for x in erun['ms']]}"
+        f", replay ms {[round(x, 3) for x in grun['ms']]} [{_GPU}]")
+    names = ("rgba",) + frame.FrameState._fields
+    eager = gltf_frames(functools.partial(frame.render_gltf_frame, cfg=cfg),
+                        scene, poses, cfg, dev)
+    comp = gltf_frames(frame.compiled_gltf_frame(cfg), scene, poses, cfg,
+                       dev)
+    for i, (fe, fg) in enumerate(zip(eager["frames"], comp["frames"])):
+        for name, a, b in zip(names, fe, fg):
+            check(bits_equal(a, b), f"{label}: compiled_gltf_frame frame "
+                  f"{i} {name} differs from the eager frame")
+    say(f"{label}: compiled_gltf_frame == eager, rgba and every state field "
+        f"of all {len(poses)} frames; peak {comp['peak_gib']:.3f} GiB "
+        f"allocated, {comp['reserved_gib']:.3f} reserved [{_GPU}]")
+    # the path's kernels against their plain versions at the tuned shapes
+    # (the script's reference runs: their launches are not counted): K2 on
+    # a parked and an orbit frame's rasters, K3 and K11 against the plain
+    # gathers, K6-K10 against their twins
+    check(all(k > 0 for k in erun["k6"]),
+          f"{label}: a frame launched no K6: {erun['k6']}")
+    two = [poses[0], poses[-1]]
+    calls = record_raster_calls(lambda: run_frames(scene, two, cfg, dev))
+    check(len(calls) == RASTERS_PER_FRAME * len(two),
+          f"{label}: {len(calls)} rasters recorded")
+    err = check_rasters_bitwise(calls, label)
+    shapes = sorted({(c["table"].shape[0], c["bins"].shape[1], c["w"],
+                      c["h"]) for c in calls})
+    say(f"{label}: K2 == plain raster bit for bit on all {len(calls)} "
+        f"rasters of {len(two)} frames (max |depth| difference {err}); "
+        f"(table rows, bin capacity, width, height): {shapes}")
+    with plain_gathers():
+        prun = run_frames(scene, poses, cfg, dev)
+    check_gathers(erun, prun, label)
+    verify_filter(label, lambda: run_frames(scene, poses, cfg, dev))
+    half = dataclasses.replace(
+        cfg, clip_capacity=cfg.clip_capacity // 2,
+        raster=dataclasses.replace(cfg.raster,
+                                   capacity=cfg.raster.capacity // 2),
+        shadow_raster=dataclasses.replace(
+            cfg.shadow_raster, capacity=cfg.shadow_raster.capacity // 2))
+    d0 = profiling.drop_counts(dev)
+    run_frames(scene, poses[:1], half, dev)
+    d1 = profiling.drop_counts(dev)
+    run_frames(scene, poses[1:], half, dev)
+    d2 = profiling.drop_counts(dev)
+    graph_frames(scene, half, poses, dev)
+    d3 = profiling.drop_counts(dev)
+    first = {k: d1[k] - d0[k] for k in d0}
+    eager_drop = {k: d2[k] - d0[k] for k in d0}
+    replay_drop = {k: d3[k] - d2[k] for k in d0}
+    check(all(v > 0 for v in eager_drop.values()),
+          f"{label}: halved capacities dropped nothing on {len(poses)} "
+          f"poses: {eager_drop}")
+    # the graph's eager warm-up renders the first pose once more
+    check(replay_drop == {k: v + first[k] for k, v in eager_drop.items()},
+          f"{label}: halved capacities: eager drops {eager_drop} (first "
+          f"pose {first}), warm-up and replays {replay_drop}")
+    say(f"{label}: halved capacities drop {eager_drop} over {len(poses)} "
+        f"eager frames, the same in their replays")
 
 
 def record_gather_calls(fn):

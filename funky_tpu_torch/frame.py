@@ -365,9 +365,11 @@ def compute_frame_uniforms(params: GltfParams, state: FrameState,
 
 
 def _main_raster_inputs(scene: DeviceScene, clip: torch.Tensor,
-                        blocks: torch.Tensor, clip_capacity: int):
+                        blocks: torch.Tensor, clip_capacity: int,
+                        drops: str | None = None):
     """Near-clip expansion for the main pass (frame.py:47-65). Returns
-    (tri_clip, blocks, tri_flags, valid)."""
+    (tri_clip, blocks, tri_flags, valid). `drops`: the counter the
+    crossing triangles past the capacity add to (_drop_counters)."""
     tri_clip = clip[scene.tri_indices.long()]
     if clip_capacity <= 0:
         valid = (torch.arange(scene.tri_indices.shape[0], device=clip.device)
@@ -375,8 +377,30 @@ def _main_raster_inputs(scene: DeviceScene, clip: torch.Tensor,
         return tri_clip, blocks, scene.tri_flags, valid
     g = expand_near_clipped(tri_clip, blocks, scene.tri_flags,
                             scene.num_triangles, capacity=clip_capacity,
-                            w_eps=NEAR * 0.1)
+                            w_eps=NEAR * 0.1, drops=drops)
     return g.tri_clip, g.blocks, g.tri_flags, g.valid
+
+
+def _drop_counters(scene: DeviceScene, cfg: GltfConfig) -> tuple:
+    """The counters (utils/profiling.DROP_COUNTERS) that the frame's near
+    clip, main raster bins and cascade raster bins add their drops to, each
+    None where its capacity cannot drop anything on this scene: at most
+    num_triangles triangles cross the near plane or fall in a cascade's
+    bin, and num_triangles plus one per split triangle in a main-pass bin.
+    A count that is 0 by construction is not made, so a frame whose
+    capacities cover the scene runs no operation for it."""
+    n = scene.num_triangles
+    t = scene.tri_indices.shape[0]
+    k = min(cfg.clip_capacity, t) if cfg.clip_capacity > 0 else 0
+
+    def can_drop(name, capacity, most):
+        return name if capacity < most else None
+
+    return (can_drop("clip_capacity", k, n) if k else None,
+            can_drop("raster.capacity",
+                     cfg.raster.resolve_capacity(t + 2 * k), n + min(n, k)),
+            can_drop("shadow_raster.capacity",
+                     cfg.shadow_raster.resolve_capacity(t), n))
 
 
 def _background(dev, alpha: bool = False) -> torch.Tensor:
@@ -666,23 +690,27 @@ def _shade_slab_dense(scene: DeviceScene, uni, state: FrameState,
 
 
 def _cascade_maps(scene: DeviceScene, uni, world_v, cfg: GltfConfig,
-                  origins):
+                  origins, drops: str | None = None):
     """The four raw cascade depth maps (frame.py:929-958): the full raster,
     or with synth_shadow_maps the synthesized maps on the footprint
     windows at `origins`. An occluder outgrowing its window takes the full
     raster (one host branch); committed mode keeps the synthesized maps,
-    whose window-fit certificate the occupancy poll reads instead."""
+    whose window-fit certificate the occupancy poll reads instead. Each
+    raster's binning lies in the span `cascade_binning`; the full rasters
+    add their dropped bin entries to `drops`."""
     if cfg.flags.synth_shadow_maps and origins is not None:
         maps, ok = shadow.synthesize_shadow_maps(
             scene, world_v, uni, cfg.shadow_map_size,
             cfg.effective_light_windows(), origins,
             RasterConfig(tile_h=128, tile_w=128,
-                         backend=cfg.shadow_raster.backend))
+                         backend=cfg.shadow_raster.backend),
+            binning=span("cascade_binning"))
         if cfg.flags.committed or host_cond(ok, "synth_window_fit"):
             return maps
     return shadow.render_shadow_maps(
         world_v, scene.tri_indices, scene.num_triangles,
-        uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
+        uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size,
+        binning=span("cascade_binning"), drops=drops)
 
 
 def _light_maps(raw_maps, uni, cfg: GltfConfig, origins):
@@ -721,6 +749,7 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
         blocks = geometry.build_shade_blocks(scene, world_v, clip,
                                              normals_v)
 
+    clip_drops, main_drops, cascade_drops = _drop_counters(scene, cfg)
     shadow_maps = None
     class_maps = None
     light_maps = None
@@ -736,7 +765,8 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
                     uni, world_v, scene.vert_object, sizes,
                     cfg.shadow_map_size, cfg.max_softness, cfg.class_coarse)
         with span("cascade_maps"):
-            raw_maps = _cascade_maps(scene, uni, world_v, cfg, origins)
+            raw_maps = _cascade_maps(scene, uni, world_v, cfg, origins,
+                                     cascade_drops)
         with span("class_maps"):
             if flags.sparse_shadows:
                 class_maps = build_class_maps(
@@ -761,9 +791,10 @@ def render_gltf_frame_ids(scene: DeviceScene, params: GltfParams,
 
     with span("main_raster"):
         tri_clip, blocks_m, tri_flags_m, tri_valid = _main_raster_inputs(
-            scene, clip, blocks, cfg.clip_capacity)
+            scene, clip, blocks, cfg.clip_capacity, clip_drops)
         tri_id, depth, setup = raster_corners(
-            tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster)
+            tri_clip, tri_valid, cfg.width, cfg.height, cfg.raster,
+            binning=span("main_binning"), drops=main_drops)
 
     rgba, new_history = shade_slab(
         scene, uni, state, shadow_maps, tri_id, depth, setup.data, blocks_m,

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import profiling
 from .sampling import to_i32
 
 SETUP_WIDTH = 16
@@ -103,12 +104,15 @@ def triangle_setup_corners(tri_clip: torch.Tensor, width: int, height: int,
 
 def bin_triangles(setup: TriangleSetup, width: int, height: int,
                   tile_h: int, tile_w: int, capacity: int,
-                  y_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  y_offset: int = 0, drops: str | None = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tile triangle lists (binning.py:150-200).
 
     Returns bins (n_tiles, capacity) int32, ascending ids, -1 padded, and
     counts (n_tiles,) int32 clamped to capacity: a tile holding more than
-    `capacity` triangles keeps its lowest ids and drops the rest.
+    `capacity` triangles keeps its lowest ids and drops the rest. `drops`
+    names the counter (utils/profiling.DROP_COUNTERS) that the dropped
+    entries are added to on the device.
     """
     dev = setup.data.device
     t = setup.data.shape[0]
@@ -134,11 +138,17 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
             & setup.valid[:, None, None])
     mask = mask.reshape(t, tiles_y * tiles_x)
 
-    counts = torch.clamp(mask.sum(dim=0), max=capacity).to(torch.int32)
+    total = mask.sum(dim=0)
+    counts = torch.clamp(total, max=capacity).to(torch.int32)
+    if drops is not None:
+        profiling.count_drops(drops, torch.clamp(total - capacity,
+                                                 min=0).sum())
 
     big = 2 ** 30
     keys = torch.where(
         mask, torch.arange(t, dtype=torch.int32, device=dev)[:, None], big)
+    # the sort is the binning's largest allocation: the mask goes first
+    del mask
     if t < capacity:
         keys = torch.cat([keys, torch.full((capacity - t, keys.shape[1]),
                                            big, dtype=torch.int32,
@@ -154,7 +164,22 @@ def bin_stats(clip: torch.Tensor, tri_indices: torch.Tensor, width: int,
     """Per-tile bin occupancy of one view (binning.py:203-222): dict of
     device tensors max, mean, total and the tile count n_tiles. It sizes
     RasterConfig.capacity (a full bin drops its highest ids)."""
-    setup = triangle_setup(clip, tri_indices, width, height, num_triangles)
+    return _stats(triangle_setup(clip, tri_indices, width, height,
+                                 num_triangles), width, height, tile_h,
+                  tile_w)
+
+
+def bin_stats_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor,
+                      width: int, height: int, tile_h: int, tile_w: int):
+    """bin_stats of per-corner clip positions (T, 3, 4): the main pass's
+    triangles after the near-clip expansion."""
+    return _stats(triangle_setup_corners(tri_clip, width, height,
+                                         valid_mask), width, height, tile_h,
+                  tile_w)
+
+
+def _stats(setup: TriangleSetup, width: int, height: int, tile_h: int,
+           tile_w: int):
     _, counts = bin_triangles(setup, width, height, tile_h, tile_w,
                               capacity=setup.data.shape[0])
     return {"max": counts.max(), "mean": counts.to(torch.float32).mean(),

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from .compact import compact_indices
 
 
@@ -24,24 +25,39 @@ class ClippedGeometry(NamedTuple):
     overflow: torch.Tensor   # () bool
 
 
-def expand_near_clipped(tri_clip: torch.Tensor, blocks: torch.Tensor,
-                        tri_flags: torch.Tensor,
-                        num_triangles: int | None,
-                        capacity: int = 64,
-                        w_eps: float = 1e-2) -> ClippedGeometry:
-    """clipping.py:51-146."""
-    dev = tri_clip.device
+def near_crossing(tri_clip: torch.Tensor, num_triangles: int | None,
+                  w_eps: float = 1e-2):
+    """(inside (T, 3), real (T,), crossing (T,)): the corners in front of
+    w = w_eps, the triangles below num_triangles, and the real ones with
+    one or two corners in front, which expand_near_clipped splits."""
     t = tri_clip.shape[0]
-    k = min(capacity, t)
+    dev = tri_clip.device
     w = tri_clip[..., 3]
     inside = w > w_eps
     n_in = inside.sum(dim=-1)
     real = (torch.arange(t, device=dev) < num_triangles
             if num_triangles is not None
             else torch.ones((t,), dtype=torch.bool, device=dev))
-    crossing = (n_in > 0) & (n_in < 3) & real
+    return inside, real, (n_in > 0) & (n_in < 3) & real
+
+
+def expand_near_clipped(tri_clip: torch.Tensor, blocks: torch.Tensor,
+                        tri_flags: torch.Tensor,
+                        num_triangles: int | None,
+                        capacity: int = 64,
+                        w_eps: float = 1e-2,
+                        drops: str | None = None) -> ClippedGeometry:
+    """clipping.py:51-146. `drops` names the counter (utils/profiling.
+    DROP_COUNTERS) that the crossing triangles past the K slots are added
+    to on the device."""
+    dev = tri_clip.device
+    t = tri_clip.shape[0]
+    k = min(capacity, t)
+    inside, real, crossing = near_crossing(tri_clip, num_triangles, w_eps)
 
     comp = compact_indices(crossing, k)
+    if drops is not None:
+        profiling.count_drops(drops, torch.clamp(comp.count - k, min=0))
     safe = comp.idx.clamp(min=0).long()
     c = tri_clip[safe]
     b = blocks[safe]

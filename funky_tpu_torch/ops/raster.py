@@ -21,6 +21,7 @@ the frame path never calls it (tests and chip_smoke.py do).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -66,7 +67,8 @@ def use_kernel(cfg: RasterConfig, device: torch.device) -> bool:
 def raster_scene(clip: torch.Tensor, tri_indices: torch.Tensor,
                  width: int, height: int, num_triangles: int | None,
                  cfg: RasterConfig, y_offset: int = 0,
-                 slice_height: int | None = None):
+                 slice_height: int | None = None, binning=None,
+                 drops: str | None = None):
     """setup -> bin -> rasterize from vertex clip positions
     (raster.py:91-107). Returns (tri_id, depth, TriangleSetup)."""
     tri_clip = clip[tri_indices.long()]
@@ -75,30 +77,37 @@ def raster_scene(clip: torch.Tensor, tri_indices: torch.Tensor,
         valid_mask = torch.arange(tri_indices.shape[0],
                                   device=clip.device) < num_triangles
     return raster_corners(tri_clip, valid_mask, width, height, cfg,
-                          y_offset, slice_height)
+                          y_offset, slice_height, binning, drops)
 
 
 def raster_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor | None,
                    width: int, height: int, cfg: RasterConfig,
-                   y_offset: int = 0, slice_height: int | None = None):
+                   y_offset: int = 0, slice_height: int | None = None,
+                   binning=None, drops: str | None = None):
     """raster_scene from per-corner clip positions (T, 3, 4)
     (raster.py:110-139). `width`/`height` are the full framebuffer;
-    `y_offset` + `slice_height` select the row slab rastered."""
+    `y_offset` + `slice_height` select the row slab rastered. A frame's
+    raster passes the span (utils/profiling.span) that holds its binning,
+    the setup, bin_triangles and the pre-gather, as `binning`, and names
+    the counter its dropped bin entries add to in `drops`."""
     sh = height if slice_height is None else slice_height
     capacity = cfg.resolve_capacity(tri_clip.shape[0])
-    setup = triangle_setup_corners(tri_clip, width, height, valid_mask)
-    bins, counts = bin_triangles(setup, width, sh, cfg.tile_h, cfg.tile_w,
-                                 capacity, y_offset)
-    kernel = use_kernel(cfg, tri_clip.device)
-    if kernel and setup.data.shape[0] * 64 <= TABLE_LIMIT_BYTES:
+    table = (use_kernel(cfg, tri_clip.device)
+             and tri_clip.shape[0] * 64 <= TABLE_LIMIT_BYTES)
+    with binning or contextlib.nullcontext():
+        setup = triangle_setup_corners(tri_clip, width, height, valid_mask)
+        bins, counts = bin_triangles(setup, width, sh, cfg.tile_h,
+                                     cfg.tile_w, capacity, y_offset, drops)
+        bin_data = None if table else gather_bin_data(setup, bins)
+    if table:
         from .raster_cuda import raster_table_cuda
 
         tri_id, depth = raster_table_cuda(setup.data, bins, counts, width,
                                           sh, cfg.tile_h, cfg.tile_w,
                                           y_offset)
         return tri_id, depth, setup
-    tri_id, depth = rasterize(gather_bin_data(setup, bins), bins, counts,
-                              width, sh, cfg, y_offset)
+    tri_id, depth = rasterize(bin_data, bins, counts, width, sh, cfg,
+                              y_offset)
     return tri_id, depth, setup
 
 

@@ -30,8 +30,11 @@ SHADOW_RASTER_CFG = RasterConfig(tile_h=128, tile_w=256, capacity=None)
 def render_shadow_maps(world: torch.Tensor, tri_indices: torch.Tensor,
                        num_triangles: int, light_view_proj: torch.Tensor,
                        cfg: RasterConfig = SHADOW_RASTER_CFG,
-                       size: int = SHADOW_MAP_SIZE) -> torch.Tensor:
-    """shadow.py:29-50. Returns (C, size, size) f32 NDC depth, 1.0 empty."""
+                       size: int = SHADOW_MAP_SIZE, binning=None,
+                       drops: str | None = None) -> torch.Tensor:
+    """shadow.py:29-50. Returns (C, size, size) f32 NDC depth, 1.0 empty.
+    `binning` and `drops`: the frame's span and drop counter of each
+    cascade's raster (ops/raster.py::raster_corners)."""
     ones = torch.ones((world.shape[0], 1), dtype=torch.float32,
                       device=world.device)
     hom = torch.cat([world, ones], dim=-1)
@@ -39,7 +42,8 @@ def render_shadow_maps(world: torch.Tensor, tri_indices: torch.Tensor,
     for c in range(light_view_proj.shape[0]):
         clip = hom @ light_view_proj[c].T
         _, depth, _ = raster_scene(clip, tri_indices, size, size,
-                                   num_triangles, cfg)
+                                   num_triangles, cfg, binning=binning,
+                                   drops=drops)
         depths.append(depth)
     return torch.stack(depths)
 
@@ -98,12 +102,14 @@ def synth_windows_fit(world_v: torch.Tensor, vert_object: torch.Tensor,
 
 def synthesize_shadow_maps(scene, world_v: torch.Tensor, uni, size: int,
                            sizes, origins,
-                           win_cfg: RasterConfig | None = None):
+                           win_cfg: RasterConfig | None = None,
+                           binning=None):
     """Analytic-ground + windowed-occluder cascade maps (shadow.py:
     132-225). Returns ((L, size, size) maps, ok), `ok` the window-fit
     certificate. Occluders are every object but slot 0, the ground quad.
     Each cascade with a nonzero window size rasters its occluders once
-    through raster_corners with `win_cfg` (128x128 tiles by default)."""
+    through raster_corners with `win_cfg` (128x128 tiles by default),
+    its binning inside the frame's span `binning`."""
     if win_cfg is None:
         win_cfg = RasterConfig(tile_h=128, tile_w=128)
     dev = world_v.device
@@ -156,7 +162,7 @@ def synthesize_shadow_maps(scene, world_v: torch.Tensor, uni, size: int,
             mat = _crop_matrix(lvp[c], (oy, ox), wc, size)
             tri_clip = (homv @ mat.T)[scene.tri_indices.long()]
             _, win_depth, _ = raster_corners(tri_clip, occl_valid, wc, wc,
-                                             win_cfg)
+                                             win_cfg, binning=binning)
             sl = dynamic_slice(base, (oy, ox), (wc, wc))
             base = dynamic_update_slice(base, torch.minimum(sl, win_depth),
                                         (oy, ox))

@@ -42,6 +42,8 @@ import sys
 
 import torch
 
+from .profiling import DROP_COUNTERS
+
 _ZERO4 = (0, 0, 0, 0)
 
 
@@ -50,23 +52,47 @@ def _round_up(value, quantum: int) -> int:
 
 
 def tune_raster_capacities(scene, params, cfg):
-    """Per-tile bin occupancy of the main and the four cascade rasters
-    over the poses -> RasterConfig capacities with 1.5x headroom, rounded
-    to 128 and at most the triangle count (autotune.py:31-77)."""
-    from ..frame import compute_frame_uniforms, init_frame_state
-    from ..ops.binning import bin_stats
-    from ..passes.geometry import transform_vertices
+    """The near-clip capacity and the per-tile bin occupancy of the main
+    and the four cascade rasters over the poses -> `clip_capacity` (the
+    most triangles crossing the near plane with 1.25x headroom, rounded to
+    64 and never below the configured one) and RasterConfig capacities
+    with 1.5x headroom, rounded to 128 and at most the triangle count
+    (autotune.py:31-77). The main raster is binned as the frame bins it,
+    after the near-clip expansion at the tuned capacity; JAX bins the
+    unclipped triangles and leaves the clip capacity as configured."""
+    from ..frame import (NEAR, _main_raster_inputs, compute_frame_uniforms,
+                         init_frame_state)
+    from ..ops.binning import bin_stats, bin_stats_corners
+    from ..ops.clipping import near_crossing
+    from ..passes.geometry import build_shade_blocks, transform_vertices
 
     poses = params if isinstance(params, (list, tuple)) else [params]
     st0 = init_frame_state(cfg, poses[0].camera_pos.device)
+
+    def views():
+        for p in poses:
+            uni = compute_frame_uniforms(p, st0, cfg)
+            yield uni, transform_vertices(scene, uni.models, uni.view_proj)
+
+    crossing_max = 0
+    for _, (_, clip, _) in views():
+        crossing = near_crossing(clip[scene.tri_indices.long()],
+                                 scene.num_triangles, NEAR * 0.1)[2]
+        crossing_max = max(crossing_max, int(crossing.sum()))
+    clip_capacity = cfg.clip_capacity
+    if clip_capacity > 0:
+        clip_capacity = max(clip_capacity,
+                            _round_up(crossing_max * 1.25, 64))
     main_max = sm_max = 0
-    for p in poses:
-        uni = compute_frame_uniforms(p, st0, cfg)
-        world, clip, _ = transform_vertices(scene, uni.models,
-                                            uni.view_proj)
-        main = bin_stats(clip, scene.tri_indices, cfg.width, cfg.height,
-                         cfg.raster.tile_h, cfg.raster.tile_w,
-                         scene.num_triangles)["max"]
+    for uni, (world, clip, normals) in views():
+        blocks = build_shade_blocks(scene, world, clip, normals)
+        tri_clip, _, _, valid = _main_raster_inputs(scene, clip, blocks,
+                                                    clip_capacity)
+        del blocks
+        main = bin_stats_corners(tri_clip, valid, cfg.width, cfg.height,
+                                 cfg.raster.tile_h,
+                                 cfg.raster.tile_w)["max"]
+        del tri_clip, valid
         world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
         sm = torch.stack([bin_stats(
             world_h @ uni.light_view_proj[c].T, scene.tri_indices,
@@ -83,7 +109,7 @@ def tune_raster_capacities(scene, params, cfg):
                    scene.tri_indices.shape[0])
 
     return dataclasses.replace(
-        cfg,
+        cfg, clip_capacity=clip_capacity,
         raster=dataclasses.replace(cfg.raster, capacity=cap(main_max)),
         shadow_raster=dataclasses.replace(cfg.shadow_raster,
                                           capacity=cap(sm_max)))
@@ -285,6 +311,12 @@ def capacity_overflows(cfg, occ) -> list:
                 chk(f"shadow_route_caps[{c}]", n2 + fetch_route[c], cap2)
     if occ.get("synth_window_overflow", 0) > 0:
         over.append("synth_window_fit")
+    chk("clip_capacity", occ.get("clip_crossing", 0), cfg.clip_capacity)
+    # what the frames measured dropped on the device (utils/profiling.
+    # DROP_COUNTERS): the bins have no other poll
+    for name, n in zip(DROP_COUNTERS, occ.get("drops", ())):
+        if n > 0 and name not in over:
+            over.append(name)
     if (cfg.shadow_tap_windows is not None
             and "tap_extent_per_cascade" in occ):
         pad_max = math.ceil(4.0 * cfg.max_softness) + 2

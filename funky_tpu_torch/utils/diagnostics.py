@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.sampling import to_i32
+from .profiling import DROP_COUNTERS, drop_counts
 
 
 def _main_pass(scene, uni, cfg):
@@ -61,6 +62,7 @@ def _frame_intermediates(scene, params, state, cfg):
     (diagnostics.py:15-53). Returns (uni, cmaps, gbuf, normal, n_dot_l,
     view_depth, clip_crossing, world_v)."""
     from ..frame import NEAR, compute_frame_uniforms
+    from ..ops.clipping import near_crossing
     from ..passes import deferred, shadow
     from ..passes.shadow_classify import (build_class_maps,
                                           light_ground_planes)
@@ -73,14 +75,11 @@ def _frame_intermediates(scene, params, state, cfg):
         uni.light_view_proj, cfg.shadow_raster, cfg.shadow_map_size)
     cmaps = build_class_maps(raw, cfg.class_coarse, cfg.max_softness,
                              light_ground_planes(uni.light_view_proj))
-    tri_clip_raw = clip[scene.tri_indices.long()]
     g = deferred.interpolate(tri_id, depth, setup.data, blocks, tri_flags)
     # near-plane clip pressure against GltfConfig.clip_capacity
-    inside = tri_clip_raw[..., 3] > NEAR * 0.1
-    real = (torch.arange(tri_clip_raw.shape[0], device=clip.device)
-            < scene.num_triangles)
-    clip_crossing = (inside.any(-1) & ~inside.all(-1) & real).sum(
-        dtype=torch.int32)
+    clip_crossing = near_crossing(clip[scene.tri_indices.long()],
+                                  scene.num_triangles,
+                                  NEAR * 0.1)[2].sum(dtype=torch.int32)
     normal = g.normal / torch.clamp(
         torch.linalg.vector_norm(g.normal, dim=-1, keepdim=True), min=1e-12)
     n_dot_l = torch.clamp((normal * uni.light_dir).sum(dim=-1), min=0.0)
@@ -352,25 +351,37 @@ def measure_sparse_occupancy(scene, params, cfg, frames: int = 2) -> dict:
     after the first, against the state its predecessor left, whose TAA
     need JAX reads too: for poses of a motion run (frame.tuning_poses)
     that is the chained motion frame, whose TAA need and contact counts
-    follow the carried state, and between bench_poses a jump."""
+    follow the carried state, and between bench_poses a jump. `drops`
+    holds the most that one frame dropped past each capacity of utils/
+    profiling.DROP_COUNTERS, in that order, read from the device counters
+    around every frame rendered here."""
     from ..frame import init_frame_state, render_gltf_frame
 
     poses = params if isinstance(params, (list, tuple)) else [params]
     dev = poses[0].camera_pos.device
+    readings = []
+
+    def frame(p, st):
+        before = drop_counts(dev)
+        _, st = render_gltf_frame(scene, p, st, cfg)
+        after = drop_counts(dev)
+        readings.append({"drops": tuple(after[k] - before[k]
+                                        for k in DROP_COUNTERS)})
+        return st
+
     state = init_frame_state(cfg, dev)
     for _ in range(frames):
-        _, state = render_gltf_frame(scene, poses[0], state, cfg)
+        state = frame(poses[0], state)
     light_sizes, route_sizes = candidate_windows(scene, poses, state, cfg)
 
     def occupancy(p, st):
         return {k: _host(v) for k, v in sparse_occupancy(
             scene, p, st, cfg, light_sizes, route_sizes).items()}
 
-    readings = []
     for i, p in enumerate(poses):
         if i:
             readings.append(occupancy(p, state))
-            _, state = render_gltf_frame(scene, p, state, cfg)
+            state = frame(p, state)
         readings.append(occupancy(p, state))
     out = _max_combine(readings)
     if light_sizes is not None:

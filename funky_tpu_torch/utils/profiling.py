@@ -9,6 +9,9 @@
   capture at its two edges, so that each replay's device operations can
   be cut into layers (GraphLayout, graph_layout()). Otherwise it costs a
   flag check: a replay runs none of it.
+- count_drops(): the device-side counters of what a frame drops past its
+  capacities (DROP_COUNTERS), added to inside the frame, so a replay adds
+  to them too; drop_counts() reads them on the host.
 - trace(): torch.profiler around a block, the trace written as Chrome
   JSON into `log_dir`.
 - device_info(): the card's name and torch's version for the debug panel.
@@ -66,16 +69,21 @@ class FpsCounter:
 # a span even where the layer does nothing (light_maps without the
 # light-space ground evaluation), and `window_plans` twice where the tap
 # routes plan their windows after the light maps. `handoff` is
-# GraphFrame's copy of the new state into the donated buffers.
+# GraphFrame's copy of the new state into the donated buffers. The two
+# binning spans hold a raster's triangle setup, bin_triangles and, on the
+# pre-gathered route, gather_bin_data (ops/raster.py::raster_corners): one
+# range per cascade raster or occluder window, one in the main pass.
 FRAME_SPANS: Tuple[Tuple[str, Optional[str]], ...] = (
     ("uniforms", None),
     ("vertices", None),
     ("window_plans", None),
     ("cascade_maps", None),
+    ("cascade_binning", "cascade_maps"),
     ("class_maps", None),
     ("quad_pack", None),
     ("light_maps", None),
     ("main_raster", None),
+    ("main_binning", "main_raster"),
     ("back_half", None),
     ("deferred", "back_half"),
     ("shadow_filter", "back_half"),
@@ -258,6 +266,56 @@ def _capture_node_types() -> Callable[[], Dict[int, int]]:
         return types
 
     return count
+
+
+# ---------------------------------------------------------------------------
+# Drop counters
+# ---------------------------------------------------------------------------
+
+# What a committed frame drops past a capacity, each counter named for its
+# GltfConfig field: near-clipped triangles past `clip_capacity`
+# (ops/clipping.py), and bin entries past the main raster's and the
+# cascade rasters' capacities (ops/binning.py). The frame adds its drops
+# on the device, where its capacity can drop anything at all
+# (frame.py::_drop_counters): a count that is 0 by construction adds no node
+# to the graph.
+DROP_COUNTERS = ("clip_capacity", "raster.capacity", "shadow_raster.capacity")
+_DROPS: Dict[str, torch.Tensor] = {}
+
+
+def _device_key(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def count_drops(name: str, n: torch.Tensor) -> None:
+    """Add the 0-d device count `n` to the counter `name` of DROP_COUNTERS
+    on n's device: one in-place add, which a CUDA graph records and each
+    replay repeats. The counters of a device are made by its first call,
+    which must be eager (GraphFrame's warm-up is): a capture cannot make
+    them."""
+    i = DROP_COUNTERS.index(name)
+    key = _device_key(n.device)
+    buf = _DROPS.get(key)
+    if buf is None:
+        if (n.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError("the drop counters are made by an eager call, "
+                               "not inside a capture")
+        buf = _DROPS[key] = torch.zeros(len(DROP_COUNTERS),
+                                        dtype=torch.int64, device=n.device)
+    buf[i].add_(n)
+
+
+def drop_counts(device) -> Dict[str, int]:
+    """The counters of `device` on the host (a read that waits for the
+    device): {name: entries dropped since the counters were made}."""
+    buf = _DROPS.get(_device_key(device))
+    if buf is None:
+        return dict.fromkeys(DROP_COUNTERS, 0)
+    return dict(zip(DROP_COUNTERS, (int(v) for v in buf.tolist())))
 
 
 # The layouts of recorded frames, by the key their capture was published
