@@ -35,8 +35,9 @@ failure raises and the script exits non-zero):
    path's shapes: full capacity, an overflowing tight capacity, a row
    slab, coplanar equal-depth duplicates, a long bin (4,000 small
    triangles in one tile), a ragged 250x130 framebuffer and tiles smaller
-   than the kernels' rectangle. K2 is reached by patching the 4 MiB table
-   limit to 0. tri_id and depth bit-equal;
+   than the kernels' rectangle, each on K12's bins against the plain
+   binning's. K2 is reached by patching ops/raster.py's table limit
+   (32 MiB) to 0. tri_id and depth bit-equal;
 3. a 256x144 multimesh frame on the card against the committed golden
    image (tests/goldens/multimesh_pbr_256x144.png, 3/255 tolerance);
 4. the dense path: 4 chained 1920x1080 frames of the exact dense glTF
@@ -72,10 +73,15 @@ failure raises and the script exits non-zero):
    capacity_overflows names nothing but the band-block budget, and
    committed == cond'd bit for bit on every frame;
 6. the large scene (tests/torch_scenes.build_large_glb: 73,754
-   triangles, past the table limit): 3 chained GltfConfig() frames, K2
-   launches 5 times per frame and K1 never, K3 on every frame; one frame
-   through the plain raster and the frames with the plain row gather are
-   equal to the K2 run; K1, K2 and the plain raster timed on
+   triangles, 4.6 MiB tables within the table limit): 3 chained
+   GltfConfig() frames, K12 and K1 launch 5 times per frame and K2
+   never, K3 on every frame; one frame through the plain binning and
+   raster and the frames with the plain row gather are equal to the K1
+   run; the rastered deployment (phase_large_committed) tuned, replayed,
+   and again with the table limit at 0 (K2 on K12's pre-gathered bins):
+   all equal; K12 == the twin binning on its recorded calls and timed at
+   its tuned shapes and the shipped ones (phase 5b) beside its byte
+   bound and the twin; K1, K2 and the plain raster timed on
    the frame's own rasters, with the survivors of the kernels' exact cull
    counted by its plain twin (ops/raster.py::subtile_keep) for a
    culled-work bound;
@@ -420,12 +426,13 @@ def plain_filter_taps():
 
 
 def reset_counts() -> None:
-    from funky_tpu_torch.ops import (class_maps_cuda, compact, contact_cuda,
-                                     gather_cuda, group_counts_cuda,
-                                     lightmap_cuda, overlay_cuda,
-                                     pair_taps_cuda, quad_pack_cuda,
-                                     raster_cuda)
+    from funky_tpu_torch.ops import (binning_cuda, class_maps_cuda, compact,
+                                     contact_cuda, gather_cuda,
+                                     group_counts_cuda, lightmap_cuda,
+                                     overlay_cuda, pair_taps_cuda,
+                                     quad_pack_cuda, raster_cuda)
 
+    binning_cuda.reset_launches()
     class_maps_cuda.reset_launches()
     contact_cuda.reset_launches()
     raster_cuda.reset_launches()
@@ -453,7 +460,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["raster", "gather", "overlay", "lightmap",
                                  "pair_taps", "group_counts", "class_maps",
-                                 "contact", "quad_pack"])
+                                 "contact", "quad_pack", "binning"])
     say(f"build: {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)"
         f" [{_GPU}]")
@@ -509,11 +516,12 @@ def phase_quad_pack(dev) -> dict:
 
 
 def phase_kernel_cases(dev, padded: bool) -> float:
-    """K1 (padded=False) or K2 (the table limit patched to 0) against the
-    plain twin on every case. Returns the max |depth| difference."""
+    """K1 (padded=False) or K2 (the table limit patched to 0), each on
+    K12's bins, against the plain twins (binning and raster) on every
+    case. Returns the max |depth| difference."""
     import torch
 
-    from funky_tpu_torch.ops import raster, raster_cuda
+    from funky_tpu_torch.ops import binning_cuda, raster, raster_cuda
     from funky_tpu_torch.ops.raster import RasterConfig
 
     saved = raster.TABLE_LIMIT_BYTES
@@ -526,7 +534,8 @@ def phase_kernel_cases(dev, padded: bool) -> float:
         for name, clip, tris, w, h, kw, y0, sh in kernel_cases():
             out = {}
             for backend in ("cuda", "torch"):
-                before = (raster_cuda.LAUNCHES, raster_cuda.PADDED_LAUNCHES)
+                before = (raster_cuda.LAUNCHES, raster_cuda.PADDED_LAUNCHES,
+                          binning_cuda.LAUNCHES)
                 tri_id, depth, _ = raster.raster_scene(
                     torch.from_numpy(clip).to(dev),
                     torch.from_numpy(tris).to(dev), w, h, len(tris),
@@ -534,9 +543,11 @@ def phase_kernel_cases(dev, padded: bool) -> float:
                 sync(dev)
                 k1 = raster_cuda.LAUNCHES - before[0]
                 k2 = raster_cuda.PADDED_LAUNCHES - before[1]
+                k12 = binning_cuda.LAUNCHES - before[2]
                 want = (backend == "cuda")
-                check((k1, k2) == ((0, want) if padded else (want, 0)),
-                      f"{label} {name}: launches K1 {k1}, K2 {k2}")
+                check((k1, k2, k12) == ((0, want, want) if padded
+                                        else (want, 0, want)),
+                      f"{label} {name}: launches K1 {k1}, K2 {k2}, K12 {k12}")
                 out[backend] = (tri_id.cpu().numpy(), depth.cpu().numpy())
             (ik, zk), (ip, zp) = out["cuda"], out["torch"]
             err = float(np.abs(zk - zp).max())
@@ -758,7 +769,7 @@ def run_frames(scene, poses, cfg, dev):
     state = frame.init_frame_state(cfg, dev)
     out = dict(frames=[], ms=[], wall=[], syncs=[], k1=[], k3=[], k5=[],
                k6=[], k7=[],
-               **{k: [] for k in STAGE_KERNELS + ("quad_pack",)})
+               **{k: [] for k in STAGE_KERNELS + ("quad_pack", "binning")})
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for p in poses:
@@ -789,7 +800,7 @@ def run_frames(scene, poses, cfg, dev):
         out["k6"].append(pair_taps_cuda.LAUNCHES - k6_0)
         out["k7"].append(group_counts_cuda.LAUNCHES - k7_0)
         stages1 = frame._launch_counts()
-        for k in STAGE_KERNELS + ("quad_pack",):
+        for k in STAGE_KERNELS + ("quad_pack", "binning"):
             out[k].append(stages1[k] - stages0[k])
         out["frames"].append(tuple(x.cpu().numpy() for x in (
             tri_id, state.prev_depth, rgba, state.shadow_history)))
@@ -894,14 +905,17 @@ def phase_dense(dev, gltf, scene):
     counts = read_counts()
     say(f"dense path: {len(poses)} frames, launches {counts}")
     check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
-          and counts["raster_padded"] == 0,
-          f"dense path: expected {RASTERS_PER_FRAME} K1 launches per frame")
+          and counts["raster_padded"] == 0
+          and counts["binning"] == counts["raster_table"],
+          f"dense path: expected {RASTERS_PER_FRAME} K1 and K12 launches "
+          f"per frame")
     reset_counts()
     prun = run_frames(scene, poses, dense_config(WIDTH, HEIGHT, SHADOW,
                                                  "torch"), dev)
     counts = read_counts()
-    check(counts["raster_table"] + counts["raster_padded"] == 0,
-          "the plain-raster run launched a raster kernel")
+    check(counts["raster_table"] + counts["raster_padded"]
+          + counts["binning"] == 0,
+          "the plain-raster run launched a raster or binning kernel")
     frames_equal(krun, prun, "dense kernel vs plain raster")
     say(f"dense path: kernel run == plain-raster run, all {len(poses)} "
         f"frames bit for bit")
@@ -1193,8 +1207,10 @@ def phase_shipped(dev, gltf, scene, params):
         grun = run_frames(scene, poses, cfg, dev)
     check_gathers(crun, grun, label)
     err = check_rasters_bitwise(calls, label)
+    n_bins = check_bins(calls, label)
     say(f"{label}: K1 == plain raster bit for bit on all {len(calls)} "
-        f"recorded rasters ({n_win * len(poses)} window rasters)")
+        f"recorded rasters ({n_win * len(poses)} window rasters); K12 == "
+        f"the twin on all {n_bins} binnings (bins, counts, drops)")
     check_image(crun, poses, cfg, dev, label)
 
     state = frame.init_frame_state(cfg, dev)
@@ -1261,6 +1277,7 @@ def phase_shipped_timings(dev, scene, params, cfg):
     rows = time_rasters(calls, plain_iters=3, kernels=("K1",))
     for r in rows:
         say_raster("shipped raster", r, ("K1",), padded=False)
+    time_bins("shipped", calls, "shipped path")
     win = [r for r in rows if (r["th"], r["tw"]) == (128, 128)]
     ms = sum(r["K1"] for r in win)
     say(f"shipped path: {len(win)} window rasters per frame: K1 {ms:.4f} ms "
@@ -1270,28 +1287,126 @@ def phase_shipped_timings(dev, scene, params, cfg):
 
 
 def record_raster_calls(fn):
-    """Run fn() and return, per raster it makes, the setup table, bins,
-    counts and the kernel's framebuffer arguments."""
-    from funky_tpu_torch.ops import raster
+    """Run fn() and return, per raster it makes, its setup (and setup
+    table), bins, counts, capacity and the kernel's framebuffer
+    arguments, and which binning made the bins: "K12" or the twin."""
+    from funky_tpu_torch.ops import binning_cuda, raster
 
     calls = []
-    bin_triangles = raster.bin_triangles
+    saved = raster.bin_triangles, binning_cuda.bin_triangles
 
-    def record(setup, width, height, tile_h, tile_w, capacity, y_offset=0,
-               drops=None):
-        bins, counts = bin_triangles(setup, width, height, tile_h, tile_w,
-                                     capacity, y_offset, drops)
-        calls.append(dict(table=setup.data, bins=bins, counts=counts,
-                          w=width, h=height, th=tile_h, tw=tile_w,
-                          y0=y_offset))
-        return bins, counts
+    def recorder(bin_fn, name):
+        def record(setup, width, height, tile_h, tile_w, capacity,
+                   y_offset=0, drops=None):
+            bins, counts = bin_fn(setup, width, height, tile_h, tile_w,
+                                  capacity, y_offset, drops)
+            calls.append(dict(setup=setup, table=setup.data, bins=bins,
+                              counts=counts, w=width, h=height, th=tile_h,
+                              tw=tile_w, cap=capacity, y0=y_offset,
+                              binning=name))
+            return bins, counts
+        return record
 
-    raster.bin_triangles = record
+    raster.bin_triangles = recorder(saved[0], "twin")
+    binning_cuda.bin_triangles = recorder(saved[1], "K12")
     try:
         fn()
     finally:
-        raster.bin_triangles = bin_triangles
+        raster.bin_triangles, binning_cuda.bin_triangles = saved
     return calls
+
+
+# K12's device times (and the twin's, and the byte bound) per frame of
+# the shipped and the rastered configurations, at their tuned shapes.
+BIN_TIMES: dict = {}
+# [binnings held against the twin, entries that differed] over the run
+BIN_CHECKED = [0, 0]
+DROP_PROBE = "raster.capacity"
+
+
+def bin_args(c) -> tuple:
+    return c["w"], c["h"], c["th"], c["tw"], c["cap"], c["y0"]
+
+
+def check_bins(calls, label) -> int:
+    """Each recorded K12 call against the twin on the same setup (these
+    launches are comparisons, not the main path's): the recorded bins and
+    counts, and those of both again with their drops added to one
+    counter, bit for bit. Adds the calls held and the entries that
+    differed (bins, counts and drop totals) to BIN_CHECKED; returns the
+    calls held."""
+    import torch
+
+    from funky_tpu_torch.ops import binning, binning_cuda
+    from funky_tpu_torch.utils import profiling
+
+    def dropped(fn, dev):
+        before = profiling.drop_counts(dev)[DROP_PROBE]
+        out = fn()
+        return out, profiling.drop_counts(dev)[DROP_PROBE] - before
+
+    k12 = [c for c in calls if c["binning"] == "K12"]
+    check(k12 and len(k12) == len(calls),
+          f"{label}: {len(k12)} of {len(calls)} rasters binned by K12")
+    for i, c in enumerate(k12):
+        dev = c["table"].device
+        args = bin_args(c)
+        (kb, kc), kd = dropped(lambda: binning_cuda.bin_triangles(
+            c["setup"], *args, drops=DROP_PROBE), dev)
+        (tb, tc), td = dropped(lambda: binning.bin_triangles(
+            c["setup"], *args, drops=DROP_PROBE), dev)
+        differ = sum(int((a != b).sum()) if a.shape == b.shape
+                     else max(a.numel(), b.numel()) for a, b in (
+                         (c["bins"], tb), (c["counts"], tc), (kb, tb),
+                         (kc, tc))) + int(kd != td)
+        BIN_CHECKED[0] += 1
+        BIN_CHECKED[1] += differ
+        check(differ == 0,
+              f"{label}: K12 call {i} {args} differs from the twin in "
+              f"{differ} entries (drops {kd} against {td})")
+    return len(k12)
+
+
+def bin_bound(c) -> tuple:
+    """(bound ms, bytes) of one binning: the AABB columns and the valid
+    mask read once, the bins (with their -1 fill) and counts written."""
+    rows = c["table"].shape[0]
+    nbytes = 17 * rows + 4 * c["bins"].numel() + 4 * c["counts"].numel()
+    return nbytes / HBM_BPS * 1e3, nbytes
+
+
+def time_bins(key, calls, label, plain_iters=3) -> dict:
+    """K12 and the twin on one frame's recorded calls, device time behind
+    a sleep, beside K12's byte bound; K12 records three kernel nodes a
+    call. Sums into BIN_TIMES[key]."""
+    from funky_tpu_torch.ops import binning, binning_cuda
+
+    t = dict(calls=len(calls), ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0)
+    for c in calls:
+        args = bin_args(c)
+        ms = device_ms(lambda: binning_cuda.bin_triangles(c["setup"], *args))
+        plain = device_ms(lambda: binning.bin_triangles(c["setup"], *args),
+                          iters=plain_iters)
+        b, nbytes = bin_bound(c)
+        say(f"{label}: K12 ({c['table'].shape[0]} rows, tiles {c['th']}x"
+            f"{c['tw']} over {c['w']}x{c['h']}, bins {tuple(c['bins'].shape)}"
+            f", fullest {int(c['counts'].max())}): {ms:.4f} ms, the twin "
+            f"{plain:.4f} ms, bound {b:.5f} ms ({nbytes} B) [{_GPU}]")
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += b
+        t["bytes"] += nbytes
+    big = max(calls, key=lambda c: c["bins"].numel())
+    nodes = graph_node_kinds(lambda: binning_cuda.bin_triangles(
+        big["setup"], *bin_args(big)))
+    check(nodes == {"kernel": 3}, f"{label}: K12 graph nodes {nodes}")
+    say(f"{label}: K12 per frame ({len(calls)} calls) {t['ms']:.4f} ms "
+        f"device time, the twin {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms (bytes: {t['bytes']} B), "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of it; graph nodes a call "
+        f"{nodes} [{_GPU}]")
+    BIN_TIMES[key] = t
+    return t
 
 
 def raster_bound(c, padded: bool):
@@ -1445,9 +1560,11 @@ def phase_timings(dev, scene, params):
 
 
 def phase_large(dev):
-    """GltfConfig() on the large scene: every raster past the table limit
-    takes K2. Returns (launch counts, per-frame sums of K2 ms, plain ms,
-    bound ms, bound_by, K1 ms on the same rasters, culled bound ms)."""
+    """GltfConfig() on the large scene: every raster takes K1 on K12's
+    bins (its 4.6 MiB tables are within the table limit). Returns (launch
+    counts, per-frame sums of K2 ms, plain ms, bound ms, bound_by, K1 ms
+    on the same rasters, culled bound ms, K3 launches per frame, K2
+    launches of the limit-0 runs)."""
     from funky_tpu_torch import frame
 
     gltf, scene = load_scene(dev, large=True)
@@ -1461,15 +1578,18 @@ def phase_large(dev):
     counts = read_counts()
     say(f"large scene: {len(poses)} frames, launches {counts}")
     say_branches("large scene")
-    check(counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
-          and counts["raster_table"] == 0,
-          "large scene: expected 5 K2 launches and no K1 launch per frame")
+    check(counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
+          and counts["binning"] == counts["raster_table"]
+          and counts["raster_padded"] == 0,
+          "large scene: expected 5 K12 and 5 K1 launches and no K2 launch "
+          "per frame")
     check_filter_launches(krun, "large", "large scene")
     prun = run_frames(scene, poses[:1], default_config("torch"), dev)
     krun1 = dict(krun, frames=krun["frames"][:1])
-    frames_equal(krun1, prun, "large scene K2 vs plain raster")
-    say("large scene: the first frame through the plain raster == the K2 "
-        "run, tri_id, depth, rgba and history bit for bit")
+    frames_equal(krun1, prun, "large scene K1 vs plain raster")
+    say("large scene: the first frame through the plain binning and raster "
+        "== the K12 and K1 run, tri_id, depth, rgba and history bit for "
+        "bit")
     with plain_gathers():
         grun = run_frames(scene, poses, default_config(), dev)
     check_gathers(krun, grun, "large scene")
@@ -1479,20 +1599,82 @@ def phase_large(dev):
     say(f"large scene, plain raster frame: {prun['ms'][0]:.3f} ms [{_GPU}]")
     verify_filter("large scene", lambda: run_frames(scene, poses,
                                                     default_config(), dev))
-    phase_large_committed(dev, scene, params)
+    k2_launches = phase_large_committed(dev, scene, params)
 
     cfg = default_config()
     calls = record_raster_calls(lambda: frame.render_gltf_frame(
         scene, poses[-1], frame.init_frame_state(cfg, dev), cfg))
     check(len(calls) == RASTERS_PER_FRAME, f"{len(calls)} rasters per frame")
     rows = time_rasters(calls, plain_iters=1)
-    bounds = [say_raster("large raster", r, ("K2", "K1"), padded=True)
+    bounds = [say_raster("large raster", r, ("K1", "K2"), padded=True)
               for r in rows]
     by = ("bytes" if sum(x[1] for x in bounds) / HBM_BPS
           >= sum(x[2] for x in bounds) / FP32_OPS else "operations")
     return (counts, sum(r["K2"] for r in rows),
             sum(r["plain"] for r in rows), sum(b[0] for b in bounds), by,
-            sum(r["K1"] for r in rows), sum(b[3] for b in bounds), krun["k3"])
+            sum(r["K1"] for r in rows), sum(b[3] for b in bounds), krun["k3"],
+            k2_launches)
+
+
+# Rows of the synthetic setup tables phase_table_route times K1 against
+# the pre-gather and K2 on: the rastered frame's 74,880, then 16, 32
+# (TABLE_LIMIT_BYTES), 64 and 128 MiB tables.
+ROUTE_ROWS = (74_880, 262_144, 524_288, 1_048_576, 2_097_152)
+
+
+def phase_table_route(dev) -> list:
+    """The route at ops/raster.py's TABLE_LIMIT_BYTES, measured: for each
+    of ROUTE_ROWS, that many random triangles of up to 6 pixels spread
+    over a 1920x1080 frame at the main pass's 32x128 tiles, binned by K12
+    at the fullest tile's capacity; K1 on the bins against the pre-gather
+    (binning.gather_bin_data) and K2 on its rows, device times behind a
+    sleep (the binning, which both routes share, is left out); K1 == K2
+    bit for bit. Returns one dict a table size."""
+    import torch
+
+    from funky_tpu_torch.ops import binning, binning_cuda, raster
+    from funky_tpu_torch.ops.raster_cuda import (raster_padded_cuda,
+                                                 raster_table_cuda)
+
+    w, h, th, tw = 1920, 1080, 32, 128
+    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    out = []
+    for t in ROUTE_ROWS:
+        g = torch.Generator(device=dev).manual_seed(t)
+        centre = torch.rand((t, 1, 2), device=dev, generator=g) * size
+        pts = centre + 6.0 * (torch.rand((t, 3, 2), device=dev,
+                                         generator=g) - 0.5)
+        z = 0.05 + 0.9 * torch.rand((t, 3, 1), device=dev, generator=g)
+        tri_clip = torch.cat([pts / size * 2.0 - 1.0, z, torch.ones_like(z)],
+                             dim=-1)
+        setup = binning.triangle_setup_corners(tri_clip, w, h)
+        del tri_clip, pts, centre, z
+        cap = int(binning_cuda.bin_counts(setup, w, h, th, tw).max())
+        bins, counts = binning_cuda.bin_triangles(setup, w, h, th, tw, cap)
+        args = (w, h, th, tw, 0)
+        k1_ms = device_ms(lambda: raster_table_cuda(setup.data, bins, counts,
+                                                    *args))
+        gather_ms = device_ms(lambda: binning.gather_bin_data(setup, bins))
+        rows = binning.gather_bin_data(setup, bins)
+        k2_ms = device_ms(lambda: raster_padded_cuda(rows, counts, *args))
+        k1 = raster_table_cuda(setup.data, bins, counts, *args)
+        k2 = raster_padded_cuda(rows, counts, *args)
+        check(all(bits_equal(a, b) for a, b in zip(k1, k2)),
+              f"table route, {t} rows: K2 differs from K1")
+        table = t * 64
+        r = dict(rows=t, table_mib=table / 2**20, capacity=cap,
+                 entries=int(counts.sum()), k1_ms=k1_ms,
+                 pregather_ms=gather_ms, k2_ms=k2_ms,
+                 route="K1" if table <= raster.TABLE_LIMIT_BYTES
+                 else "pre-gather + K2")
+        say(f"table route: {t} rows ({r['table_mib']:.1f} MiB, capacity "
+            f"{cap}, {r['entries']} entries): K1 {k1_ms:.4f} ms, pre-gather "
+            f"{gather_ms:.4f} + K2 {k2_ms:.4f} = {gather_ms + k2_ms:.4f} ms;"
+            f" the limit takes {r['route']} [{_GPU}]")
+        out.append(r)
+        del setup, bins, counts, rows, k1, k2
+        torch.cuda.empty_cache()
+    return out
 
 
 def ids_graph(scene, cfg, params, state):
@@ -1535,18 +1717,24 @@ def graph_frames(scene, cfg, poses, dev):
 def phase_large_committed(dev, scene, params):
     """The rastered deployment (benchmark/configs/rastered.json) on the
     large scene: committed, synthesized maps off, autotuned over
-    frame.tuning_poses. Its CUDA graph (K2 and the pre-gather captured)
-    == the eager frames, tri_id, depth, rgba and history bit for bit, over
-    parked and orbit poses; compiled_gltf_frame (the benchmark's path)
-    == eager on rgba and every state field; at the tuned shapes K2 == the
-    plain raster, K3 and K11 == the plain gathers, K6-K10 == their twins;
-    the drop counters read 0 over the replays; with each raster's bin
-    capacity and the clip capacity
-    halved, the replays add what the eager frame drops."""
+    frame.tuning_poses. Its CUDA graph (K12 and K1 captured) == the eager
+    frames, tri_id, depth, rgba and history bit for bit, over parked and
+    orbit poses, and so do the eager frames and the graph with the table
+    limit at 0 (K12's bins pre-gathered for K2); compiled_gltf_frame (the
+    benchmark's path) == eager on rgba and every state field; at the
+    tuned shapes K12 == the twin binning, K1 == the plain raster and K2 ==
+    K1, K3 and K11 == the plain gathers, K6-K10 == their twins; the drop
+    counters read 0 over the replays; with each raster's bin capacity and
+    the clip capacity halved, the replays add what the eager frame drops.
+    Returns the K2 launches of the limit-0 eager frames."""
     import dataclasses
     import functools
 
     from funky_tpu_torch import frame
+    from funky_tpu_torch.ops import raster
+    from funky_tpu_torch.ops.binning import TriangleSetup, gather_bin_data
+    from funky_tpu_torch.ops.raster_cuda import (raster_padded_cuda,
+                                                 raster_table_cuda)
     from funky_tpu_torch.utils import profiling
 
     label = "large scene, rastered committed frame"
@@ -1560,16 +1748,44 @@ def phase_large_committed(dev, scene, params):
     reset_counts()
     erun = run_frames(scene, poses, cfg, dev)
     e_counts = read_counts()
-    check(e_counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
-          and e_counts["raster_table"] == 0,
-          f"{label}: expected 5 K2 launches a frame and no K1: {e_counts}")
+    check(e_counts["raster_table"] == RASTERS_PER_FRAME * len(poses)
+          and e_counts["binning"] == e_counts["raster_table"]
+          and e_counts["raster_padded"] == 0,
+          f"{label}: expected 5 K12 and 5 K1 launches a frame and no K2: "
+          f"{e_counts}")
     drops0 = profiling.drop_counts(dev)
     grun, g = graph_frames(scene, cfg, poses, dev)
     drops1 = profiling.drop_counts(dev)
-    check(g.launches["raster_padded"] == RASTERS_PER_FRAME
-          and g.launches["raster_table"] == 0,
+    check(g.launches["raster_table"] == RASTERS_PER_FRAME
+          and g.launches["binning"] == RASTERS_PER_FRAME
+          and g.launches["raster_padded"] == 0,
           f"{label}: capture launches {g.launches}")
     frames_equal(erun, grun, f"{label}: graph vs eager")
+    # the K2 route: the table limit at 0 pre-gathers K12's bins for K2
+    saved = raster.TABLE_LIMIT_BYTES
+    raster.TABLE_LIMIT_BYTES = 0
+    try:
+        reset_counts()
+        k2run = run_frames(scene, poses, cfg, dev)
+        k2_counts = read_counts()
+        k2grun, g2 = graph_frames(scene, cfg, poses, dev)
+    finally:
+        raster.TABLE_LIMIT_BYTES = saved
+    check(k2_counts["raster_padded"] == RASTERS_PER_FRAME * len(poses)
+          and k2_counts["binning"] == k2_counts["raster_padded"]
+          and k2_counts["raster_table"] == 0
+          and g2.launches["raster_padded"] == RASTERS_PER_FRAME
+          and g2.launches["raster_table"] == 0,
+          f"{label}, table limit 0: launches {k2_counts}, at capture "
+          f"{g2.launches}")
+    frames_equal(erun, k2run, f"{label}: K1 route vs K2 route, eager")
+    frames_equal(grun, k2grun, f"{label}: K1 route vs K2 route, replayed")
+    say(f"{label}: with the table limit at 0 (5 K2 launches a frame on "
+        f"K12's pre-gathered bins, none of K1) the eager frames and the "
+        f"graph == the K1 route's, bit for bit; eager ms "
+        f"{[round(x, 3) for x in k2run['ms']]}, replay ms "
+        f"{[round(x, 3) for x in k2grun['ms']]}, against the K1 route's "
+        f"replay ms {[round(x, 3) for x in grun['ms']]} [{_GPU}]")
     check(drops1 == drops0, f"{label}: the replays dropped entries: "
           f"{drops0} -> {drops1}")
     say(f"{label}: graph == eager, tri_id, depth, rgba and history of all "
@@ -1599,11 +1815,21 @@ def phase_large_committed(dev, scene, params):
     check(len(calls) == RASTERS_PER_FRAME * len(two),
           f"{label}: {len(calls)} rasters recorded")
     err = check_rasters_bitwise(calls, label)
+    for i, c in enumerate(calls):
+        args = (c["w"], c["h"], c["th"], c["tw"], c["y0"])
+        k1 = raster_table_cuda(c["table"], c["bins"], c["counts"], *args)
+        k2 = raster_padded_cuda(gather_bin_data(
+            TriangleSetup(c["table"], None), c["bins"]), c["counts"], *args)
+        check(all(bits_equal(a, b) for a, b in zip(k1, k2)),
+              f"{label}: raster {i}: K2 differs from K1")
+    n_bins = check_bins(calls, label)
     shapes = sorted({(c["table"].shape[0], c["bins"].shape[1], c["w"],
                       c["h"]) for c in calls})
-    say(f"{label}: K2 == plain raster bit for bit on all {len(calls)} "
-        f"rasters of {len(two)} frames (max |depth| difference {err}); "
-        f"(table rows, bin capacity, width, height): {shapes}")
+    say(f"{label}: K1 == plain raster and K2 == K1 bit for bit on all "
+        f"{len(calls)} rasters of {len(two)} frames (max |depth| difference "
+        f"{err}); K12 == the twin on all {n_bins} binnings; (table rows, bin "
+        f"capacity, width, height): {shapes}")
+    time_bins("rastered", calls[-RASTERS_PER_FRAME:], label)
     with plain_gathers():
         prun = run_frames(scene, poses, cfg, dev)
     check_gathers(erun, prun, label)
@@ -1633,6 +1859,7 @@ def phase_large_committed(dev, scene, params):
           f"pose {first}), warm-up and replays {replay_drop}")
     say(f"{label}: halved capacities drop {eager_drop} over {len(poses)} "
         f"eager frames, the same in their replays")
+    return k2_counts["raster_padded"]
 
 
 def record_gather_calls(fn):
@@ -3186,7 +3413,8 @@ def phase_perf_mode(dev, scene, params, name, cfg, occ, tune_s):
     first = {"raster_table": crun["k1"][0], "raster_padded": 0,
              "row_gather": crun["k3"][0], "light_map": crun["k5"][0],
              "pair_taps": crun["k6"][0], "group_counts": crun["k7"][0],
-             **{k: crun[k][0] for k in STAGE_KERNELS + ("quad_pack",)}}
+             **{k: crun[k][0]
+                for k in STAGE_KERNELS + ("quad_pack", "binning")}}
     check(g.launches == first, f"{label}: capture launches {g.launches} "
           f"!= the first eager frame's {first}")
     say(f"{label}: CUDA graph recorded (launches at capture {g.launches}); "
@@ -4245,10 +4473,15 @@ def main() -> None:
         f"bound {k1_culled:.4f} ms [{_GPU}]")
     phase_shipped_timings(dev, scene, params, shipped_cfg)
     (large_counts, k2_ms, k2_plain, k2_bound, k2_by, k1_large,
-     k2_culled, k3_large) = phase_large(dev)
-    say(f"large scene per frame (5 rasters): K2 {k2_ms:.4f} ms, K1 on the "
-        f"same rasters {k1_large:.4f} ms, plain {k2_plain:.4f} ms, K2 bound "
+     k2_culled, k3_large, k2_launches) = phase_large(dev)
+    say(f"large scene per frame (5 rasters): K1 {k1_large:.4f} ms, K2 on "
+        f"the same rasters {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, K2 bound "
         f"{k2_bound:.4f} ms, culled bound {k2_culled:.4f} ms [{_GPU}]")
+    table_routes = phase_table_route(dev)
+    for key, t in BIN_TIMES.items():
+        say(f"K12 per {key} frame ({t['calls']} calls): {t['ms']:.4f} ms, "
+            f"the twin {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"(bytes) [{_GPU}]")
     g_ms, g_plain, g_lib, g_bound, g_err = phase_gather(dev, scene, params)
     g_frames = phase_gather_frames(dev, scene, params, shipped_cfg)
     k3_per_frame = {"dense": dense_run["k3"], "default": default_run["k3"],
@@ -4347,9 +4580,29 @@ def main() -> None:
         dict(name="raster_padded", route="cuda",
              source="funky_tpu_torch/csrc/raster.cu",
              replaces="funky_tpu/ops/raster_pallas.py:90",
-             launches=large_counts["raster_padded"], max_abs_err=err_k2,
+             launches=k2_launches, max_abs_err=err_k2,
              ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None, bound_culled_ms=k2_culled),
+             library_ms=None, bound_culled_ms=k2_culled,
+             timed_on="the large scene's five rasters at GltfConfig()'s "
+                      "capacities (launches: the table limit at 0)",
+             table_routes=table_routes),
+        dict(name="binning", route="cuda",
+             source="funky_tpu_torch/csrc/binning.cu",
+             replaces="funky_tpu/ops/binning.py:150",
+             launches=(large_counts["binning"] + app_counts["binning"]
+                       + shell_counts["binning"]
+                       + sum(c["binning"] for c in perf_counts.values())),
+             max_abs_err=float(BIN_CHECKED[1]),
+             checked=BIN_CHECKED[0], ms=BIN_TIMES["rastered"]["ms"],
+             plain_ms=BIN_TIMES["rastered"]["plain_ms"],
+             bound_ms=BIN_TIMES["rastered"]["bound_ms"], bound_by="bytes",
+             library_ms=None,
+             timed_on="the rastered frame's five binnings at its tuned "
+                      "capacities (ms: behind a sleep)",
+             frame_ms={k: v["ms"] for k, v in BIN_TIMES.items()},
+             frame_plain_ms={k: v["plain_ms"] for k, v in BIN_TIMES.items()},
+             frame_bound_ms={k: v["bound_ms"]
+                             for k, v in BIN_TIMES.items()}),
         dict(name="row_gather", route="cuda",
              source="funky_tpu_torch/csrc/gather.cu",
              replaces="experiments/bench_gather.py:160",

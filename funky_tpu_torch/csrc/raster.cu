@@ -8,8 +8,10 @@
 // K2 raster_padded_launch replaces _rasterize_pallas_padded (body
 //    _raster_kernel): the same raster over the pre-gathered per-tile row
 //    stream (n_tiles, C, 16) of binning.gather_bin_data, with the triangle
-//    id bitcast into column 12. The JAX package (and ops/raster.py) takes
-//    it when the setup table exceeds 4 MiB.
+//    id bitcast into column 12. The JAX package takes it past a 4 MiB
+//    setup table, its TPU's VMEM budget; ops/raster.py past 32 MiB
+//    (TABLE_LIMIT_BYTES), since K1 reads rows by id from a table that the
+//    H100's 50 MB L2 holds. Both walk the bins of K12 (csrc/binning.cu).
 //
 // Semantics (identical to the Pallas kernel and to the plain torch twin
 // funky_tpu_torch/ops/raster.py::_rasterize_torch):

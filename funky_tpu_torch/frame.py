@@ -831,11 +831,12 @@ _CACHE: dict = {}
 
 
 def _launch_counts() -> dict:
-    from .ops import (class_maps_cuda, contact_cuda, gather_cuda,
-                      group_counts_cuda, lightmap_cuda, pair_taps_cuda,
-                      quad_pack_cuda, raster_cuda)
+    from .ops import (binning_cuda, class_maps_cuda, contact_cuda,
+                      gather_cuda, group_counts_cuda, lightmap_cuda,
+                      pair_taps_cuda, quad_pack_cuda, raster_cuda)
 
-    return {"raster_table": raster_cuda.LAUNCHES,
+    return {"binning": binning_cuda.LAUNCHES,
+            "raster_table": raster_cuda.LAUNCHES,
             "raster_padded": raster_cuda.PADDED_LAUNCHES,
             "row_gather": gather_cuda.LAUNCHES,
             "light_map": lightmap_cuda.LAUNCHES,

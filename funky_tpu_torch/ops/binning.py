@@ -113,6 +113,10 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     `capacity` triangles keeps its lowest ids and drops the rest. `drops`
     names the counter (utils/profiling.DROP_COUNTERS) that the dropped
     entries are added to on the device.
+
+    The plain twin of the binning kernel K12 (ops/binning_cuda.py), which
+    ops/raster.py takes where it takes the raster kernels; this function
+    bins CPU tensors and the "torch" backend's rasters.
     """
     dev = setup.data.device
     t = setup.data.shape[0]
@@ -169,26 +173,23 @@ def bin_stats(clip: torch.Tensor, tri_indices: torch.Tensor, width: int,
                   tile_w)
 
 
-def bin_stats_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor,
-                      width: int, height: int, tile_h: int, tile_w: int):
-    """bin_stats of per-corner clip positions (T, 3, 4): the main pass's
-    triangles after the near-clip expansion."""
-    return _stats(triangle_setup_corners(tri_clip, width, height,
-                                         valid_mask), width, height, tile_h,
-                  tile_w)
-
-
 def _stats(setup: TriangleSetup, width: int, height: int, tile_h: int,
            tile_w: int):
     _, counts = bin_triangles(setup, width, height, tile_h, tile_w,
                               capacity=setup.data.shape[0])
+    return occupancy(counts)
+
+
+def occupancy(counts: torch.Tensor) -> dict:
+    """bin_stats' dict of per-tile counts (n_tiles,)."""
     return {"max": counts.max(), "mean": counts.to(torch.float32).mean(),
             "total": counts.sum(), "n_tiles": counts.shape[0]}
 
 
 def gather_bin_data(setup: TriangleSetup, bins: torch.Tensor) -> torch.Tensor:
     """Pre-gathered (n_tiles, C, 16) rows with the id bitcast into column
-    12 (binning.py:225-237)."""
+    12 (binning.py:225-237): the stream K2 reads, made only for a setup
+    table past ops/raster.py's TABLE_LIMIT_BYTES."""
     rows = setup.data[bins.clamp(min=0).long()]
     rows[..., 12] = bins.view(torch.float32)
     return rows

@@ -5,15 +5,16 @@ Output per pixel: the winning triangle id (-1 empty) and its NDC depth
 are clipped; ties keep the first-drawn (lowest) id.
 
 Two interchangeable implementations, picked by `RasterConfig.backend`:
-- "cuda": the hand-written Hopper kernels (ops/raster_cuda.py). As in the
-  JAX package (raster.py:126-139), a setup table of at most
-  TABLE_LIMIT_BYTES takes K1, the port of raster_pallas.py::
+- "cuda": the hand-written Hopper kernels. K12 (ops/binning_cuda.py) bins
+  the triangles; a setup table of at most TABLE_LIMIT_BYTES takes K1
+  (ops/raster_cuda.py), the port of raster_pallas.py::
   _rasterize_pallas_table, which reads rows from the table by id; a larger
   one is pre-gathered per tile (binning.gather_bin_data) and takes K2, the
   port of _rasterize_pallas_padded;
-- "torch": `_rasterize_torch`, the kernels' plain twin — a Python loop over
-  bin entries of `_rasterize_jnp`'s body with all tiles batched;
-- "auto": the kernels for CUDA tensors, the plain twin for CPU tensors.
+- "torch": the plain twins, binning.bin_triangles and `_rasterize_torch`
+  (a Python loop over bin entries of `_rasterize_jnp`'s body with all
+  tiles batched);
+- "auto": the kernels for CUDA tensors, the plain twins for CPU tensors.
 
 `subtile_keep` is the plain twin of the kernels' exact per-rectangle cull;
 the frame path never calls it (tests and chip_smoke.py do).
@@ -27,13 +28,17 @@ from typing import Tuple
 
 import torch
 
-from .binning import bin_triangles, gather_bin_data, triangle_setup_corners
+from . import binning_cuda
+from .binning import (_stats, bin_triangles, gather_bin_data, occupancy,
+                      triangle_setup_corners)
 
 BACKENDS = ("auto", "torch", "cuda")
-# The JAX package's VMEM budget for the table-resident kernel
-# (raster_pallas.py:158): a (T, 16) f32 table of more than 4 MiB
-# (T > 65,536 rows) takes the pre-gathered route.
-TABLE_LIMIT_BYTES = 4 * 1024 * 1024
+# The largest (T, 16) f32 setup table K1 reads by id: 32 MiB (524,288
+# rows), well inside the H100's 50 MB L2, where K1's row copies find it.
+# The JAX package's limit, 4 MiB (raster_pallas.py:158), is its TPU's VMEM
+# budget for a table kept whole in the kernel; K1 never keeps the table in
+# shared memory. A larger table is pre-gathered per tile for K2.
+TABLE_LIMIT_BYTES = 32 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,17 +92,19 @@ def raster_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor | None,
     """raster_scene from per-corner clip positions (T, 3, 4)
     (raster.py:110-139). `width`/`height` are the full framebuffer;
     `y_offset` + `slice_height` select the row slab rastered. A frame's
-    raster passes the span (utils/profiling.span) that holds its binning,
-    the setup, bin_triangles and the pre-gather, as `binning`, and names
-    the counter its dropped bin entries add to in `drops`."""
+    raster passes the span (utils/profiling.span) that holds its setup,
+    its binning (K12, or the twin) and, past TABLE_LIMIT_BYTES, the
+    pre-gather, as `binning`, and names the counter its dropped bin
+    entries add to in `drops`."""
     sh = height if slice_height is None else slice_height
     capacity = cfg.resolve_capacity(tri_clip.shape[0])
-    table = (use_kernel(cfg, tri_clip.device)
-             and tri_clip.shape[0] * 64 <= TABLE_LIMIT_BYTES)
+    kernel = use_kernel(cfg, tri_clip.device)
+    table = kernel and tri_clip.shape[0] * 64 <= TABLE_LIMIT_BYTES
     with binning or contextlib.nullcontext():
         setup = triangle_setup_corners(tri_clip, width, height, valid_mask)
-        bins, counts = bin_triangles(setup, width, sh, cfg.tile_h,
-                                     cfg.tile_w, capacity, y_offset, drops)
+        bin_fn = binning_cuda.bin_triangles if kernel else bin_triangles
+        bins, counts = bin_fn(setup, width, sh, cfg.tile_h, cfg.tile_w,
+                              capacity, y_offset, drops)
         bin_data = None if table else gather_bin_data(setup, bins)
     if table:
         from .raster_cuda import raster_table_cuda
@@ -109,6 +116,18 @@ def raster_corners(tri_clip: torch.Tensor, valid_mask: torch.Tensor | None,
     tri_id, depth = rasterize(bin_data, bins, counts, width, sh, cfg,
                               y_offset)
     return tri_id, depth, setup
+
+
+def bin_occupancy(setup, width: int, height: int, cfg: RasterConfig
+                  ) -> dict:
+    """binning.bin_stats' dict for `setup` binned at cfg's tiles with a
+    capacity of every row, by the backend raster_corners takes: K12's
+    count and scan alone (binning_cuda.bin_counts: no list, no sort)
+    where use_kernel picks the kernels, else the plain twin."""
+    if use_kernel(cfg, setup.data.device):
+        return occupancy(binning_cuda.bin_counts(setup, width, height,
+                                                 cfg.tile_h, cfg.tile_w))
+    return _stats(setup, width, height, cfg.tile_h, cfg.tile_w)
 
 
 def rasterize(bin_data: torch.Tensor, bins: torch.Tensor,

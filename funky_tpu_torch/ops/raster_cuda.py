@@ -7,6 +7,11 @@
   (raster_pallas.py:90-127): rows read from the pre-gathered per-tile
   stream of binning.gather_bin_data.
 
+ops/raster.py::raster_corners takes K1 for a setup table of at most
+TABLE_LIMIT_BYTES (32 MiB: the table lies in the H100's L2, where K1's
+copies by id read it) and K2 past it; both walk the bins of K12
+(ops/binning_cuda.py).
+
 Both launch one block per rectangle of every tile (`rect_shape`): the
 block culls the tile's bin list exactly against its rectangle and rasters
 the survivors, four pixels per thread.

@@ -62,7 +62,8 @@ def tune_raster_capacities(scene, params, cfg):
     unclipped triangles and leaves the clip capacity as configured."""
     from ..frame import (NEAR, _main_raster_inputs, compute_frame_uniforms,
                          init_frame_state)
-    from ..ops.binning import bin_stats, bin_stats_corners
+    from ..ops.binning import triangle_setup, triangle_setup_corners
+    from ..ops.raster import bin_occupancy
     from ..ops.clipping import near_crossing
     from ..passes.geometry import build_shade_blocks, transform_vertices
 
@@ -89,16 +90,17 @@ def tune_raster_capacities(scene, params, cfg):
         tri_clip, _, _, valid = _main_raster_inputs(scene, clip, blocks,
                                                     clip_capacity)
         del blocks
-        main = bin_stats_corners(tri_clip, valid, cfg.width, cfg.height,
-                                 cfg.raster.tile_h,
-                                 cfg.raster.tile_w)["max"]
+        main = bin_occupancy(
+            triangle_setup_corners(tri_clip, cfg.width, cfg.height, valid),
+            cfg.width, cfg.height, cfg.raster)["max"]
         del tri_clip, valid
         world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
-        sm = torch.stack([bin_stats(
-            world_h @ uni.light_view_proj[c].T, scene.tri_indices,
-            cfg.shadow_map_size, cfg.shadow_map_size,
-            cfg.shadow_raster.tile_h, cfg.shadow_raster.tile_w,
-            scene.num_triangles)["max"] for c in range(4)]).max()
+        size = cfg.shadow_map_size
+        sm = torch.stack([bin_occupancy(
+            triangle_setup(world_h @ uni.light_view_proj[c].T,
+                           scene.tri_indices, size, size,
+                           scene.num_triangles),
+            size, size, cfg.shadow_raster)["max"] for c in range(4)]).max()
         main_max = max(main_max, int(main))
         sm_max = max(sm_max, int(sm))
 

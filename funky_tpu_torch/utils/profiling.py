@@ -70,9 +70,11 @@ class FpsCounter:
 # light-space ground evaluation), and `window_plans` twice where the tap
 # routes plan their windows after the light maps. `handoff` is
 # GraphFrame's copy of the new state into the donated buffers. The two
-# binning spans hold a raster's triangle setup, bin_triangles and, on the
-# pre-gathered route, gather_bin_data (ops/raster.py::raster_corners): one
-# range per cascade raster or occluder window, one in the main pass.
+# binning spans hold a raster's triangle setup, its binning (K12 on the
+# card, ops/binning_cuda.py) and, for a setup table past ops/raster.py's
+# TABLE_LIMIT_BYTES (32 MiB), gather_bin_data (ops/raster.py::
+# raster_corners): one range per cascade raster or occluder window, one in
+# the main pass.
 FRAME_SPANS: Tuple[Tuple[str, Optional[str]], ...] = (
     ("uniforms", None),
     ("vertices", None),
@@ -290,23 +292,33 @@ def _device_key(device) -> str:
     return str(dev)
 
 
-def count_drops(name: str, n: torch.Tensor) -> None:
-    """Add the 0-d device count `n` to the counter `name` of DROP_COUNTERS
-    on n's device: one in-place add, which a CUDA graph records and each
-    replay repeats. The counters of a device are made by its first call,
-    which must be eager (GraphFrame's warm-up is): a capture cannot make
-    them."""
-    i = DROP_COUNTERS.index(name)
-    key = _device_key(n.device)
+def _drop_buffer(device) -> torch.Tensor:
+    """The counters of `device`, made by its first call, which must be
+    eager (GraphFrame's warm-up is): a capture cannot make them."""
+    key = _device_key(device)
     buf = _DROPS.get(key)
     if buf is None:
-        if (n.device.type == "cuda"
+        if (torch.device(device).type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             raise RuntimeError("the drop counters are made by an eager call, "
                                "not inside a capture")
         buf = _DROPS[key] = torch.zeros(len(DROP_COUNTERS),
-                                        dtype=torch.int64, device=n.device)
-    buf[i].add_(n)
+                                        dtype=torch.int64, device=device)
+    return buf
+
+
+def count_drops(name: str, n: torch.Tensor) -> None:
+    """Add the 0-d device count `n` to the counter `name` of DROP_COUNTERS
+    on n's device: one in-place add, which a CUDA graph records and each
+    replay repeats."""
+    _drop_buffer(n.device)[DROP_COUNTERS.index(name)].add_(n)
+
+
+def drop_slot(name: str, device) -> torch.Tensor:
+    """The counter `name` of DROP_COUNTERS on `device` as a 0-d int64 view,
+    for a kernel that adds its drops to it in place (the binning kernel
+    K12, ops/binning_cuda.py): no operation of its own."""
+    return _drop_buffer(device)[DROP_COUNTERS.index(name)]
 
 
 def drop_counts(device) -> Dict[str, int]:

@@ -189,7 +189,8 @@ def test_dryrun_multichip_over_gloo(dryruns, n):
     assert torch.equal(out["perf_frame"], chained(
         lambda *a: compose_frame(*a, n),
         entry.dryrun_config(n, entry.PERF_FLAGS), 2))
-    assert out["launches"] == {"raster_table": 0, "raster_padded": 0,
+    assert out["launches"] == {"binning": 0, "raster_table": 0,
+                               "raster_padded": 0,
                                "row_gather": 0, "light_map": 0,
                                "pair_taps": 0, "group_counts": 0,
                                "contact_front": 0, "contact_certify": 0,

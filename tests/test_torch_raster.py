@@ -25,7 +25,7 @@ from funky_tpu.ops.raster import raster_scene as jraster_scene
 
 from funky_tpu_torch.ops import binning as tbin
 from funky_tpu_torch.ops import raster as traster
-from funky_tpu_torch.ops import raster_cuda
+from funky_tpu_torch.ops import binning_cuda, raster_cuda
 from funky_tpu_torch.ops.raster import RasterConfig as TRC
 
 from .torch_parity import t2n
@@ -186,9 +186,10 @@ def test_pregather_route_matches_pallas_padded(scene, case, monkeypatch):
 
 @pytest.mark.parametrize("over", [0, 1], ids=["at_limit", "past_limit"])
 def test_route_selection_at_the_table_limit(scene, monkeypatch, over):
-    """On a card, raster_corners takes K1 exactly when T * 64 bytes fit
-    TABLE_LIMIT_BYTES and K2, on pre-gathered rows, past it. The kernel
-    wrappers are replaced by recorders that run the plain twin."""
+    """On a card, raster_corners bins with K12 and takes K1 exactly when
+    T * 64 bytes fit TABLE_LIMIT_BYTES and K2, on pre-gathered rows, past
+    it. The kernel wrappers are replaced by recorders that run the plain
+    twins."""
     from funky_tpu_torch.ops.binning import TriangleSetup
 
     clip, tris = scene
@@ -209,11 +210,16 @@ def test_route_selection_at_the_table_limit(scene, monkeypatch, over):
         return traster._rasterize_torch(bin_data, bins, counts, y0, w, h,
                                         plain)
 
+    def bins(*args, **kw):
+        calls.append("K12")
+        return tbin.bin_triangles(*args, **kw)
+
     monkeypatch.setattr(raster_cuda, "raster_table_cuda", table)
     monkeypatch.setattr(raster_cuda, "raster_padded_cuda", padded)
+    monkeypatch.setattr(binning_cuda, "bin_triangles", bins)
     id_k, z_k, _ = port_raster(clip, tris, cfg)
     id_p, z_p, _ = port_raster(clip, tris, plain)
-    assert calls == (["K2"] if over else ["K1"])
+    assert calls == ["K12", "K2" if over else "K1"]
     np.testing.assert_array_equal(id_k, id_p)
     np.testing.assert_array_equal(z_k, z_p)
 

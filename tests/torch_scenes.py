@@ -109,7 +109,8 @@ def with_coplanar_duplicates(clip, n_dup_tris=10):
 
 def build_large_glb(path, quads: int = 192, size: float = 40.0,
                     amplitude: float = 0.12):
-    """Write a GLB past the raster's 4 MiB table limit to `path`: the
+    """Write a GLB past the JAX package's 4 MiB raster table limit to
+    `path` (the port's K1 takes its 4.6 MiB tables): the
     multimesh scene's two cubes over a gently displaced, textured
     `quads` x `quads` terrain patch of side `size` (2 * quads**2
     triangles: 73,728 at the default). The terrain is a smooth height
@@ -557,3 +558,57 @@ def contact_rays(payload, seed: int, n: int, nan_share: float = 0.02):
     bad = np.flatnonzero(rng.random(n) < nan_share)
     out[bad, rng.integers(0, 7, bad.shape[0])] = np.nan
     return out.astype(np.float32)
+
+
+# Binning cases of the binning kernel K12 (csrc/binning.cu) against its
+# twin ops/binning.py::bin_triangles: name -> (framebuffer width, slab
+# height, tile_h, tile_w, rows, capacity (None: every row), y_offset).
+BINNING_CASES = {
+    "main": (1920, 1080, 32, 128, 6000, None, 0),
+    "cascade": (2048, 2048, 128, 256, 6000, None, 0),
+    "slab": (2048, 288, 32, 128, 4000, None, 512),
+    "cascade_slab": (2048, 512, 128, 256, 4000, None, 1024),
+    "tight": (1920, 1080, 32, 128, 6000, 40, 0),
+    "tight_cascade": (2048, 2048, 128, 256, 6000, 150, 0),
+    "few_rows": (1920, 1080, 32, 128, 50, 512, 0),
+    "no_rows": (1920, 1080, 32, 128, 0, 64, 0),
+    "zero_capacity": (256, 128, 8, 128, 300, 0, 0),
+    "rows8": (256, 128, 8, 128, 3000, None, 0),
+    "ragged_chunk": (250, 130, 32, 128, 385, None, 0),
+    "tiles_5x6": (128, 64, 5, 6, 700, None, 0),
+}
+
+
+def binning_case(name: str, seed: int = 0):
+    """(data (T, 16) f32, valid (T,) bool) setup rows of one BINNING_CASES
+    case over its full framebuffer (width x (y_offset + slab height) and
+    the rows below), columns 0-11 random: AABBs of every size from a
+    pixel to the whole frame, clamped to it as triangle setup clamps
+    them, about 5% of the rows invalid with an AABB kept; every 50th row
+    on tile edges, reaching the right and bottom edges exactly; and a few
+    valid rows with NaN, +/-inf or out-of-range corners (the kernel's
+    float -> int conversion)."""
+    width, sh, th, tw, t, _, y_offset = BINNING_CASES[name]
+    height = y_offset + sh + 3 * th
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((t, 16)).astype(np.float32)
+    size = np.exp(rng.uniform(np.log(0.5), np.log(max(width, height)),
+                              (t, 2)))
+    centre = rng.uniform([-0.1 * width, -0.1 * height],
+                         [1.1 * width, 1.1 * height], (t, 2))
+    lo = np.clip(centre - size / 2, 0, [width, height])
+    hi = np.clip(centre + size / 2, 0, [width, height])
+    edge = np.arange(t) % 50 == 7
+    k = edge.sum()
+    lo[edge] = rng.integers(0, 4, (k, 2)) * [tw, th]
+    hi[edge] = np.minimum(np.where(
+        rng.random((k, 2)) < 0.5, [width, height],
+        lo[edge] + rng.integers(1, 3, (k, 2)) * [tw, th]), [width, height])
+    data[:, 12:14], data[:, 14:16] = lo, hi
+    valid = (hi > lo).all(-1) & (rng.random(t) > 0.05)
+    special = np.flatnonzero(np.arange(t) % 97 == 13)
+    values = np.float32([np.nan, np.inf, -np.inf, 3e9, -3e9, -5.0])
+    data[special, 12 + rng.integers(0, 4, special.size)] = rng.choice(
+        values, special.size)
+    valid[special] = True
+    return data, valid
